@@ -1,0 +1,65 @@
+"""Load the JAX package's model variables into the port.
+
+The port's modules carry the JAX param tree's names, so the conversion
+is a walk over that tree with three rules:
+
+- a Flax ``Dense`` ``kernel`` is (in, out); a torch ``Linear`` weight is
+  (out, in), so kernels are transposed;
+- a ``LayerNorm`` ``scale`` is the torch LayerNorm ``weight``;
+- the processor's params carry a leading ``processor_layers`` axis
+  (``nn.scan`` stacks them); each slice goes to one layer of the
+  port's ``processor`` ModuleList.
+
+The fused-kernel param modules of the JAX package (``_DenseParams``,
+``_LNParams``, ``_NodeMLPParams``) register the same names (``w_e``,
+``out``, ``ln``, ``node/Dense_0``, ...) as the modules they stand for,
+so one walk covers both.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+#: top-level param collections whose leaves are stacked over layers
+SCANNED = ("processor",)
+
+
+def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's parameter state from the JAX package's variables.
+
+    ``tree`` is a nested dict of numpy arrays — ``{"params": {...}}`` as
+    ``model.init`` returns it, or the inner dict — e.g. made with
+    ``jax.tree.map(np.asarray, variables)``. Returns ``{name: tensor}``
+    keyed like ``model.named_parameters()``.
+    """
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def leaf(path, arr):
+        arr = np.asarray(arr, np.float32)
+        *mods, name = path
+        if name == "kernel":
+            out[".".join(mods + ["weight"])] = torch.tensor(arr.T)
+        elif name == "scale":
+            out[".".join(mods + ["weight"])] = torch.tensor(arr)
+        elif name == "bias":
+            out[".".join(mods + ["bias"])] = torch.tensor(arr)
+        else:
+            raise ValueError(f"unexpected parameter {'/'.join(path)}")
+
+    def walk(node, path, layer_axis):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + [str(k)], layer_axis or (not path and k in SCANNED))
+        elif layer_axis:
+            for i in range(node.shape[0]):
+                leaf([path[0], str(i)] + path[1:], node[i])
+        else:
+            leaf(path, node)
+
+    walk(tree, [], False)
+    return out

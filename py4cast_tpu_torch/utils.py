@@ -1,0 +1,43 @@
+"""Small shared utilities."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+
+def merge_dicts(a: dict, b: dict) -> dict:
+    """Recursively merge b into a copy of a (b wins on leaves)."""
+    out = dict(a)
+    for k, v in b.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = merge_dicts(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+#: maps trainer-style precision strings to torch dtypes
+str_to_dtype: Dict[str, torch.dtype] = {
+    "bf16-mixed": torch.bfloat16,
+    "bf16": torch.bfloat16,
+    "16-mixed": torch.bfloat16,
+    "32": torch.float32,
+    "32-true": torch.float32,
+    "64": torch.float64,
+    "64-true": torch.float64,
+}
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. The default is the card: with
+    no CUDA device the call raises instead of carrying on on the CPU,
+    which a caller must ask for (``device="cpu"``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} was requested but torch finds no CUDA "
+            "device; pass device='cpu' to run on the CPU"
+        )
+    return dev

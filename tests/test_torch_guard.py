@@ -1,0 +1,83 @@
+"""The port stands alone: every module of py4cast_tpu_torch, and
+chip_smoke.py, imports with JAX and the JAX package blocked, and no
+source imports from py4cast_tpu."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "py4cast_tpu_torch"
+
+_BLOCKED_IMPORT = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "py4cast_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import py4cast_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(py4cast_tpu_torch.__path__, "py4cast_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "py4cast_tpu")
+                and sys.modules[k] is not None)
+assert not loaded, loaded
+print(len(mods))
+"""
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 15
+
+
+def test_no_source_imports_the_jax_package():
+    pattern = re.compile(r"^\s*(from|import)\s+(py4cast_tpu(\.|\s|$)|jax\b|flax\b|optax\b|orbax\b)",
+                         re.MULTILINE)
+    offenders = [
+        str(p.relative_to(ROOT))
+        for p in list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+        if pattern.search(p.read_text())
+    ]
+    assert offenders == []
+
+
+def test_importing_the_port_builds_nothing():
+    """Import must not build or load a CUDA library: the kernels build at
+    their first launch on a CUDA tensor (or by chip_smoke.py)."""
+    code = (
+        "import py4cast_tpu_torch.models, py4cast_tpu_torch.training\n"
+        "from py4cast_tpu_torch.ops import _build\n"
+        "assert _build._LIBS == {}, _build._LIBS\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_chip_smoke_graphlam_args_match_the_config():
+    import yaml
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    conf = yaml.safe_load((ROOT / "config/CLI/model/graphlam.yaml").read_text())
+    assert chip_smoke.GRAPHLAM_ARGS == conf["model"]["settings_init_args"]
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Without CUDA the script exits non-zero and prints no result line."""
+    import torch
+
+    if torch.cuda.is_available():
+        import pytest
+
+        pytest.skip("this host has a CUDA device")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

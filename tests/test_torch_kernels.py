@@ -1,0 +1,183 @@
+"""The port's stencil-message and corner-hop functions against the JAX
+package's Pallas kernels (interpret mode) and their XLA formulas, on the
+CPU, where the port's wrappers run their plain PyTorch versions.
+
+Bar: rtol/atol 1e-5, the JAX kernel tests' own forward bar
+(tests/test_stencil_kernel.py, tests/test_hop_kernel.py)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from py4cast_tpu.ops import hop_kernel as jax_hop
+from py4cast_tpu.ops import stencil_kernel as jax_stencil
+from py4cast_tpu_torch.ops import hop_kernel, stencil_kernel
+from py4cast_tpu_torch.ops.hop_kernel import fused_corner_hop
+from py4cast_tpu_torch.ops.stencil_kernel import fused_stencil_message
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+#: level 0 of a 32x32 grid (coarsen factor 4), small width
+B, H, W, HID = 2, 8, 8, 16
+FF = 3  # corner features (dx, dy, length)
+
+
+def _arrays(seed, shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) * sc + sh for s, sc, sh in shapes]
+
+
+@pytest.fixture(scope="module")
+def stencil_inputs():
+    arrs = _arrays(0, [
+        ((B, 8, H, W, HID), 1.0, 0.0),  # e
+        ((B, 8, H, W, HID), 1.0, 0.0),  # vs
+        ((B, H, W, HID), 1.0, 0.0),     # pd
+    ])
+    rng = np.random.default_rng(1)
+    mask = (rng.uniform(size=(8, H, W, 1)) > 0.2).astype(np.float32)
+    params = _arrays(2, [
+        ((HID, HID), 0.3, 0.0), ((HID,), 0.1, 0.0),  # we, be
+        ((HID, HID), 0.3, 0.0), ((HID,), 0.1, 0.0),  # wo, bo
+        ((HID,), 0.2, 1.0), ((HID,), 0.1, 0.0),      # lns, lnb
+    ])
+    return arrs[:3] + [mask] + params
+
+
+@pytest.fixture(scope="module")
+def hop_inputs():
+    psg = _arrays(3, [((B, H, W, HID), 1.0, 0.0)] * 4)
+    vd, feats = _arrays(4, [((B, H, W, HID), 1.0, 0.0), ((4, H, W, FF), 0.5, 0.0)])
+    params = _arrays(5, [
+        ((FF, HID), 0.5, 0.0), ((HID,), 0.1, 0.0),                  # wf, bf
+        ((HID, HID), 0.25, 0.0), ((HID, HID), 0.25, 0.0),            # wd, wo
+        ((HID,), 0.1, 0.0), ((HID,), 0.2, 1.0), ((HID,), 0.1, 0.0),  # bo, lns, lnb
+        ((HID, HID), 0.2, 0.0), ((HID, HID), 0.2, 0.0),              # nd0a, nd0b
+        ((HID,), 0.1, 0.0), ((HID, HID), 0.25, 0.0),                 # nb0, nd1
+        ((HID,), 0.1, 0.0), ((HID,), 0.2, 1.0), ((HID,), 0.1, 0.0),  # nb1, nlns, nlnb
+    ])
+    return psg, [vd, feats] + params
+
+
+def _t(arrs):
+    return [torch.from_numpy(a) for a in arrs]
+
+
+def _stencil_xla(e, vs, pd, mask, we, be, wo, bo, lns, lnb, residual):
+    """_StencilMessage's unfused XLA formula (flax LayerNorm)."""
+    import flax.linen as nn
+
+    pre = e @ we + be + vs + pd[:, None]
+    t = jax.nn.silu(pre) @ wo + bo
+    ln = nn.LayerNorm()
+    e_new = ln.apply({"params": {"scale": lns, "bias": lnb}}, t)
+    agg = (e_new * mask[None]).sum(axis=1)
+    return (e + e_new if residual else e_new), agg
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_stencil_plain_matches_pallas_interpret(stencil_inputs, residual):
+    want = jax_stencil.fused_stencil_message(
+        *[jnp.asarray(a) for a in stencil_inputs], interpret=True, mode=1,
+        residual=residual,
+    )
+    got = fused_stencil_message(*_t(stencil_inputs), residual=residual)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_stencil_plain_matches_xla_formula(stencil_inputs, residual):
+    want = _stencil_xla(*[jnp.asarray(a) for a in stencil_inputs], residual)
+    got = stencil_kernel.stencil_message_plain(*_t(stencil_inputs), residual=residual)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+def _hop_xla(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+             nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, mean):
+    """LatticeEncodeDecode's unfused 'corners' formula (flax LayerNorm)."""
+    import flax.linen as nn
+
+    def ln(x, s, b):
+        return nn.LayerNorm().apply({"params": {"scale": s, "bias": b}}, x)
+
+    pd = vd @ wd
+    pf = feats @ wf + bf
+    agg = sum(ln(jax.nn.silu(pf[k] + psg[k] + pd) @ wo + bo, lns, lnb) for k in range(4))
+    if mean:
+        agg = agg / 4.0
+    u = jax.nn.silu(jnp.concatenate([vd, agg], -1) @ jnp.concatenate([nd0a, nd0b], 0) + nb0)
+    return vd + ln(u @ nd1 + nb1, nlns, nlnb)
+
+
+@pytest.mark.parametrize("mean", [False, True])
+def test_hop_plain_matches_pallas_interpret(hop_inputs, mean):
+    psg, rest = hop_inputs
+    want = jax_hop.fused_corner_hop(
+        [jnp.asarray(p) for p in psg], *[jnp.asarray(a) for a in rest],
+        mean=mean, interpret=True, mode=1,
+    )
+    got = fused_corner_hop(_t(psg), *_t(rest), mean=mean)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("mean", [False, True])
+def test_hop_plain_matches_xla_formula(hop_inputs, mean):
+    psg, rest = hop_inputs
+    want = _hop_xla([jnp.asarray(p) for p in psg], *[jnp.asarray(a) for a in rest], mean)
+    got = hop_kernel.corner_hop_plain(_t(psg), *_t(rest), mean=mean)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_cpu_calls_leave_launch_counters_at_zero(stencil_inputs, hop_inputs):
+    fused_stencil_message.launches = 0
+    fused_corner_hop.launches = 0
+    fused_stencil_message(*_t(stencil_inputs), residual=True)
+    psg, rest = hop_inputs
+    fused_corner_hop(_t(psg), *_t(rest))
+    assert fused_stencil_message.launches == 0
+    assert fused_corner_hop.launches == 0
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "contiguity", "width", "residual"])
+def test_stencil_wrapper_rejects_bad_arguments(stencil_inputs, fault):
+    args = _t(stencil_inputs)
+    residual = False
+    if fault == "dtype":
+        args[0] = args[0].double()
+    elif fault == "shape":
+        args[2] = args[2][:, :-1]
+    elif fault == "contiguity":
+        args[4] = args[4].t()
+    elif fault == "width":
+        wide = 2 * stencil_kernel.MAX_WIDTH + 2
+        args[0] = torch.zeros(B, 8, H, W, wide)
+        args[4] = torch.zeros(wide, HID)
+    else:  # residual fold needs edge width == hidden width
+        args[0] = args[0][..., :8].contiguous()
+        args[4] = args[4][:8].contiguous()
+        residual = True
+    with pytest.raises(ValueError):
+        fused_stencil_message(*args, residual=residual)
+
+
+@pytest.mark.parametrize("fault", ["corners", "dtype", "feats", "width", "device_mix"])
+def test_hop_wrapper_rejects_bad_arguments(hop_inputs, fault):
+    psg, rest = _t(hop_inputs[0]), _t(hop_inputs[1])
+    if fault == "corners":
+        psg = psg[:3]
+    elif fault == "dtype":
+        rest[0] = rest[0].half()
+    elif fault == "feats":
+        rest[1] = torch.zeros(4, H, W, hop_kernel.MAX_FEATS + 1)
+        rest[2] = torch.zeros(hop_kernel.MAX_FEATS + 1, HID)
+    elif fault == "width":  # the weights would not fit in shared memory
+        wide = hop_kernel.MAX_WIDTH + 32
+        psg = [torch.zeros(B, H, W, wide)] * 4
+        rest = [torch.zeros(tuple(wide if d == HID else d for d in t.shape)) for t in rest]
+    else:
+        rest[0] = rest[0].to("meta")
+    with pytest.raises(ValueError):
+        fused_corner_hop(psg, *rest)
