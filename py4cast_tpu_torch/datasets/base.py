@@ -350,6 +350,23 @@ class WeatherDataset:
                     samples.append(s)
         return samples
 
+    def filter_samples(self, predicate) -> "WeatherDataset":
+        """A shallow copy of this dataset whose ``sample_list`` keeps the
+        samples for which ``predicate(sample)`` is true (e.g. a run
+        hour); the original's list is not touched. Raises ``ValueError``
+        if no sample survives."""
+        import copy
+
+        filtered = [s for s in self.sample_list if predicate(s)]
+        if not filtered:
+            raise ValueError(
+                f"filter_samples left no samples in {self} "
+                f"(started from {len(self.sample_list)})"
+            )
+        ds = copy.copy(self)
+        ds.__dict__["sample_list"] = filtered  # the copy's cached_property slot
+        return ds
+
     def loader(
         self,
         batch_size: int = 1,

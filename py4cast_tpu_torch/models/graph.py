@@ -6,9 +6,9 @@ The multiscale mesh is built once on the host in numpy
 m2g edges. Message passing runs in lattice form (``ops/lattice_ops.py``)
 — stencil shifts and separable 0/1 selection matmuls, no per-edge
 gathers. On a CUDA device the two hot stages run as hand-written
-kernels: the processor's stencil edge message
-(``ops/stencil_kernel.py``) and the m2g corner hop
-(``ops/hop_kernel.py``).
+kernels, forward and backward: the processor's stencil edge message
+(``ops/stencil_kernel.py::StencilMessageFn``) and the m2g corner hop
+(``ops/hop_kernel.py::CornerHopFn``).
 
 Module and parameter names mirror the JAX package's param tree
 (``grid_embed/Dense_0``, ``processor/block/edge/w_e``, ...), so
@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from py4cast_tpu_torch.models.base import ModelBase, ModelType
-from py4cast_tpu_torch.ops.hop_kernel import fused_corner_hop
+from py4cast_tpu_torch.ops.hop_kernel import CornerHopFn
 from py4cast_tpu_torch.ops.lattice_ops import (
     DIRS8,
     pair_feats,
@@ -38,7 +38,7 @@ from py4cast_tpu_torch.ops.lattice_ops import (
     shift2d,
     stencil_feats,
 )
-from py4cast_tpu_torch.ops.stencil_kernel import fused_stencil_message
+from py4cast_tpu_torch.ops.stencil_kernel import StencilMessageFn
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default; torch's is 1e-5
 
@@ -48,7 +48,7 @@ class GraphModelSettings:
     tmp_dir: str = "/tmp"  # accepted for config parity; graphs stay in RAM
     hidden_dims: int = 64
     hidden_layers: int = 1
-    use_checkpointing: bool = False  # accepted for config parity; no effect at inference
+    use_checkpointing: bool = False  # training recomputes the forward in the backward
     offload_to_cpu: bool = False  # accepted for config parity; no effect
     mesh_aggr: str = "sum"
     processor_layers: int = 4
@@ -316,12 +316,12 @@ class _StencilMessage(nn.Module):
         pd = self.w_d(v)
         vs = torch.stack([shift2d(ps, di, dj) for di, dj in DIRS8], dim=1)
         if self.hidden_layers == 1:
-            # the fused stage: a CUDA kernel on the card, its plain
-            # version on the CPU (ops/stencil_kernel.py)
-            return fused_stencil_message(
+            # the fused stage: CUDA kernels (forward and backward) on the
+            # card, their plain versions on the CPU (ops/stencil_kernel.py)
+            return StencilMessageFn.apply(
                 e.contiguous(), vs, pd.contiguous(), mask,
                 _kernel(self.w_e), self.w_e.bias, _kernel(self.out), self.out.bias,
-                self.ln.weight, self.ln.bias, residual=self.residual,
+                self.ln.weight, self.ln.bias, self.residual,
             )
         z = F.silu(self.w_e(e) + vs + pd[:, None])
         for i in range(self.hidden_layers - 1):
@@ -368,18 +368,18 @@ class LatticeEncodeDecode(nn.Module):
         ar, ac = lat["ar"], lat["ac"]
         ps_g = [sep_take_mm(ps, ar[k // 2], ac[k % 2]).contiguous() for k in range(4)]
         if self.hidden_layers == 1:
-            # the fused m2g hop: a CUDA kernel on the card, its plain
-            # version on the CPU (ops/hop_kernel.py)
+            # the fused m2g hop: CUDA kernels (forward and backward) on
+            # the card, their plain versions on the CPU (ops/hop_kernel.py)
             h = self.w_d.weight.shape[0]
             nd0 = _kernel(self.node.Dense_0)
-            return fused_corner_hop(
-                ps_g, v_dst.contiguous(), lat["feats"],
+            return CornerHopFn.apply(
+                *ps_g, v_dst.contiguous(), lat["feats"],
                 _kernel(self.w_f), self.w_f.bias, _kernel(self.w_d),
                 _kernel(self.out), self.out.bias, self.ln.weight, self.ln.bias,
                 nd0[:h].contiguous(), nd0[h:].contiguous(), self.node.Dense_0.bias,
                 _kernel(self.node.Dense_1), self.node.Dense_1.bias,
                 self.node.LayerNorm_0.weight, self.node.LayerNorm_0.bias,
-                mean=self.aggr == "mean",
+                self.aggr == "mean",
             )
         pd = self.w_d(v_dst)
         pf = self.w_f(lat["feats"])  # (4, H, W, h)

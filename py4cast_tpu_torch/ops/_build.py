@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("stencil_message", "corner_hop")
+SOURCES = ("stencil_message", "corner_hop", "stencil_message_bwd", "corner_hop_bwd")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

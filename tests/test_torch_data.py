@@ -63,6 +63,27 @@ def test_loader_pads_last_batch(both_test_sets):
     assert last.inputs.names == ("batch", "timestep", "lat", "lon", "features")
 
 
+def test_filter_samples_matches_jax(both_test_sets):
+    """The CLI's list_run_hour filter keeps the same samples as the JAX
+    package's, leaves the original dataset alone, and raises when nothing
+    is left."""
+    jax_ds, port_ds = both_test_sets
+    hours = sorted({s.timestamps.datetime.hour for s in port_ds.sample_list})
+    assert len(hours) > 1
+    keep = hours[0]
+
+    def pick(s):
+        return s.timestamps.datetime.hour == keep
+
+    got, want = port_ds.filter_samples(pick), jax_ds.filter_samples(pick)
+    assert 0 < len(got) == len(want) < len(port_ds) == 24
+    for i in range(len(got)):
+        np.testing.assert_array_equal(got[i].outputs.array, want[i].outputs.array)
+        assert got[i].validity_times == want[i].validity_times
+    with pytest.raises(ValueError, match="no samples"):
+        port_ds.filter_samples(lambda s: False)
+
+
 def test_named_array_ops_match_jax():
     rng = np.random.default_rng(0)
     arr = rng.standard_normal((2, 3, 4, 5, 3)).astype(np.float32)
