@@ -17,6 +17,12 @@ non-zero exit code and no result line:
    gradients against the plain backward, weight gradients (sums over
    every cell) against the plain backward in fp64, as is the plain
    backward in fp32;
+3c. the short-KV attention kernels (Segformer's c-fwd and c-bwd) at the
+   512x640 cell's stage-1 and stage-4 shapes, a ragged Lq and a K/V
+   that spills its tiles: the forward against the plain version, dq
+   against the plain backward, dk and dv against it in fp64; timed with
+   CUDA events beside F.scaled_dot_product_attention (the library's
+   time, never on the path);
 4. ``Trainer.predict`` on the Dummy dataset with GraphLAM at the width of
    config/CLI/model/graphlam.yaml: launch counts of both forward
    kernels, finite outputs, agreement with the same module on the CPU;
@@ -31,7 +37,20 @@ non-zero exit code and no result line:
 7. one full-size train step (500x500, batch 1, 1 AR step): ms per step,
    peak memory, a profile of where the device time goes, finite loss
    and gradients;
-8. one JSON line with every kernel's numbers, then the result line.
+8. ``Trainer.predict`` on Dummy with Segformer at the width of
+   config/CLI/model/segformer.yaml: 8 c-fwd launches per model call,
+   finite outputs, agreement with the CPU;
+9. ``Trainer.fit`` on Dummy with Segformer, phase 6's schedule: exact
+   c-fwd and c-bwd counts, a resume, ``Trainer.test``, one train step's
+   gradients against the CPU's, the CLI with segformer.yaml;
+10. the full-width Segformer at 512x640 (batch 1, 21 weather and 21
+   forcing features): a 3-step predict and a 1-AR-step AdamW train step,
+   ms per step, peak memory, profiles, step 1 against the CPU;
+11. one JSON line with every kernel's numbers, then the result line.
+
+Each model path runs with every launch count set to 0 just before it
+and read just after; a kernel of the path that was not launched, or a
+kernel of another path that was, fails the run.
 
 Exits non-zero without a result when torch sees no CUDA device or the
 package is missing. Build outputs go to ``build/`` and long reports to
@@ -72,6 +91,10 @@ GRAPHLAM_ARGS = {
     "use_lattice": True,
 }
 
+#: settings_init_args of config/CLI/model/segformer.yaml (the other
+#: fields at SegformerSettings' defaults)
+SEGFORMER_ARGS = {"num_layers": 2, "decoder_dim": 256, "num_downsampling_chans": 32}
+
 #: H100 SXM data-sheet peaks (full 700 W power limit): HBM3 bytes/s and
 #: fp32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -85,6 +108,9 @@ REPLACES = {
     "stencil_message_bwd": ("py4cast_tpu/ops/stencil_kernel.py:245",
                             "_bwd_kernel via _bwd_call:347"),
     "corner_hop_bwd": ("py4cast_tpu/ops/hop_kernel.py:267", "_bwd_kernel via _bwd_call:589"),
+    "short_kv_attention": ("py4cast_tpu/ops/attention.py:33", "_fwd_kernel via _forward:101"),
+    "short_kv_attention_bwd": ("py4cast_tpu/ops/attention.py:47",
+                               "_bwd_kernel via _bwd_rule:128"),
 }
 
 
@@ -100,9 +126,11 @@ def card_line() -> str:
     return out[torch.cuda.current_device()] if len(out) > 1 else out[0]
 
 
-def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs, each between
-    two CUDA events on the current stream."""
+def time_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> float:
+    """Median milliseconds of one ``fn()`` call over ``reps`` windows, each
+    ``inner`` back-to-back calls between two CUDA events on the current
+    stream, so that the host's share of a call (the wrapper's checks and
+    allocations) overlaps the device's work instead of adding to it."""
     for _ in range(warmup):
         fn()
     times = []
@@ -110,10 +138,11 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
 
 
@@ -308,14 +337,113 @@ def check_hop_bwd(rng, b=1, hr=500, w=500, h=64, ff=3):
     }
 
 
+# ------------------------------------------------------------------ phase 3c
+#: (BH, Lq, Lk, D) of the attention at the 512x640 Segformer cell (heads
+#: 1/2/5/8 of dim 32; every stage's K/V reduced to 16x20), then a ragged
+#: Lq and a K/V that spills its shared-memory tiles
+ATTENTION_SHAPES = {
+    "stage1": (1, 20480, 320, 32),
+    "stage4": (8, 320, 320, 32),
+    "ragged": (1, 20481, 320, 32),
+    "spill": (2, 2048, 4097, 64),
+}
+
+
+def _sdpa(q, k, v, scale):
+    """The library's attention on (BH, L, D): one call, a yardstick only."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale)[0]
+
+
+def check_attention(rng) -> list:
+    """c-fwd and c-bwd against their plain versions at every shape of
+    ATTENTION_SHAPES; both timed, beside the plain versions and the
+    library, at each. Returns their two entries of the kernels line, the
+    stage-1 numbers on top and every shape's under "shapes"."""
+    from py4cast_tpu_torch.ops.attention import (
+        fused_short_kv_attention,
+        fused_short_kv_attention_bwd,
+        partial_chunk_rows,
+        short_kv_attention_bwd_plain,
+        short_kv_attention_plain,
+    )
+
+    fwd_rows, bwd_rows = [], []
+    for label, (bh, lq, lk, d) in ATTENTION_SHAPES.items():
+        q, k, v = _rand(rng, bh, lq, d), _rand(rng, bh, lk, d), _rand(rng, bh, lk, d)
+        do = _rand(rng, bh, lq, d)
+        scale = d ** -0.5
+        o, lse = fused_short_kv_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        f_err = compare(f"short_kv_attention {label}", o, short_kv_attention_plain(q, k, v, scale))
+        got = fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        plain32 = short_kv_attention_bwd_plain(q, k, v, do, scale)
+        plain64 = short_kv_attention_bwd_plain(q.double(), k.double(), v.double(), do.double(),
+                                               scale)
+        b_err, b_rel = _check_bwd(f"short_kv_attention_bwd {label}", got, plain32, plain64, 1)
+        again = fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"short_kv_attention_bwd {label}: a second call differs")
+        del plain32, plain64, again
+
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lib_out = _sdpa(ql, kl, vl, scale)
+        chunks = -(-lq // partial_chunk_rows(bh, lq, lk, d))
+        pairs = bh * lq * lk
+        f_bound = bound(4 * (2 * bh * lq * d + 2 * bh * lk * d + bh * lq), pairs * (4 * d + 5))
+        # q, o, dO, dq (Lq x D), lse, k, v, dk, dv (Lk x D), and the
+        # partials written once and read once
+        b_bytes = 4 * (4 * bh * lq * d + bh * lq + 4 * bh * lk * d + 2 * chunks * 2 * bh * lk * d)
+        b_bound = bound(b_bytes, pairs * (10 * d + 10))
+        common = {"shape": f"q ({bh},{lq},{d}) k,v ({bh},{lk},{d})", "label": label}
+        fwd_rows.append({
+            **common, "max_abs_err": f_err,
+            "ms": time_ms(lambda: fused_short_kv_attention(q, k, v, scale)),
+            "plain_ms": time_ms(lambda: short_kv_attention_plain(q, k, v, scale)),
+            "library_ms": time_ms(lambda: _sdpa(q, k, v, scale)),
+            "library_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                _sdpa(ql, kl, vl, scale), (ql, kl, vl), do)),
+            "bound_ms": f_bound[0], "bound_by": f_bound[1],
+        })
+        bwd_rows.append({
+            **common, "max_abs_err": b_err, "max_err_over_scale": b_rel, "partial_chunks": chunks,
+            "ms": time_ms(lambda: fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale)),
+            "plain_ms": time_ms(lambda: short_kv_attention_bwd_plain(q, k, v, do, scale)),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), do, retain_graph=True)),
+            "bound_ms": b_bound[0], "bound_by": b_bound[1],
+        })
+        del ql, kl, vl, lib_out
+
+    entries = []
+    for name, rows in (("short_kv_attention", fwd_rows), ("short_kv_attention_bwd", bwd_rows)):
+        top = rows[0]  # stage 1, the largest call of the main path
+        entries.append({
+            "name": name, "route": "cuda", "source": f"py4cast_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name][0], "replaces_function": REPLACES[name][1],
+            "shape": top["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": top["ms"], "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "library": ("F.scaled_dot_product_attention, fp32, TF32 off"
+                        + (" (its backward: autograd.grad)" if name.endswith("_bwd") else "")),
+            "shapes": rows,
+        })
+    return entries
+
+
 # ------------------------------------------------------------------- phase 4
 def _wrappers() -> dict:
-    from py4cast_tpu_torch.ops import hop_kernel, stencil_kernel
+    from py4cast_tpu_torch.ops import attention, hop_kernel, stencil_kernel
 
     return {"stencil_message": stencil_kernel.fused_stencil_message,
             "corner_hop": hop_kernel.fused_corner_hop,
             "stencil_message_bwd": stencil_kernel.fused_stencil_message_bwd,
-            "corner_hop_bwd": hop_kernel.fused_corner_hop_bwd}
+            "corner_hop_bwd": hop_kernel.fused_corner_hop_bwd,
+            "short_kv_attention": attention.fused_short_kv_attention,
+            "short_kv_attention_bwd": attention.fused_short_kv_attention_bwd}
 
 
 def reset_counts():
@@ -334,12 +462,39 @@ def graphlam_settings(**kw):
                             training_strategy="diff_ar", **kw)
 
 
-def predict_dummy() -> dict:
+def segformer_settings(**kw):
+    from py4cast_tpu_torch.training import TrainingSettings
+
+    return TrainingSettings(model_name="Segformer", settings_init_args=dict(SEGFORMER_ARGS),
+                            training_strategy="diff_ar", **kw)
+
+
+def launches_per_call(module) -> tuple:
+    """({kernel: launches} of one model forward, and of one backward)."""
+    ms = module.model_settings
+    if module.settings.model_name == "GraphLAM":
+        per = ms.mesh_levels * ms.processor_layers
+        return ({"stencil_message": per, "corner_hop": 1},
+                {"stencil_message_bwd": per, "corner_hop_bwd": 1})
+    per = len(ms.dims) * ms.num_layers  # one attention a MiT layer
+    return {"short_kv_attention": per}, {"short_kv_attention_bwd": per}
+
+
+def expected_launches(module, forwards: int, backwards: int) -> dict:
+    """Every kernel's count after ``forwards`` model calls and
+    ``backwards`` backward passes: 0 for the kernels of other models."""
+    fwd, bwd = launches_per_call(module)
+    want = {name: 0 for name in _wrappers()}
+    want.update({k: v * forwards for k, v in fwd.items()})
+    want.update({k: v * backwards for k, v in bwd.items()})
+    return want
+
+
+def predict_dummy(settings) -> dict:
     from py4cast_tpu_torch.datasets import get_datasets
     from py4cast_tpu_torch.training import AutoRegressiveModule, Trainer, TrainerConfig
 
     _, _, test_ds = get_datasets("dummy", 2, 1, 3)
-    settings = graphlam_settings()
     module = AutoRegressiveModule(settings, test_ds.dataset_info, device="cuda")
     state = module.init_params(torch.Generator().manual_seed(0))
     trainer = Trainer(TrainerConfig(batch_size=8, device="cuda"))
@@ -353,14 +508,13 @@ def predict_dummy() -> dict:
 
     steps = 3
     forwards = len(preds) * steps
-    per_forward = module.model_settings.mesh_levels * module.model_settings.processor_layers
-    want = {"stencil_message": per_forward * forwards, "corner_hop": forwards,
-            "stencil_message_bwd": 0, "corner_hop_bwd": 0}
+    want = expected_launches(module, forwards, 0)
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
+    spatial = (64 * 64,) if module.is_graph else (64, 64)
     for p in preds:
         finite = bool(np.isfinite(p.array).all())
-        if p.shape[1:] != (steps, 64 * 64, 1) or not finite:
+        if p.shape[1:] != (steps, *spatial, 1) or not finite:
             raise AssertionError(f"bad predictions: shape {p.shape}, finite={finite}")
 
     cpu_module = AutoRegressiveModule(settings, test_ds.dataset_info, device="cpu")
@@ -420,15 +574,18 @@ def full_size_rollout(steps: int = 3, grid=(500, 500)) -> dict:
 
 #: how the profile's device activities are grouped in the report
 GROUPS = (
-    ("corner_hop kernel", "corner_hop_fwd"),
-    ("stencil_message kernel", "stencil_message_fwd"),
-    ("corner_hop_bwd kernel", "corner_hop_bwd"),
-    ("stencil_message_bwd kernel", "stencil_message_bwd"),
-    ("weight-gradient partial sums", "sum_partials"),
-    ("AdamW (foreach)", "multi_tensor_apply"),
-    ("host-to-device batch copy", "Memcpy HtoD"),
-    ("layer_norm (torch)", "layer_norm"),
-    ("matmuls (cuBLAS/CUTLASS)", "gemm"),
+    ("corner_hop kernel", ("corner_hop_fwd",)),
+    ("stencil_message kernel", ("stencil_message_fwd",)),
+    ("corner_hop_bwd kernel", ("corner_hop_bwd",)),
+    ("stencil_message_bwd kernel", ("stencil_message_bwd",)),
+    ("short_kv_attention kernel", ("short_kv_attention_fwd",)),
+    ("short_kv_attention_bwd kernel", ("short_kv_attention_bwd",)),
+    ("weight-gradient and dK/dV partial sums", ("sum_partials",)),
+    ("AdamW (foreach)", ("multi_tensor_apply",)),
+    ("host-to-device batch copy", ("Memcpy HtoD",)),
+    ("layer_norm (torch)", ("layer_norm",)),
+    ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn")),
+    ("matmuls (cuBLAS/CUTLASS)", ("gemm",)),
 )
 
 
@@ -457,7 +614,7 @@ def profile_step(step, out_name: str) -> dict:
     groups = {name: 0.0 for name, _ in GROUPS}
     groups["other"] = 0.0
     for us, key, _ in rows:
-        name = next((g for g, pat in GROUPS if pat in key), "other")
+        name = next((g for g, pats in GROUPS if any(p in key for p in pats)), "other")
         groups[name] += us / 1e3
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / out_name).write_text(
@@ -478,21 +635,22 @@ class _ListLogger:
         self.rows.append((tag, float(value), step))
 
 
-def train_dummy() -> dict:
+def train_dummy(make_settings) -> dict:
     """Trainer.fit on Dummy (3 train batches, 1 val batch), counted;
-    resume; Trainer.test; one step's gradients against the CPU."""
+    resume; Trainer.test; one step's gradients against the CPU.
+    ``make_settings(**kw)`` gives the model's TrainingSettings."""
     import shutil
 
     from py4cast_tpu_torch.datasets import get_datasets
     from py4cast_tpu_torch.training import AutoRegressiveModule, Trainer, TrainerConfig
 
-    save = BUILD / "smoke_fit"
-    shutil.rmtree(save, ignore_errors=True)
     # 1 AR step in training, 3 in validation and test, linked into the
     # settings as the CLI links them
     train_ds, val_ds, test_ds = get_datasets("dummy", 2, 1, 3)
-    settings = graphlam_settings(num_warmup_steps=2, num_pred_steps_train=1,
-                                 num_pred_steps_val_test=3)
+    settings = make_settings(num_warmup_steps=2, num_pred_steps_train=1,
+                             num_pred_steps_val_test=3)
+    save = BUILD / f"smoke_fit_{settings.model_name.lower()}"
+    shutil.rmtree(save, ignore_errors=True)
     module = AutoRegressiveModule(settings, train_ds.dataset_info, device="cuda")
     log = _ListLogger()
     cfg = TrainerConfig(max_epochs=1, batch_size=8, limit_train_batches=3, limit_val_batches=1,
@@ -506,12 +664,10 @@ def train_dummy() -> dict:
     seconds = time.perf_counter() - t0
     counts = read_counts()
 
-    per_forward = module.model_settings.mesh_levels * module.model_settings.processor_layers
     train_steps, val_forwards = 3, 1 * settings.num_pred_steps_val_test
     forwards = train_steps * settings.num_pred_steps_train + val_forwards
     backwards = train_steps * settings.num_pred_steps_train
-    want = {"stencil_message": per_forward * forwards, "corner_hop": forwards,
-            "stencil_message_bwd": per_forward * backwards, "corner_hop_bwd": backwards}
+    want = expected_launches(module, forwards, backwards)
     if counts != want:
         raise AssertionError(f"fit kernel launches {counts}, expected {want}")
     losses = [v for tag, v, _ in log.rows if tag == "train/loss"]
@@ -550,18 +706,19 @@ def train_dummy() -> dict:
             "loss_rel_diff": loss_rel, "max_abs_grad_err_vs_cpu": grad_err}
 
 
-def cli_dummy() -> dict:
+def cli_dummy(model_yaml: str) -> dict:
     """The port's CLI in-process: fit, then test and predict from its
-    checkpoint, with config/CLI's trainer, dummy and graphlam files."""
+    checkpoint, with config/CLI's trainer and dummy files and the model's
+    file (``graphlam``, ``segformer``)."""
     import shutil
 
     from py4cast_tpu_torch import cli
 
-    save = BUILD / "smoke_cli"
+    save = BUILD / f"smoke_cli_{model_yaml}"
     shutil.rmtree(save, ignore_errors=True)
     configs = ["--config", str(ROOT / "config/CLI/trainer.yaml"),
                "--config", str(ROOT / "config/CLI/dataset/dummy.yaml"),
-               "--config", str(ROOT / "config/CLI/model/graphlam.yaml"),
+               "--config", str(ROOT / f"config/CLI/model/{model_yaml}.yaml"),
                "--trainer.save_path", str(save)]
     steps = {
         "fit": ["--trainer.max_epochs", "1", "--trainer.limit_train_batches", "2",
@@ -619,6 +776,89 @@ def full_size_train_step(grid=(500, 500), reps: int = 5) -> dict:
             "profile": profile}
 
 
+# ------------------------------------------------------------------ phase 10
+def _timed(fn, reps: int) -> list:
+    """Host-clock milliseconds of ``reps`` calls, each ended by a sync."""
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return runs
+
+
+def segformer_full_size(grid=(512, 640), steps: int = 3, reps: int = 5) -> dict:
+    """Segformer at segformer.yaml's width on bench.py's Segformer grid
+    (512x640, 21 weather and 21 forcing features), batch 1: a 3-step
+    predict and a 1-AR-step AdamW train step, counted, timed, profiled;
+    step 1 against the CPU."""
+    from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+
+    info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
+    settings = segformer_settings(num_warmup_steps=2)
+    module = AutoRegressiveModule(settings, info, device="cuda")
+    params = module.init_params(torch.Generator().manual_seed(0))
+    batch = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=steps, seed=0)
+
+    # ---- predict
+    module.predict_step(params, batch)  # warm-up: allocator, cuDNN's choice, kernels
+    torch.cuda.synchronize()
+    reset_counts()
+    preds = module.predict_step(params, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != expected_launches(module, steps, 0):
+        raise AssertionError(f"512x640 predict launches {counts}")
+    arr = preds.array
+    if arr.shape != (1, steps, *grid, 21) or not bool(torch.isfinite(arr).all()):
+        raise AssertionError(f"512x640 predictions: shape {tuple(arr.shape)} or non-finite")
+    torch.cuda.reset_peak_memory_stats()
+    runs = [ms / steps for ms in _timed(lambda: module.predict_step(params, batch), 3)]
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_step(lambda: module.predict_step(params, batch),
+                           "smoke_profile_segformer.txt")
+    profile["device_idle_share"] = max(0.0, 1.0 - profile["device_busy_ms"]
+                                       / (float(np.median(runs)) * steps))
+    one = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=0)
+    gpu1 = module.predict_step(params, one).array.cpu()
+    cpu_module = AutoRegressiveModule(settings, info, device="cpu")
+    cpu1 = cpu_module.predict_step({k: v.cpu() for k, v in params.items()}, one).array
+    err = compare("512x640 step 1 (cuda vs cpu)", gpu1, cpu1)
+    predict = {"steps": steps, "launches": counts, "ms_per_step_runs": runs,
+               "ms_per_step": float(np.median(runs)), "peak_mem_bytes": peak,
+               "max_abs_err_step1_vs_cpu": err, "profile": profile}
+    del preds, arr, cpu_module
+
+    # ---- train
+    state = module.init_state(None, num_training_steps=100, params=params)
+    for _ in range(2):  # warm-up: allocator, cuDNN's choice, lr-0 step
+        module.train_step(state, one)
+    torch.cuda.synchronize()
+    reset_counts()
+    module.train_step(state, one)
+    torch.cuda.synchronize()
+    t_counts = read_counts()
+    if t_counts != expected_launches(module, 1, 1):
+        raise AssertionError(f"512x640 train-step launches {t_counts}")
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t_runs = _timed(lambda: losses.append(float(module.train_step(state, one))), reps)
+    t_peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"512x640 train losses {losses}")
+    t_profile = profile_step(lambda: module.train_step(state, one),
+                             "smoke_profile_segformer_train.txt")
+    step_ms = float(np.median(t_runs))
+    t_profile["device_idle_share"] = max(0.0, 1.0 - t_profile["device_busy_ms"] / step_ms)
+    train = {"pred_steps": 1, "launches": t_counts, "ms_per_train_step_runs": t_runs,
+             "ms_per_train_step": step_ms, "peak_mem_bytes": t_peak, "losses": losses,
+             "profile": t_profile}
+    return {"grid": list(grid), "batch": 1, "params": module.num_params(params),
+            "predict": predict, "train": train}
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -649,12 +889,17 @@ def main() -> int:
     # path's shapes
     rng = np.random.default_rng(0)
     kernels = [check_stencil(rng), check_hop(rng), check_stencil_bwd(rng), check_hop_bwd(rng)]
+    # phase 3c: the attention kernels at the Segformer cell's shapes
+    kernels += check_attention(rng)
     for k in kernels:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e} ms {k['ms']:.4f} "
-            f"plain_ms {k['plain_ms']:.4f} bound_ms {k['bound_ms']:.4f} ({k['bound_by']})")
+            f"plain_ms {k['plain_ms']:.4f} bound_ms {k['bound_ms']:.4f} ({k['bound_by']})"
+            + (f" library_ms {k['library_ms']:.4f}" if k["library_ms"] is not None else ""))
+        for row in k.get("shapes", []):
+            log(f"  {row['label']} {row['shape']}: {json.dumps(row)}")
 
     # phase 4: Trainer.predict on Dummy, counted
-    dummy = predict_dummy()
+    dummy = predict_dummy(graphlam_settings())
     log(f"predict dummy: {json.dumps(dummy)}")
 
     # phase 5: the full-size rollout
@@ -663,24 +908,46 @@ def main() -> int:
 
     # phase 6: Trainer.fit on Dummy, counted; resume, test, gradients
     # against the CPU; the CLI
-    fit = train_dummy()
+    fit = train_dummy(graphlam_settings)
     log(f"fit dummy: {json.dumps(fit)}")
-    fit["cli"] = cli_dummy()
+    fit["cli"] = cli_dummy("graphlam")
     log(f"cli dummy: {json.dumps(fit['cli'])}")
-    for k in kernels:
-        k["launches"] = fit["launches"][k["name"]]
-        k["launches_predict"] = dummy["launches"][k["name"]]
 
     # phase 7: one full-size train step
     train_full = full_size_train_step()
     log(f"full-size train step: {json.dumps(train_full)}")
 
+    # phase 8: Trainer.predict on Dummy with Segformer, counted
+    seg_dummy = predict_dummy(segformer_settings())
+    log(f"segformer predict dummy: {json.dumps(seg_dummy)}")
+
+    # phase 9: Trainer.fit on Dummy with Segformer, counted; resume,
+    # test, gradients against the CPU; the CLI with segformer.yaml
+    seg_fit = train_dummy(segformer_settings)
+    log(f"segformer fit dummy: {json.dumps(seg_fit)}")
+    seg_fit["cli"] = cli_dummy("segformer")
+    log(f"segformer cli dummy: {json.dumps(seg_fit['cli'])}")
+
+    # phase 10: the full-width Segformer at 512x640
+    seg_full = segformer_full_size()
+    log(f"segformer 512x640: {json.dumps(seg_full)}")
+
+    # each kernel runs on one model's path: its launches are that path's
+    # (the other path's count of it is 0, checked above)
+    for k in kernels:
+        k["launches"] = fit["launches"][k["name"]] + seg_fit["launches"][k["name"]]
+        k["launches_predict"] = (dummy["launches"][k["name"]]
+                                 + seg_dummy["launches"][k["name"]])
+
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "smoke_report.json").write_text(json.dumps(
         {"card": card, "kind": kind, "kernels": kernels, "predict_dummy": dummy,
-         "full_size": full, "fit_dummy": fit, "full_size_train": train_full}, indent=1))
+         "full_size": full, "fit_dummy": fit, "full_size_train": train_full,
+         "segformer_predict_dummy": seg_dummy, "segformer_fit_dummy": seg_fit,
+         "segformer_full_size": seg_full}, indent=1))
     log(card)
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "shapes"}
+                                for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

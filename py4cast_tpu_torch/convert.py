@@ -3,8 +3,11 @@
 The port's modules carry the JAX param tree's names, so the conversion
 is a walk over that tree with three rules:
 
-- a Flax ``Dense`` ``kernel`` is (in, out); a torch ``Linear`` weight is
-  (out, in), so kernels are transposed;
+- a ``kernel`` is converted by its rank: a Flax ``Dense`` kernel (in,
+  out) is transposed to the torch ``Linear`` weight (out, in); a Flax
+  ``Conv`` kernel HWIO (kh, kw, in / groups, out) becomes the torch
+  ``Conv2d`` weight OIHW with ``permute(3, 2, 0, 1)`` (a depthwise
+  (3, 3, 1, C) kernel becomes (C, 1, 3, 3)); any other rank raises;
 - a ``LayerNorm`` ``scale`` is the torch LayerNorm ``weight``;
 - the processor's params carry a leading ``processor_layers`` axis
   (``nn.scan`` stacks them); each slice goes to one layer of the
@@ -27,6 +30,17 @@ import torch
 SCANNED = ("processor",)
 
 
+def _kernel_to_torch(arr: np.ndarray, path) -> torch.Tensor:
+    if arr.ndim == 2:  # Dense (in, out) -> Linear (out, in)
+        return torch.tensor(arr.T)
+    if arr.ndim == 4:  # Conv HWIO -> Conv2d OIHW
+        return torch.tensor(np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
+    raise ValueError(
+        f"kernel {'/'.join(path)} has rank {arr.ndim} (shape {arr.shape}); only "
+        "Dense (2-D) and 2-D Conv (4-D HWIO) kernels convert"
+    )
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """The port's parameter state from the JAX package's variables.
 
@@ -43,7 +57,7 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         arr = np.asarray(arr, np.float32)
         *mods, name = path
         if name == "kernel":
-            out[".".join(mods + ["weight"])] = torch.tensor(arr.T)
+            out[".".join(mods + ["weight"])] = _kernel_to_torch(arr, path)
         elif name == "scale":
             out[".".join(mods + ["weight"])] = torch.tensor(arr)
         elif name == "bias":

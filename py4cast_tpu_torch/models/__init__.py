@@ -1,6 +1,6 @@
 """Model registry.
 
-GraphLAM is the only model ported so far. The other names of the JAX
+GraphLAM and Segformer are ported so far. The other names of the JAX
 package's zoo are known here, so that asking for one says it is not
 ported yet instead of that it does not exist.
 """
@@ -11,13 +11,14 @@ from typing import Optional, Tuple
 
 from py4cast_tpu_torch.models.base import ModelBase, ModelType, settings_from_dict
 from py4cast_tpu_torch.models.graph import GraphLAM
+from py4cast_tpu_torch.models.segformer import Segformer
 
-registry: dict = {"GraphLAM": GraphLAM}
+registry: dict = {"GraphLAM": GraphLAM, "Segformer": Segformer}
 
 #: models of the JAX package the port does not have yet (ROADMAP.md, queue 1)
 NOT_YET_PORTED = (
     "UNet", "CustomUNet", "HalfUNet", "DeepLabV3", "DeepLabV3Plus",
-    "Segformer", "SwinUNetR", "UNetRPP", "HiLAM", "HiLAMParallel",
+    "SwinUNetR", "UNetRPP", "HiLAM", "HiLAMParallel",
 )
 
 all_nn_architectures = tuple(registry)

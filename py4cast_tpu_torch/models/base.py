@@ -12,6 +12,8 @@ import dataclasses
 from enum import Enum
 from typing import Optional, Tuple
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -62,3 +64,50 @@ class ModelBase(nn.Module):
         self.num_output_features = num_output_features
         self.input_shape = tuple(input_shape)
         self.settings = settings
+
+
+def pad_to_multiple(x: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """Zero-pad the two spatial dims of NHWC ``x`` at their ends up to a
+    multiple. Returns the padded tensor and the original (H, W) for
+    ``crop_to``."""
+    h, w = x.shape[1], x.shape[2]
+    ph, pw = (-h) % multiple, (-w) % multiple
+    if ph or pw:
+        x = F.pad(x, (0, 0, 0, pw, 0, ph))
+    return x, (h, w)
+
+
+def crop_to(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    return x[:, : hw[0], : hw[1], :]
+
+
+def flax_same_pad(n: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """(low, high) padding of one spatial axis of length ``n`` under
+    Flax's ``padding="SAME"``: the output has ceil(n / stride) positions,
+    and the total pad goes half to the start (rounded down), the rest to
+    the end. With stride > 1 that is asymmetric, unlike torch's
+    ``padding=k // 2`` (k5/s4 on 64 pads (0, 1))."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + kernel - n, 0)
+    return total // 2, total - total // 2
+
+
+class FlaxConv2d(nn.Conv2d):
+    """A Flax ``nn.Conv`` (``padding="SAME"``, the Flax default) on an NHWC
+    tensor: the input is padded as Flax pads it (``flax_same_pad``), then
+    convolved in NCHW and returned NHWC. The weight is torch's OIHW;
+    ``convert.params_from_jax`` maps Flax's HWIO kernel onto it."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1,
+                 groups: int = 1, bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel, stride=stride, padding=0,
+                         groups=groups, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        top, bottom = flax_same_pad(x.shape[1], kh, sh)
+        left, right = flax_same_pad(x.shape[2], kw, sw)
+        y = x.permute(0, 3, 1, 2)
+        if top or bottom or left or right:
+            y = F.pad(y, (left, right, top, bottom))
+        return super().forward(y).permute(0, 2, 3, 1)

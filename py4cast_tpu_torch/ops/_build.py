@@ -30,7 +30,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("stencil_message", "corner_hop", "stencil_message_bwd", "corner_hop_bwd")
+SOURCES = ("stencil_message", "corner_hop", "stencil_message_bwd", "corner_hop_bwd",
+           "short_kv_attention", "short_kv_attention_bwd")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,221 @@
+"""Long-query / short-KV attention: CUDA kernels for the forward and the
+backward, their plain PyTorch versions, and the autograd Function that
+joins them.
+
+    o = softmax(q @ k^T * scale) @ v      q (BH, Lq, D), k, v (BH, Lk, D)
+
+Segformer's efficient self-attention attends every token of a stage
+(up to 20,480 at 512x640) to a spatially reduced K/V (320 tokens there).
+The forward kernel (``csrc/short_kv_attention.cu``) replaces the TPU
+kernel ``py4cast_tpu/ops/attention.py::_fwd_kernel``, the backward kernel
+(``csrc/short_kv_attention_bwd.cu``) its ``_bwd_kernel``; each source says
+what bounds it on the H100 and what its design does about it. On a CUDA
+tensor ``fused_short_kv_attention`` and ``fused_short_kv_attention_bwd``
+launch their kernel or raise; on a CPU tensor they run the plain
+versions, which are also what the kernels are held against on the card.
+Models call ``dot_product_attention_short_kv`` (the JAX package's
+``(B, L, H, D)`` entry), which goes through ``ShortKVAttentionFn``.
+
+The JAX package gates its kernel on the TPU, on a K/V length that fits
+VMEM and on spatial sharding; the port has none of that: on the card it
+always takes the kernels, whose K/V tiles pass through shared memory, so
+no length caps Lk.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from py4cast_tpu_torch.ops import _build
+
+#: the kernels hold a row's channels in registers, 32 a thread and up to
+#: four threads a row
+MAX_HEAD_DIM = 128
+#: query rows a block of either kernel (``BQ`` in the sources)
+BLOCK_Q = 64
+#: the most fp32 bytes the backward's per-chunk dK/dV partials may take
+#: before the wrapper makes each chunk span more query blocks
+MAX_PARTIAL_BYTES = 64 << 20
+_MAX_GRID_Y = 65535
+
+
+def short_kv_attention_plain(q, k, v, scale):
+    """softmax(q·kᵀ·scale)·v in plain PyTorch (explicit einsum, softmax,
+    einsum), as the TPU ``_fwd_kernel`` computes it."""
+    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v)
+
+
+def short_kv_attention_bwd_plain(q, k, v, do, scale):
+    """The attention's backward in plain PyTorch: the formulas of the TPU
+    ``_bwd_kernel`` (P recomputed, dS = P ∘ (dP − rowsum(dP ∘ P))).
+    Returns ``(dq, dk, dv)``. Works in any float dtype (the card's check
+    runs it in fp64 too)."""
+    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bqd,bkd->bqk", do, v)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = scale * torch.einsum("bqk,bkd->bqd", ds, k)
+    dk = scale * torch.einsum("bqk,bqd->bkd", ds, q)
+    dv = torch.einsum("bqk,bqd->bkd", p, do)
+    return dq, dk, dv
+
+
+def _lib():
+    lib = _build.load("short_kv_attention")
+    fn = lib.p4t_short_kv_attention_fwd
+    if fn.argtypes is None:  # first use: declare the C signature
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_lib():
+    lib = _build.load("short_kv_attention_bwd")
+    fn = lib.p4t_short_kv_attention_bwd
+    if fn.argtypes is None:  # first use: declare the C signature
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _validate(what, q, k, v, extra=None):
+    """The checks the forward and the backward wrapper share; returns
+    (device, bh, lq, lk, d)."""
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"{what}: q and k must be (BH, L, D), got {tuple(q.shape)} "
+                         f"and {tuple(k.shape)}")
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    shapes = {"q": (q, (bh, lq, d)), "k": (k, (bh, lk, d)), "v": (v, (bh, lk, d))}
+    shapes.update(extra(bh, lq, lk, d) if extra else {})
+    device = _build.validate(what, shapes)
+    if min(bh, lq, lk, d) < 1:
+        raise ValueError(f"{what}: empty input (BH, Lq, Lk, D) = {(bh, lq, lk, d)}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{what} supports head dims up to {MAX_HEAD_DIM}, got {d}")
+    if bh > _MAX_GRID_Y:
+        raise ValueError(f"{what} supports BH up to {_MAX_GRID_Y} (one grid row each), "
+                         f"got {bh}")
+    return device, bh, lq, lk, d
+
+
+def fused_short_kv_attention(q, k, v, scale):
+    """``(o, lse)``: softmax(q·kᵀ·scale)·v for q (BH, Lq, D) and k, v
+    (BH, Lk, D), and the row logsumexp of q·kᵀ·scale (BH, Lq), which the
+    backward takes as its residual. Any BH, Lq and Lk, D at most 128,
+    everything fp32 and contiguous. The outputs carry no gradient:
+    differentiate through ``ShortKVAttentionFn``."""
+    device, bh, lq, lk, d = _validate("fused_short_kv_attention", q, k, v)
+    if device.type == "cpu":
+        s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+        return short_kv_attention_plain(q, k, v, scale), torch.logsumexp(s, dim=-1)
+
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, lq), device=device, dtype=torch.float32)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.p4t_short_kv_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            bh, lq, lk, d, float(scale), stream,
+        )
+    _build.check(lib, status, "short_kv_attention kernel")
+    fused_short_kv_attention.launches += 1
+    return o, lse
+
+
+#: kernel launches since the last reset (a CPU call runs the plain
+#: version and does not count)
+fused_short_kv_attention.launches = 0
+
+
+def partial_chunk_rows(bh, lq, lk, d) -> int:
+    """Query rows a backward block sums into one dK/dV partial: BLOCK_Q,
+    or a multiple of it so the partials stay under MAX_PARTIAL_BYTES."""
+    max_chunks = max(1, MAX_PARTIAL_BYTES // (2 * bh * lk * d * 4))
+    return BLOCK_Q * math.ceil(math.ceil(lq / BLOCK_Q) / max_chunks)
+
+
+def fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale):
+    """The attention's backward: ``(dq, dk, dv)`` for the cotangent do
+    (BH, Lq, D) of o, given the forward's o and lse. The forward's
+    checks. dK and dV are summed over query chunks in a fixed order, so a
+    call repeats bit for bit."""
+    device, bh, lq, lk, d = _validate(
+        "fused_short_kv_attention_bwd", q, k, v,
+        lambda bh, lq, lk, d: {"o": (o, (bh, lq, d)), "lse": (lse, (bh, lq)),
+                               "do": (do, (bh, lq, d))},
+    )
+    if device.type == "cpu":
+        return short_kv_attention_bwd_plain(q, k, v, do, scale)
+
+    chunk = partial_chunk_rows(bh, lq, lk, d)
+    chunks = math.ceil(lq / chunk)
+    dq = torch.empty_like(q)
+    dkv = torch.empty((2, bh, lk, d), device=device, dtype=torch.float32)
+    # one fp32 partial of dK and dV per query chunk, summed by a second
+    # kernel in chunk order
+    partial = torch.empty((chunks, 2, bh, lk, d), device=device, dtype=torch.float32)
+    lib = _bwd_lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.p4t_short_kv_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), partial.data_ptr(), dkv.data_ptr(),
+            bh, lq, lk, d, chunk, chunks, float(scale), stream,
+        )
+    _build.check(lib, status, "short_kv_attention_bwd kernel")
+    fused_short_kv_attention_bwd.launches += 1
+    return dq, dkv[0], dkv[1]
+
+
+#: kernel launches since the last reset (a CPU call runs the plain
+#: version and does not count)
+fused_short_kv_attention_bwd.launches = 0
+
+
+class ShortKVAttentionFn(torch.autograd.Function):
+    """``fused_short_kv_attention`` with its backward kernel as the
+    gradient: ``ShortKVAttentionFn.apply(q, k, v, scale)`` returns o.
+    On CPU tensors both directions run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = fused_short_kv_attention(q, k, v, scale)
+        ctx.scale = float(scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        dq, dk, dv = fused_short_kv_attention_bwd(*ctx.saved_tensors, do.contiguous(),
+                                                  ctx.scale)
+        return dq, dk, dv, None
+
+
+def short_kv_attention(q, k, v, scale):
+    """Differentiable softmax(q·kᵀ·scale)·v on (BH, Lq, D) / (BH, Lk, D)."""
+    return ShortKVAttentionFn.apply(q, k, v, scale)
+
+
+def dot_product_attention_short_kv(q, k, v):
+    """The JAX package's entry: (B, L, H, D) q, k, v (k and v of length
+    Lk), scale 1/sqrt(D), returns (B, Lq, H, D)."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+
+    def heads_first(t, n):
+        return t.permute(0, 2, 1, 3).reshape(b * h, n, d).contiguous()
+
+    of = short_kv_attention(heads_first(q, lq), heads_first(k, lk), heads_first(v, lk),
+                            1.0 / math.sqrt(d))
+    return of.reshape(b, h, lq, d).permute(0, 2, 1, 3)

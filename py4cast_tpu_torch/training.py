@@ -47,7 +47,7 @@ from py4cast_tpu_torch.models import (
 )
 from py4cast_tpu_torch.named_tensor import NamedArray
 from py4cast_tpu_torch.rollout import RolloutConfig, common_features_index, rollout
-from py4cast_tpu_torch.utils import resolve_device, str_to_dtype
+from py4cast_tpu_torch.utils import exact_fp32, resolve_device, str_to_dtype
 
 Params = Dict[str, torch.Tensor]
 
@@ -108,13 +108,17 @@ class TrainingSettings:
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Draw initial weights in place with the JAX package's initializers:
-    Dense kernels lecun-normal (truncated), biases zero, LayerNorm scale
-    one and bias zero. Draws on the generator's device, then copies."""
+    """Draw initial weights in place with the JAX package's initializers
+    (Flax's defaults): Dense and Conv kernels lecun-normal (truncated,
+    fan_in = in_features, or in_channels / groups · kh · kw for a conv),
+    biases zero, LayerNorm scale one and bias zero. Draws on the
+    generator's device, then copies."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, nn.Linear):
-                std = math.sqrt(1.0 / mod.in_features) / _TRUNC_STD_CORRECTION
+            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+                # weight (out, in) or (out, in / groups, kh, kw)
+                fan_in = math.prod(mod.weight.shape[1:])
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
                 w = torch.empty(mod.weight.shape, device=generator.device)
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
                 mod.weight.copy_(w)
@@ -207,7 +211,9 @@ class AutoRegressiveModule:
     """Owns the model, the loss, the rollout configuration and the static
     device buffers for one run. ``device`` defaults to the card; with no
     CUDA device the constructor raises unless ``device="cpu"`` is asked
-    for."""
+    for. The steps (``loss_and_grads``, ``train_step``, ``eval_step``,
+    ``predict_step``) run in true fp32: TF32 is off for cuBLAS and cuDNN
+    inside each of them (``utils.exact_fp32``), forward and backward."""
 
     def __init__(self, settings: TrainingSettings, dataset_info: DatasetInfo,
                  device="cuda"):
@@ -452,6 +458,7 @@ class AutoRegressiveModule:
             )
 
     # ------------------------------------------------------------------ steps
+    @exact_fp32
     def loss_and_grads(self, state: Union[TrainState, Params], batch: ItemBatch,
                        generator: Optional[torch.Generator] = None):
         """(loss, {name: grad}) of one batch's training loss at the
@@ -464,6 +471,7 @@ class AutoRegressiveModule:
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads))
 
+    @exact_fp32
     def train_step(self, state: TrainState, batch: ItemBatch,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Forward, backward and (every ``accumulate_grad_batches``
@@ -486,6 +494,7 @@ class AutoRegressiveModule:
             state.step += 1
         return loss.detach()
 
+    @exact_fp32
     def eval_step(self, state: Union[TrainState, Params], batch: ItemBatch,
                   generator: Optional[torch.Generator] = None):
         """(normalized preds, per-sample per-step loss (B, T)) without
@@ -497,6 +506,7 @@ class AutoRegressiveModule:
                                                     batch.num_pred_steps, generator)
         return preds, per_step
 
+    @exact_fp32
     def predict_step(self, state: Union[TrainState, Params], batch: ItemBatch,
                      generator: Optional[torch.Generator] = None) -> NamedArray:
         """De-normalized predictions (B, T, *spatial, F) for one batch,

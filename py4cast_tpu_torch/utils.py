@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -41,3 +42,23 @@ def resolve_device(device="cuda") -> torch.device:
             "device; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def exact_fp32(fn):
+    """Decorator: run ``fn`` in full fp32 in cuBLAS and cuDNN, the
+    previous flags restored after. torch runs fp32 convolutions in TF32
+    by default (``torch.backends.cudnn.allow_tf32`` is True): about three
+    decimal digits, outside the port's 1e-4 bar against the JAX
+    package."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+        before = (matmul.allow_tf32, cudnn.allow_tf32)
+        matmul.allow_tf32 = cudnn.allow_tf32 = False
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            matmul.allow_tf32, cudnn.allow_tf32 = before
+
+    return wrapper

@@ -1,0 +1,156 @@
+"""The port's short-KV attention against the JAX package on the CPU: the
+plain forward against the Pallas kernel in interpret mode and against
+``flax.linen.dot_product_attention``; the gradients of
+``ShortKVAttentionFn`` on CPU tensors (plain backward) against
+``jax.grad`` of the interpret-mode kernel; the (B, L, H, D) entry; and
+the wrappers' checks.
+
+Bars: forward 1e-5 (the same fp32 products, another summation order);
+gradients 2e-4 of the largest JAX value (absolute below 1), the JAX
+kernel tests' gradient bar (tests/test_stencil_kernel.py)."""
+
+import flax.linen as flax_nn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from py4cast_tpu.ops import attention as jax_attention
+from py4cast_tpu_torch.ops import attention
+from py4cast_tpu_torch.ops.attention import (
+    ShortKVAttentionFn,
+    dot_product_attention_short_kv,
+    fused_short_kv_attention,
+    fused_short_kv_attention_bwd,
+    short_kv_attention_bwd_plain,
+    short_kv_attention_plain,
+)
+
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_BAR = 2e-4
+#: (BH, Lq, Lk, D): the JAX kernel test's shape (Lq not a block
+#: multiple), Segformer's head dim 32 with Lk > 1, and the tiny
+#: Segformer of tests/test_models.py (Lk 4 at stage 1 of a 32x32 grid)
+SHAPES = [(3, 300, 64, 32), (2, 80, 20, 32), (2, 16, 4, 8)]
+
+
+def _qkv(bh, lq, lk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((bh, lq, d), (bh, lk, d), (bh, lk, d))]
+
+
+def _close(got, want, bar, name=""):
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(np.asarray(got) - want).max())
+    assert err <= bar * scale, f"{name}: {err:.3e} > {bar} x {scale:.3g}"
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", SHAPES)
+def test_plain_forward_matches_the_pallas_kernel(bh, lq, lk, d):
+    q, k, v = _qkv(bh, lq, lk, d)
+    scale = 1.0 / d ** 0.5
+    want = jax_attention.short_kv_attention(q, k, v, scale, 128, True)  # interpret mode
+    got = short_kv_attention_plain(*map(torch.from_numpy, (q, k, v)), scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", SHAPES)
+def test_plain_forward_matches_flax(bh, lq, lk, d):
+    """Heads as a batch of one head each, flax's (B, L, H, D) layout."""
+    q, k, v = _qkv(bh, lq, lk, d, seed=1)
+    want = flax_nn.dot_product_attention(q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0]
+    got = short_kv_attention_plain(*map(torch.from_numpy, (q, k, v)), 1.0 / d ** 0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", SHAPES)
+def test_function_gradients_match_the_pallas_kernel(bh, lq, lk, d):
+    """jax.grad through the interpret-mode kernel (its custom VJP, the
+    Pallas backward) against ShortKVAttentionFn on CPU tensors."""
+    q, k, v = _qkv(bh, lq, lk, d, seed=2)
+    g = np.random.default_rng(3).standard_normal((bh, lq, d)).astype(np.float32)
+    scale = 1.0 / d ** 0.5
+
+    def loss(q, k, v):
+        return jnp.sum(jax_attention.short_kv_attention(q, k, v, scale, 128, True) * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = ShortKVAttentionFn.apply(tq, tk, tv, scale)
+    got = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (tq, tk, tv))
+    for name, a, b in zip("qkv", got, want):
+        _close(a.numpy(), b, GRAD_BAR, f"d{name}")
+
+
+def test_plain_backward_is_the_gradient_of_the_plain_forward():
+    """The hand-written formulas against autograd, in fp64."""
+    q, k, v = (torch.from_numpy(a).double().requires_grad_() for a in _qkv(2, 40, 7, 16, 4))
+    do = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 40, 16)))
+    out = short_kv_attention_plain(q, k, v, 0.3)
+    want = torch.autograd.grad((out * do).sum(), (q, k, v))
+    got = short_kv_attention_bwd_plain(q.detach(), k.detach(), v.detach(), do, 0.3)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+def test_bhld_entry_matches_jax():
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((2, 300, 4, 32)).astype(np.float32)
+    k = rng.standard_normal((2, 64, 4, 32)).astype(np.float32)
+    v = rng.standard_normal((2, 64, 4, 32)).astype(np.float32)
+    want = jax_attention.dot_product_attention_short_kv(q, k, v, interpret=True)
+    got = dot_product_attention_short_kv(*map(torch.from_numpy, (q, k, v)))
+    assert got.shape == (2, 300, 4, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+
+
+def test_cpu_wrappers_run_the_plain_versions_uncounted():
+    q, k, v = map(torch.from_numpy, _qkv(2, 50, 9, 24, 7))
+    before = (fused_short_kv_attention.launches, fused_short_kv_attention_bwd.launches)
+    o, lse = fused_short_kv_attention(q, k, v, 0.2)
+    torch.testing.assert_close(o, short_kv_attention_plain(q, k, v, 0.2), rtol=0, atol=0)
+    torch.testing.assert_close(
+        lse, torch.logsumexp(torch.einsum("bqd,bkd->bqk", q, k) * 0.2, dim=-1))
+    do = torch.ones_like(q)
+    for a, b in zip(fused_short_kv_attention_bwd(q, k, v, o, lse, do, 0.2),
+                    short_kv_attention_bwd_plain(q, k, v, do, 0.2)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (fused_short_kv_attention.launches,
+            fused_short_kv_attention_bwd.launches) == before
+
+
+@pytest.mark.parametrize("case,match", [
+    ("wide", "head dims up to 128"),
+    ("fp64", "float32"),
+    ("kv_mismatch", "expected"),
+    ("empty", "empty"),
+    ("rank", r"\(BH, L, D\)"),
+])
+def test_wrappers_refuse_what_the_kernels_cannot_take(case, match):
+    q, k, v = map(torch.from_numpy, _qkv(2, 8, 3, 16))
+    if case == "wide":
+        q, k, v = torch.zeros(1, 4, 129), torch.zeros(1, 2, 129), torch.zeros(1, 2, 129)
+    elif case == "fp64":
+        q = q.double()
+    elif case == "kv_mismatch":
+        v = v[:, :2].contiguous()
+    elif case == "empty":
+        q = torch.zeros(2, 0, 16)
+    elif case == "rank":
+        q = q[0]
+    with pytest.raises(ValueError, match=match):
+        fused_short_kv_attention(q, k, v, 0.25)
+
+
+def test_backward_partials_stay_under_their_cap():
+    """Segformer's stage 1 at 512x640 keeps one partial per 64-row block
+    (26 MB); a longer K/V merges blocks until the partials fit 64 MB."""
+    assert attention.partial_chunk_rows(1, 20480, 320, 32) == 64
+    for bh, lq, lk, d in [(1, 20480, 320, 32), (8, 320, 320, 32), (4, 100000, 4097, 64)]:
+        rows = attention.partial_chunk_rows(bh, lq, lk, d)
+        assert rows % attention.BLOCK_Q == 0
+        chunks = -(-lq // rows)
+        assert chunks * 2 * bh * lk * d * 4 <= attention.MAX_PARTIAL_BYTES or chunks == 1

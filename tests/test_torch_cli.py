@@ -134,3 +134,29 @@ def test_parse_cli_composes_configs_and_overrides():
     assert float(conf["model"]["learning_rate"]) == 1e-4
     assert conf["model"]["model_name"] == "GraphLAM"
     assert conf["trainer"]["max_epochs"] == 10
+
+
+def test_segformer_yaml_fits_and_tests(tmp_path):
+    """config/CLI/model/segformer.yaml through fit and test, cut to two
+    narrow stages for the CPU."""
+    configs = [*CONFIGS[:4], "--config", str(ROOT / "config/CLI/model/segformer.yaml")]
+    small = ["--model.settings_init_args.dims", "[16, 32]",
+             "--model.settings_init_args.heads", "[1, 2]",
+             "--model.settings_init_args.ff_expansion", "[2, 2]",
+             "--model.settings_init_args.reduction_ratio", "[4, 1]",
+             "--model.settings_init_args.num_layers", "1",
+             "--model.settings_init_args.decoder_dim", "16",
+             "--model.settings_init_args.num_downsampling_chans", "8",
+             "--trainer.device", "cpu", "--data.num_workers", "1",
+             "--trainer.save_path", str(tmp_path)]
+    assert cli.main(["fit", *configs, *small, "--trainer.max_epochs", "1",
+                     "--trainer.limit_train_batches", "2", "--trainer.limit_val_batches",
+                     "1"]) == 0
+    manifest = json.loads((tmp_path / "checkpoints" / "manifest.json").read_text())
+    assert manifest["model_name"] == "Segformer"
+    assert list(manifest["model_settings"]["dims"]) == [16, 32]
+    assert cli.main(["test", *configs, "--trainer.device", "cpu", "--trainer.save_path",
+                     str(tmp_path), "--trainer.ckpt_path", "last",
+                     "--trainer.limit_val_batches", "1"]) == 0
+    scores = json.loads((tmp_path / "test_scores.json").read_text())
+    assert np.isfinite(scores["test_mean_loss"])

@@ -12,7 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from py4cast_tpu_torch.ops import hop_kernel, stencil_kernel
+from py4cast_tpu_torch.ops import attention, hop_kernel, stencil_kernel
+from py4cast_tpu_torch.ops.attention import (
+    ShortKVAttentionFn,
+    fused_short_kv_attention,
+    fused_short_kv_attention_bwd,
+    short_kv_attention_bwd_plain,
+    short_kv_attention_plain,
+)
 from py4cast_tpu_torch.ops.hop_kernel import (
     CornerHopFn,
     corner_hop_bwd_plain,
@@ -245,6 +252,88 @@ def test_functions_give_the_cpu_gradients_on_the_card(cuda):
     on_card = grads("cuda")
     assert (fused_stencil_message_bwd.launches, fused_corner_hop_bwd.launches) == (
         before[0] + 1, before[1] + 1)
+    for g, want in zip(on_card, grads("cpu")):
+        scale = max(1.0, float(want.abs().max()))
+        assert float((g - want).abs().max()) <= GRAD_BAR * scale
+
+
+#: (BH, Lq, Lk, D): Segformer's stages 1, 3 and 4 at 512x640, a ragged
+#: Lq, K/V tiles that spill (Lk 4097), one key, every thread-slice count
+#: (D 8, 32, 64, 100, 128)
+ATTENTION_SHAPES = [
+    (1, 20480, 320, 32),
+    (5, 1280, 320, 32),
+    (8, 320, 320, 32),
+    (2, 20481, 320, 32),
+    (1, 300, 4097, 64),
+    (3, 77, 1, 8),
+    (2, 130, 4, 128),
+    (4, 65, 33, 64),
+    (1, 1, 5, 100),
+    (2, 200, 4097, 128),
+]
+
+
+def _attention_args(rng, bh, lq, lk, d):
+    return _rand(rng, bh, lq, d), _rand(rng, bh, lk, d), _rand(rng, bh, lk, d)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", ATTENTION_SHAPES)
+def test_attention_kernels_match_plain(cuda, bh, lq, lk, d):
+    rng = np.random.default_rng(300 + d + lk)
+    q, k, v = _attention_args(rng, bh, lq, lk, d)
+    scale = d ** -0.5
+    before = (fused_short_kv_attention.launches, fused_short_kv_attention_bwd.launches)
+    o, lse = fused_short_kv_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, short_kv_attention_plain(q, k, v, scale), **TOL)
+    s = torch.einsum("bqd,bkd->bqk", q.double(), k.double()) * scale
+    torch.testing.assert_close(lse.double(), torch.logsumexp(s, dim=-1), **TOL)
+    do = _rand(rng, bh, lq, d)
+    got = fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (fused_short_kv_attention.launches, fused_short_kv_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = short_kv_attention_bwd_plain(q.double(), k.double(), v.double(), do.double(), scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape, name
+        _close_to_fp64(name, g, w)
+    # dk and dv are summed in a fixed order: bit for bit again
+    again = fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale)
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+
+
+def test_attention_bwd_merges_query_blocks_into_one_partial(cuda, monkeypatch):
+    """With a small partial cap each chunk spans several 64-row blocks
+    (the kernel adds them into one partial); the result is unchanged."""
+    rng = np.random.default_rng(400)
+    q, k, v = _attention_args(rng, 2, 1000, 40, 32)
+    o, lse = fused_short_kv_attention(q, k, v, 0.2)
+    do = _rand(rng, 2, 1000, 32)
+    one_block = fused_short_kv_attention_bwd(q, k, v, o, lse, do, 0.2)
+    monkeypatch.setattr(attention, "MAX_PARTIAL_BYTES", 3 * 2 * 2 * 40 * 32 * 4)
+    assert attention.partial_chunk_rows(2, 1000, 40, 32) == 6 * attention.BLOCK_Q
+    merged = fused_short_kv_attention_bwd(q, k, v, o, lse, do, 0.2)
+    want = short_kv_attention_bwd_plain(q.double(), k.double(), v.double(), do.double(), 0.2)
+    for name, a, b, w in zip(("dq", "dk", "dv"), one_block, merged, want):
+        _close_to_fp64(name, b, w)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_attention_function_gives_the_cpu_gradients_on_the_card(cuda):
+    rng = np.random.default_rng(8)
+    args = _attention_args(rng, 3, 300, 64, 32)
+    cot = _rand(rng, 3, 300, 32)
+
+    def grads(device):
+        leaves = [a.detach().to(device).requires_grad_() for a in args]
+        out = ShortKVAttentionFn.apply(*leaves, 32 ** -0.5)
+        return [t.cpu() for t in torch.autograd.grad((out * cot.to(device)).sum(), leaves)]
+
+    before = fused_short_kv_attention_bwd.launches
+    on_card = grads("cuda")
+    assert fused_short_kv_attention_bwd.launches == before + 1
     for g, want in zip(on_card, grads("cpu")):
         scale = max(1.0, float(want.abs().max()))
         assert float((g - want).abs().max()) <= GRAD_BAR * scale

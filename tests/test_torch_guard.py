@@ -81,3 +81,13 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_segformer_args_match_the_config():
+    import yaml
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    conf = yaml.safe_load((ROOT / "config/CLI/model/segformer.yaml").read_text())
+    assert chip_smoke.SEGFORMER_ARGS == conf["model"]["settings_init_args"]

@@ -302,3 +302,62 @@ def test_restore_of_an_orbax_directory_raises(fitted, tmp_path):
 def test_trainer_config_refuses_what_one_card_cannot_do(key, value):
     with pytest.raises(ValueError, match="queue 1 item 12"):
         port_training.TrainerConfig(device="cpu", **{key: value})
+
+
+# ------------------------------------------------------------------ Segformer
+#: a Segformer with its head dim 32 and a K/V of 16 tokens at stage 1 on
+#: the 64x64 Dummy grid (Lq 256), cut in width and depth for the CPU
+SEGFORMER = {"dims": (32, 64), "heads": (1, 2), "num_layers": 1, "decoder_dim": 16,
+             "ff_expansion": (2, 2), "reduction_ratio": (4, 1), "num_downsampling_chans": 8}
+
+
+def test_segformer_adamw_step_losses_match_jax(data):
+    """Three AdamW steps of Segformer from converted params (2 AR steps a
+    batch): the losses track the JAX package's."""
+    (jax_train, _, _), (port_train, _, _) = data
+    kw = dict(model_name="Segformer", settings_init_args=SEGFORMER)
+    jm = _jax_module(data, **kw)
+    state = jm.init_state(jax.random.key(0), 3)
+    pm = _port_module(data, **kw)
+    pstate = pm.init_state(None, 3, params_from_jax(jax.tree.map(np.asarray, state.params)))
+    j_losses, p_losses = [], []
+    for jb, pb in zip(_batches(jax_train.loader(batch_size=BATCH, num_workers=1), 3),
+                      _batches(port_train.loader(batch_size=BATCH, num_workers=1), 3)):
+        state, loss = jm.train_step(state, jb, jax.random.key(2))
+        j_losses.append(float(loss))
+        p_losses.append(float(pm.train_step(pstate, pb)))
+    assert pstate.step == 3
+    np.testing.assert_allclose(p_losses, j_losses, rtol=LOSS_RTOL)
+    assert len(set(p_losses)) == 3
+
+
+def test_steps_run_with_tf32_off(data):
+    """Every step runs in true fp32: inside the model's forward and
+    backward, TF32 is off for cuBLAS and cuDNN, and the caller's flags
+    come back afterwards."""
+    _, (port_train, _, _) = data
+    pm = _port_module(data, model_name="Segformer", settings_init_args=SEGFORMER)
+    seen = []
+
+    def flags(*_):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+
+    pm.model.register_forward_hook(flags)
+    batch = _batches(port_train.loader(batch_size=2, num_workers=1), 1)[0]
+    state = pm.init_state(torch.Generator().manual_seed(0), 2)
+    next(iter(state.params.values())).register_hook(flags)  # fires in the backward
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        pm.train_step(state, batch)
+        n_train = len(seen)
+        pm.loss_and_grads(state, batch)
+        pm.eval_step(state, batch)
+        pm.predict_step(state, batch)
+        after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+    # train_step: 2 AR-step forwards and the backward
+    assert n_train == 3
+    assert seen and all(s == (False, False) for s in seen)
+    assert after == (True, True)
