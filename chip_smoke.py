@@ -18,11 +18,14 @@ non-zero exit code and no result line:
    every cell) against the plain backward in fp64, as is the plain
    backward in fp32;
 3c. the short-KV attention kernels (Segformer's c-fwd and c-bwd) at the
-   512x640 cell's stage-1 and stage-4 shapes, a ragged Lq and a K/V
-   that spills its tiles: the forward against the plain version, dq
-   against the plain backward, dk and dv against it in fp64; timed with
-   CUDA events beside F.scaled_dot_product_attention (the library's
-   time, never on the path);
+   512x640 cell's four stage shapes, a ragged Lq and a K/V that spills
+   its tiles: the forward against the plain version and its lse against
+   the fp64 logsumexp, dq against the plain backward, dk and dv against
+   it in fp64, both kernels bit for bit against a second call; c-fwd's
+   launch shape with its registers, spills and resident blocks (and
+   ptxas's report from phase 2); timed with CUDA events beside
+   F.scaled_dot_product_attention (the library's time, never on the
+   path), and c-fwd's sum over one 512x640 model call beside it;
 4. ``Trainer.predict`` on the Dummy dataset with GraphLAM at the width of
    config/CLI/model/graphlam.yaml: launch counts of both forward
    kernels, finite outputs, agreement with the same module on the CPU;
@@ -61,9 +64,11 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -127,16 +132,26 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> float:
-    """Median milliseconds of one ``fn()`` call over ``reps`` windows, each
-    ``inner`` back-to-back calls between two CUDA events on the current
-    stream, so that the host's share of a call (the wrapper's checks and
-    allocations) overlaps the device's work instead of adding to it."""
+    """Median device milliseconds of one ``fn()`` call over ``reps``
+    windows, each ``inner`` back-to-back calls between two CUDA events on
+    the current stream. Each window starts behind a sleep kernel that
+    outlasts the host's enqueueing of the window (twice its host time at
+    up to 2 GHz), so the calls run back to back on the device and the
+    host's share of a call (the wrapper's checks, allocations and launch)
+    is not counted, even where it is longer than the device's work."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    cycles = int(4e9 * (time.perf_counter() - t0)) + 100_000
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(inner):
             fn()
@@ -144,6 +159,28 @@ def time_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+def ptxas_fwd_summary(text: str) -> list:
+    """(``T,R,S``, registers, (spill store bytes, spill load bytes)) of
+    each c-fwd instance in ``nvcc -Xptxas -v`` output."""
+    rows, spills, name = [], {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills[name] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            inst = re.search(r"short_kv_attention_fwdILi(\d+)ELi(\d+)ELi(\d+)E", name)
+            if inst:
+                rows.append((",".join(inst.groups()), int(m.group(1)), name))
+    return [(inst, regs, spills.get(name, (None, None))) for inst, regs, name in rows]
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple:
@@ -343,6 +380,8 @@ def check_hop_bwd(rng, b=1, hr=500, w=500, h=64, ff=3):
 #: Lq and a K/V that spills its shared-memory tiles
 ATTENTION_SHAPES = {
     "stage1": (1, 20480, 320, 32),
+    "stage2": (2, 5120, 320, 32),
+    "stage3": (5, 1280, 320, 32),
     "stage4": (8, 320, 320, 32),
     "ragged": (1, 20481, 320, 32),
     "spill": (2, 2048, 4097, 64),
@@ -358,12 +397,17 @@ def _sdpa(q, k, v, scale):
 
 def check_attention(rng) -> list:
     """c-fwd and c-bwd against their plain versions at every shape of
-    ATTENTION_SHAPES; both timed, beside the plain versions and the
-    library, at each. Returns their two entries of the kernels line, the
-    stage-1 numbers on top and every shape's under "shapes"."""
+    ATTENTION_SHAPES, and each against a second call bit for bit; both
+    timed, beside the plain versions and the library, at each; c-fwd's
+    launch shape and its kernel's registers, spills and resident blocks.
+    Returns their two entries of the kernels line, the stage-1 numbers on
+    top, every shape's under "shapes", and c-fwd's sum over one 512x640
+    model call (each stage twice) beside the library's."""
     from py4cast_tpu_torch.ops.attention import (
         fused_short_kv_attention,
         fused_short_kv_attention_bwd,
+        fwd_kernel_attributes,
+        fwd_launch_shape,
         partial_chunk_rows,
         short_kv_attention_bwd_plain,
         short_kv_attention_plain,
@@ -377,6 +421,15 @@ def check_attention(rng) -> list:
         o, lse = fused_short_kv_attention(q, k, v, scale)
         torch.cuda.synchronize()
         f_err = compare(f"short_kv_attention {label}", o, short_kv_attention_plain(q, k, v, scale))
+        lse64 = torch.logsumexp(torch.einsum("bqd,bkd->bqk", q.double(), k.double()) * scale, -1)
+        lse_err = compare(f"short_kv_attention {label} lse (fp64)", lse, lse64)
+        o2, lse2 = fused_short_kv_attention(q, k, v, scale)
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"short_kv_attention {label}: a second call differs")
+        del lse64, o2, lse2
+        rows, splits = fwd_launch_shape(bh, lq, lk, d)
+        launch = {"rows": rows, "splits": splits,
+                  **fwd_kernel_attributes(d, rows, splits)}
         got = fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale)
         torch.cuda.synchronize()
         plain32 = short_kv_attention_bwd_plain(q, k, v, do, scale)
@@ -399,7 +452,7 @@ def check_attention(rng) -> list:
         b_bound = bound(b_bytes, pairs * (10 * d + 10))
         common = {"shape": f"q ({bh},{lq},{d}) k,v ({bh},{lk},{d})", "label": label}
         fwd_rows.append({
-            **common, "max_abs_err": f_err,
+            **common, "max_abs_err": f_err, "lse_max_abs_err": lse_err, "launch": launch,
             "ms": time_ms(lambda: fused_short_kv_attention(q, k, v, scale)),
             "plain_ms": time_ms(lambda: short_kv_attention_plain(q, k, v, scale)),
             "library_ms": time_ms(lambda: _sdpa(q, k, v, scale)),
@@ -431,6 +484,9 @@ def check_attention(rng) -> list:
                         + (" (its backward: autograd.grad)" if name.endswith("_bwd") else "")),
             "shapes": rows,
         })
+    stages = [r for r in fwd_rows if r["label"].startswith("stage")]
+    entries[0]["model_call_ms"] = 2 * sum(r["ms"] for r in stages)
+    entries[0]["model_call_library_ms"] = 2 * sum(r["library_ms"] for r in stages)
     return entries
 
 
@@ -880,10 +936,19 @@ def main() -> int:
     log(f"card: {kind} | nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     log("tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
 
-    # phase 2: build every kernel of the path
+    # phase 2: build every kernel of the path; beside it, ptxas's
+    # registers and spills of the c-fwd instances
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        ptxas = pool.submit(_build.ptxas_report, "short_kv_attention")
+        libs = _build.build_all()
+        ptxas_text = ptxas.result()
     log(f"build: {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "ptxas_short_kv_attention.txt").write_text(ptxas_text)
+    for inst, regs, spills in ptxas_fwd_summary(ptxas_text):
+        log(f"ptxas short_kv_attention_fwd<{inst}>: {regs} registers, "
+            f"spill stores/loads {spills[0]}/{spills[1]} bytes")
 
     # phase 3 and 3b: each kernel against its plain version at the main
     # path's shapes
@@ -897,6 +962,9 @@ def main() -> int:
             + (f" library_ms {k['library_ms']:.4f}" if k["library_ms"] is not None else ""))
         for row in k.get("shapes", []):
             log(f"  {row['label']} {row['shape']}: {json.dumps(row)}")
+        if "model_call_ms" in k:
+            log(f"  one 512x640 model call (2 x each stage): kernel {k['model_call_ms']:.4f} ms, "
+                f"library {k['model_call_library_ms']:.4f} ms")
 
     # phase 4: Trainer.predict on Dummy, counted
     dummy = predict_dummy(graphlam_settings())
@@ -939,7 +1007,6 @@ def main() -> int:
         k["launches_predict"] = (dummy["launches"][k["name"]]
                                  + seg_dummy["launches"][k["name"]])
 
-    OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "smoke_report.json").write_text(json.dumps(
         {"card": card, "kind": kind, "kernels": kernels, "predict_dummy": dummy,
          "full_size": full, "fit_dummy": fit, "full_size_train": train_full,

@@ -1,5 +1,5 @@
-// Building blocks of the short-KV attention kernels (forward and
-// backward).
+// Building blocks of the short-KV attention backward kernel
+// (short_kv_attention_bwd.cu; the forward has its own layout).
 //
 // A block owns BQ = 64 query rows of one head and runs THREADS = 256
 // threads: every row has T = ceil(D/32) channel slices of C = 32
@@ -10,9 +10,8 @@
 // shared memory S * BK keys at a time; split s takes the s-th BK-key
 // tile of each such group. The splits give Segformer's head dim 32
 // (T = 1) four times the warps a row-per-thread design would have; the
-// slices let D reach 128 with 32 channels a thread. Each kernel picks its
-// own BK (the tile's keys): the backward keeps twice the per-key values
-// of the forward in registers, and spills at the forward's 16.
+// slices let D reach 128 with 32 channels a thread. The kernel picks its
+// own BK (the tile's keys): at 16 it spilled its per-key values.
 #pragma once
 
 #include "warp_rows.cuh"
@@ -40,31 +39,10 @@ __device__ __forceinline__ void stage_tiles(float* __restrict__ dst,
   }
 }
 
-// s[j] = x . tile[j][t*C .. t*C + C) for the BK keys of a tile (x in
-// registers; one float4 of the tile feeds four FMAs).
-template <int T, int BK>
-__device__ __forceinline__ void tile_dots(const float (&x)[C], const float* __restrict__ tile,
-                                          int t, float (&s)[BK]) {
-  constexpr int DP = C * T;
-#pragma unroll
-  for (int j = 0; j < BK; ++j) {
-    const float4* row = reinterpret_cast<const float4*>(tile + j * DP + t * C);
-    float a = 0.f;
-#pragma unroll
-    for (int c4 = 0; c4 < C / 4; ++c4) {
-      const float4 w = row[c4];
-      a = fmaf(x[4 * c4], w.x, a);
-      a = fmaf(x[4 * c4 + 1], w.y, a);
-      a = fmaf(x[4 * c4 + 2], w.z, a);
-      a = fmaf(x[4 * c4 + 3], w.w, a);
-    }
-    s[j] = a;
-  }
-}
-
-// The same with x read from shared memory four channels at a time, so
-// that x needs no registers across the tile: the same products in the
-// same order (channel 0 first) for every s[j].
+// s[j] = x . tile[j][t*C .. t*C + C) for the BK keys of a tile, with x
+// read from shared memory four channels at a time, so that x needs no
+// registers across the tile: the same products in the same order
+// (channel 0 first) for every s[j].
 template <int T, int BK>
 __device__ __forceinline__ void tile_dots_shared(const float* __restrict__ x,
                                                  const float* __restrict__ tile, int t,

@@ -1,16 +1,15 @@
 // Long-query / short-KV attention, forward (fp32):
 //
 //   o[r]   = softmax(q[r] . k^T * scale) . v        q (BH, Lq, D), k, v (BH, Lk, D)
-//   lse[r] = logsumexp(q[r] . k^T * scale)          the backward's residual
+//   lse[r] = logsumexp(q[r] . k^T * scale)          natural log, the backward's residual
 //
 // Replaces the TPU kernel py4cast_tpu/ops/attention.py::_fwd_kernel
 // (reached from _forward, pl.pallas_call at :105). The TPU kernel keeps
 // the whole K/V of a head in VMEM and takes the exact softmax over all Lk
-// logits of a Q block at once. Here a block owns 64 query rows of one
-// head and streams K/V through shared memory in tiles with an online
-// softmax (running max and sum, the accumulator rescaled per tile), so
-// shared memory does not cap Lk and the (Lq, Lk) logits never reach
-// device memory.
+// logits of a Q block at once. Here K/V stream through shared memory in
+// tiles with an online softmax (running max and sum, the accumulator
+// rescaled per tile), so shared memory does not cap Lk and the (Lq, Lk)
+// logits never reach device memory.
 //
 // What bounds it on the H100: operations. Per query row and key it does
 // 2D FMAs (the q.k dot and the p.v update) and one exp; the bytes are
@@ -18,156 +17,398 @@
 // Segformer's stage 1 (Lq 20,480, Lk 320, D 32) that is 0.84 GFLOP
 // against 5.4 MB: ~12.5 us of fp32 FMA peak against ~1.6 us of memory.
 //
-// Design (attention_tiles.cuh): a thread owns one query row's slice of
-// 32 channels, q and the output accumulator in registers, for one of S
-// key splits. Each split keeps its own running max, sum and accumulator
-// over its tiles; at the end the S splits of a row meet in shared memory
-// and split 0 merges them in split order (each rescaled by exp(m_s - m)),
-// so a call repeats bit for bit. Keys past Lk get a logit of -inf; a
-// split with no key left skips the update.
-#include "attention_tiles.cuh"
+// Design, for 132 SMs and the fp32 FMA units. Shared memory delivers
+// 128 bytes a cycle to an SM's registers, broadcast or not: a float of K
+// or V that a lane reads there should feed several FMAs.
+// - Lanes. A row's D channels are cut into T slices of C = 16 (T = 1, 2,
+//   4 or 8 for D up to 16, 32, 64, 128); lane = t * (32/T) + rr holds
+//   slice t of the R rows rr, rr + 32/T, ... of its warp, q and the
+//   output accumulator in registers (2 * 16 * R floats). The T slices of
+//   a row sit in one warp: their partial dots meet by butterfly
+//   shuffles, which leave every slice the same sum.
+// - Register tiles. Every float of K or V a lane reads feeds R FMAs (R
+//   rows at once): at Segformer's D = 32 and R = 2 a key costs a lane 32
+//   floats and 2 shuffles for 64 FMAs (one row a lane: 64 floats for 64).
+//   R = 4 would need more than the 128 registers that keep 16 warps on
+//   an SM. A warp's lanes of one slice read the same word (a broadcast);
+//   slices are 20 floats apart in a key's row, so the T words of a read
+//   fall in different banks. The logits are taken 8 / R keys at a time.
+// - Key splits. A block is S warps over the same 32R/T rows; warp s
+//   takes the s-th contiguous run of Lk's keys, keeps its own (max, sum,
+//   accumulator), and the S splits meet in shared memory at the end,
+//   merged by every thread of the block in split order, so a call
+//   repeats bit for bit. The host picks R and S from (BH, Lq, Lk, D)
+//   (ops/attention.py::fwd_launch_shape): R = 2 unless half the SMs
+//   would get no block, S = 8 where the blocks are fewer than the SMs,
+//   else 4 (R, S = 2, 4 at Segformer's stages 1-3, 2, 8 at stage 4).
+// - Asynchronous tiles. K/V tiles land by cp.async in a ring of NST
+//   stages, so stage i + 2 is in flight while stage i is consumed; one
+//   __syncthreads a stage. Keys past Lk (and channels past D) are zero
+//   filled, and a logit past Lk is -inf.
+// - Base 2. q is scaled by scale * log2(e) once, so a logit's exp is one
+//   exp2f; lse goes back to the natural log on the way out.
+#include "warp_rows.cuh"
+
+#include <math.h>
+#include <stdint.h>
 
 namespace p4t {
-namespace attn {
+namespace attn_fwd {
 
-constexpr int BK = 16;  // keys a split's shared-memory tile
+constexpr int C = 16;    // channels of a slice (a lane holds one slice of a row)
+constexpr int CS = 20;   // a slice's stride in a shared K/V row (bank spread)
+constexpr int BK = 8;    // keys a split takes from one stage
+constexpr int NST = 3;   // stages in the K/V ring
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-template <int T>
-constexpr size_t fwd_smem_bytes() {
-  constexpr int S = THREADS / (BQ * T), DP = C * T;
-  constexpr size_t loop = 2 * S * BK * DP + (T > 1 ? S * T * BK * BQ : 0);
-  constexpr size_t merge = S > 1 ? S * T * C * BQ + 2 * S * BQ : 0;
-  return sizeof(float) * (loop > merge ? loop : merge);
+template <int T, int R, int S>
+struct Shape {
+  static constexpr int kT = T, kR = R, kS = S;
+  static constexpr int LANE_ROWS = 32 / T;      // rows of one slice a warp holds
+  static constexpr int BM = R * LANE_ROWS;      // rows a block
+  static constexpr int THREADS = 32 * S;        // one warp a split
+  static constexpr int KROW = CS * T;           // floats a key's row in shared memory
+  static constexpr int STAGE = 2 * S * BK * KROW;  // K then V of one stage
+  static constexpr int KS = BK / R;             // keys of one softmax update
+  static constexpr int MROW = C * T + 4;        // a row of the merge's accumulators
+  // blocks an SM the registers must allow. R = 2 fits 128 registers (16
+  // warps an SM) without spills at T = 2 and 4; at T = 1 and 8 it spilled
+  // there, so those get 3 blocks of 4 warps (up to 168 registers) or 1
+  // of 8.
+  // R = 1 runs only on grids of fewer blocks than SMs (fwd_launch_shape):
+  // one block an SM is all it needs.
+  static constexpr int MIN_BLOCKS = R == 1 ? 1 : (T == 1 || T == 8) ? (S == 4 ? 3 : 1) : 16 / S;
+  static constexpr size_t ring = (size_t)NST * STAGE;
+  static constexpr size_t merge = (size_t)S * BM * MROW + 2 * S * BM;
+  static constexpr size_t smem_bytes = sizeof(float) * (ring > merge ? ring : merge);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int T>
-__global__ void __launch_bounds__(THREADS, 2)
+// 16 bytes from global to shared, or 16 zero bytes when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes, or a zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Queue stage i of every split: split s's keys s*chunk + i*BK + [0, BK)
+// of K and V into buf as [K|V][S][BK][KROW] (slice t at t*CS, its last
+// four floats unused). Keys past Lk and channels past D are zero.
+template <int T, int R, int S>
+__device__ __forceinline__ void load_stage(float* __restrict__ buf, const float* __restrict__ kb,
+                                           const float* __restrict__ vb, int i, int chunk, int lk,
+                                           int d) {
+  using Sh = Shape<T, R, S>;
+  if ((d & 3) == 0) {  // rows of 16-byte words: one cp.async a word
+    constexpr int WORDS = C / 4 * T;  // a key's words, padding past D included
+    for (int e = threadIdx.x; e < 2 * S * BK * WORDS; e += Sh::THREADS) {
+      const int kv = e / (S * BK * WORDS), rest = e % (S * BK * WORDS);
+      const int s = rest / (BK * WORDS), j = (rest / WORDS) % BK, w = rest % WORDS;
+      const int key = s * chunk + i * BK + j, ch = 4 * w;
+      const bool valid = key < lk && ch < d;
+      const float* src = (kv ? vb : kb) + (valid ? (long long)key * d + ch : 0);
+      cp_async16(buf + kv * (S * BK * Sh::KROW) + (s * BK + j) * Sh::KROW + (ch / C) * CS + ch % C,
+                 src, valid);
+    }
+  } else {  // any D: one cp.async a float
+    constexpr int CH = C * T;
+    for (int e = threadIdx.x; e < 2 * S * BK * CH; e += Sh::THREADS) {
+      const int kv = e / (S * BK * CH), rest = e % (S * BK * CH);
+      const int s = rest / (BK * CH), j = (rest / CH) % BK, ch = rest % CH;
+      const int key = s * chunk + i * BK + j;
+      const bool valid = key < lk && ch < d;
+      const float* src = (kv ? vb : kb) + (valid ? (long long)key * d + ch : 0);
+      cp_async4(buf + kv * (S * BK * Sh::KROW) + (s * BK + j) * Sh::KROW + (ch / C) * CS + ch % C,
+                src, valid);
+    }
+  }
+}
+
+// registers as Shape::MIN_BLOCKS allows (R = 4 did not fit 168)
+template <int T, int R, int S>
+__global__ void __launch_bounds__(32 * S, (Shape<T, R, S>::MIN_BLOCKS))
     short_kv_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            float* __restrict__ lse, int lq, int lk, int d, float scale) {
-  constexpr int S = THREADS / (BQ * T), DP = C * T;
+  using Sh = Shape<T, R, S>;
   extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [S][BK][DP]
-  float* vs = ks + S * BK * DP;                 // [S][BK][DP]
-  float* red = vs + S * BK * DP;                // [S][T][BK][BQ], only T > 1
+  float* smem = reinterpret_cast<float*>(smem4);
 
-  const int bh = blockIdx.y;
-  const int rl = threadIdx.x % BQ, t = (threadIdx.x / BQ) % T, sp = threadIdx.x / (BQ * T);
-  const int row = blockIdx.x * BQ + rl;
-  const bool live = row < lq;
-  const long long qoff = ((long long)bh * lq + (live ? row : 0)) * d;
+  const int bh = blockIdx.y, row0 = blockIdx.x * Sh::BM;
+  const int lane = threadIdx.x % 32, sp = threadIdx.x / 32;
+  const int t = lane / Sh::LANE_ROWS, rr = lane % Sh::LANE_ROWS;
   const float* kb = k + (long long)bh * lk * d;
   const float* vb = v + (long long)bh * lk * d;
+  // split sp's keys: [sp * chunk, (sp + 1) * chunk), chunk a multiple of BK
+  const int chunk = BK * ((((lk + BK - 1) / BK) + S - 1) / S);
+  const int tiles = chunk / BK;
 
-  float x[C], acc[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int ch = t * C + c;
-    x[c] = (live && ch < d) ? q[qoff + ch] : 0.f;
-    acc[c] = 0.f;
+  for (int i = 0; i < NST - 1; ++i) {
+    if (i < tiles) load_stage<T, R, S>(smem + i * Sh::STAGE, kb, vb, i, chunk, lk, d);
+    cp_async_commit();
   }
-  float m = -INFINITY, l = 0.f;
 
-  for (int j0 = 0; j0 < lk; j0 += S * BK) {
-    __syncthreads();  // the previous tiles' readers are done
-    stage_tiles<T, S, BK>(ks, kb, j0, lk, d);
-    stage_tiles<T, S, BK>(vs, vb, j0, lk, d);
-    __syncthreads();
-
-    float s[BK];
-    tile_dots<T, BK>(x, ks + sp * BK * DP, t, s);
-    slice_sum<T, BK>(s, red + sp * T * BK * BQ, t, rl);
-
-    const int n = min(BK, lk - j0 - sp * BK);  // this split's keys in the tile
-    if (n > 0) {
-      float mt = m;
+  // q, in base-2 logit units; channels past D and rows past Lq are 0
+  const float qs = scale * LOG2E;
+  float x[R][C], acc[R][C], m[R], l[R];
 #pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        s[j] = j < n ? s[j] * scale : -INFINITY;
-        mt = fmaxf(mt, s[j]);
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * Sh::LANE_ROWS + rr;
+    const float* qr = q + ((long long)bh * lq + min(row, lq - 1)) * d + t * C;
+    if ((d & 3) == 0) {  // 16-byte loads
+#pragma unroll
+      for (int c4 = 0; c4 < C / 4; ++c4) {
+        const float4 w = (row < lq && t * C + 4 * c4 < d)
+                             ? reinterpret_cast<const float4*>(qr)[c4]
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        x[r][4 * c4] = w.x * qs;
+        x[r][4 * c4 + 1] = w.y * qs;
+        x[r][4 * c4 + 2] = w.z * qs;
+        x[r][4 * c4 + 3] = w.w * qs;
       }
-      const float alpha = expf(m - mt);  // 0 on the split's first tile (m = -inf)
-      float ps = 0.f;
+    } else {
 #pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        s[j] = expf(s[j] - mt);
-        ps += s[j];
+      for (int c = 0; c < C; ++c) x[r][c] = (row < lq && t * C + c < d) ? qr[c] * qs : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+
+  const int key_base = sp * chunk;
+  for (int i = 0; i < tiles; ++i) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // stage i landed for all; stage i - 1 is free
+    if (i + NST - 1 < tiles)
+      load_stage<T, R, S>(smem + ((i + NST - 1) % NST) * Sh::STAGE, kb, vb, i + NST - 1, chunk,
+                          lk, d);
+    cp_async_commit();
+
+    const int n = min(BK, lk - (key_base + i * BK));  // this split's keys in the stage
+    const float* ks = smem + (i % NST) * Sh::STAGE + sp * BK * Sh::KROW + t * CS;
+    const float* vs = ks + S * BK * Sh::KROW;
+    // KS keys at a time, so that the logits of R rows stay few registers;
+    // n is the same in the whole warp (one warp a split)
+#pragma unroll
+    for (int h = 0; h < BK; h += Sh::KS) {
+      if (h >= n) break;
+      float s[R][Sh::KS];
+#pragma unroll
+      for (int j = 0; j < Sh::KS; ++j) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) s[r][j] = 0.f;
+#pragma unroll
+        for (int c4 = 0; c4 < C / 4; ++c4) {
+          const float4 w = *reinterpret_cast<const float4*>(ks + (h + j) * Sh::KROW + 4 * c4);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            s[r][j] = fmaf(x[r][4 * c4], w.x, s[r][j]);
+            s[r][j] = fmaf(x[r][4 * c4 + 1], w.y, s[r][j]);
+            s[r][j] = fmaf(x[r][4 * c4 + 2], w.z, s[r][j]);
+            s[r][j] = fmaf(x[r][4 * c4 + 3], w.w, s[r][j]);
+          }
+        }
       }
-      l = l * alpha + ps;
-      m = mt;
+      if (T > 1) {  // the row's slices: a butterfly, the same sum in every slice
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] *= alpha;
-      tile_axpy<T, BK>(s, vs + sp * BK * DP, t, acc);
+        for (int off = Sh::LANE_ROWS; off < 32; off *= 2)
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int j = 0; j < Sh::KS; ++j) s[r][j] += __shfl_xor_sync(FULL, s[r][j], off);
+      }
+
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float mt = m[r];
+#pragma unroll
+        for (int j = 0; j < Sh::KS; ++j) {
+          s[r][j] = h + j < n ? s[r][j] : -INFINITY;
+          mt = fmaxf(mt, s[r][j]);
+        }
+        const float alpha = exp2f(m[r] - mt);  // 0 on the split's first keys (m = -inf)
+        l[r] *= alpha;
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[r][c] *= alpha;
+        m[r] = mt;
+#pragma unroll
+        for (int j = 0; j < Sh::KS; ++j) {
+          s[r][j] = exp2f(s[r][j] - m[r]);
+          l[r] += s[r][j];
+        }
+      }
+
+#pragma unroll
+      for (int j = 0; j < Sh::KS; ++j) {
+#pragma unroll
+        for (int c4 = 0; c4 < C / 4; ++c4) {
+          const float4 w = *reinterpret_cast<const float4*>(vs + (h + j) * Sh::KROW + 4 * c4);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            acc[r][4 * c4] = fmaf(s[r][j], w.x, acc[r][4 * c4]);
+            acc[r][4 * c4 + 1] = fmaf(s[r][j], w.y, acc[r][4 * c4 + 1]);
+            acc[r][4 * c4 + 2] = fmaf(s[r][j], w.z, acc[r][4 * c4 + 2]);
+            acc[r][4 * c4 + 3] = fmaf(s[r][j], w.w, acc[r][4 * c4 + 3]);
+          }
+        }
+      }
     }
   }
 
-  if (S > 1) {
-    // merge the row's splits in split order; a split that saw no key
-    // has m = -inf, l = 0 and a zero accumulator, and weighs 0
-    __syncthreads();  // done with the tiles: shared memory is reused
-    float* accs = reinterpret_cast<float*>(smem4);  // [S][T][C][BQ]
-    float* ms = accs + S * T * C * BQ;              // [S][BQ]
-    float* ls = ms + S * BQ;                        // [S][BQ]
+  // the merge: every split's (max, sum, accumulator) into shared memory;
+  // a split that saw no key has m = -inf, l = 0, acc = 0 and weighs 0
+  cp_async_wait<0>();
+  __syncthreads();  // every split is done with the ring: it is reused
+  float* accs = smem;                           // [S][BM][MROW]
+  float* ms = accs + S * Sh::BM * Sh::MROW;     // [S][BM]
+  float* ws = ms + S * Sh::BM;                  // [S][BM]: the rows' weights
 #pragma unroll
-    for (int c = 0; c < C; ++c) accs[((sp * T + t) * C + c) * BQ + rl] = acc[c];
+  for (int r = 0; r < R; ++r) {
+    const int br = r * Sh::LANE_ROWS + rr;
+    float* dst = accs + (sp * Sh::BM + br) * Sh::MROW + t * C;
+#pragma unroll
+    for (int c4 = 0; c4 < C / 4; ++c4)
+      reinterpret_cast<float4*>(dst)[c4] =
+          make_float4(acc[r][4 * c4], acc[r][4 * c4 + 1], acc[r][4 * c4 + 2], acc[r][4 * c4 + 3]);
     if (t == 0) {
-      ms[sp * BQ + rl] = m;
-      ls[sp * BQ + rl] = l;
-    }
-    __syncthreads();
-    if (sp != 0) return;
-    m = ms[rl];
-#pragma unroll
-    for (int u = 1; u < S; ++u) m = fmaxf(m, ms[u * BQ + rl]);
-    float w[S];
-    l = 0.f;
-#pragma unroll
-    for (int u = 0; u < S; ++u) {
-      w[u] = expf(ms[u * BQ + rl] - m);
-      l += ls[u * BQ + rl] * w[u];
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float a = 0.f;
-#pragma unroll
-      for (int u = 0; u < S; ++u) a += accs[((u * T + t) * C + c) * BQ + rl] * w[u];
-      acc[c] = a;
+      ms[sp * Sh::BM + br] = m[r];
+      ws[sp * Sh::BM + br] = l[r];
     }
   }
+  __syncthreads();
 
-  if (live) {
-    const float inv = 1.f / l;
+  // per row: the max over splits, each split's weight exp2(m_s - m) / l,
+  // and lse; all in split order
+  const int rows = min(Sh::BM, lq - row0);
+  for (int br = threadIdx.x; br < rows; br += Sh::THREADS) {
+    float mx = ms[br];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int ch = t * C + c;
-      if (ch < d) o[qoff + ch] = acc[c] * inv;
+    for (int u = 1; u < S; ++u) mx = fmaxf(mx, ms[u * Sh::BM + br]);
+    float sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < S; ++u) {  // ms[u] becomes split u's weight exp2(m_u - m)
+      ms[u * Sh::BM + br] = exp2f(ms[u * Sh::BM + br] - mx);
+      sum += ws[u * Sh::BM + br] * ms[u * Sh::BM + br];
     }
-    if (t == 0) lse[(long long)bh * lq + row] = m + logf(l);
+    const float inv = 1.f / sum;
+#pragma unroll
+    for (int u = 0; u < S; ++u) ws[u * Sh::BM + br] = ms[u * Sh::BM + br] * inv;
+    lse[(long long)bh * lq + row0 + br] = (mx + log2f(sum)) * LN2;
+  }
+  __syncthreads();
+
+  // o: the block's rows are contiguous in o, so consecutive threads write
+  // consecutive channels
+  float* ob = o + ((long long)bh * lq + row0) * d;
+  for (int e = threadIdx.x; e < rows * d; e += Sh::THREADS) {
+    const int br = e / d, ch = e % d;
+    float a = 0.f;
+#pragma unroll
+    for (int u = 0; u < S; ++u) a += accs[(u * Sh::BM + br) * Sh::MROW + ch] * ws[u * Sh::BM + br];
+    ob[e] = a;
   }
 }
 
-template <int T>
-cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse,
-                       int bh, int lq, int lk, int d, float scale, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(short_kv_attention_fwd<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int T, int R, int S>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh,
+                   int lq, int lk, int d, float scale, cudaStream_t stream) {
+  using Sh = Shape<T, R, S>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      short_kv_attention_fwd<T, R, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Sh::smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((lq + BQ - 1) / BQ, bh);
-  short_kv_attention_fwd<T><<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, lq, lk, d, scale);
+  const dim3 grid((lq + Sh::BM - 1) / Sh::BM, bh);
+  short_kv_attention_fwd<T, R, S>
+      <<<grid, Sh::THREADS, Sh::smem_bytes, stream>>>(q, k, v, o, lse, lq, lk, d, scale);
   return cudaGetLastError();
 }
 
-}  // namespace attn
+// The kernel's registers, local (spill) bytes, dynamic shared memory and
+// resident blocks an SM.
+template <int T, int R, int S>
+cudaError_t attributes(int* out) {
+  using Sh = Shape<T, R, S>;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncSetAttribute(short_kv_attention_fwd<T, R, S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Sh::smem_bytes);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, short_kv_attention_fwd<T, R, S>);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, short_kv_attention_fwd<T, R, S>,
+                                                        Sh::THREADS, Sh::smem_bytes);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)Sh::smem_bytes;
+  out[3] = blocks;
+  return cudaSuccess;
+}
+
+// The launch shapes the host may ask for: (R, S) in {(2, 4), (2, 8),
+// (1, 4), (1, 8)}, with S * T <= 32 (the ring's shared memory).
+template <int T, typename F>
+cudaError_t dispatch_slices(int rows, int splits, F&& f) {
+  if (rows == 2 && splits == 4) return f(Shape<T, 2, 4>{});
+  if (rows == 1 && splits == 4) return f(Shape<T, 1, 4>{});
+  if constexpr (T <= 4) {
+    if (rows == 2 && splits == 8) return f(Shape<T, 2, 8>{});
+    if (rows == 1 && splits == 8) return f(Shape<T, 1, 8>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename F>
+cudaError_t dispatch(int d, int rows, int splits, F&& f) {
+  if (d < 1 || d > 8 * C) return cudaErrorInvalidValue;
+  if (d <= C) return dispatch_slices<1>(rows, splits, f);
+  if (d <= 2 * C) return dispatch_slices<2>(rows, splits, f);
+  if (d <= 4 * C) return dispatch_slices<4>(rows, splits, f);
+  return dispatch_slices<8>(rows, splits, f);
+}
+
+}  // namespace attn_fwd
 }  // namespace p4t
 
+// rows: R, the query rows a thread; splits: S, the key splits (warps) a
+// block; both from ops/attention.py::fwd_launch_shape
 extern "C" int p4t_short_kv_attention_fwd(const float* q, const float* k, const float* v,
                                           float* o, float* lse, int bh, int lq, int lk, int d,
-                                          float scale, void* stream) {
-  using namespace p4t::attn;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh < 1 || lq < 1 || lk < 1 || d < 1 || d > 4 * C) return (int)cudaErrorInvalidValue;
-  if (d <= C) return (int)launch_fwd<1>(q, k, v, o, lse, bh, lq, lk, d, scale, s);
-  if (d <= 2 * C) return (int)launch_fwd<2>(q, k, v, o, lse, bh, lq, lk, d, scale, s);
-  return (int)launch_fwd<4>(q, k, v, o, lse, bh, lq, lk, d, scale, s);
+                                          float scale, int rows, int splits, void* stream) {
+  using namespace p4t::attn_fwd;
+  if (bh < 1 || lq < 1 || lk < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)dispatch(d, rows, splits, [&](auto sh) {
+    using Sh = decltype(sh);
+    return launch<Sh::kT, Sh::kR, Sh::kS>(q, k, v, o, lse, bh, lq, lk, d, scale, st);
+  });
+}
+
+// out[4]: registers a thread, local bytes a thread (spills), dynamic
+// shared memory bytes, resident blocks an SM, of the kernel that
+// p4t_short_kv_attention_fwd launches for (d, rows, splits)
+extern "C" int p4t_short_kv_attention_fwd_attributes(int d, int rows, int splits, int* out) {
+  using namespace p4t::attn_fwd;
+  return (int)dispatch(d, rows, splits, [&](auto sh) {
+    using Sh = decltype(sh);
+    return attributes<Sh::kT, Sh::kR, Sh::kS>(out);
+  });
 }

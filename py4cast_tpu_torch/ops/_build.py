@@ -99,6 +99,22 @@ def build_all(names=SOURCES) -> List[Path]:
     return [library_path(n) for n in names]
 
 
+def ptxas_report(name: str) -> str:
+    """What ptxas says of the kernels of ``csrc/<name>.cu`` (``-Xptxas
+    -v``: each kernel's registers, stack, spill stores and loads). Builds
+    the source once more into a scratch library, deleted after."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"ptxas_{name}.tmp{os.getpid()}.so"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(CSRC / f"{name}.cu")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    finally:
+        out.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v {name}.cu failed:\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     with _LOCK:

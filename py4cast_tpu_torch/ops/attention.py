@@ -32,11 +32,18 @@ from torch.autograd.function import once_differentiable
 
 from py4cast_tpu_torch.ops import _build
 
-#: the kernels hold a row's channels in registers, 32 a thread and up to
-#: four threads a row
+#: the kernels hold a row's channels in registers, up to four threads
+#: (backward) or eight (forward) a row
 MAX_HEAD_DIM = 128
-#: query rows a block of either kernel (``BQ`` in the sources)
+#: query rows a block of the backward kernel (``BQ`` in
+#: ``csrc/attention_tiles.cuh``); the forward picks its own
+#: (``fwd_launch_shape``)
 BLOCK_Q = 64
+#: streaming multiprocessors of the H100 the forward's grid is sized for
+NUM_SMS = 132
+#: keys a split of the forward takes from one shared-memory stage (``BK``
+#: in ``csrc/short_kv_attention.cu``)
+FWD_KEY_TILE = 8
 #: the most fp32 bytes the backward's per-chunk dK/dV partials may take
 #: before the wrapper makes each chunk span more query blocks
 MAX_PARTIAL_BYTES = 64 << 20
@@ -69,11 +76,53 @@ def short_kv_attention_bwd_plain(q, k, v, do, scale):
 def _lib():
     lib = _build.load("short_kv_attention")
     fn = lib.p4t_short_kv_attention_fwd
-    if fn.argtypes is None:  # first use: declare the C signature
+    if fn.argtypes is None:  # first use: declare the C signatures
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        attrs = lib.p4t_short_kv_attention_fwd_attributes
+        attrs.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        attrs.restype = ctypes.c_int
     return lib
+
+
+def lanes_per_row(d) -> int:
+    """T, the forward's lanes a query row: 16 channels each, 1, 2, 4 or 8."""
+    return 1 if d <= 16 else 2 if d <= 32 else 4 if d <= 64 else 8
+
+
+def fwd_launch_shape(bh, lq, lk, d) -> tuple:
+    """``(rows, splits)`` of the forward kernel for a call: R, the query
+    rows a thread holds, and S, the key splits (one warp each) of a block
+    of 32·R/T rows (T = ``lanes_per_row(d)``). Each K/V float a lane
+    reads feeds R FMAs, so R = 2 unless that leaves more than half the
+    SMs without a block (then R = 1, on a grid of fewer blocks than SMs:
+    the kernel's R = 1 instances are built for one block an SM). S = 4,
+    or 8 where the blocks are
+    fewer than the SMs and each split keeps at least two key tiles
+    (S·T within 32: the K/V ring's shared memory). Depends on the shape
+    alone, so a call repeats bit for bit."""
+    t = lanes_per_row(d)
+
+    def blocks(rows):
+        return bh * -(-lq // (rows * 32 // t))
+
+    rows = 2 if blocks(2) >= NUM_SMS // 2 else 1
+    tiles = -(-lk // FWD_KEY_TILE)
+    splits = 8 if blocks(rows) < NUM_SMS and 8 * t <= 32 and tiles >= 16 else 4
+    return rows, splits
+
+
+def fwd_kernel_attributes(d, rows, splits) -> dict:
+    """The forward kernel that ``(d, rows, splits)`` launches, as the
+    card reports it: registers a thread, local (spill) bytes a thread,
+    dynamic shared memory, resident blocks an SM. Needs the card."""
+    lib = _lib()
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, lib.p4t_short_kv_attention_fwd_attributes(d, rows, splits, out),
+                 "short_kv_attention attributes")
+    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2],
+            "blocks_per_sm": out[3]}
 
 
 def _bwd_lib():
@@ -118,6 +167,7 @@ def fused_short_kv_attention(q, k, v, scale):
         s = torch.einsum("bqd,bkd->bqk", q, k) * scale
         return short_kv_attention_plain(q, k, v, scale), torch.logsumexp(s, dim=-1)
 
+    rows, splits = fwd_launch_shape(bh, lq, lk, d)
     o = torch.empty_like(q)
     lse = torch.empty((bh, lq), device=device, dtype=torch.float32)
     lib = _lib()
@@ -125,7 +175,7 @@ def fused_short_kv_attention(q, k, v, scale):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.p4t_short_kv_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            bh, lq, lk, d, float(scale), stream,
+            bh, lq, lk, d, float(scale), rows, splits, stream,
         )
     _build.check(lib, status, "short_kv_attention kernel")
     fused_short_kv_attention.launches += 1

@@ -154,3 +154,50 @@ def test_backward_partials_stay_under_their_cap():
         assert rows % attention.BLOCK_Q == 0
         chunks = -(-lq // rows)
         assert chunks * 2 * bh * lk * d * 4 <= attention.MAX_PARTIAL_BYTES or chunks == 1
+
+
+#: (BH, Lq, Lk, D) -> the forward's (rows a thread, key splits): the
+#: four Segformer stages at 512x640, then each side of every boundary
+#: where the choice changes, for each count of lanes a row (D <= 16,
+#: <= 32, <= 64, <= 128)
+FWD_LAUNCH_SHAPES = [
+    ((1, 20480, 320, 32), (2, 4)),
+    ((2, 5120, 320, 32), (2, 4)),
+    ((5, 1280, 320, 32), (2, 4)),
+    ((8, 320, 320, 32), (2, 8)),
+    ((1, 4224, 320, 32), (2, 4)),      # 132 blocks of 32 rows: one an SM
+    ((1, 4192, 320, 32), (2, 8)),      # 131
+    ((1, 4192, 128, 32), (2, 8)),      # 16 key tiles: two for each of 8 splits
+    ((1, 4192, 120, 32), (2, 4)),      # 15
+    ((1, 2112, 320, 32), (2, 8)),      # 66 blocks: half the SMs
+    ((1, 2080, 320, 32), (1, 8)),      # 65: 16 rows a block
+    ((1, 2080, 120, 32), (1, 4)),
+    ((1, 5, 320, 32), (1, 8)),         # fewer rows than one block
+    ((2, 10, 3, 32), (1, 4)),          # one key tile: three splits see no key
+    ((1, 40, 257, 32), (1, 8)),        # 33 tiles: split 7 sees no key
+    ((1, 8448, 320, 16), (2, 4)),
+    ((1, 8384, 320, 16), (2, 8)),
+    ((1, 4160, 320, 8), (1, 8)),
+    ((1, 2112, 320, 64), (2, 4)),
+    ((1, 1040, 320, 64), (1, 8)),      # S * T reaches 32
+    ((1, 528, 320, 100), (2, 4)),      # T = 8: no more than 4 splits
+    ((1, 520, 320, 128), (1, 4)),
+    ((3, 7, 2, 128), (1, 4)),
+]
+
+
+@pytest.mark.parametrize("shape,want", FWD_LAUNCH_SHAPES)
+def test_forward_launch_shape(shape, want):
+    assert attention.fwd_launch_shape(*shape) == want
+
+
+def test_forward_launch_shapes_are_ones_the_kernel_has():
+    """Every choice is one of the kernel's instances: (R, S) in (2, 4),
+    (2, 8), (1, 4), (1, 8), with S * T <= 32."""
+    rng = np.random.default_rng(0)
+    for _ in range(2000):
+        bh, lq, lk = (int(x) for x in rng.integers(1, [64, 40000, 5000]))
+        d = int(rng.integers(1, attention.MAX_HEAD_DIM + 1))
+        rows, splits = attention.fwd_launch_shape(bh, lq, lk, d)
+        assert (rows, splits) in {(2, 4), (2, 8), (1, 4), (1, 8)}
+        assert splits * attention.lanes_per_row(d) <= 32

@@ -257,11 +257,12 @@ def test_functions_give_the_cpu_gradients_on_the_card(cuda):
         assert float((g - want).abs().max()) <= GRAD_BAR * scale
 
 
-#: (BH, Lq, Lk, D): Segformer's stages 1, 3 and 4 at 512x640, a ragged
+#: (BH, Lq, Lk, D): Segformer's stages 1 to 4 at 512x640, a ragged
 #: Lq, K/V tiles that spill (Lk 4097), one key, every thread-slice count
 #: (D 8, 32, 64, 100, 128)
 ATTENTION_SHAPES = [
     (1, 20480, 320, 32),
+    (2, 5120, 320, 32),
     (5, 1280, 320, 32),
     (8, 320, 320, 32),
     (2, 20481, 320, 32),
@@ -337,3 +338,58 @@ def test_attention_function_gives_the_cpu_gradients_on_the_card(cuda):
     for g, want in zip(on_card, grads("cpu")):
         scale = max(1.0, float(want.abs().max()))
         assert float((g - want).abs().max()) <= GRAD_BAR * scale
+
+
+#: (BH, Lq, Lk): each side of every boundary where the forward's launch
+#: shape (rows a thread, key splits) changes, by lanes a row (D <= 16,
+#: <= 32, <= 64, <= 128; ``fwd_launch_shape``), with fewer rows than a
+#: block and splits that see no key
+FWD_BOUNDARIES = {
+    1: [(1, 8448, 320), (1, 8384, 320), (1, 4224, 320), (1, 4160, 320), (1, 4160, 120),
+        (1, 5, 320), (2, 10, 3), (1, 40, 257)],
+    2: [(1, 4224, 320), (1, 4192, 320), (1, 4192, 128), (1, 4192, 120), (1, 2112, 320),
+        (1, 2080, 320), (1, 2080, 120), (1, 5, 320), (2, 10, 3), (1, 40, 257)],
+    4: [(1, 2112, 320), (1, 2096, 320), (1, 1056, 320), (1, 1040, 320), (1, 1040, 120),
+        (1, 3, 40)],
+    8: [(1, 528, 320), (1, 520, 320), (3, 7, 2)],
+}
+FWD_SHAPES = [(bh, lq, lk, d) for t, dims in ((1, (8,)), (2, (32,)), (4, (64,)), (8, (100, 128)))
+              for d in dims for bh, lq, lk in FWD_BOUNDARIES[t]]
+
+
+def test_forward_boundaries_cover_every_launch_shape():
+    chosen = {(attention.lanes_per_row(s[3]), *attention.fwd_launch_shape(*s))
+              for s in FWD_SHAPES}
+    instances = {(t, r, s) for t in (1, 2, 4, 8)
+                 for r, s in ((2, 4), (2, 8), (1, 4), (1, 8)) if s * t <= 32}
+    assert chosen == instances
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", FWD_SHAPES + [(2, 5120, 320, 32), (8, 320, 320, 32)])
+def test_attention_forward_at_every_launch_shape(cuda, bh, lq, lk, d):
+    """o against the plain version, lse against the fp64 logsumexp, and
+    a second call bit for bit."""
+    rng = np.random.default_rng(500 + d + lk)
+    q, k, v = _attention_args(rng, bh, lq, lk, d)
+    scale = d ** -0.5
+    before = fused_short_kv_attention.launches
+    o, lse = fused_short_kv_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert fused_short_kv_attention.launches == before + 1
+    torch.testing.assert_close(o, short_kv_attention_plain(q, k, v, scale), **TOL)
+    s = torch.einsum("bqd,bkd->bqk", q.double(), k.double()) * scale
+    torch.testing.assert_close(lse.double(), torch.logsumexp(s, dim=-1), **TOL)
+    o2, lse2 = fused_short_kv_attention(q, k, v, scale)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_attention_forward_kernels_do_not_spill(cuda):
+    """Every instance of the forward kernel keeps its state in registers
+    and fits at least one block an SM."""
+    for t, d in ((1, 16), (2, 32), (4, 64), (8, 128)):
+        for rows, splits in ((2, 4), (2, 8), (1, 4), (1, 8)):
+            if splits * t > 32:
+                continue
+            a = attention.fwd_kernel_attributes(d, rows, splits)
+            assert a["local_bytes"] == 0, (d, rows, splits, a)
+            assert a["blocks_per_sm"] >= 1, (d, rows, splits, a)
