@@ -29,9 +29,9 @@ from py4cast_tpu_torch.ops import _build
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 MAX_WIDTH = 128
-#: the backward kernel keeps both weight matrices, both weight-gradient
-#: accumulators and a tile of rows in one block's shared memory, and
-#: twice the forward's live rows in registers: 64 is the widest it takes
+#: the backward kernel keeps both weight matrices and four row tiles in
+#: one block's shared memory, and its threads' patches of both weight
+#: gradients in registers: 64 is the widest it takes
 MAX_BWD_WIDTH = 64
 
 
@@ -105,7 +105,23 @@ def _bwd_lib():
         grid = lib.p4t_stencil_message_bwd_grid
         grid.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         grid.restype = ctypes.c_int
+        attrs = lib.p4t_stencil_message_bwd_attributes
+        attrs.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+        attrs.restype = ctypes.c_int
     return lib
+
+
+def bwd_kernel_attributes(f_in, h) -> dict:
+    """The backward kernel that widths ``(f_in, h)`` launch, as the card
+    reports it: registers a thread, local (spill) bytes a thread, dynamic
+    shared memory, resident blocks an SM, and the rows of its tile.
+    Needs the card."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, lib.p4t_stencil_message_bwd_attributes(f_in, h, out),
+                 "stencil_message_bwd attributes")
+    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2],
+            "blocks_per_sm": out[3], "tile_rows": out[4]}
 
 
 def _validate(what, e, vs, pd, mask, we, be, wo, bo, lns, lnb, residual, max_width, extra=None):

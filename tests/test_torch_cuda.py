@@ -169,6 +169,14 @@ def _hop_args(rng, b, hr, w, h, ff):
     (1, 6, 6, 64, 64, False),
     (2, 3, 5, 8, 64, False),
     (1, 63, 63, 64, 64, True),     # GraphLAM level 1
+    (1, 32, 32, 64, 64, True),     # GraphLAM level 2
+    (1, 2, 3, 64, 64, True),       # fewer cells than one tile (8 at width 64)
+    (1, 3, 3, 64, 64, False),      # one cell past a tile
+    (1, 1, 17, 32, 32, True),      # one cell past a tile (16 at width 32)
+    (1, 5, 7, 64, 32, False),      # F = 64, h = 32
+    (1, 5, 7, 32, 64, False),      # F = 32, h = 64
+    (2, 9, 11, 64, 64, True),      # B = 2: a tile spans both batch entries
+    (1, 4, 5, 30, 30, True),       # widths not a multiple of 4: no 128-bit loads
 ])
 def test_stencil_bwd_kernel_matches_plain(cuda, b, hr, w, f_in, h, residual):
     rng = np.random.default_rng(100 + h + f_in)
@@ -214,6 +222,15 @@ def test_hop_bwd_kernel_matches_plain(cuda, b, hr, w, h, ff, mean):
     again = fused_corner_hop_bwd(psg, *rest, g, mean=mean)
     for gr, g2 in zip(got[5:], again[5:]):
         assert torch.equal(gr, g2)
+
+
+def test_stencil_bwd_kernels_do_not_spill(cuda):
+    """Both instances of the stencil backward (widths up to 32 and up to
+    64) keep their state in registers and fit a block an SM."""
+    for f_in, h in ((32, 32), (64, 64)):
+        a = stencil_kernel.bwd_kernel_attributes(f_in, h)
+        assert a["local_bytes"] == 0, (f_in, h, a)
+        assert a["blocks_per_sm"] >= 1, (f_in, h, a)
 
 
 def test_bwd_kernels_raise_above_their_width_cap(cuda):
