@@ -8,7 +8,8 @@ non-zero exit code and no result line:
 
 1. the card: its name and power limit (nvidia-smi), TF32 off;
 2. build every CUDA kernel of the main path from ``py4cast_tpu_torch/csrc``
-   with nvcc (one process per source, all at once);
+   with nvcc (one process per source, all at once); ptxas's registers
+   and spills of every c-fwd and a-bwd instance;
 3. each forward kernel against its plain PyTorch version at the main
    path's shapes (GraphLAM at 500x500: the level-0 125x125 lattice for
    the stencil message, the 500x500 grid for the corner hop), inputs
@@ -16,7 +17,9 @@ non-zero exit code and no result line:
 3b. each backward kernel the same way, with random cotangents: input
    gradients against the plain backward, weight gradients (sums over
    every cell) against the plain backward in fp64, as is the plain
-   backward in fp32;
+   backward in fp32; a-bwd at each GraphLAM level's lattice (125x125,
+   63x63, 32x32), each with its bound, a second call bit for bit, and
+   the launched instance's registers, spills and resident blocks;
 3c. the short-KV attention kernels (Segformer's c-fwd and c-bwd) at the
    512x640 cell's four stage shapes, a ragged Lq and a K/V that spills
    its tiles: the forward against the plain version and its lse against
@@ -161,9 +164,10 @@ def time_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> float:
     return float(np.median(times))
 
 
-def ptxas_fwd_summary(text: str) -> list:
-    """(``T,R,S``, registers, (spill store bytes, spill load bytes)) of
-    each c-fwd instance in ``nvcc -Xptxas -v`` output."""
+def ptxas_summary(text: str, kernel: str) -> list:
+    """(template arguments joined by commas, registers, (spill store
+    bytes, spill load bytes)) of each instance of the kernel template
+    ``kernel`` in ``nvcc -Xptxas -v`` output."""
     rows, spills, name = [], {}, None
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -177,9 +181,10 @@ def ptxas_fwd_summary(text: str) -> list:
             name = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            inst = re.search(r"short_kv_attention_fwdILi(\d+)ELi(\d+)ELi(\d+)E", name)
+            inst = re.search(kernel + r"I((?:Li\d+E)+)", name)
             if inst:
-                rows.append((",".join(inst.groups()), int(m.group(1)), name))
+                rows.append((",".join(re.findall(r"Li(\d+)E", inst.group(1))),
+                             int(m.group(1)), name))
     return [(inst, regs, spills.get(name, (None, None))) for inst, regs, name in rows]
 
 
@@ -301,41 +306,67 @@ def _check_bwd(name, got, plain32, plain64, n_inputs):
     return err, rel
 
 
-def check_stencil_bwd(rng, b=1, hr=125, w=125, h=64):
+#: the lattice sides of GraphLAM's three mesh levels at 500x500 (the
+#: kernel runs once a level in each of the 4 processor layers)
+GRAPHLAM_LEVELS = (125, 63, 32)
+
+
+def check_stencil_bwd(rng, b=1, h=64) -> dict:
+    """a-bwd against the plain backward at each GraphLAM level's lattice
+    (residual on), a second call bit for bit, both timed; the launched
+    instance's registers, spills and resident blocks. The level-0 numbers
+    on top, every level's under "shapes"."""
     from py4cast_tpu_torch.ops.stencil_kernel import (
+        bwd_kernel_attributes,
         fused_stencil_message_bwd,
         stencil_message_bwd_plain,
     )
 
-    args = stencil_inputs(rng, b, hr, w, h)
-    g_out, g_agg = _rand(rng, b, 8, hr, w, h), _rand(rng, b, hr, w, h)
-    got = fused_stencil_message_bwd(*args, g_out, g_agg, residual=True)
-    torch.cuda.synchronize()
-    plain32 = stencil_message_bwd_plain(*args, g_out, g_agg, residual=True)
-    plain64 = stencil_message_bwd_plain(*(a.double() for a in args), g_out.double(),
-                                        g_agg.double(), residual=True)
-    err, rel = _check_bwd("stencil_message_bwd", got, plain32, plain64, 3)
-    ms = time_ms(lambda: fused_stencil_message_bwd(*args, g_out, g_agg, residual=True))
-    plain_ms = time_ms(lambda: stencil_message_bwd_plain(*args, g_out, g_agg, residual=True))
-    cells = b * hr * w
-    # reads e, vs, g_out (8 rows a cell), pd, g_agg, mask, the weights;
-    # writes de, dvs (8 rows), dpd and the weight gradients
-    n_bytes = 4 * (5 * 8 * cells * h + 3 * cells * h + 8 * hr * w + 2 * (2 * h * h + 4 * h))
-    # per cell and direction: six h x h products (e@We and z@Wo
-    # recomputed, dt@Wo^T, dpre@We^T, z^T dt, e^T dpre), ~40 elementwise
-    # operations a channel (silu and its derivative, LayerNorm forward
-    # and backward, the masked cotangent, the residual, the sums)
-    n_ops = 8 * cells * (12 * h * h + 40 * h)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    rows = []
+    for hr in GRAPHLAM_LEVELS:
+        w = hr
+        args = stencil_inputs(rng, b, hr, w, h)
+        g_out, g_agg = _rand(rng, b, 8, hr, w, h), _rand(rng, b, hr, w, h)
+        got = fused_stencil_message_bwd(*args, g_out, g_agg, residual=True)
+        torch.cuda.synchronize()
+        plain32 = stencil_message_bwd_plain(*args, g_out, g_agg, residual=True)
+        plain64 = stencil_message_bwd_plain(*(a.double() for a in args), g_out.double(),
+                                            g_agg.double(), residual=True)
+        err, rel = _check_bwd(f"stencil_message_bwd {hr}x{w}", got, plain32, plain64, 3)
+        again = fused_stencil_message_bwd(*args, g_out, g_agg, residual=True)
+        if not all(torch.equal(x, y) for x, y in zip(got[3:], again[3:])):
+            raise AssertionError(f"stencil_message_bwd {hr}x{w}: a second call differs")
+        del plain32, plain64, again
+        ms = time_ms(lambda: fused_stencil_message_bwd(*args, g_out, g_agg, residual=True))
+        plain_ms = time_ms(lambda: stencil_message_bwd_plain(*args, g_out, g_agg, residual=True))
+        cells = b * hr * w
+        # reads e, vs, g_out (8 rows a cell), pd, g_agg, mask, the weights;
+        # writes de, dvs (8 rows), dpd and the weight gradients
+        n_bytes = 4 * (5 * 8 * cells * h + 3 * cells * h + 8 * hr * w + 2 * (2 * h * h + 4 * h))
+        # per cell and direction: six h x h products (e@We and z@Wo
+        # recomputed, dt@Wo^T, dpre@We^T, z^T dt, e^T dpre), ~40 elementwise
+        # operations a channel (silu and its derivative, LayerNorm forward
+        # and backward, the masked cotangent, the residual, the sums)
+        n_ops = 8 * cells * (12 * h * h + 40 * h)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        rows.append({
+            "label": f"level {len(rows)}", "shape": f"e,vs,g_out ({b},8,{hr},{w},{h}) residual=True",
+            "max_abs_err": err, "max_err_over_scale": rel, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+        })
+    top = rows[0]
     return {
         "name": "stencil_message_bwd", "route": "cuda",
         "source": "py4cast_tpu_torch/csrc/stencil_message_bwd.cu",
         "replaces": REPLACES["stencil_message_bwd"][0],
         "replaces_function": REPLACES["stencil_message_bwd"][1],
-        "shape": f"e,vs,g_out ({b},8,{hr},{w},{h}) residual=True",
-        "max_abs_err": err, "max_err_over_scale": rel,
-        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "shape": top["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_err_over_scale": max(r["max_err_over_scale"] for r in rows),
+        "ms": top["ms"], "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": None,
+        # one 500x500 train step's 12 launches: 4 layers x the three levels
+        "train_step_ms": 4 * sum(r["ms"] for r in rows),
+        "launch": bwd_kernel_attributes(h, h), "shapes": rows,
     }
 
 
@@ -937,18 +968,21 @@ def main() -> int:
     log("tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
 
     # phase 2: build every kernel of the path; beside it, ptxas's
-    # registers and spills of the c-fwd instances
+    # registers and spills of the c-fwd and a-bwd instances
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        ptxas = pool.submit(_build.ptxas_report, "short_kv_attention")
+    reported = {"short_kv_attention": "short_kv_attention_fwd",
+                "stencil_message_bwd": "stencil_message_bwd"}
+    with ThreadPoolExecutor(len(reported)) as pool:
+        ptxas = {src: pool.submit(_build.ptxas_report, src) for src in reported}
         libs = _build.build_all()
-        ptxas_text = ptxas.result()
+        ptxas_text = {src: f.result() for src, f in ptxas.items()}
     log(f"build: {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "ptxas_short_kv_attention.txt").write_text(ptxas_text)
-    for inst, regs, spills in ptxas_fwd_summary(ptxas_text):
-        log(f"ptxas short_kv_attention_fwd<{inst}>: {regs} registers, "
-            f"spill stores/loads {spills[0]}/{spills[1]} bytes")
+    for src, kernel in reported.items():
+        (OUT_DIR / f"ptxas_{src}.txt").write_text(ptxas_text[src])
+        for inst, regs, spills in ptxas_summary(ptxas_text[src], kernel):
+            log(f"ptxas {kernel}<{inst}>: {regs} registers, "
+                f"spill stores/loads {spills[0]}/{spills[1]} bytes")
 
     # phase 3 and 3b: each kernel against its plain version at the main
     # path's shapes
@@ -962,6 +996,9 @@ def main() -> int:
             + (f" library_ms {k['library_ms']:.4f}" if k["library_ms"] is not None else ""))
         for row in k.get("shapes", []):
             log(f"  {row['label']} {row['shape']}: {json.dumps(row)}")
+        if "train_step_ms" in k:
+            log(f"  launch {json.dumps(k['launch'])}; one 500x500 train step's 12 launches "
+                f"(4 x each level): {k['train_step_ms']:.4f} ms")
         if "model_call_ms" in k:
             log(f"  one 512x640 model call (2 x each stage): kernel {k['model_call_ms']:.4f} ms, "
                 f"library {k['model_call_library_ms']:.4f} ms")

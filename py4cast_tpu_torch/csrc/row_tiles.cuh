@@ -17,11 +17,13 @@
 // backward) runs on the same micro-tiles; a row's sums are reduced over
 // the NX lanes that share it (`group_sum`).
 //
-// A weight gradient X^T Y over the rows a block walks stays in registers:
-// each thread owns a 4 x 4 patch of the HP x HP result (`xty_acc`), and
-// the block writes it once, at the end of its walk. With HP = 32 the 64
-// patches are taken by 4 groups of 64 threads, each over a quarter of the
-// tile's rows; the groups' sums are added in group order.
+// A weight gradient X^T Y over the rows a block walks is a set of 4 x 4
+// patches of the HP x HP result, one a thread (`xty_acc` adds a tile's
+// rows into a patch held in registers), kept in registers or in the
+// thread's own slot of shared memory for the whole walk and written
+// once, at its end. With HP = 32 the 64 patches are taken by 4 groups of
+// 64 threads, each over a quarter of the tile's rows; the groups' sums
+// are added in group order.
 //
 // Rows, columns and matrix entries past the real sizes are 0 in shared
 // memory, so no product needs a bounds test.
@@ -151,25 +153,33 @@ __device__ __forceinline__ void load_rows(float* __restrict__ tile, RowFn row, i
 __device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // acc[i][j] += sum_{k < HP} X[r0 + i][k] * W[k][c0 + j]        (X @ W)
-// X: a shared [.][HP] row tile; W: a swizzled shared [HP][HP] matrix.
+// X: a shared [.][HP] row tile; W: a swizzled shared [HP][HP] matrix;
+// c0 a multiple of 4. The k-loop runs in steps of 8 chunks (32 channels),
+// so each chunk's swizzle is known at compile time: one XOR a chunk.
 template <int HP, int TM>
 __device__ __forceinline__ void tile_mm(float (&acc)[TM][4], const float* __restrict__ X, int r0,
                                         const float* __restrict__ W, int c0) {
-#pragma unroll 2
-  for (int k4 = 0; k4 < HP; k4 += 4) {
-    float4 x[TM];
+  const float* x = X + r0 * HP;
+#pragma unroll 1
+  for (int k8 = 0; k8 < HP; k8 += 32) {
 #pragma unroll
-    for (int i = 0; i < TM; ++i) x[i] = *reinterpret_cast<const float4*>(X + (r0 + i) * HP + k4);
+    for (int u = 0; u < 8; ++u) {
+      const int k4 = k8 + 4 * u;  // row k of W holds chunk c0/4 at (c0/4) ^ (k/4 % 8)
+      float4 xv[TM];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 w = *reinterpret_cast<const float4*>(W + swz<HP>(k4 + kk, c0));
+      for (int i = 0; i < TM; ++i) xv[i] = *reinterpret_cast<const float4*>(x + i * HP + k4);
+      const float* w = W + k4 * HP + (c0 ^ (4 * u));
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float xv = lane4(x[i], kk);
-        acc[i][0] = fmaf(xv, w.x, acc[i][0]);
-        acc[i][1] = fmaf(xv, w.y, acc[i][1]);
-        acc[i][2] = fmaf(xv, w.z, acc[i][2]);
-        acc[i][3] = fmaf(xv, w.w, acc[i][3]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 wv = *reinterpret_cast<const float4*>(w + kk * HP);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float xi = lane4(xv[i], kk);
+          acc[i][0] = fmaf(xi, wv.x, acc[i][0]);
+          acc[i][1] = fmaf(xi, wv.y, acc[i][1]);
+          acc[i][2] = fmaf(xi, wv.z, acc[i][2]);
+          acc[i][3] = fmaf(xi, wv.w, acc[i][3]);
+        }
       }
     }
   }
@@ -179,21 +189,28 @@ __device__ __forceinline__ void tile_mm(float (&acc)[TM][4], const float* __rest
 template <int HP, int TM>
 __device__ __forceinline__ void tile_mm_t(float (&acc)[TM][4], const float* __restrict__ X,
                                           int r0, const float* __restrict__ W, int c0) {
-#pragma unroll 2
-  for (int k4 = 0; k4 < HP; k4 += 4) {
-    float4 x[TM];
+  const float* x = X + r0 * HP;
+  const int t7 = (c0 >> 2) & 7;  // rows c0 .. c0+3 of W swizzle by (c0/4) % 8
+#pragma unroll 1
+  for (int k8 = 0; k8 < HP; k8 += 32) {
 #pragma unroll
-    for (int i = 0; i < TM; ++i) x[i] = *reinterpret_cast<const float4*>(X + (r0 + i) * HP + k4);
+    for (int u = 0; u < 8; ++u) {
+      const int k4 = k8 + 4 * u;
+      float4 xv[TM];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 w = *reinterpret_cast<const float4*>(W + swz<HP>(c0 + j, k4));
+      for (int i = 0; i < TM; ++i) xv[i] = *reinterpret_cast<const float4*>(x + i * HP + k4);
+      const float* w = W + c0 * HP + k8 + 4 * (u ^ t7);
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        float s = acc[i][j];
-        s = fmaf(x[i].x, w.x, s);
-        s = fmaf(x[i].y, w.y, s);
-        s = fmaf(x[i].z, w.z, s);
-        acc[i][j] = fmaf(x[i].w, w.w, s);
+      for (int j = 0; j < 4; ++j) {
+        const float4 wv = *reinterpret_cast<const float4*>(w + j * HP);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          float s = acc[i][j];
+          s = fmaf(xv[i].x, wv.x, s);
+          s = fmaf(xv[i].y, wv.y, s);
+          s = fmaf(xv[i].z, wv.z, s);
+          acc[i][j] = fmaf(xv[i].w, wv.w, s);
+        }
       }
     }
   }
@@ -235,14 +252,15 @@ __device__ __forceinline__ float group_sum(float v) {
 // computes them). Returns inv = 1/sqrt(var + eps).
 template <int NX>
 __device__ __forceinline__ float ln_normalize4(float (&t)[4], int c0, int h) {
-  const float mu = group_sum<NX>((t[0] + t[1]) + (t[2] + t[3])) / h;
+  const float rh = __frcp_rn(static_cast<float>(h));
+  const float mu = group_sum<NX>((t[0] + t[1]) + (t[2] + t[3])) * rh;
   float s2 = 0.f;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     t[j] = c0 + j < h ? t[j] - mu : 0.f;
     s2 = fmaf(t[j], t[j], s2);
   }
-  const float inv = rsqrtf(group_sum<NX>(s2) / h + LN_EPS);
+  const float inv = rsqrtf(group_sum<NX>(s2) * rh + LN_EPS);
 #pragma unroll
   for (int j = 0; j < 4; ++j) t[j] *= inv;
   return inv;
@@ -260,8 +278,9 @@ __device__ __forceinline__ void ln_backward4(float (&g)[4], const float (&xhat)[
     s1 += g[j];
     s2 = fmaf(g[j], xhat[j], s2);
   }
-  s1 = group_sum<NX>(s1) / h;
-  s2 = group_sum<NX>(s2) / h;
+  const float rh = __frcp_rn(static_cast<float>(h));
+  s1 = group_sum<NX>(s1) * rh;
+  s2 = group_sum<NX>(s2) * rh;
 #pragma unroll
   for (int j = 0; j < 4; ++j) g[j] = c0 + j < h ? (g[j] - s1 - xhat[j] * s2) * inv : 0.f;
 }

@@ -29,35 +29,38 @@
 // shuffle); the row-wise work (bias, silu and its derivative, the
 // LayerNorm forward and backward, the masked cotangent, the residual)
 // runs on the same micro-tiles, a row's sums reduced over the 16 (8 at
-// h <= 32) lanes that share it. The rows of e, z, dt and dpre sit in
-// four [BM][HP] tiles; vs, pd, g_out, g_agg and mask go from device
-// memory straight into the micro-tiles, and de, dvs, dpd straight out.
-// The next tile's e arrives by cp.async while the current tile finishes
-// (into the tile z has just freed, so the two swap roles every tile).
+// h <= 32) lanes that share it. The rows of e, z, dt and dpre (silu'
+// before it) sit in four [BM][HP] tiles; vs, pd, g_out, g_agg and mask
+// go from device memory straight into the micro-tiles, and de, dvs, dpd
+// straight out. The next tile's e arrives by cp.async while the current
+// tile finishes (into the tile z has just freed, so the two swap roles
+// every tile). 4 barriers a tile.
 //
 // The weight gradients are sums over 8*B*H*W rows (1 M at level 0); the
 // TPU's sequential grid added them up in place, Hopper's blocks run in
 // parallel in no order. Each thread owns a 4x4 patch of dWe and of dWo
-// in registers and adds e^T dpre and z^T dt over every tile its block
-// walks (BM rows deep), with no shared accumulator and no barrier of
-// its own; the vector gradients are per-thread sums too. Each block
-// writes one fp32 partial at the end of its walk (the threads' sums
-// added in a fixed order), and sum_partials adds the partials in block
-// order. No atomics: the result repeats bit for bit from run to run.
+// and adds e^T dpre and z^T dt into it over every tile its block walks,
+// BM rows at a time: the dWe patch stays in registers for the whole
+// walk, the dWo patch in the thread's own slot of shared memory (read
+// and written once a tile, no barrier). The vector gradients are
+// per-thread sums in registers. Each block writes one fp32 partial at
+// the end of its walk (the threads' sums added in a fixed order), and
+// sum_partials adds the partials in block order. No atomics: the result
+// repeats bit for bit from run to run.
 //
 // The grid is persistent: as many blocks as the SMs hold, fewer when the
 // tiles are fewer, balanced so that no block takes more tiles than it
-// must (p4t_stencil_message_bwd_grid). 4 barriers a tile.
+// must (p4t_stencil_message_bwd_grid).
 //
 // Widths: F and h up to 64, two instances: HP = 64 (BM = 64 rows, 8
 // cells) and HP = 32 (BM = 128 rows, 16 cells; the 64 dW patches shared
 // by 4 thread groups, each over a quarter of the rows). At HP = 64 a
-// block holds both matrices (32 KB) and the four row tiles (64 KB); its
-// threads take ~200 registers (the two dW patches alone 32), so one block
-// of 8 warps runs an SM: capped at 128 registers for two blocks, ptxas
-// spills and the kernel is slower. At 128 the matrices alone would take
-// 128 KB and the patches 64 registers a thread: the wrapper raises above
-// 64 (ops/stencil_kernel.py::MAX_BWD_WIDTH).
+// block holds both matrices (32 KB), the four row tiles (64 KB) and the
+// dWo patches (16 KB); its threads take ~170 registers, so one block of
+// 8 warps runs an SM (at 128 registers, for two blocks, ptxas spills).
+// At 128 the matrices and tiles alone would take 192 KB and the dWe
+// patches 64 registers a thread: the wrapper raises above 64
+// (ops/stencil_kernel.py::MAX_BWD_WIDTH).
 
 #include <cstdint>
 
@@ -84,12 +87,14 @@ struct Shape {
   static constexpr int CT = BM / 8;            // cells a tile
   static constexpr int PT = NX * NX;           // 4x4 patches of an HP x HP gradient
   static constexpr int G = THREADS / PT;       // thread groups sharing the patches
-  // We, Wo (swizzled); be, bo, lns (and a pad); four row tiles
-  static constexpr size_t smem_floats = 2 * HP * HP + 4 * HP + 4 * BM * HP;
+  // We, Wo (swizzled); be, bo, lns (and a pad); four row tiles; the dWo
+  // accumulators of the G thread groups
+  static constexpr size_t smem_floats = 2 * HP * HP + 4 * HP + 4 * BM * HP + G * HP * HP;
   static constexpr size_t smem_bytes = smem_floats * sizeof(float);
   static_assert(8 % TM == 0 && BM % 8 == 0, "a thread's rows are directions of one cell");
   static_assert(THREADS % PT == 0, "");
-  static_assert(NY * 4 * HP + 2 * G * HP * HP <= smem_floats, "the end sums fit");
+  static_assert(NY * 4 * HP + G * HP * HP <= 2 * HP * HP + 4 * HP + 4 * BM * HP,
+                "the end sums fit below the dWo accumulators");
 };
 
 template <int HP>
@@ -105,20 +110,22 @@ __global__ void __launch_bounds__(THREADS, 1) stencil_message_bwd(Args a) {
   float* s_buf = s_vec + 4 * HP;  // [2][BM][HP]: e and z, swapping roles
   float* s_dt = s_buf + 2 * BM * HP;
   float* s_dp = s_dt + BM * HP;
+  float* s_dwo = s_dp + BM * HP;  // [G][HP][HP]
 
-  const long long n_cells = (long long)a.B * HW;
-  const long long n_tiles = (n_cells + CT - 1) / CT;
+  // 8 * B * H * W < 2^31 (the host checks): cell and row numbers are ints
+  const int n_cells = a.B * HW;
+  const int n_tiles = (n_cells + CT - 1) / CT;
   // rows of the (B, 8, H, W, .) arrays for the tile's cells, null past the end
-  auto e_rows = [&](long long tile) {
+  auto e_rows = [&](int tile) {
     return [=](int r) -> const float* {
-      const long long cell = tile * CT + r / 8;
+      const int cell = tile * CT + r / 8;
       if (cell >= n_cells) return nullptr;
-      const long long b = cell / HW;
-      return a.e + ((b * 8 + r % 8) * HW + (cell - b * HW)) * F;
+      const int b = cell / HW;
+      return a.e + (long long)((b * 8 + r % 8) * HW + (cell - b * HW)) * F;
     };
   };
 
-  long long tile = blockIdx.x;
+  int tile = blockIdx.x;
   if (tile < n_tiles) load_rows<BM, HP>(s_buf, e_rows(tile), F, vec, a.e);
   stage_swizzled<HP>(s_we, a.we, F, h);
   stage_swizzled<HP>(s_wo, a.wo, h, h);
@@ -127,18 +134,18 @@ __global__ void __launch_bounds__(THREADS, 1) stencil_message_bwd(Args a) {
     const float* src = v == 0 ? a.be : v == 1 ? a.bo : a.lns;
     s_vec[i] = (v < 3 && c < h) ? src[c] : 0.f;
   }
+  for (int i = threadIdx.x; i < G * HP * HP; i += THREADS) s_dwo[i] = 0.f;
 
   const int tid = threadIdx.x, tx = tid % NX, ty = tid / NX;
   const int c0 = 4 * tx, r0 = TM * ty, k0 = r0 % 8;  // columns; rows; first direction
-  // this thread's 4x4 patch of dWe and dWo, and its group's rows
+  // this thread's 4x4 patch of dWe (in registers) and of dWo (in its
+  // group's shared accumulator), and its group's rows
   const int pg = tid / S::PT, pi = tid % S::PT;
   const int f0 = 4 * (pi / NX), pc0 = 4 * (pi % NX);
   const int pr0 = pg * (BM / G), pr1 = pr0 + BM / G;
-  float dwe[4][4], dwo[4][4], v_be[4], v_bo[4], v_lns[4], v_lnb[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dwe[i][j] = dwo[i][j] = 0.f;
+  float* dwo_patch = s_dwo + (pg * HP + f0) * HP + pc0;
+  float dwe[4][4], v_be[4], v_bo[4], v_lns[4], v_lnb[4];
+  zero_tile<4>(dwe);
 #pragma unroll
   for (int j = 0; j < 4; ++j) v_be[j] = v_bo[j] = v_lns[j] = v_lnb[j] = 0.f;
   wait_copies();
@@ -147,10 +154,10 @@ __global__ void __launch_bounds__(THREADS, 1) stencil_message_bwd(Args a) {
   for (int buf = 0; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
     float* s_e = s_buf + buf * BM * HP;
     float* s_z = s_buf + (buf ^ 1) * BM * HP;
-    const long long cell = tile * CT + r0 / 8;
+    const int cell = tile * CT + r0 / 8;
     const bool valid = cell < n_cells;
-    const long long bq = valid ? cell / HW : 0, q = valid ? cell - bq * HW : 0;
-    const long long row0 = (bq * 8 + k0) * HW + q;  // row of direction k0; + i*HW
+    const int bq = valid ? cell / HW : 0, q = valid ? cell - bq * HW : 0;
+    const long long row0 = (long long)(bq * 8 + k0) * HW + q;  // direction k0; + i*HW
 
     // Each step issues its loads from device memory before its product
     // and uses them after it, so the product hides their latency.
@@ -158,7 +165,7 @@ __global__ void __launch_bounds__(THREADS, 1) stencil_message_bwd(Args a) {
     float acc[TM][4], in[TM][4], in4[4] = {0.f, 0.f, 0.f, 0.f}, v4[4];
     zero_tile<TM>(in);
     if (valid) {
-      load4(in4, a.pd + cell * h, c0, h, vec);
+      load4(in4, a.pd + (long long)cell * h, c0, h, vec);
 #pragma unroll
       for (int i = 0; i < TM; ++i) load4(in[i], a.vs + (row0 + i * HW) * h, c0, h, vec);
     }
@@ -170,7 +177,7 @@ __global__ void __launch_bounds__(THREADS, 1) stencil_message_bwd(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = acc[i][j] + (in[i][j] + (in4[j] + v4[j]));
-        const float sg = 1.f / (1.f + expf(-p));
+        const float sg = __frcp_rn(1.f + __expf(-p));
         in[i][j] = sg * (1.f + p * (1.f - sg));
         acc[i][j] = p * sg;
       }
@@ -185,7 +192,7 @@ __global__ void __launch_bounds__(THREADS, 1) stencil_message_bwd(Args a) {
 #pragma unroll
     for (int i = 0; i < TM; ++i) m[i] = 0.f;
     if (valid) {
-      load4(in4, a.g_agg + cell * h, c0, h, vec);
+      load4(in4, a.g_agg + (long long)cell * h, c0, h, vec);
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         load4(in[i], a.g_out + (row0 + i * HW) * h, c0, h, vec);
@@ -218,7 +225,12 @@ __global__ void __launch_bounds__(THREADS, 1) stencil_message_bwd(Args a) {
     __syncthreads();
 
     // ---- dWo += z^T dt;  dpre = (dt @ Wo^T) * silu'(pre) -> dvs, s_dp
-    xty_acc<HP>(dwo, s_z, s_dt, f0, pc0, pr0, pr1);
+    {
+      float dwo[4][4];
+      load_tile<HP, 4>(dwo, dwo_patch, 0, 0);
+      xty_acc<HP>(dwo, s_z, s_dt, f0, pc0, pr0, pr1);
+      store_tile<HP, 4>(dwo_patch, 0, 0, dwo);
+    }
     zero_tile<TM>(acc);
     tile_mm_t<HP, TM>(acc, s_dt, r0, s_wo, c0);
     load_tile<HP, TM>(in, s_dp, r0, c0);  // silu'(pre), this thread's own
@@ -257,12 +269,12 @@ __global__ void __launch_bounds__(THREADS, 1) stencil_message_bwd(Args a) {
     xty_acc<HP>(dwe, s_e, s_dp, f0, pc0, pr0, pr1);
     for (int i = tid; i < CT * HP; i += THREADS) {
       const int cl = i / HP, c = i % HP;
-      const long long cc = tile * CT + cl;
+      const int cc = tile * CT + cl;
       if (cc >= n_cells || c >= h) continue;
       float s = 0.f;
 #pragma unroll
       for (int k = 0; k < 8; ++k) s += s_dp[(cl * 8 + k) * HP + c];
-      a.dpd[cc * h + c] = s;
+      a.dpd[(long long)cc * h + c] = s;
     }
     wait_copies();
     __syncthreads();
@@ -273,7 +285,7 @@ __global__ void __launch_bounds__(THREADS, 1) stencil_message_bwd(Args a) {
   // dW patches by thread group, each added up in a fixed order.
   float* s_red = smem;                 // [NY][4][HP]
   float* s_gwe = s_red + NY * 4 * HP;  // [G][HP][HP]
-  float* s_gwo = s_gwe + G * HP * HP;  // [G][HP][HP]
+  const float* s_gwo = s_dwo;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     s_red[(ty * 4 + 0) * HP + c0 + j] = v_be[j];
@@ -286,7 +298,6 @@ __global__ void __launch_bounds__(THREADS, 1) stencil_message_bwd(Args a) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       s_gwe[(pg * HP + f0 + i) * HP + pc0 + j] = dwe[i][j];
-      s_gwo[(pg * HP + f0 + i) * HP + pc0 + j] = dwo[i][j];
     }
   __syncthreads();
   const int n_total = F * h + h * h + 4 * h;
@@ -379,6 +390,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15
 // these sizes (its partial buffer holds that many (F*h + h*h + 4h)-float
 // partials). F, h <= 64. Returns a cudaError_t.
 extern "C" int p4t_stencil_message_bwd_grid(int B, int H, int W, int F, int h, int* blocks) {
+  if ((long long)B * H * W * 8 >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   const int width = F > h ? F : h;
   if (width <= 32) return grid<32>(B, H * W, blocks);
   if (width <= 64) return grid<64>(B, H * W, blocks);
@@ -412,6 +424,7 @@ extern "C" int p4t_stencil_message_bwd(const float* e, const float* vs, const fl
                                        float* dw, int B, int H, int W, int F, int h,
                                        int residual, int blocks, void* stream) {
   (void)lnb;
+  if ((long long)B * H * W * 8 >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   const bool vec = F % 4 == 0 && h % 4 == 0 && aligned16(e) && aligned16(vs) && aligned16(pd) &&
                    aligned16(g_out) && aligned16(g_agg) && aligned16(de) && aligned16(dvs);
   Args a{e, vs, pd, mask, we, be, wo, bo, lns, g_out, g_agg,

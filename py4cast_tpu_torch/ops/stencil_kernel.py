@@ -29,9 +29,9 @@ from py4cast_tpu_torch.ops import _build
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 MAX_WIDTH = 128
-#: the backward kernel keeps both weight matrices and four row tiles in
-#: one block's shared memory, and its threads' patches of both weight
-#: gradients in registers: 64 is the widest it takes
+#: the backward kernel keeps both weight matrices, four row tiles and the
+#: dWo patches in one block's shared memory, and the dWe patches in
+#: registers: 64 is the widest it takes
 MAX_BWD_WIDTH = 64
 
 

@@ -91,3 +91,25 @@ def test_chip_smoke_segformer_args_match_the_config():
 
     conf = yaml.safe_load((ROOT / "config/CLI/model/segformer.yaml").read_text())
     assert chip_smoke.SEGFORMER_ARGS == conf["model"]["settings_init_args"]
+
+
+def test_ptxas_summary_reads_every_instance():
+    """chip_smoke.ptxas_summary pairs each instance of a kernel template
+    with its registers and spills, and skips other kernels."""
+    import chip_smoke
+
+    text = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119stencil_message_bwdILi64EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119stencil_message_bwdILi64EEEvNS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 194 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN3p4t12sum_partialsEPKfPfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN3p4t12sum_partialsEPKfPfii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN3p4t8attn_fwd22short_kv_attention_fwdILi2ELi1ELi8EEEvv' for 'sm_90a'
+ptxas info    : Function properties for _ZN3p4t8attn_fwd22short_kv_attention_fwdILi2ELi1ELi8EEEvv
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+    assert chip_smoke.ptxas_summary(text, "stencil_message_bwd") == [("64", 194, (0, 0))]
+    assert chip_smoke.ptxas_summary(text, "short_kv_attention_fwd") == [("2,1,8", 128, (4, 12))]
