@@ -285,5 +285,36 @@ __device__ __forceinline__ void ln_backward4(float (&g)[4], const float (&xhat)[
   for (int j = 0; j < 4; ++j) g[j] = c0 + j < h ? (g[j] - s1 - xhat[j] * s2) * inv : 0.f;
 }
 
+// out[i] = sum_b partial[b][i], the second pass of the weight gradients.
+// A block of 8 warps takes 32 columns: warp w adds the partials b = w,
+// w + 8, ... in order, and warp 0 adds the 8 warps' sums in order, so a
+// call repeats bit for bit, and each thread reads only blocks / 8
+// partials (warp_rows.cuh's sum_partials reads all of them in one thread
+// a column).
+__global__ void __launch_bounds__(256) sum_partials_by_warps(const float* __restrict__ partial,
+                                                             float* __restrict__ out, int n,
+                                                             int blocks) {
+  __shared__ float s[8][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
+  float acc = 0.f;
+  if (i < n)
+    for (int b = w; b < blocks; b += 8) acc += partial[(long long)b * n + i];
+  s[w][lane] = acc;
+  __syncthreads();
+  if (w == 0 && i < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t += s[k][lane];
+    out[i] = t;
+  }
+}
+
+inline cudaError_t launch_sum_partials_by_warps(const float* partial, float* out, int n,
+                                                int blocks, cudaStream_t stream) {
+  sum_partials_by_warps<<<(n + 31) / 32, 256, 0, stream>>>(partial, out, n, blocks);
+  return cudaGetLastError();
+}
+
 }  // namespace rt
 }  // namespace p4t

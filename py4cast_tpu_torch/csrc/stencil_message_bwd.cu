@@ -45,8 +45,8 @@
 // and written once a tile, no barrier). The vector gradients are
 // per-thread sums in registers. Each block writes one fp32 partial at
 // the end of its walk (the threads' sums added in a fixed order), and
-// sum_partials adds the partials in block order. No atomics: the result
-// repeats bit for bit from run to run.
+// sum_partials_by_warps adds the partials in a fixed order, eight warps
+// a column block. No atomics: the result repeats bit for bit.
 //
 // The grid is persistent: as many blocks as the SMs hold, fewer when the
 // tiles are fewer, balanced so that no block takes more tiles than it
@@ -364,7 +364,7 @@ cudaError_t launch(const Args& a, float* dw, int blocks, cudaStream_t stream) {
   stencil_message_bwd<HP><<<blocks, THREADS, Shape<HP>::smem_bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_sum_partials(a.partial, dw, a.F * a.h + a.h * a.h + 4 * a.h, blocks, stream);
+  return launch_sum_partials_by_warps(a.partial, dw, a.F * a.h + a.h * a.h + 4 * a.h, blocks, stream);
 }
 
 template <int HP>
