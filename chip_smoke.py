@@ -9,7 +9,8 @@ non-zero exit code and no result line:
 1. the card: its name and power limit (nvidia-smi), TF32 off;
 2. build every CUDA kernel of the main path from ``py4cast_tpu_torch/csrc``
    with nvcc (one process per source, all at once); ptxas's registers
-   and spills of every c-fwd and a-bwd instance;
+   and spills of every c-fwd, a-bwd and b-bwd (node and corner pass)
+   instance;
 3. each forward kernel against its plain PyTorch version at the main
    path's shapes (GraphLAM at 500x500: the level-0 125x125 lattice for
    the stencil message, the 500x500 grid for the corner hop), inputs
@@ -19,7 +20,10 @@ non-zero exit code and no result line:
    every cell) against the plain backward in fp64, as is the plain
    backward in fp32; a-bwd at each GraphLAM level's lattice (125x125,
    63x63, 32x32), each with its bound, a second call bit for bit, and
-   the launched instance's registers, spills and resident blocks;
+   the launched instance's registers, spills and resident blocks; b-bwd
+   at the 500x500 grid the same way, with its share of the bound and
+   both launched passes' registers, spills, resident blocks and cells a
+   tile;
 3c. the short-KV attention kernels (Segformer's c-fwd and c-bwd) at the
    512x640 cell's four stage shapes, a ragged Lq and a K/V that spills
    its tiles: the forward against the plain version and its lse against
@@ -371,7 +375,14 @@ def check_stencil_bwd(rng, b=1, h=64) -> dict:
 
 
 def check_hop_bwd(rng, b=1, hr=500, w=500, h=64, ff=3):
-    from py4cast_tpu_torch.ops.hop_kernel import corner_hop_bwd_plain, fused_corner_hop_bwd
+    """b-bwd against the plain backward at the GraphLAM grid, a second
+    call bit for bit, both timed; the launched node and corner passes'
+    registers, spills, resident blocks and cells a tile."""
+    from py4cast_tpu_torch.ops.hop_kernel import (
+        bwd_kernel_attributes,
+        corner_hop_bwd_plain,
+        fused_corner_hop_bwd,
+    )
 
     psg, rest = hop_inputs(rng, b, hr, w, h, ff)
     g = _rand(rng, b, hr, w, h)
@@ -381,7 +392,11 @@ def check_hop_bwd(rng, b=1, hr=500, w=500, h=64, ff=3):
     plain64 = corner_hop_bwd_plain([p.double() for p in psg], *(a.double() for a in rest),
                                    g.double(), mean=False)
     err, rel = _check_bwd("corner_hop_bwd", got, plain32, plain64, 5)
-    del plain64
+    del plain32, plain64
+    again = fused_corner_hop_bwd(psg, *rest, g, mean=False)
+    if not all(torch.equal(x, y) for x, y in zip(got[5:], again[5:])):
+        raise AssertionError("corner_hop_bwd: a second call differs")
+    del got, again
     ms = time_ms(lambda: fused_corner_hop_bwd(psg, *rest, g, mean=False))
     plain_ms = time_ms(lambda: corner_hop_bwd_plain(psg, *rest, g, mean=False))
     cells = b * hr * w
@@ -401,7 +416,8 @@ def check_hop_bwd(rng, b=1, hr=500, w=500, h=64, ff=3):
         "shape": f"psg,vd,g ({b},{hr},{w},{h}) feats (4,{hr},{w},{ff}) mean=False",
         "max_abs_err": err, "max_err_over_scale": rel,
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+        "library_ms": None, "launch": bwd_kernel_attributes(h),
     }
 
 
@@ -968,21 +984,23 @@ def main() -> int:
     log("tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
 
     # phase 2: build every kernel of the path; beside it, ptxas's
-    # registers and spills of the c-fwd and a-bwd instances
+    # registers and spills of the c-fwd, a-bwd and b-bwd instances
     t0 = time.perf_counter()
-    reported = {"short_kv_attention": "short_kv_attention_fwd",
-                "stencil_message_bwd": "stencil_message_bwd"}
+    reported = {"short_kv_attention": ("short_kv_attention_fwd",),
+                "stencil_message_bwd": ("stencil_message_bwd",),
+                "corner_hop_bwd": ("corner_hop_bwd_node", "corner_hop_bwd_corner")}
     with ThreadPoolExecutor(len(reported)) as pool:
         ptxas = {src: pool.submit(_build.ptxas_report, src) for src in reported}
         libs = _build.build_all()
         ptxas_text = {src: f.result() for src, f in ptxas.items()}
     log(f"build: {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     OUT_DIR.mkdir(exist_ok=True)
-    for src, kernel in reported.items():
+    for src, names in reported.items():
         (OUT_DIR / f"ptxas_{src}.txt").write_text(ptxas_text[src])
-        for inst, regs, spills in ptxas_summary(ptxas_text[src], kernel):
-            log(f"ptxas {kernel}<{inst}>: {regs} registers, "
-                f"spill stores/loads {spills[0]}/{spills[1]} bytes")
+        for kernel in names:
+            for inst, regs, spills in ptxas_summary(ptxas_text[src], kernel):
+                log(f"ptxas {kernel}<{inst}>: {regs} registers, "
+                    f"spill stores/loads {spills[0]}/{spills[1]} bytes")
 
     # phase 3 and 3b: each kernel against its plain version at the main
     # path's shapes
@@ -996,6 +1014,8 @@ def main() -> int:
             + (f" library_ms {k['library_ms']:.4f}" if k["library_ms"] is not None else ""))
         for row in k.get("shapes", []):
             log(f"  {row['label']} {row['shape']}: {json.dumps(row)}")
+        if k["name"] == "corner_hop_bwd":
+            log(f"  launch {json.dumps(k['launch'])}; share of bound {k['share_of_bound']:.3f}")
         if "train_step_ms" in k:
             log(f"  launch {json.dumps(k['launch'])}; one 500x500 train step's 12 launches "
                 f"(4 x each level): {k['train_step_ms']:.4f} ms")

@@ -9,9 +9,10 @@ Function that joins them.
     v_out = vd + LN(u @ Nd1 + nb1)
 
 The forward kernel (``csrc/corner_hop.cu``) replaces the TPU kernel
-``py4cast_tpu/ops/hop_kernel.py::_fwd_kernel``, the backward kernel
-(``csrc/corner_hop_bwd.cu``) its ``_bwd_kernel``; each source says what
-bounds it on the H100 and what its design does about it. The TPU
+``py4cast_tpu/ops/hop_kernel.py::_fwd_kernel``, the backward
+(``csrc/corner_hop_bwd.cu``: a node pass and a corner pass, launched
+together) its ``_bwd_kernel``; each source says what bounds it on the
+H100 and what its design does about it. The TPU
 kernels' W padding and column tiling were Mosaic constraints: here the
 corner upsamples arrive at the grid width. On a CUDA tensor
 ``fused_corner_hop`` and ``fused_corner_hop_bwd`` launch their kernel
@@ -36,9 +37,10 @@ LN_EPS = 1e-6  # flax nn.LayerNorm default
 #: block may use: 96 is the largest width (a multiple of 32) that does
 MAX_WIDTH = 96
 MAX_FEATS = 32
-#: the backward kernel keeps the five h x h weight matrices AND five h x h
-#: weight-gradient accumulators in one block's shared memory (~190 KB at
-#: h=64); at 96 they would take ~400 KB, so the backward stops at 64
+#: the backward's node pass holds the five h x h weight matrices and five
+#: row tiles of its cells in one block's shared memory (~200 KB at h=64
+#: with its two shared weight-gradient patch sets); at 96 the weights and
+#: tiles alone would take ~360 KB, so the backward stops at 64
 MAX_BWD_WIDTH = 64
 
 
@@ -153,12 +155,28 @@ def _bwd_lib():
     lib = _build.load("corner_hop_bwd")
     fn = lib.p4t_corner_hop_bwd
     if fn.argtypes is None:  # first use: declare the C signatures
-        fn.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 29 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         grid = lib.p4t_corner_hop_bwd_grid
         grid.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         grid.restype = ctypes.c_int
+        attrs = lib.p4t_corner_hop_bwd_attributes
+        attrs.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        attrs.restype = ctypes.c_int
     return lib
+
+
+def bwd_kernel_attributes(h) -> dict:
+    """The two backward kernels that width ``h`` launches, the node pass
+    and the corner pass, as the card reports them: registers a thread,
+    local (spill) bytes a thread, dynamic shared memory, resident blocks
+    an SM, and the cells of a tile. Needs the card."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * 10)()
+    _build.check(lib, lib.p4t_corner_hop_bwd_attributes(h, out), "corner_hop_bwd attributes")
+    keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "tile_cells")
+    return {name: {k: out[5 * i + j] for j, k in enumerate(keys)}
+            for i, name in enumerate(("node", "corner"))}
 
 
 def _validate(what, psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
@@ -249,6 +267,7 @@ def fused_corner_hop_bwd(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
 
     dpsg = [torch.empty_like(vd) for _ in range(4)]
     dvd = torch.empty_like(vd)
+    dagg = torch.empty_like(vd)  # scratch: the node pass's dagg for the corner pass
     # dwf, dbf, dwd, dwo, dbo, dlns, dlnb, dnd0a, dnd0b, dnb0, dnd1, dnb1, dnlns, dnlnb
     sizes = (ff * h, h, h * h, h * h, h, h, h, h * h, h * h, h, h * h, h, h, h)
     dw = torch.empty(sum(sizes), device=device, dtype=torch.float32)
@@ -267,7 +286,7 @@ def fused_corner_hop_bwd(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
             bo.data_ptr(), lns.data_ptr(), lnb.data_ptr(), nd0a.data_ptr(),
             nd0b.data_ptr(), nb0.data_ptr(), nd1.data_ptr(), nb1.data_ptr(),
             nlns.data_ptr(), nlnb.data_ptr(), g.data_ptr(),
-            *(d.data_ptr() for d in dpsg), dvd.data_ptr(), partial.data_ptr(),
+            *(d.data_ptr() for d in dpsg), dvd.data_ptr(), dagg.data_ptr(), partial.data_ptr(),
             dw.data_ptr(), b, hr, w, h, ff, int(mean), blocks.value, stream,
         )
     _build.check(lib, status, "corner_hop_bwd kernel")

@@ -204,6 +204,13 @@ def test_stencil_bwd_kernel_matches_plain(cuda, b, hr, w, f_in, h, residual):
     (1, 9, 5, 48, 2, False),
     (3, 4, 6, 64, 5, True),
     (1, 5, 7, 32, 32, False),      # the most corner features the kernel takes
+    (1, 3, 5, 64, 3, False),       # fewer cells than one tile (64 at width 64)
+    (1, 5, 13, 64, 3, False),      # one cell past a tile
+    (1, 1, 129, 32, 3, True),      # one cell past a tile (128 at width 32)
+    (2, 5, 9, 64, 3, False),       # B = 2: a tile spans both batch entries
+    (1, 6, 7, 30, 3, True),        # width not a multiple of 4: no 128-bit loads
+    (1, 9, 9, 64, 1, False),       # one corner feature
+    (2, 8, 9, 32, 3, True),        # width 32 with mean aggregation
 ])
 def test_hop_bwd_kernel_matches_plain(cuda, b, hr, w, h, ff, mean):
     rng = np.random.default_rng(200 + h + ff)
@@ -231,6 +238,16 @@ def test_stencil_bwd_kernels_do_not_spill(cuda):
         a = stencil_kernel.bwd_kernel_attributes(f_in, h)
         assert a["local_bytes"] == 0, (f_in, h, a)
         assert a["blocks_per_sm"] >= 1, (f_in, h, a)
+
+
+def test_hop_bwd_kernels_do_not_spill(cuda):
+    """Both passes of both instances of the corner-hop backward (widths
+    up to 32 and up to 64) keep their state in registers and fit a block
+    an SM."""
+    for h in (32, 64):
+        for name, a in hop_kernel.bwd_kernel_attributes(h).items():
+            assert a["local_bytes"] == 0, (h, name, a)
+            assert a["blocks_per_sm"] >= 1, (h, name, a)
 
 
 def test_bwd_kernels_raise_above_their_width_cap(cuda):

@@ -110,6 +110,18 @@ ptxas info    : Compiling entry function '_ZN3p4t8attn_fwd22short_kv_attention_f
 ptxas info    : Function properties for _ZN3p4t8attn_fwd22short_kv_attention_fwdILi2ELi1ELi8EEEvv
     8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__3ab277fc_17_corner_hop_bwd_cu_9cff1b4f21corner_hop_bwd_cornerILi32EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__3ab277fc_17_corner_hop_bwd_cu_9cff1b4f21corner_hop_bwd_cornerILi32EEEvNS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__3ab277fc_17_corner_hop_bwd_cu_9cff1b4f19corner_hop_bwd_nodeILi64EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__3ab277fc_17_corner_hop_bwd_cu_9cff1b4f19corner_hop_bwd_nodeILi64EEEvNS_4ArgsE
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
 """
     assert chip_smoke.ptxas_summary(text, "stencil_message_bwd") == [("64", 194, (0, 0))]
     assert chip_smoke.ptxas_summary(text, "short_kv_attention_fwd") == [("2,1,8", 128, (4, 12))]
+    # the corner-hop backward's two passes, each by its own name
+    assert chip_smoke.ptxas_summary(text, "corner_hop_bwd_node") == [("64", 255, (8, 8))]
+    assert chip_smoke.ptxas_summary(text, "corner_hop_bwd_corner") == [("32", 168, (0, 0))]
+    assert chip_smoke.ptxas_summary(text, "corner_hop_bwd") == []
