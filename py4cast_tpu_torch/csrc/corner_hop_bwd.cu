@@ -82,7 +82,7 @@
 // h x h gradient shared by 4 thread groups, each over a quarter of the
 // rows). Widths that are not a multiple of 4 take plain loads instead
 // of 128-bit ones. At 96, the forward's cap, the node pass's weights
-// and tiles alone would take ~360 KB: the wrapper raises above 64
+// and tiles alone would take ~300 KB: the wrapper raises above 64
 // (ops/hop_kernel.py::MAX_BWD_WIDTH).
 
 #include <cstdint>
@@ -128,7 +128,7 @@ struct Shape {
   // node pass: Wd, Wo, Nd0a, Nd0b, Nd1 (swizzled); Wf; 7 vectors (and a
   // pad); five row tiles; the dNd0a, dNd0b and dNd1 patches of the G groups
   static constexpr size_t node_floats = 5 * HH + MAX_FF * HP + 8 * HP + 5 * TILE + 3 * G * HH;
-  // corner pass: Wd, Wo; Wf; 3 vectors (and pads); four row tiles; the
+  // corner pass: Wd, Wo; Wf; the same vectors; four row tiles; the
   // tile's four corner features [4][BM][ff]; the dWd and dWo patches
   static constexpr size_t corner_floats =
       2 * HH + MAX_FF * HP + 8 * HP + 4 * TILE + 4 * BM * MAX_FF + 2 * G * HH;
@@ -173,11 +173,11 @@ __device__ __forceinline__ void add_xty(float* patch, const float* X, const floa
   store_tile<HP, 4>(patch, 0, 0, p);
 }
 
-// Wf into s_wf [MAX_FF][HP] and the vectors v < n of (v0, ..., v6) into
-// s_vec [8][HP], zero past ff and h.
+// Wf into s_wf [MAX_FF][HP] and the vectors (v0, ..., v6) into s_vec
+// [8][HP], zero past ff and h.
 template <int HP>
 __device__ __forceinline__ void stage_common(float* s_wf, float* s_vec, const float* wf, int ff,
-                                             int h, int n, const float* v0, const float* v1,
+                                             int h, const float* v0, const float* v1,
                                              const float* v2, const float* v3, const float* v4,
                                              const float* v5, const float* v6) {
   for (int i = threadIdx.x; i < MAX_FF * HP; i += THREADS) {
@@ -188,7 +188,7 @@ __device__ __forceinline__ void stage_common(float* s_wf, float* s_vec, const fl
     const int v = i / HP, c = i % HP;
     const float* src = v == 0 ? v0 : v == 1 ? v1 : v == 2 ? v2 : v == 3 ? v3 : v == 4 ? v4
                        : v == 5 ? v5 : v6;
-    s_vec[i] = (v < n && c < h) ? src[c] : 0.f;
+    s_vec[i] = (v < 7 && c < h) ? src[c] : 0.f;
   }
 }
 
@@ -311,7 +311,7 @@ __global__ void __launch_bounds__(THREADS, 1) corner_hop_bwd_node(Args a) {
   stage_swizzled<HP>(s_n0a, a.nd0a, h, h);
   stage_swizzled<HP>(s_n0b, a.nd0b, h, h);
   stage_swizzled<HP>(s_n1, a.nd1, h, h);
-  stage_common<HP>(s_wf, s_vec, a.wf, ff, h, 7, a.bf, a.bo, a.lns, a.lnb, a.nb0, a.nb1, a.nlns);
+  stage_common<HP>(s_wf, s_vec, a.wf, ff, h, a.bf, a.bo, a.lns, a.lnb, a.nb0, a.nb1, a.nlns);
   for (int i = threadIdx.x; i < 3 * G * HH; i += THREADS) s_dn[i] = 0.f;
 
   const Thread<HP> t;
@@ -499,7 +499,7 @@ __global__ void __launch_bounds__(THREADS, 1) corner_hop_bwd_corner(Args a) {
   float* s_wd = smem;  // two [HP][HP] swizzled
   float* s_wo = s_wd + HH;
   float* s_wf = s_wo + HH;            // [MAX_FF][HP]
-  float* s_vec = s_wf + MAX_FF * HP;  // bf, bo, lns: [8][HP]
+  float* s_vec = s_wf + MAX_FF * HP;  // bf, bo, lns, ... (as the node pass's): [8][HP]
   float* s_vd = s_vec + 8 * HP;       // four [BM][HP] row tiles
   float* s_z = s_vd + TILE;           // z, then dpd
   float* s_dt = s_z + TILE;
@@ -510,7 +510,7 @@ __global__ void __launch_bounds__(THREADS, 1) corner_hop_bwd_corner(Args a) {
 
   stage_swizzled<HP>(s_wd, a.wd, h, h);
   stage_swizzled<HP>(s_wo, a.wo, h, h);
-  stage_common<HP>(s_wf, s_vec, a.wf, ff, h, 3, a.bf, a.bo, a.lns, a.lns, a.lns, a.lns, a.lns);
+  stage_common<HP>(s_wf, s_vec, a.wf, ff, h, a.bf, a.bo, a.lns, a.lnb, a.nb0, a.nb1, a.nlns);
   for (int i = threadIdx.x; i < 2 * G * HH; i += THREADS) s_dwd[i] = 0.f;
 
   const Thread<HP> t;

@@ -37,10 +37,10 @@ LN_EPS = 1e-6  # flax nn.LayerNorm default
 #: block may use: 96 is the largest width (a multiple of 32) that does
 MAX_WIDTH = 96
 MAX_FEATS = 32
-#: the backward's node pass holds the five h x h weight matrices and five
-#: row tiles of its cells in one block's shared memory (~200 KB at h=64
-#: with its two shared weight-gradient patch sets); at 96 the weights and
-#: tiles alone would take ~360 KB, so the backward stops at 64
+#: the backward's node pass holds the five h x h weight matrices, five
+#: row tiles of its cells and three h x h weight-gradient patch sets in
+#: one block's shared memory (223 KB at h=64); at 96 the weights and
+#: tiles alone would take ~300 KB, so the backward stops at 64
 MAX_BWD_WIDTH = 64
 
 
