@@ -12,9 +12,10 @@ non-zero exit code and no result line:
    and spills of every c-fwd, a-bwd and b-bwd (node and corner pass)
    instance;
 3. each forward kernel against its plain PyTorch version at the main
-   path's shapes (GraphLAM at 500x500: the level-0 125x125 lattice for
-   the stencil message, the 500x500 grid for the corner hop), inputs
-   from a numpy seed, then both timed with CUDA events;
+   path's shapes (GraphLAM at 500x500: each mesh level's lattice,
+   125x125, 63x63 and 32x32, for the stencil message, each with its
+   bound and a second call bit for bit; the 500x500 grid for the corner
+   hop), inputs from a numpy seed, then both timed with CUDA events;
 3b. each backward kernel the same way, with random cotangents: input
    gradients against the plain backward, weight gradients (sums over
    every cell) against the plain backward in fp64, as is the plain
@@ -62,6 +63,9 @@ Each model path runs with every launch count set to 0 just before it
 and read just after; a kernel of the path that was not launched, or a
 kernel of another path that was, fails the run.
 
+``--kernels NAME ...`` runs phases 1 to 3c for those kernels alone and
+stops without a result line: the short loop for one kernel's work.
+
 Exits non-zero without a result when torch sees no CUDA device or the
 package is missing. Build outputs go to ``build/`` and long reports to
 ``chiprun_out/``, both inside the checkout.
@@ -69,6 +73,7 @@ package is missing. Build outputs go to ``build/`` and long reports to
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -123,6 +128,24 @@ REPLACES = {
     "short_kv_attention": ("py4cast_tpu/ops/attention.py:33", "_fwd_kernel via _forward:101"),
     "short_kv_attention_bwd": ("py4cast_tpu/ops/attention.py:47",
                                "_bwd_kernel via _bwd_rule:128"),
+}
+
+
+#: the sources each --kernels name builds (the attention's check runs
+#: its forward and its backward)
+KERNEL_SOURCES = {
+    "stencil_message": ("stencil_message",),
+    "corner_hop": ("corner_hop",),
+    "stencil_message_bwd": ("stencil_message_bwd",),
+    "corner_hop_bwd": ("corner_hop_bwd",),
+    "short_kv_attention": ("short_kv_attention", "short_kv_attention_bwd"),
+}
+
+#: the kernels whose registers and spills phase 2 reports, by source
+PTXAS_KERNELS = {
+    "short_kv_attention": ("short_kv_attention_fwd",),
+    "stencil_message_bwd": ("stencil_message_bwd",),
+    "corner_hop_bwd": ("corner_hop_bwd_node", "corner_hop_bwd_corner"),
 }
 
 
@@ -238,30 +261,64 @@ def hop_inputs(rng, b=1, hr=500, w=500, h=64, ff=3):
     return psg, rest
 
 
-def check_stencil(rng, b=1, hr=125, w=125, h=64):
+#: the lattice sides of GraphLAM's three mesh levels at 500x500 (the
+#: stencil kernels run once a level in each of the 4 processor layers)
+GRAPHLAM_LEVELS = (125, 63, 32)
+
+
+def _max_rel(got, want) -> tuple:
+    """(max abs difference, that over the reference's scale) over pairs
+    of tensors, each held to TOL of its scale."""
+    err = rel = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        e = compare(f"output {i}", g, w)
+        err, rel = max(err, e), max(rel, e / max(1.0, float(w.abs().max())))
+    return err, rel
+
+
+def check_stencil(rng, b=1, h=64) -> dict:
+    """a-fwd against its plain version at each GraphLAM level's lattice
+    (residual on), a second call bit for bit, both timed, with the bound
+    and its share. The level-0 numbers on top, every level's under
+    "shapes", and the sum over one forward's 12 launches."""
     from py4cast_tpu_torch.ops.stencil_kernel import fused_stencil_message, stencil_message_plain
 
-    args = stencil_inputs(rng, b, hr, w, h)
-    out, agg = fused_stencil_message(*args, residual=True)
-    torch.cuda.synchronize()
-    ref_out, ref_agg = stencil_message_plain(*args, residual=True)
-    err = max(compare("stencil out", out, ref_out), compare("stencil agg", agg, ref_agg))
-    ms = time_ms(lambda: fused_stencil_message(*args, residual=True))
-    plain_ms = time_ms(lambda: stencil_message_plain(*args, residual=True))
-    cells = b * hr * w
-    n_bytes = 4 * (3 * 8 * cells * h + 2 * cells * h + 8 * hr * w + 2 * h * h + 4 * h)
-    # per cell and direction: two h x h products, plus ~19 elementwise
-    # operations a channel (bias/vs/pd adds, silu, LayerNorm, residual, agg)
-    n_ops = 8 * cells * (4 * h * h + 19 * h)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    rows = []
+    for hr in GRAPHLAM_LEVELS:
+        w = hr
+        args = stencil_inputs(rng, b, hr, w, h)
+        got = fused_stencil_message(*args, residual=True)
+        torch.cuda.synchronize()
+        err, rel = _max_rel(got, stencil_message_plain(*args, residual=True))
+        again = fused_stencil_message(*args, residual=True)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"stencil_message {hr}x{w}: a second call differs")
+        del got, again
+        ms = time_ms(lambda: fused_stencil_message(*args, residual=True))
+        plain_ms = time_ms(lambda: stencil_message_plain(*args, residual=True))
+        cells = b * hr * w
+        n_bytes = 4 * (3 * 8 * cells * h + 2 * cells * h + 8 * hr * w + 2 * h * h + 4 * h)
+        # per cell and direction: two h x h products, plus ~19 elementwise
+        # operations a channel (bias/vs/pd adds, silu, LayerNorm, residual, agg)
+        n_ops = 8 * cells * (4 * h * h + 19 * h)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        rows.append({
+            "label": f"level {len(rows)}", "shape": f"e,vs ({b},8,{hr},{w},{h}) residual=True",
+            "max_abs_err": err, "max_err_over_scale": rel, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+        })
+    top = rows[0]
     return {
         "name": "stencil_message", "route": "cuda",
         "source": "py4cast_tpu_torch/csrc/stencil_message.cu",
         "replaces": REPLACES["stencil_message"][0],
         "replaces_function": REPLACES["stencil_message"][1],
-        "shape": f"e,vs ({b},8,{hr},{w},{h}) residual=True",
-        "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "shape": top["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_err_over_scale": max(r["max_err_over_scale"] for r in rows),
+        "ms": top["ms"], "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": None,
+        # one 500x500 forward's 12 launches: 4 layers x the three levels
+        "forward_ms": 4 * sum(r["ms"] for r in rows), "shapes": rows,
     }
 
 
@@ -308,11 +365,6 @@ def _check_bwd(name, got, plain32, plain64, n_inputs):
         if i >= n_inputs:
             compare(f"{name} weight grad {i} (plain fp32)", p32, p64, GRAD_TOL)
     return err, rel
-
-
-#: the lattice sides of GraphLAM's three mesh levels at 500x500 (the
-#: kernel runs once a level in each of the 4 processor layers)
-GRAPHLAM_LEVELS = (125, 63, 32)
 
 
 def check_stencil_bwd(rng, b=1, h=64) -> dict:
@@ -694,8 +746,9 @@ GROUPS = (
 
 def profile_step(step, out_name: str) -> dict:
     """Device time over one call of ``step`` (torch.profiler), from the
-    device activities only (kernels and copies), summed by group. The
-    full table goes to chiprun_out/<out_name>."""
+    device activities only (kernels and copies), summed by group, and
+    the count of those activities. The full table goes to
+    chiprun_out/<out_name>."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -723,7 +776,8 @@ def profile_step(step, out_name: str) -> dict:
     (OUT_DIR / out_name).write_text(
         "\n".join(f"{us / 1e3:10.3f} ms  x{n:<5d} {key}" for us, key, n in rows if us > 0)
     )
-    return {"device_busy_ms": busy_ms, "groups_ms": groups,
+    return {"device_busy_ms": busy_ms, "device_activities": sum(n for _, _, n in rows),
+            "groups_ms": groups,
             "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": n} for us, k, n in rows[:8]]}
 
 
@@ -963,7 +1017,13 @@ def segformer_full_size(grid=(512, 640), steps: int = 3, reps: int = 5) -> dict:
 
 
 # ---------------------------------------------------------------------- main
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--kernels", nargs="+", choices=sorted(KERNEL_SOURCES), metavar="NAME",
+        help="only build, check and time these kernels (phases 1 to 3c), print their "
+             "numbers and stop, with no result line; names: " + ", ".join(sorted(KERNEL_SOURCES)))
+    only = parser.parse_args(argv).kernels
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing to run", file=sys.stderr)
         return 1
@@ -986,12 +1046,12 @@ def main() -> int:
     # phase 2: build every kernel of the path; beside it, ptxas's
     # registers and spills of the c-fwd, a-bwd and b-bwd instances
     t0 = time.perf_counter()
-    reported = {"short_kv_attention": ("short_kv_attention_fwd",),
-                "stencil_message_bwd": ("stencil_message_bwd",),
-                "corner_hop_bwd": ("corner_hop_bwd_node", "corner_hop_bwd_corner")}
-    with ThreadPoolExecutor(len(reported)) as pool:
+    sources = _build.SOURCES if only is None else tuple(
+        src for name in only for src in KERNEL_SOURCES[name])
+    reported = {src: names for src, names in PTXAS_KERNELS.items() if src in sources}
+    with ThreadPoolExecutor(max(1, len(reported))) as pool:
         ptxas = {src: pool.submit(_build.ptxas_report, src) for src in reported}
-        libs = _build.build_all()
+        libs = _build.build_all(sources)
         ptxas_text = {src: f.result() for src, f in ptxas.items()}
     log(f"build: {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     OUT_DIR.mkdir(exist_ok=True)
@@ -1005,9 +1065,14 @@ def main() -> int:
     # phase 3 and 3b: each kernel against its plain version at the main
     # path's shapes
     rng = np.random.default_rng(0)
-    kernels = [check_stencil(rng), check_hop(rng), check_stencil_bwd(rng), check_hop_bwd(rng)]
-    # phase 3c: the attention kernels at the Segformer cell's shapes
-    kernels += check_attention(rng)
+    checks = {"stencil_message": lambda: [check_stencil(rng)],
+              "corner_hop": lambda: [check_hop(rng)],
+              "stencil_message_bwd": lambda: [check_stencil_bwd(rng)],
+              "corner_hop_bwd": lambda: [check_hop_bwd(rng)],
+              # phase 3c: the attention kernels at the Segformer cell's shapes
+              "short_kv_attention": lambda: check_attention(rng)}
+    kernels = [k for name, check in checks.items() if only is None or name in only
+               for k in check()]
     for k in kernels:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e} ms {k['ms']:.4f} "
             f"plain_ms {k['plain_ms']:.4f} bound_ms {k['bound_ms']:.4f} ({k['bound_by']})"
@@ -1016,12 +1081,19 @@ def main() -> int:
             log(f"  {row['label']} {row['shape']}: {json.dumps(row)}")
         if k["name"] == "corner_hop_bwd":
             log(f"  launch {json.dumps(k['launch'])}; share of bound {k['share_of_bound']:.3f}")
+        if "forward_ms" in k:
+            log(f"  one 500x500 forward's 12 launches (4 x each level): {k['forward_ms']:.4f} ms")
         if "train_step_ms" in k:
             log(f"  launch {json.dumps(k['launch'])}; one 500x500 train step's 12 launches "
                 f"(4 x each level): {k['train_step_ms']:.4f} ms")
         if "model_call_ms" in k:
             log(f"  one 512x640 model call (2 x each stage): kernel {k['model_call_ms']:.4f} ms, "
                 f"library {k['model_call_library_ms']:.4f} ms")
+
+    if only is not None:
+        log(card)
+        log(json.dumps({"kernels": kernels}))
+        return 0
 
     # phase 4: Trainer.predict on Dummy, counted
     dummy = predict_dummy(graphlam_settings())
