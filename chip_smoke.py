@@ -9,13 +9,15 @@ non-zero exit code and no result line:
 1. the card: its name and power limit (nvidia-smi), TF32 off;
 2. build every CUDA kernel of the main path from ``py4cast_tpu_torch/csrc``
    with nvcc (one process per source, all at once); ptxas's registers
-   and spills of every c-fwd, a-bwd and b-bwd (node and corner pass)
-   instance;
+   and spills of every a-fwd, c-fwd, a-bwd and b-bwd (node and corner
+   pass) instance;
 3. each forward kernel against its plain PyTorch version at the main
    path's shapes (GraphLAM at 500x500: each mesh level's lattice,
    125x125, 63x63 and 32x32, for the stencil message, each with its
-   bound and a second call bit for bit; the 500x500 grid for the corner
-   hop), inputs from a numpy seed, then both timed with CUDA events;
+   bound and a second call bit for bit, and the launched instance's
+   registers, spills and resident blocks; the 500x500 grid for the
+   corner hop), inputs from a numpy seed, then both timed with CUDA
+   events;
 3b. each backward kernel the same way, with random cotangents: input
    gradients against the plain backward, weight gradients (sums over
    every cell) against the plain backward in fp64, as is the plain
@@ -143,6 +145,7 @@ KERNEL_SOURCES = {
 
 #: the kernels whose registers and spills phase 2 reports, by source
 PTXAS_KERNELS = {
+    "stencil_message": ("stencil_message_fwd",),
     "short_kv_attention": ("short_kv_attention_fwd",),
     "stencil_message_bwd": ("stencil_message_bwd",),
     "corner_hop_bwd": ("corner_hop_bwd_node", "corner_hop_bwd_corner"),
@@ -237,9 +240,13 @@ def _rand(rng, *shape, scale=1.0, shift=0.0, device="cuda"):
 
 
 # ------------------------------------------------------------------- phase 3
-def stencil_inputs(rng, b=1, hr=125, w=125, h=64):
+def stencil_inputs(rng, b=1, hr=125, w=125, h=64, shifted=False):
+    """e, the source projection (ps (b, hr, w, h) for the forward, its
+    eight shifts vs (b, 8, hr, w, h) for the backward when ``shifted``),
+    pd, mask and the weights."""
+    src = (b, 8, hr, w, h) if shifted else (b, hr, w, h)
     return (
-        _rand(rng, b, 8, hr, w, h), _rand(rng, b, 8, hr, w, h), _rand(rng, b, hr, w, h),
+        _rand(rng, b, 8, hr, w, h), _rand(rng, *src), _rand(rng, b, hr, w, h),
         torch.from_numpy((rng.uniform(size=(8, hr, w, 1)) > 0.2).astype(np.float32)).cuda(),
         _rand(rng, h, h, scale=h ** -0.5), _rand(rng, h, scale=0.1),
         _rand(rng, h, h, scale=h ** -0.5), _rand(rng, h, scale=0.1),
@@ -279,9 +286,14 @@ def _max_rel(got, want) -> tuple:
 def check_stencil(rng, b=1, h=64) -> dict:
     """a-fwd against its plain version at each GraphLAM level's lattice
     (residual on), a second call bit for bit, both timed, with the bound
-    and its share. The level-0 numbers on top, every level's under
+    and its share; the launched instance's registers, spills and
+    resident blocks. The level-0 numbers on top, every level's under
     "shapes", and the sum over one forward's 12 launches."""
-    from py4cast_tpu_torch.ops.stencil_kernel import fused_stencil_message, stencil_message_plain
+    from py4cast_tpu_torch.ops.stencil_kernel import (
+        fused_stencil_message,
+        fwd_kernel_attributes,
+        stencil_message_plain,
+    )
 
     rows = []
     for hr in GRAPHLAM_LEVELS:
@@ -297,13 +309,16 @@ def check_stencil(rng, b=1, h=64) -> dict:
         ms = time_ms(lambda: fused_stencil_message(*args, residual=True))
         plain_ms = time_ms(lambda: stencil_message_plain(*args, residual=True))
         cells = b * hr * w
-        n_bytes = 4 * (3 * 8 * cells * h + 2 * cells * h + 8 * hr * w + 2 * h * h + 4 * h)
+        # reads e (8 rows a cell), ps, pd, mask, the weights; writes out
+        # (8 rows a cell) and agg: the kernel shifts ps itself
+        n_bytes = 4 * (2 * 8 * cells * h + 3 * cells * h + 8 * hr * w + 2 * h * h + 4 * h)
         # per cell and direction: two h x h products, plus ~19 elementwise
         # operations a channel (bias/vs/pd adds, silu, LayerNorm, residual, agg)
         n_ops = 8 * cells * (4 * h * h + 19 * h)
         bound_ms, bound_by = bound(n_bytes, n_ops)
         rows.append({
-            "label": f"level {len(rows)}", "shape": f"e,vs ({b},8,{hr},{w},{h}) residual=True",
+            "label": f"level {len(rows)}",
+            "shape": f"e ({b},8,{hr},{w},{h}) ps ({b},{hr},{w},{h}) residual=True",
             "max_abs_err": err, "max_err_over_scale": rel, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
         })
@@ -318,7 +333,8 @@ def check_stencil(rng, b=1, h=64) -> dict:
         "ms": top["ms"], "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": None,
         # one 500x500 forward's 12 launches: 4 layers x the three levels
-        "forward_ms": 4 * sum(r["ms"] for r in rows), "shapes": rows,
+        "forward_ms": 4 * sum(r["ms"] for r in rows),
+        "launch": fwd_kernel_attributes(h, h), "shapes": rows,
     }
 
 
@@ -381,7 +397,7 @@ def check_stencil_bwd(rng, b=1, h=64) -> dict:
     rows = []
     for hr in GRAPHLAM_LEVELS:
         w = hr
-        args = stencil_inputs(rng, b, hr, w, h)
+        args = stencil_inputs(rng, b, hr, w, h, shifted=True)
         g_out, g_agg = _rand(rng, b, 8, hr, w, h), _rand(rng, b, hr, w, h)
         got = fused_stencil_message_bwd(*args, g_out, g_agg, residual=True)
         torch.cuda.synchronize()
@@ -1082,7 +1098,8 @@ def main(argv=None) -> int:
         if k["name"] == "corner_hop_bwd":
             log(f"  launch {json.dumps(k['launch'])}; share of bound {k['share_of_bound']:.3f}")
         if "forward_ms" in k:
-            log(f"  one 500x500 forward's 12 launches (4 x each level): {k['forward_ms']:.4f} ms")
+            log(f"  launch {json.dumps(k['launch'])}; one 500x500 forward's 12 launches "
+                f"(4 x each level): {k['forward_ms']:.4f} ms")
         if "train_step_ms" in k:
             log(f"  launch {json.dumps(k['launch'])}; one 500x500 train step's 12 launches "
                 f"(4 x each level): {k['train_step_ms']:.4f} ms")

@@ -1,7 +1,7 @@
-// Row-tile building blocks for the lattice GNN backward kernels on Hopper.
+// Row-tile building blocks for the lattice GNN kernels on Hopper.
 //
 // A block of 256 threads takes a tile of BM rows (a row is one feature
-// vector of up to HP = 32 or 64 channels) into shared memory, and every
+// vector of up to HP = 32, 64 or 128 channels) into shared memory, and every
 // product over the tile is a block product in which each thread owns a
 // register micro-tile of TM rows x 4 columns: thread (ty, tx), with
 // tx = tid % NX and NX = HP / 4, owns rows TM*ty .. TM*ty + TM-1 and
@@ -26,7 +26,10 @@
 // are added in group order.
 //
 // Rows, columns and matrix entries past the real sizes are 0 in shared
-// memory, so no product needs a bounds test.
+// memory, so no product needs a bounds test. A row tile's row stride LD
+// is HP unless given: HP + 4 puts the rows that two row groups of a warp
+// read at once on other banks (at a stride of HP = 32 or 64 floats every
+// row starts on bank 0).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,10 +44,11 @@ constexpr int THREADS = 256;
 // Index of entry (r, c) of a shared [HP][HP] matrix whose 16-byte chunks
 // are swizzled: chunk c/4 of row r sits at chunk (c/4) ^ ((r/4) % 8). A
 // warp's quarter reading chunk tx of one row, or chunk k/4 of rows 4 tx
-// + j, touches 8 distinct bank groups either way.
+// + j, touches 8 distinct bank groups either way: the XOR permutes the
+// chunks inside each aligned group of 8, whatever the row's length.
 template <int HP>
 __device__ __forceinline__ int swz(int r, int c) {
-  static_assert(HP == 32 || HP == 64, "swizzle needs 8 or 16 chunks a row");
+  static_assert(HP == 32 || HP == 64 || HP == 128, "swizzle needs 8, 16 or 32 chunks a row");
   return r * HP + ((((c >> 2) ^ ((r >> 2) & 7)) << 2) | (c & 3));
 }
 
@@ -58,6 +62,26 @@ __device__ __forceinline__ void stage_swizzled(float* __restrict__ dst,
     const int r = i / HP, c = i % HP;
     dst[swz<HP>(r, c)] = (r < rows && c < cols) ? src[r * cols + c] : 0.f;
   }
+}
+
+// stage_swizzled by 16-byte asynchronous copies (cp.async, zero-filled
+// past the data) when `vec` (cols a multiple of 4, src 16-byte aligned):
+// every chunk is in flight at once, where the plain loop waits for each
+// load in turn. The caller waits with `wait_copies` and a barrier.
+template <int HP>
+__device__ __forceinline__ void stage_swizzled_async(float* __restrict__ dst,
+                                                     const float* __restrict__ src, int rows,
+                                                     int cols, bool vec) {
+  if (!vec) return stage_swizzled<HP>(dst, src, rows, cols);
+  constexpr int CH = HP / 4;
+  for (int i = threadIdx.x; i < HP * CH; i += blockDim.x) {
+    const int r = i / CH, c = 4 * (i % CH);
+    const int bytes = (r < rows && c < cols) ? 16 : 0;
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + swz<HP>(r, c)));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(bytes ? src + r * cols + c : src), "r"(bytes));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 __device__ __forceinline__ float lane4(const float4& v, int j) {
@@ -104,37 +128,37 @@ __device__ __forceinline__ void zero_tile(float (&v)[TM][4]) {
     for (int j = 0; j < 4; ++j) v[i][j] = 0.f;
 }
 
-// Load a thread's micro-tile from a shared [.][HP] row tile.
-template <int HP, int TM>
+// Load a thread's micro-tile from a shared [.][LD] row tile.
+template <int HP, int TM, int LD = HP>
 __device__ __forceinline__ void load_tile(float (&v)[TM][4], const float* __restrict__ tile,
                                           int r0, int c0) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) lds4(v[i], tile + (r0 + i) * HP + c0);
+  for (int i = 0; i < TM; ++i) lds4(v[i], tile + (r0 + i) * LD + c0);
 }
 
-// Store a thread's micro-tile into a shared [.][HP] row tile.
-template <int HP, int TM>
+// Store a thread's micro-tile into a shared [.][LD] row tile.
+template <int HP, int TM, int LD = HP>
 __device__ __forceinline__ void store_tile(float* __restrict__ tile, int r0, int c0,
                                            const float (&v)[TM][4]) {
 #pragma unroll
   for (int i = 0; i < TM; ++i)
-    *reinterpret_cast<float4*>(tile + (r0 + i) * HP + c0) =
+    *reinterpret_cast<float4*>(tile + (r0 + i) * LD + c0) =
         make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
 }
 
-// Load BM rows into a shared [BM][HP] row tile, zero past n columns and
+// Load BM rows into a shared [BM][LD] row tile, zero past n columns and
 // for rows where row(r) is null. With `vec`, each 16-byte chunk is an
 // asynchronous copy (cp.async, zero-filled past the data; `base`, any
 // valid global address, stands in for a chunk that reads nothing): the
 // caller waits with `wait_copies` and a barrier. Otherwise plain loads.
-template <int BM, int HP, typename RowFn>
+template <int BM, int HP, int LD = HP, typename RowFn>
 __device__ __forceinline__ void load_rows(float* __restrict__ tile, RowFn row, int n, bool vec,
                                           const float* base) {
   constexpr int CH = HP / 4;
   for (int i = threadIdx.x; i < BM * CH; i += blockDim.x) {
     const int r = i / CH, c = 4 * (i % CH);
     const float* src = row(r);
-    float* dst = tile + r * HP + c;
+    float* dst = tile + r * LD + c;
     if (vec) {
       const int bytes = (src != nullptr && c < n) ? 16 : 0;
       const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -153,13 +177,13 @@ __device__ __forceinline__ void load_rows(float* __restrict__ tile, RowFn row, i
 __device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // acc[i][j] += sum_{k < HP} X[r0 + i][k] * W[k][c0 + j]        (X @ W)
-// X: a shared [.][HP] row tile; W: a swizzled shared [HP][HP] matrix;
+// X: a shared [.][LD] row tile; W: a swizzled shared [HP][HP] matrix;
 // c0 a multiple of 4. The k-loop runs in steps of 8 chunks (32 channels),
 // so each chunk's swizzle is known at compile time: one XOR a chunk.
-template <int HP, int TM>
+template <int HP, int TM, int LD = HP>
 __device__ __forceinline__ void tile_mm(float (&acc)[TM][4], const float* __restrict__ X, int r0,
                                         const float* __restrict__ W, int c0) {
-  const float* x = X + r0 * HP;
+  const float* x = X + r0 * LD;
 #pragma unroll 1
   for (int k8 = 0; k8 < HP; k8 += 32) {
 #pragma unroll
@@ -167,7 +191,7 @@ __device__ __forceinline__ void tile_mm(float (&acc)[TM][4], const float* __rest
       const int k4 = k8 + 4 * u;  // row k of W holds chunk c0/4 at (c0/4) ^ (k/4 % 8)
       float4 xv[TM];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) xv[i] = *reinterpret_cast<const float4*>(x + i * HP + k4);
+      for (int i = 0; i < TM; ++i) xv[i] = *reinterpret_cast<const float4*>(x + i * LD + k4);
       const float* w = W + k4 * HP + (c0 ^ (4 * u));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {

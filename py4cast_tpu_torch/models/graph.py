@@ -30,12 +30,11 @@ from torch import nn
 from py4cast_tpu_torch.models.base import ModelBase, ModelType
 from py4cast_tpu_torch.ops.hop_kernel import CornerHopFn
 from py4cast_tpu_torch.ops.lattice_ops import (
-    DIRS8,
     pair_feats,
     sel_matrix,
     sep_aggregate,
     sep_take_mm,
-    shift2d,
+    stack_shifts,
     stencil_feats,
 )
 from py4cast_tpu_torch.ops.stencil_kernel import StencilMessageFn
@@ -314,16 +313,16 @@ class _StencilMessage(nn.Module):
     def forward(self, v, e, mask):
         ps = self.w_s(v)
         pd = self.w_d(v)
-        vs = torch.stack([shift2d(ps, di, dj) for di, dj in DIRS8], dim=1)
         if self.hidden_layers == 1:
             # the fused stage: CUDA kernels (forward and backward) on the
-            # card, their plain versions on the CPU (ops/stencil_kernel.py)
+            # card, their plain versions on the CPU (ops/stencil_kernel.py);
+            # the forward kernel shifts ps onto each cell itself
             return StencilMessageFn.apply(
-                e.contiguous(), vs, pd.contiguous(), mask,
+                e.contiguous(), ps.contiguous(), pd.contiguous(), mask,
                 _kernel(self.w_e), self.w_e.bias, _kernel(self.out), self.out.bias,
                 self.ln.weight, self.ln.bias, self.residual,
             )
-        z = F.silu(self.w_e(e) + vs + pd[:, None])
+        z = F.silu(self.w_e(e) + stack_shifts(ps) + pd[:, None])
         for i in range(self.hidden_layers - 1):
             z = F.silu(getattr(self, f"hidden_{i}")(z))
         e_new = self.ln(self.out(z))

@@ -30,6 +30,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+#: the kernels of the model paths; ``load`` also builds any other source
+#: of csrc/ (the card tests' row_tiles_probe)
 SOURCES = ("stencil_message", "corner_hop", "stencil_message_bwd", "corner_hop_bwd",
            "short_kv_attention", "short_kv_attention_bwd")
 

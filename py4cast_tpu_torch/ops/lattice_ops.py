@@ -38,6 +38,24 @@ def shift2d(v: torch.Tensor, di: int, dj: int) -> torch.Tensor:
     return out[..., r0 : r0 + H, c0 : c0 + W, :]
 
 
+def stack_shifts(ps: torch.Tensor) -> torch.Tensor:
+    """The eight neighbour shifts of a (B, H, W, h) lattice, stacked in
+    DIRS8 order: (B, 8, H, W, h) with out[:, k] = shift2d(ps, *DIRS8[k]),
+    each cell's k-th edge source aligned with the cell."""
+    return torch.stack([shift2d(ps, di, dj) for di, dj in DIRS8], dim=1)
+
+
+def unshift_sum(dvs: torch.Tensor) -> torch.Tensor:
+    """The adjoint of ``stack_shifts``: (B, 8, H, W, h) -> (B, H, W, h),
+    sum_k shift2d(dvs[:, k], -di, -dj), each direction's cotangent moved
+    back onto its source cell (what fell off the lattice is dropped)."""
+    out = shift2d(dvs[:, 0], -DIRS8[0][0], -DIRS8[0][1])
+    for k in range(1, 8):
+        di, dj = DIRS8[k]
+        out = out + shift2d(dvs[:, k], -di, -dj)
+    return out
+
+
 def sep_take_mm(v: torch.Tensor, a_rows: torch.Tensor, a_cols: torch.Tensor) -> torch.Tensor:
     """Separable lattice take as transposed 0/1 selection matmuls:
     out = a_rows^T · v · a_cols, with a_rows (ch, fh) the aggregation

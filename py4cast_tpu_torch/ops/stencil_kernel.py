@@ -2,9 +2,15 @@
 and the backward, their plain PyTorch versions, and the autograd
 Function that joins them.
 
+    vs    = lattice_ops.stack_shifts(ps)                  (8 neighbours)
     e_new = LN(silu(e @ We + be + vs + pd) @ Wo + bo)     (8 directions)
     out   = e_new (+ e when residual)
     agg   = sum_k e_new[k] * mask[k]                      (raw e_new)
+
+The forward takes the source projection ``ps`` and shifts it onto each
+cell itself; the backward takes the shifted ``vs`` and returns its
+cotangent ``dvs``, which ``StencilMessageFn`` moves back onto ``ps``
+(``lattice_ops.unshift_sum``).
 
 The forward kernel (``csrc/stencil_message.cu``) replaces the TPU kernel
 ``py4cast_tpu/ops/stencil_kernel.py::_fwd_kernel``, the backward kernel
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from py4cast_tpu_torch.ops import _build
+from py4cast_tpu_torch.ops.lattice_ops import stack_shifts, unshift_sum
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 MAX_WIDTH = 128
@@ -35,10 +42,11 @@ MAX_WIDTH = 128
 MAX_BWD_WIDTH = 64
 
 
-def stencil_message_plain(e, vs, pd, mask, we, be, wo, bo, lns, lnb, residual=False):
-    """The stencil message in plain PyTorch (same layouts as the kernel)."""
+def stencil_message_plain(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual=False):
+    """The stencil message in plain PyTorch (same layouts as the kernel):
+    the eight shifts of ps stacked, then the edge MLP."""
     h = we.shape[-1]
-    pre = e @ we + be + vs + pd[:, None]
+    pre = e @ we + be + stack_shifts(ps) + pd[:, None]
     t = F.silu(pre) @ wo + bo
     e_new = F.layer_norm(t, (h,), lns, lnb, eps=LN_EPS)
     agg = (e_new * mask[None]).sum(dim=1)
@@ -90,9 +98,12 @@ def stencil_message_bwd_plain(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
 def _lib():
     lib = _build.load("stencil_message")
     fn = lib.p4t_stencil_message_fwd
-    if fn.argtypes is None:  # first use: declare the C signature
+    if fn.argtypes is None:  # first use: declare the C signatures
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        attrs = lib.p4t_stencil_message_fwd_attributes
+        attrs.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+        attrs.restype = ctypes.c_int
     return lib
 
 
@@ -111,26 +122,36 @@ def _bwd_lib():
     return lib
 
 
-def bwd_kernel_attributes(f_in, h) -> dict:
-    """The backward kernel that widths ``(f_in, h)`` launch, as the card
-    reports it: registers a thread, local (spill) bytes a thread, dynamic
-    shared memory, resident blocks an SM, and the rows of its tile.
-    Needs the card."""
-    lib = _bwd_lib()
+def _attributes(lib, entry, f_in, h) -> dict:
     out = (ctypes.c_int * 5)()
-    _build.check(lib, lib.p4t_stencil_message_bwd_attributes(f_in, h, out),
-                 "stencil_message_bwd attributes")
+    _build.check(lib, getattr(lib, entry)(f_in, h, out), entry)
     return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2],
             "blocks_per_sm": out[3], "tile_rows": out[4]}
 
 
-def _validate(what, e, vs, pd, mask, we, be, wo, bo, lns, lnb, residual, max_width, extra=None):
+def fwd_kernel_attributes(f_in, h) -> dict:
+    """The forward kernel that widths ``(f_in, h)`` launch, as the card
+    reports it: registers a thread, local (spill) bytes a thread, dynamic
+    shared memory, resident blocks an SM, and the rows of its tile.
+    Needs the card."""
+    return _attributes(_lib(), "p4t_stencil_message_fwd_attributes", f_in, h)
+
+
+def bwd_kernel_attributes(f_in, h) -> dict:
+    """The backward kernel's, as ``fwd_kernel_attributes``."""
+    return _attributes(_bwd_lib(), "p4t_stencil_message_bwd_attributes", f_in, h)
+
+
+def _validate(what, e, src, pd, mask, we, be, wo, bo, lns, lnb, residual, max_width,
+              extra=None):
     """The checks the forward and the backward wrapper share; returns
-    the device."""
+    the device. ``src`` is the forward's ps (B, H, W, h) when ``extra``
+    is None, else the backward's vs (B, 8, H, W, h)."""
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
+    src_name, src_shape = ("ps", (b, hr, w, h)) if extra is None else ("vs", (b, 8, hr, w, h))
     shapes = {
-        "e": (e, (b, 8, hr, w, f_in)), "vs": (vs, (b, 8, hr, w, h)),
+        "e": (e, (b, 8, hr, w, f_in)), src_name: (src, src_shape),
         "pd": (pd, (b, hr, w, h)), "mask": (mask, (8, hr, w, 1)),
         "we": (we, (f_in, h)), "be": (be, (h,)), "wo": (wo, (h, h)),
         "bo": (bo, (h,)), "lns": (lns, (h,)), "lnb": (lnb, (h,)),
@@ -150,12 +171,13 @@ def _validate(what, e, vs, pd, mask, we, be, wo, bo, lns, lnb, residual, max_wid
     return device
 
 
-def fused_stencil_message(e, vs, pd, mask, we, be, wo, bo, lns, lnb, residual=False):
+def fused_stencil_message(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual=False):
     """(out, agg) of the stencil edge-message stage.
 
     e: (B, 8, H, W, F) edge states in ``lattice_ops.DIRS8`` order;
-    vs: (B, 8, H, W, h) source projections shifted onto each cell;
-    pd: (B, H, W, h) destination projection; mask: (8, H, W, 1) edge
+    ps: (B, H, W, h) source projection, which the kernel shifts onto each
+    cell for each direction (``lattice_ops.stack_shifts``, 0 off the
+    lattice); pd: (B, H, W, h) destination projection; mask: (8, H, W, 1) edge
     existence. we: (F, h), wo: (h, h) — Dense kernels in (in, out)
     layout; be, bo, lns, lnb: (h,). F and h at most 128, everything
     fp32 and contiguous. ``residual`` returns ``e + e_new`` as the first
@@ -164,10 +186,10 @@ def fused_stencil_message(e, vs, pd, mask, we, be, wo, bo, lns, lnb, residual=Fa
     """
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
-    device = _validate("fused_stencil_message", e, vs, pd, mask, we, be, wo, bo,
+    device = _validate("fused_stencil_message", e, ps, pd, mask, we, be, wo, bo,
                        lns, lnb, residual, MAX_WIDTH)
     if device.type == "cpu":
-        return stencil_message_plain(e, vs, pd, mask, we, be, wo, bo, lns, lnb, residual)
+        return stencil_message_plain(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual)
 
     out = torch.empty((b, 8, hr, w, h), device=device, dtype=torch.float32)
     agg = torch.empty((b, hr, w, h), device=device, dtype=torch.float32)
@@ -175,7 +197,7 @@ def fused_stencil_message(e, vs, pd, mask, we, be, wo, bo, lns, lnb, residual=Fa
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.p4t_stencil_message_fwd(
-            e.data_ptr(), vs.data_ptr(), pd.data_ptr(), mask.data_ptr(),
+            e.data_ptr(), ps.data_ptr(), pd.data_ptr(), mask.data_ptr(),
             we.data_ptr(), be.data_ptr(), wo.data_ptr(), bo.data_ptr(),
             lns.data_ptr(), lnb.data_ptr(), out.data_ptr(), agg.data_ptr(),
             b, hr, w, f_in, h, int(residual), stream,
@@ -194,9 +216,10 @@ def fused_stencil_message_bwd(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
                               g_out, g_agg, residual=False):
     """The stencil message's backward: ``(de, dvs, dpd, dwe, dbe, dwo,
     dbo, dlns, dlnb)`` for the cotangents g_out (B, 8, H, W, h) of out
-    and g_agg (B, H, W, h) of agg. The forward's arguments and checks;
-    F and h at most 64 (``MAX_BWD_WIDTH``). The weight gradients are
-    summed in a fixed order, so a call repeats bit for bit."""
+    and g_agg (B, H, W, h) of agg. The forward's arguments and checks,
+    with vs = ``stack_shifts(ps)`` (B, 8, H, W, h) in place of ps; F and h
+    at most 64 (``MAX_BWD_WIDTH``). The weight gradients are summed in a
+    fixed order, so a call repeats bit for bit."""
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
     device = _validate(
@@ -242,22 +265,25 @@ fused_stencil_message_bwd.launches = 0
 
 class StencilMessageFn(torch.autograd.Function):
     """``fused_stencil_message`` with its backward kernel as the
-    gradient: ``StencilMessageFn.apply(e, vs, pd, mask, we, be, wo, bo,
+    gradient: ``StencilMessageFn.apply(e, ps, pd, mask, we, be, wo, bo,
     lns, lnb, residual)``. mask and the residual flag get no gradient.
+    It saves ps, not its eight shifts: the backward shifts it again for
+    the backward kernel and moves dvs back onto ps (``unshift_sum``).
     On CPU tensors both directions run the plain versions."""
 
     @staticmethod
-    def forward(ctx, e, vs, pd, mask, we, be, wo, bo, lns, lnb, residual):
+    def forward(ctx, e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual):
         ctx.residual = bool(residual)
-        ctx.save_for_backward(e, vs, pd, mask, we, be, wo, bo, lns, lnb)
-        return fused_stencil_message(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
+        ctx.save_for_backward(e, ps, pd, mask, we, be, wo, bo, lns, lnb)
+        return fused_stencil_message(e, ps, pd, mask, we, be, wo, bo, lns, lnb,
                                      ctx.residual)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_out, g_agg):
+        e, ps, *rest = ctx.saved_tensors
         # an unused output arrives as zeros (grad materialisation is on)
-        grads = fused_stencil_message_bwd(*ctx.saved_tensors, g_out.contiguous(),
+        grads = fused_stencil_message_bwd(e, stack_shifts(ps), *rest, g_out.contiguous(),
                                           g_agg.contiguous(), ctx.residual)
         de, dvs, dpd, dwe, dbe, dwo, dbo, dlns, dlnb = grads
-        return de, dvs, dpd, None, dwe, dbe, dwo, dbo, dlns, dlnb, None
+        return de, unshift_sum(dvs), dpd, None, dwe, dbe, dwo, dbo, dlns, dlnb, None

@@ -4,6 +4,11 @@ mode and of their XLA formulas), and the port's autograd Functions
 against torch autograd through the plain forwards, on the CPU, where the
 wrappers run their plain PyTorch versions.
 
+StencilMessageFn takes the source projection ps (its forward shifts it
+onto each cell); its gradients, dps included, are also held against
+``jax.vjp`` of the JAX kernel composed with the JAX package's shift
+stack.
+
 Bars: 2e-4, the JAX kernel tests' gradient bar
 (tests/test_stencil_kernel.py, tests/test_hop_kernel.py), against JAX;
 1e-5 of the largest value (absolute below 1) for the Functions, which
@@ -16,6 +21,7 @@ import pytest
 import torch
 
 from py4cast_tpu.ops import hop_kernel as jax_hop
+from py4cast_tpu.ops import lattice_ops as jax_lat
 from py4cast_tpu.ops import stencil_kernel as jax_stencil
 from py4cast_tpu_torch.ops import hop_kernel, stencil_kernel
 from py4cast_tpu_torch.ops.hop_kernel import (
@@ -61,6 +67,22 @@ def stencil_case():
     ])
     g_out, g_agg = _arrays(13, [((B, 8, H, W, HID), 1.0, 0.0), ((B, H, W, HID), 1.0, 0.0)])
     return [e, vs, pd, mask] + params, g_out, g_agg
+
+
+@pytest.fixture(scope="module")
+def stencil_fn_case():
+    """StencilMessageFn's inputs (ps in place of vs) and the cotangents
+    of (out, agg)."""
+    e, ps, pd = _arrays(14, [((B, 8, H, W, HID), 1.0, 0.0), ((B, H, W, HID), 1.0, 0.0),
+                             ((B, H, W, HID), 1.0, 0.0)])
+    mask = (np.random.default_rng(15).uniform(size=(8, H, W, 1)) > 0.2).astype(np.float32)
+    params = _arrays(16, [
+        ((HID, HID), 0.3, 0.0), ((HID,), 0.1, 0.0),  # we, be
+        ((HID, HID), 0.3, 0.0), ((HID,), 0.1, 0.0),  # wo, bo
+        ((HID,), 0.2, 1.0), ((HID,), 0.1, 0.0),      # lns, lnb
+    ])
+    g_out, g_agg = _arrays(17, [((B, 8, H, W, HID), 1.0, 0.0), ((B, H, W, HID), 1.0, 0.0)])
+    return [e, ps, pd, mask] + params, g_out, g_agg
 
 
 @pytest.fixture(scope="module")
@@ -162,11 +184,12 @@ def _assert_close(got, want, what):
 
 
 @pytest.mark.parametrize("case", ["residual", "plain", "out_unused"])
-def test_stencil_function_matches_autograd(stencil_case, case):
+def test_stencil_function_matches_autograd(stencil_fn_case, case):
     """StencilMessageFn's gradients (saved tensors, grad order, residual
-    flag) against autograd through the plain forward. ``out_unused``:
-    only agg feeds the loss, so g_out reaches the backward as zeros."""
-    args, g_out, g_agg = stencil_case
+    flag, dps through unshift_sum) against autograd through the plain
+    forward and its shift stack. ``out_unused``: only agg feeds the loss,
+    so g_out reaches the backward as zeros."""
+    args, g_out, g_agg = stencil_fn_case
     residual = case == "residual"
     go, ga = _t([g_out, g_agg])
 
@@ -179,6 +202,33 @@ def test_stencil_function_matches_autograd(stencil_case, case):
     got = grads(lambda a: StencilMessageFn.apply(*a, residual))
     want = grads(lambda a: stencil_message_plain(*a, residual=residual))
     _assert_close(got, want, "StencilMessageFn")
+
+
+@pytest.mark.parametrize("reference", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_stencil_function_matches_jax_vjp(stencil_fn_case, residual, reference):
+    """StencilMessageFn's gradients, dps included, against jax.vjp of the
+    JAX kernel (or its XLA formula) fed the JAX package's shift stack."""
+    args, g_out, g_agg = stencil_fn_case
+    jargs = [jnp.asarray(a) for a in args]
+
+    def fwd(e, ps, pd, we, be, wo, bo, lns, lnb):
+        vs = jnp.stack([jax_lat.shift2d(ps, di, dj) for di, dj in jax_lat.DIRS8], axis=1)
+        if reference == "xla":
+            return _stencil_xla(e, vs, pd, jargs[3], we, be, wo, bo, lns, lnb, residual)
+        return jax_stencil.fused_stencil_message(
+            e, vs, pd, jargs[3], we, be, wo, bo, lns, lnb,
+            interpret=True, mode=1, residual=residual)
+
+    _, vjp = jax.vjp(fwd, *(jargs[:3] + jargs[4:]))
+    want = vjp((jnp.asarray(g_out), jnp.asarray(g_agg)))
+    leaves = [a.clone().requires_grad_(i != 3) for i, a in enumerate(_t(args))]
+    out, agg = StencilMessageFn.apply(*leaves, residual)
+    loss = (out * torch.from_numpy(g_out)).sum() + (agg * torch.from_numpy(g_agg)).sum()
+    got = torch.autograd.grad(loss, [a for i, a in enumerate(leaves) if i != 3])
+    names = ("de", "dps") + STENCIL_NAMES[2:]
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **JAX_TOL, err_msg=name)
 
 
 @pytest.mark.parametrize("mean", [False, True])
@@ -197,8 +247,8 @@ def test_hop_function_matches_autograd(hop_case, mean):
     _assert_close(got, want, "CornerHopFn")
 
 
-def test_functions_give_no_gradient_to_mask_and_feats(stencil_case, hop_case):
-    args = [a.clone().requires_grad_() for a in _t(stencil_case[0])]
+def test_functions_give_no_gradient_to_mask_and_feats(stencil_fn_case, hop_case):
+    args = [a.clone().requires_grad_() for a in _t(stencil_fn_case[0])]
     out, agg = StencilMessageFn.apply(*args, True)
     (out.sum() + agg.sum()).backward()
     assert args[3].grad is None and args[0].grad is not None

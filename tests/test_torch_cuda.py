@@ -60,6 +60,18 @@ def _rand(rng, *shape, scale=1.0, shift=0.0):
     ).cuda()
 
 
+def _stencil_fwd_args(rng, b, hr, w, f_in, h):
+    """The forward's arguments: e, ps (the source projection the kernel
+    shifts itself), pd, mask and the weights."""
+    return (
+        _rand(rng, b, 8, hr, w, f_in), _rand(rng, b, hr, w, h), _rand(rng, b, hr, w, h),
+        torch.from_numpy((rng.uniform(size=(8, hr, w, 1)) > 0.3).astype(np.float32)).cuda(),
+        _rand(rng, f_in, h, scale=f_in ** -0.5), _rand(rng, h, scale=0.1),
+        _rand(rng, h, h, scale=h ** -0.5), _rand(rng, h, scale=0.1),
+        _rand(rng, h, scale=0.2, shift=1.0), _rand(rng, h, scale=0.1),
+    )
+
+
 @pytest.mark.parametrize("b,hr,w,f_in,h,residual", [
     (1, 125, 125, 64, 64, True),   # GraphLAM level 0
     (2, 7, 9, 16, 16, True),       # one lane word, ragged cell count
@@ -67,16 +79,21 @@ def _rand(rng, *shape, scale=1.0, shift=0.0):
     (1, 6, 6, 96, 96, True),
     (2, 3, 5, 128, 128, False),
     (1, 4, 4, 8, 128, False),
+    (1, 63, 63, 64, 64, True),     # GraphLAM level 1
+    (1, 32, 32, 64, 64, True),     # GraphLAM level 2
+    (1, 1, 1, 64, 64, True),       # one cell: every shift falls off the lattice
+    (1, 1, 5, 64, 64, False),      # one row: the vertical shifts fall off
+    (2, 2, 3, 32, 32, True),       # B = 2: a tile spans both batch entries
+    (1, 3, 3, 64, 64, False),      # one cell past a tile (8 cells at width 64)
+    (1, 1, 17, 32, 32, True),      # one cell past a tile (16 cells at width 32)
+    (1, 9, 1, 128, 128, True),     # one cell past a tile (8 cells at width 128)
+    (1, 4, 5, 30, 30, True),       # widths not a multiple of 4: no 128-bit loads
+    (2, 3, 7, 6, 10, False),       # F != h, neither a multiple of 4
+    (1, 5, 6, 126, 126, True),     # width 128's instance, not a multiple of 4
 ])
 def test_stencil_kernel_matches_plain(cuda, b, hr, w, f_in, h, residual):
     rng = np.random.default_rng(h + f_in)
-    args = (
-        _rand(rng, b, 8, hr, w, f_in), _rand(rng, b, 8, hr, w, h), _rand(rng, b, hr, w, h),
-        torch.from_numpy((rng.uniform(size=(8, hr, w, 1)) > 0.3).astype(np.float32)).cuda(),
-        _rand(rng, f_in, h, scale=f_in ** -0.5), _rand(rng, h, scale=0.1),
-        _rand(rng, h, h, scale=h ** -0.5), _rand(rng, h, scale=0.1),
-        _rand(rng, h, scale=0.2, shift=1.0), _rand(rng, h, scale=0.1),
-    )
+    args = _stencil_fwd_args(rng, b, hr, w, f_in, h)
     before = fused_stencil_message.launches
     got = fused_stencil_message(*args, residual=residual)
     torch.cuda.synchronize()
@@ -84,6 +101,19 @@ def test_stencil_kernel_matches_plain(cuda, b, hr, w, f_in, h, residual):
     want = stencil_message_plain(*args, residual=residual)
     for g, wnt in zip(got, want):
         torch.testing.assert_close(g, wnt, **TOL)
+    # agg sums each cell's 8 rows in a fixed order: bit for bit again
+    again = fused_stencil_message(*args, residual=residual)
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+
+
+def test_stencil_kernels_do_not_spill(cuda):
+    """Every instance of the stencil forward (widths up to 32, 64 and
+    128) keeps its state in registers and fits a block an SM."""
+    for width in (32, 64, 128):
+        a = stencil_kernel.fwd_kernel_attributes(width, width)
+        assert a["local_bytes"] == 0, (width, a)
+        assert a["blocks_per_sm"] >= 1, (width, a)
 
 
 @pytest.mark.parametrize("b,hr,w,h,ff,mean", [
@@ -111,12 +141,50 @@ def test_hop_kernel_matches_plain(cuda, b, hr, w, h, ff, mean):
     torch.testing.assert_close(got, corner_hop_plain(psg, *rest, mean=mean), **TOL)
 
 
+def test_row_tiles_swizzled_reads_are_free_of_bank_conflicts(cuda):
+    """row_tiles.cuh's swizzled [HP][HP] weights, read as tile_mm (X @ W)
+    and tile_mm_t (X @ W^T) read them, take no longer than the plain row
+    read, which no two lanes of a quarter-warp share a bank in, at HP =
+    32, 64 and 128 (csrc/row_tiles_probe.cu times a block of 32 warps);
+    the plain layout under the W^T pattern, which conflicts, takes at
+    least twice as long, so the probe does see conflicts."""
+    import ctypes
+
+    from py4cast_tpu_torch.ops import _build
+
+    lib = _build.load("row_tiles_probe")
+    fn = lib.p4t_row_tiles_read_cycles
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(1024, device="cuda")
+
+    def measure(hp, transposed, swizzled):
+        runs = []
+        for _ in range(3):
+            _build.check(lib, fn(hp, transposed, swizzled, cycles.data_ptr(), sink.data_ptr()),
+                         "row_tiles_probe")
+            torch.cuda.synchronize()
+            runs.append(int(cycles.item()))
+        return min(runs)
+
+    for hp in (32, 64, 128):
+        row = measure(hp, 0, 0)
+        got = {"W swizzled": measure(hp, 0, 1), "W^T swizzled": measure(hp, 1, 1),
+               "W^T row-major": measure(hp, 1, 0)}
+        print(f"row_tiles_probe HP={hp}: W row-major {row} cycles, "
+              + ", ".join(f"{name} {c}" for name, c in got.items()))
+        for name in ("W swizzled", "W^T swizzled"):
+            assert got[name] <= 1.15 * row, (hp, name, got, row)
+        assert got["W^T row-major"] >= 2 * row, (hp, got, row)
+
+
 def test_kernels_follow_the_current_stream(cuda):
     """A launch on a side stream orders with that stream's work."""
     rng = np.random.default_rng(0)
     h = 32
     args = [
-        _rand(rng, 1, 8, 6, 6, h), _rand(rng, 1, 8, 6, 6, h), _rand(rng, 1, 6, 6, h),
+        _rand(rng, 1, 8, 6, 6, h), _rand(rng, 1, 6, 6, h), _rand(rng, 1, 6, 6, h),
         torch.ones(8, 6, 6, 1, device="cuda"), _rand(rng, h, h, scale=h ** -0.5),
         _rand(rng, h), _rand(rng, h, h, scale=h ** -0.5), _rand(rng, h),
         torch.ones(h, device="cuda"), torch.zeros(h, device="cuda"),
@@ -267,7 +335,7 @@ def test_functions_give_the_cpu_gradients_on_the_card(cuda):
     """torch.autograd.grad through StencilMessageFn and CornerHopFn on
     the card (both kernels each way) against the same on the CPU."""
     rng = np.random.default_rng(7)
-    s_args = _stencil_args(rng, 2, 9, 7, 32, 32)
+    s_args = _stencil_fwd_args(rng, 2, 9, 7, 32, 32)
     psg, rest = _hop_args(rng, 2, 9, 7, 32, 3)
     s_cot = (_rand(rng, 2, 8, 9, 7, 32), _rand(rng, 2, 9, 7, 32))
     h_cot = _rand(rng, 2, 9, 7, 32)

@@ -1,6 +1,9 @@
 """The port's stencil-message and corner-hop functions against the JAX
 package's Pallas kernels (interpret mode) and their XLA formulas, on the
-CPU, where the port's wrappers run their plain PyTorch versions.
+CPU, where the port's wrappers run their plain PyTorch versions. The
+port's stencil message takes the source projection ps and shifts it
+itself; the JAX kernel is fed the stack of the JAX package's own
+``shift2d(ps)`` in DIRS8 order.
 
 Bar: rtol/atol 1e-5, the JAX kernel tests' own forward bar
 (tests/test_stencil_kernel.py, tests/test_hop_kernel.py)."""
@@ -12,6 +15,7 @@ import pytest
 import torch
 
 from py4cast_tpu.ops import hop_kernel as jax_hop
+from py4cast_tpu.ops import lattice_ops as jax_lat
 from py4cast_tpu.ops import stencil_kernel as jax_stencil
 from py4cast_tpu_torch.ops import hop_kernel, stencil_kernel
 from py4cast_tpu_torch.ops.hop_kernel import fused_corner_hop
@@ -28,21 +32,34 @@ def _arrays(seed, shapes):
     return [rng.standard_normal(s).astype(np.float32) * sc + sh for s, sc, sh in shapes]
 
 
-@pytest.fixture(scope="module")
-def stencil_inputs():
-    arrs = _arrays(0, [
-        ((B, 8, H, W, HID), 1.0, 0.0),  # e
-        ((B, 8, H, W, HID), 1.0, 0.0),  # vs
-        ((B, H, W, HID), 1.0, 0.0),     # pd
+def _stencil_case(b, hr, w, hid, seed=0):
+    """(e, ps, pd, mask, we, be, wo, bo, lns, lnb) as numpy arrays."""
+    arrs = _arrays(seed, [
+        ((b, 8, hr, w, hid), 1.0, 0.0),  # e
+        ((b, hr, w, hid), 1.0, 0.0),     # ps
+        ((b, hr, w, hid), 1.0, 0.0),     # pd
     ])
-    rng = np.random.default_rng(1)
-    mask = (rng.uniform(size=(8, H, W, 1)) > 0.2).astype(np.float32)
-    params = _arrays(2, [
-        ((HID, HID), 0.3, 0.0), ((HID,), 0.1, 0.0),  # we, be
-        ((HID, HID), 0.3, 0.0), ((HID,), 0.1, 0.0),  # wo, bo
-        ((HID,), 0.2, 1.0), ((HID,), 0.1, 0.0),      # lns, lnb
+    rng = np.random.default_rng(seed + 1)
+    mask = (rng.uniform(size=(8, hr, w, 1)) > 0.2).astype(np.float32)
+    params = _arrays(seed + 2, [
+        ((hid, hid), 0.3, 0.0), ((hid,), 0.1, 0.0),  # we, be
+        ((hid, hid), 0.3, 0.0), ((hid,), 0.1, 0.0),  # wo, bo
+        ((hid,), 0.2, 1.0), ((hid,), 0.1, 0.0),      # lns, lnb
     ])
     return arrs[:3] + [mask] + params
+
+
+@pytest.fixture(scope="module")
+def stencil_inputs():
+    return _stencil_case(B, H, W, HID)
+
+
+def _jax_shifted(args):
+    """The JAX arguments with ps replaced by the stack of the JAX
+    package's shift2d(ps) in DIRS8 order."""
+    j = [jnp.asarray(a) for a in args]
+    j[1] = jnp.stack([jax_lat.shift2d(j[1], di, dj) for di, dj in jax_lat.DIRS8], axis=1)
+    return j
 
 
 @pytest.fixture(scope="module")
@@ -79,8 +96,7 @@ def _stencil_xla(e, vs, pd, mask, we, be, wo, bo, lns, lnb, residual):
 @pytest.mark.parametrize("residual", [False, True])
 def test_stencil_plain_matches_pallas_interpret(stencil_inputs, residual):
     want = jax_stencil.fused_stencil_message(
-        *[jnp.asarray(a) for a in stencil_inputs], interpret=True, mode=1,
-        residual=residual,
+        *_jax_shifted(stencil_inputs), interpret=True, mode=1, residual=residual,
     )
     got = fused_stencil_message(*_t(stencil_inputs), residual=residual)
     for g, w in zip(got, want):
@@ -89,10 +105,22 @@ def test_stencil_plain_matches_pallas_interpret(stencil_inputs, residual):
 
 @pytest.mark.parametrize("residual", [False, True])
 def test_stencil_plain_matches_xla_formula(stencil_inputs, residual):
-    want = _stencil_xla(*[jnp.asarray(a) for a in stencil_inputs], residual)
+    want = _stencil_xla(*_jax_shifted(stencil_inputs), residual)
     got = stencil_kernel.stencil_message_plain(*_t(stencil_inputs), residual=residual)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("b,hr,w", [(1, 1, 1), (1, 1, 5), (2, 2, 3), (1, 3, 7)])
+def test_stencil_plain_where_shifts_fall_off_the_lattice(b, hr, w):
+    """Lattices where every direction's shift leaves some side (a single
+    cell has no neighbour at all): the port's shifts against the JAX
+    package's, through the XLA formula."""
+    args = _stencil_case(b, hr, w, 8, seed=30)
+    want = _stencil_xla(*_jax_shifted(args), True)
+    got = fused_stencil_message(*_t(args), residual=True)
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), **TOL)
 
 
 def _hop_xla(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
@@ -141,7 +169,8 @@ def test_cpu_calls_leave_launch_counters_at_zero(stencil_inputs, hop_inputs):
     assert fused_corner_hop.launches == 0
 
 
-@pytest.mark.parametrize("fault", ["dtype", "shape", "contiguity", "width", "residual"])
+@pytest.mark.parametrize("fault", ["dtype", "shape", "shifted_ps", "contiguity", "width",
+                                   "residual"])
 def test_stencil_wrapper_rejects_bad_arguments(stencil_inputs, fault):
     args = _t(stencil_inputs)
     residual = False
@@ -149,6 +178,8 @@ def test_stencil_wrapper_rejects_bad_arguments(stencil_inputs, fault):
         args[0] = args[0].double()
     elif fault == "shape":
         args[2] = args[2][:, :-1]
+    elif fault == "shifted_ps":  # the forward takes ps, not its eight shifts
+        args[1] = torch.zeros(B, 8, H, W, HID)
     elif fault == "contiguity":
         args[4] = args[4].t()
     elif fault == "width":

@@ -30,6 +30,49 @@ def test_shift2d_exact(lattice, di, dj):
     np.testing.assert_array_equal(got, want)
 
 
+#: lattices where the shifts fall off every side, down to a single cell
+SHIFT_LATTICES = [(2, 8, 8, 16), (1, 1, 1, 4), (1, 1, 5, 3), (2, 2, 3, 5)]
+
+
+@pytest.mark.parametrize("shape", SHIFT_LATTICES)
+def test_stack_shifts_exact(shape):
+    x = np.random.default_rng(2).standard_normal(shape).astype(np.float32)
+    jx = jnp.asarray(x)
+    want = np.asarray(jnp.stack([jax_lat.shift2d(jx, di, dj) for di, dj in jax_lat.DIRS8], 1))
+    got = port_lat.stack_shifts(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", SHIFT_LATTICES)
+def test_unshift_sum_is_the_adjoint_of_stack_shifts(shape):
+    """<stack_shifts(x), y> = <x, unshift_sum(y)> on random inputs (fp64,
+    so that the two sums' orders agree to rounding)."""
+    rng = np.random.default_rng(3)
+    b, hr, w, h = shape
+    x = torch.from_numpy(rng.standard_normal(shape))
+    y = torch.from_numpy(rng.standard_normal((b, 8, hr, w, h)))
+    lhs = float((port_lat.stack_shifts(x) * y).sum())
+    rhs = float((x * port_lat.unshift_sum(y)).sum())
+    assert abs(lhs - rhs) <= 1e-12 * max(1.0, abs(lhs))
+    assert port_lat.unshift_sum(y).shape == x.shape
+
+
+@pytest.mark.parametrize("shape", SHIFT_LATTICES)
+def test_unshift_sum_matches_jax_vjp_of_the_shift_stack(shape):
+    import jax
+
+    rng = np.random.default_rng(4)
+    b, hr, w, h = shape
+    x = rng.standard_normal(shape).astype(np.float32)
+    y = rng.standard_normal((b, 8, hr, w, h)).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda v: jnp.stack([jax_lat.shift2d(v, di, dj) for di, dj in jax_lat.DIRS8], 1),
+        jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(y))
+    got = port_lat.unshift_sum(torch.from_numpy(y)).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
 def _maps():
     rows = np.array([0, 0, 1, 1, 2, 2, 3, 3])
     cols = np.array([0, 1, 1, 2, 2, 3, 3, 3])
