@@ -41,15 +41,16 @@ non-zero exit code and no result line:
    kernels, finite outputs, agreement with the same module on the CPU;
 5. the full-size GraphLAM rollout (500x500 grid, batch 1, 3 AR steps)
    through the same predict path: ms per step, peak memory, a profile of
-   where the device time goes, and step 1 against the CPU;
+   where the device time goes and of how many device activities a call
+   runs, and step 1 against the CPU;
 6. ``Trainer.fit`` on Dummy, GraphLAM at the same width: launch counts of
    all four kernels, a finite and changing train loss, ``last`` and the
    manifest written, a resume that continues the optimizer-step count,
    ``Trainer.test``; one train step's gradients on the card against the
    CPU's; the CLI's fit, test and predict in-process;
 7. one full-size train step (500x500, batch 1, 1 AR step): ms per step,
-   peak memory, a profile of where the device time goes, finite loss
-   and gradients;
+   peak memory, a profile of where the device time goes and of its
+   device activities, finite loss and gradients;
 8. ``Trainer.predict`` on Dummy with Segformer at the width of
    config/CLI/model/segformer.yaml: 8 c-fwd launches per model call,
    finite outputs, agreement with the CPU;

@@ -1,4 +1,5 @@
-// Warp-per-cell building blocks shared by the lattice GNN kernels.
+// Warp-per-cell building blocks of the corner-hop forward (corner_hop.cu);
+// the other kernels take their constants, `stage` and `sum_partials`.
 //
 // A warp owns P cells at once. For each cell it keeps one feature row
 // in registers, spread over the lanes: lane l holds channels l, l+32,
@@ -107,122 +108,6 @@ cudaError_t grid_for(Kernel kernel, int threads, size_t smem, long long groups,
   const long long cap = (long long)sms * per_sm;
   *blocks = (int)(needed < cap ? (needed > 0 ? needed : 1) : cap);
   return cudaSuccess;
-}
-
-
-// ------------------------------------------------------------------ backward
-// The backward kernels keep each weight matrix once in shared memory as
-// [32J][ld] with an odd row stride ld = 32J + 1: the forward product
-// reads a row (consecutive lanes, consecutive words) and the transposed
-// product reads a column (lane l at word l*ld + m, so bank l + m): both
-// are free of bank conflicts. Rows and columns past the real sizes are 0.
-
-// Copy a global [rows][cols] matrix into shared [32*J][ld], zero-filled.
-template <int J>
-__device__ __forceinline__ void stage_ld(float* __restrict__ dst, const float* __restrict__ src,
-                                         int rows, int cols, int ld) {
-  for (int i = threadIdx.x; i < 32 * J * ld; i += blockDim.x) {
-    const int r = i / ld, c = i % ld;
-    dst[i] = (r < rows && c < cols) ? src[r * cols + c] : 0.f;
-  }
-}
-
-// acc[p][j] += sum_{m < n_in} x[p][m] * W[lane + 32 j][m]      (x @ W^T)
-template <int J, int P>
-__device__ __forceinline__ void row_matmul_t(const float (&x)[P][J], float (&acc)[P][J],
-                                             const float* __restrict__ W, int n_in, int lane,
-                                             int ld) {
-#pragma unroll
-  for (int jm = 0; jm < J; ++jm) {
-    const int m_end = min(32, n_in - 32 * jm);
-#pragma unroll 4
-    for (int mm = 0; mm < m_end; ++mm) {
-      const float* wcol = W + lane * ld + 32 * jm + mm;
-      float w[J];
-#pragma unroll
-      for (int j = 0; j < J; ++j) w[j] = wcol[32 * j * ld];
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const float xm = __shfl_sync(FULL, x[p][jm], mm);
-#pragma unroll
-        for (int j = 0; j < J; ++j) acc[p][j] = fmaf(xm, w[j], acc[p][j]);
-      }
-    }
-  }
-}
-
-// In place: t <- (t - mean) * inv over the first h channels (0 past h),
-// the LayerNorm's normalised input; returns inv = 1/sqrt(var + eps).
-template <int J>
-__device__ __forceinline__ float ln_normalize(float (&t)[J], int h, int lane) {
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < J; ++j) s += t[j];
-  const float mu = warp_sum(s) / h;
-  float s2 = 0.f;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    t[j] = (lane + 32 * j < h) ? t[j] - mu : 0.f;
-    s2 += t[j] * t[j];
-  }
-  const float inv = rsqrtf(warp_sum(s2) / h + LN_EPS);
-#pragma unroll
-  for (int j = 0; j < J; ++j) t[j] *= inv;
-  return inv;
-}
-
-// In place: g <- d/dt of LayerNorm(t) * scale + bias for the cotangent g,
-// given xhat and inv of t (0 past h).
-template <int J>
-__device__ __forceinline__ void ln_backward(float (&g)[J], const float (&xhat)[J], float inv,
-                                            const float* __restrict__ scale, int h, int lane) {
-  float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    g[j] *= scale[lane + 32 * j];
-    s1 += g[j];
-    s2 += g[j] * xhat[j];
-  }
-  s1 = warp_sum(s1) / h;
-  s2 = warp_sum(s2) / h;
-#pragma unroll
-  for (int j = 0; j < J; ++j)
-    g[j] = (lane + 32 * j < h) ? (g[j] - s1 - xhat[j] * s2) * inv : 0.f;
-}
-
-// acc[i][j] += sum_{r < R} X[r][i] * Y[r][j] for i < rows, j < 32J: the
-// weight-gradient update of one tile of R rows. X, Y: shared [R][32J];
-// acc: shared [rows][32J]. Needs 256 threads: a 16 x 16 grid, each
-// thread owning a (2J) x (2J) patch (rows ti*2J + a, columns tj + 16 b),
-// summed over the tile in registers and added to acc once.
-template <int J>
-__device__ __forceinline__ void tile_xty(float* __restrict__ acc, const float* __restrict__ X,
-                                         const float* __restrict__ Y, int R, int rows) {
-  constexpr int HP = 32 * J, T = 2 * J;
-  const int ti = threadIdx.x >> 4, tj = threadIdx.x & 15;
-  if (ti * T >= rows) return;
-  float s[T][T];
-#pragma unroll
-  for (int a = 0; a < T; ++a)
-#pragma unroll
-    for (int b = 0; b < T; ++b) s[a][b] = 0.f;
-  for (int r = 0; r < R; ++r) {
-    float x[T], y[T];
-#pragma unroll
-    for (int a = 0; a < T; ++a) x[a] = X[r * HP + ti * T + a];
-#pragma unroll
-    for (int b = 0; b < T; ++b) y[b] = Y[r * HP + tj + 16 * b];
-#pragma unroll
-    for (int a = 0; a < T; ++a)
-#pragma unroll
-      for (int b = 0; b < T; ++b) s[a][b] = fmaf(x[a], y[b], s[a][b]);
-  }
-#pragma unroll
-  for (int a = 0; a < T; ++a) {
-    if (ti * T + a >= rows) break;
-#pragma unroll
-    for (int b = 0; b < T; ++b) acc[(ti * T + a) * HP + tj + 16 * b] += s[a][b];
-  }
 }
 
 // out[i] = sum_b partial[b][i], b ascending: the second pass of the

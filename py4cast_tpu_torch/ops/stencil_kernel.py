@@ -142,21 +142,17 @@ def bwd_kernel_attributes(f_in, h) -> dict:
     return _attributes(_bwd_lib(), "p4t_stencil_message_bwd_attributes", f_in, h)
 
 
-def _validate(what, e, src, pd, mask, we, be, wo, bo, lns, lnb, residual, max_width,
-              extra=None):
-    """The checks the forward and the backward wrapper share; returns
-    the device. ``src`` is the forward's ps (B, H, W, h) when ``extra``
-    is None, else the backward's vs (B, 8, H, W, h)."""
+def _validate(what, e, pd, mask, we, be, wo, bo, lns, lnb, residual, max_width, extra):
+    """The checks the forward and the backward wrapper share, and theirs
+    (``extra``: name -> (tensor, expected shape)); returns the device."""
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
-    src_name, src_shape = ("ps", (b, hr, w, h)) if extra is None else ("vs", (b, 8, hr, w, h))
     shapes = {
-        "e": (e, (b, 8, hr, w, f_in)), src_name: (src, src_shape),
+        "e": (e, (b, 8, hr, w, f_in)), **extra,
         "pd": (pd, (b, hr, w, h)), "mask": (mask, (8, hr, w, 1)),
         "we": (we, (f_in, h)), "be": (be, (h,)), "wo": (wo, (h, h)),
         "bo": (bo, (h,)), "lns": (lns, (h,)), "lnb": (lnb, (h,)),
     }
-    shapes.update(extra or {})
     device = _build.validate(what, shapes)
     if f_in > max_width or h > max_width:
         raise ValueError(
@@ -186,8 +182,8 @@ def fused_stencil_message(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual=Fa
     """
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
-    device = _validate("fused_stencil_message", e, ps, pd, mask, we, be, wo, bo,
-                       lns, lnb, residual, MAX_WIDTH)
+    device = _validate("fused_stencil_message", e, pd, mask, we, be, wo, bo, lns, lnb,
+                       residual, MAX_WIDTH, {"ps": (ps, (b, hr, w, h))})
     if device.type == "cpu":
         return stencil_message_plain(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual)
 
@@ -223,9 +219,10 @@ def fused_stencil_message_bwd(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
     device = _validate(
-        "fused_stencil_message_bwd", e, vs, pd, mask, we, be, wo, bo, lns, lnb,
+        "fused_stencil_message_bwd", e, pd, mask, we, be, wo, bo, lns, lnb,
         residual, MAX_BWD_WIDTH,
-        {"g_out": (g_out, (b, 8, hr, w, h)), "g_agg": (g_agg, (b, hr, w, h))},
+        {"vs": (vs, (b, 8, hr, w, h)), "g_out": (g_out, (b, 8, hr, w, h)),
+         "g_agg": (g_agg, (b, hr, w, h))},
     )
     if device.type == "cpu":
         return stencil_message_bwd_plain(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
