@@ -9,15 +9,16 @@ non-zero exit code and no result line:
 1. the card: its name and power limit (nvidia-smi), TF32 off;
 2. build every CUDA kernel of the main path from ``py4cast_tpu_torch/csrc``
    with nvcc (one process per source, all at once); ptxas's registers
-   and spills of every a-fwd, c-fwd, a-bwd and b-bwd (node and corner
-   pass) instance;
+   and spills of every a-fwd, b-fwd (row-tile and warp-row), c-fwd,
+   a-bwd and b-bwd (node and corner pass) instance;
 3. each forward kernel against its plain PyTorch version at the main
    path's shapes (GraphLAM at 500x500: each mesh level's lattice,
-   125x125, 63x63 and 32x32, for the stencil message, each with its
-   bound and a second call bit for bit, and the launched instance's
-   registers, spills and resident blocks; the 500x500 grid for the
-   corner hop), inputs from a numpy seed, then both timed with CUDA
-   events;
+   125x125, 63x63 and 32x32, for the stencil message; the 500x500 grid
+   for the corner hop, which gathers from the 125x125 level-0 lattice
+   through GraphLAM's corner maps, at h = 64 and at h = 96, the widest
+   it takes), each with its bound and a second call bit for bit, and
+   the launched instance's registers, spills and resident blocks,
+   inputs from a numpy seed, then both timed with CUDA events;
 3b. each backward kernel the same way, with random cotangents: input
    gradients against the plain backward, weight gradients (sums over
    every cell) against the plain backward in fp64, as is the plain
@@ -147,6 +148,7 @@ KERNEL_SOURCES = {
 #: the kernels whose registers and spills phase 2 reports, by source
 PTXAS_KERNELS = {
     "stencil_message": ("stencil_message_fwd",),
+    "corner_hop": ("corner_hop_fwd", "corner_hop_fwd_warps"),
     "short_kv_attention": ("short_kv_attention_fwd",),
     "stencil_message_bwd": ("stencil_message_bwd",),
     "corner_hop_bwd": ("corner_hop_bwd_node", "corner_hop_bwd_corner"),
@@ -256,7 +258,15 @@ def stencil_inputs(rng, b=1, hr=125, w=125, h=64, shifted=False):
 
 
 def hop_inputs(rng, b=1, hr=500, w=500, h=64, ff=3):
-    psg = [_rand(rng, b, hr, w, h) for _ in range(4)]
+    """(ps, rows, cols): the source projection on GraphLAM's level-0
+    lattice (the grid coarsened by 4, as build_graph_artifacts does) and
+    its int32 corner maps; and the grid's vd, feats and the weights."""
+    from py4cast_tpu_torch.models.graph import _corners_rc
+
+    coarse = (max(2, hr // 4), max(2, w // 4))
+    (r0, r1), (c0, c1) = _corners_rc((hr, w), coarse)
+    maps = [torch.from_numpy(np.stack(m).astype(np.int32)).cuda() for m in ((r0, r1), (c0, c1))]
+    src = (_rand(rng, b, *coarse, h), *maps)
     rest = (
         _rand(rng, b, hr, w, h), _rand(rng, 4, hr, w, ff, scale=0.5),
         _rand(rng, ff, h, scale=ff ** -0.5), _rand(rng, h, scale=0.1),
@@ -266,7 +276,7 @@ def hop_inputs(rng, b=1, hr=500, w=500, h=64, ff=3):
         _rand(rng, h, scale=0.1), _rand(rng, h, h, scale=h ** -0.5), _rand(rng, h, scale=0.1),
         _rand(rng, h, scale=0.2, shift=1.0), _rand(rng, h, scale=0.1),
     )
-    return psg, rest
+    return src, rest
 
 
 #: the lattice sides of GraphLAM's three mesh levels at 500x500 (the
@@ -339,29 +349,59 @@ def check_stencil(rng, b=1, h=64) -> dict:
     }
 
 
-def check_hop(rng, b=1, hr=500, w=500, h=64, ff=3):
-    from py4cast_tpu_torch.ops.hop_kernel import corner_hop_plain, fused_corner_hop
+def check_hop(rng, b=1, hr=500, w=500, ff=3) -> dict:
+    """b-fwd against its plain version at the GraphLAM grid, at h = 64 (the
+    path's width, row tiles) and h = 96 (the widest, warp rows), each with
+    a second call bit for bit, both timed, the bound and its share, and
+    the launched instance's registers, spills, resident blocks and cells
+    a tile. The h = 64 numbers on top, both widths' under "shapes"."""
+    from py4cast_tpu_torch.ops.hop_kernel import (
+        corner_hop_plain,
+        fused_corner_hop,
+        fwd_kernel_attributes,
+    )
 
-    psg, rest = hop_inputs(rng, b, hr, w, h, ff)
-    out = fused_corner_hop(psg, *rest, mean=False)
-    torch.cuda.synchronize()
-    err = compare("corner hop", out, corner_hop_plain(psg, *rest, mean=False))
-    ms = time_ms(lambda: fused_corner_hop(psg, *rest, mean=False))
-    plain_ms = time_ms(lambda: corner_hop_plain(psg, *rest, mean=False))
-    cells = b * hr * w
-    n_bytes = 4 * (6 * cells * h + 4 * hr * w * ff + 5 * h * h + ff * h + 8 * h)
-    # per cell: eight h x h products (Wd, 4 x Wo, Nd0a, Nd0b, Nd1), the
-    # 4 corner-feature products, ~84 elementwise operations a channel
-    n_ops = cells * (16 * h * h + 8 * ff * h + 84 * h)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    rows = []
+    for h in (64, 96):
+        src, rest = hop_inputs(rng, b, hr, w, h, ff)
+        out = fused_corner_hop(*src, *rest, mean=False)
+        torch.cuda.synchronize()
+        err, rel = _max_rel([out], [corner_hop_plain(*src, *rest, mean=False)])
+        if not torch.equal(out, fused_corner_hop(*src, *rest, mean=False)):
+            raise AssertionError(f"corner_hop h={h}: a second call differs")
+        del out
+        ms = time_ms(lambda: fused_corner_hop(*src, *rest, mean=False))
+        plain_ms = time_ms(lambda: corner_hop_plain(*src, *rest, mean=False))
+        cells = b * hr * w
+        # reads vd, ps on the level-0 lattice, the two maps, feats, the
+        # weights; writes v_out: the kernel gathers the corners itself
+        n_bytes = 4 * (2 * cells * h + src[0].numel() + src[1].numel() + src[2].numel()
+                       + 4 * hr * w * ff + 5 * h * h + ff * h + 8 * h)
+        # per cell: eight h x h products (Wd, 4 x Wo, Nd0a, Nd0b, Nd1), the
+        # 4 corner-feature products, ~84 elementwise operations a channel
+        n_ops = cells * (16 * h * h + 8 * ff * h + 84 * h)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        rows.append({
+            "label": f"h={h}",
+            "shape": f"ps {tuple(src[0].shape)} vd ({b},{hr},{w},{h}) feats (4,{hr},{w},{ff}) "
+                     "mean=False",
+            "max_abs_err": err, "max_err_over_scale": rel, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "launch": fwd_kernel_attributes(h),
+        })
+        del src, rest
+    top = rows[0]
     return {
         "name": "corner_hop", "route": "cuda",
         "source": "py4cast_tpu_torch/csrc/corner_hop.cu",
         "replaces": REPLACES["corner_hop"][0],
         "replaces_function": REPLACES["corner_hop"][1],
-        "shape": f"psg,vd ({b},{hr},{w},{h}) feats (4,{hr},{w},{ff}) mean=False",
-        "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "shape": top["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_err_over_scale": max(r["max_err_over_scale"] for r in rows),
+        "ms": top["ms"], "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "share_of_bound": top["share_of_bound"], "library_ms": None,
+        "launch": top["launch"], "shapes": rows,
     }
 
 
@@ -451,9 +491,12 @@ def check_hop_bwd(rng, b=1, hr=500, w=500, h=64, ff=3):
         bwd_kernel_attributes,
         corner_hop_bwd_plain,
         fused_corner_hop_bwd,
+        gather_corners,
     )
 
-    psg, rest = hop_inputs(rng, b, hr, w, h, ff)
+    src, rest = hop_inputs(rng, b, hr, w, h, ff)
+    psg = gather_corners(*src)  # what CornerHopFn's backward hands the kernel
+    del src
     g = _rand(rng, b, hr, w, h)
     got = fused_corner_hop_bwd(psg, *rest, g, mean=False)
     torch.cuda.synchronize()
@@ -1061,7 +1104,8 @@ def main(argv=None) -> int:
     log("tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
 
     # phase 2: build every kernel of the path; beside it, ptxas's
-    # registers and spills of the c-fwd, a-bwd and b-bwd instances
+    # registers and spills of the a-fwd, b-fwd, c-fwd, a-bwd and b-bwd
+    # instances
     t0 = time.perf_counter()
     sources = _build.SOURCES if only is None else tuple(
         src for name in only for src in KERNEL_SOURCES[name])
@@ -1096,7 +1140,7 @@ def main(argv=None) -> int:
             + (f" library_ms {k['library_ms']:.4f}" if k["library_ms"] is not None else ""))
         for row in k.get("shapes", []):
             log(f"  {row['label']} {row['shape']}: {json.dumps(row)}")
-        if k["name"] == "corner_hop_bwd":
+        if k["name"] in ("corner_hop", "corner_hop_bwd"):
             log(f"  launch {json.dumps(k['launch'])}; share of bound {k['share_of_bound']:.3f}")
         if "forward_ms" in k:
             log(f"  launch {json.dumps(k['launch'])}; one 500x500 forward's 12 launches "

@@ -87,14 +87,13 @@
 
 #include <cstdint>
 
-#include "row_tiles.cuh"
+#include "corner_hop_tiles.cuh"
 
 namespace {
 
 using namespace p4t;
 using namespace p4t::rt;
-
-constexpr int MAX_FF = 32;
+using namespace p4t::hop;
 
 struct Args {
   const float *psg0, *psg1, *psg2, *psg3, *vd, *feats, *g;
@@ -142,8 +141,6 @@ struct Shape {
   static_assert(node_bytes <= 232448 && corner_bytes <= 232448, "227 KB a block");
 };
 
-__device__ __forceinline__ float sigmoid(float p) { return __frcp_rn(1.f + __expf(-p)); }
-
 // A block's fixed part of both passes: the thread's micro-tile (rows r0..,
 // columns c0..) and its 4x4 patch of an HP x HP gradient (rows f0..,
 // columns pc0.., over the tile rows pr0 .. pr1).
@@ -171,78 +168,6 @@ __device__ __forceinline__ void add_xty(float* patch, const float* X, const floa
   load_tile<HP, 4>(p, patch, 0, 0);
   xty_acc<HP>(p, X, Y, t.f0, t.pc0, t.pr0, t.pr1);
   store_tile<HP, 4>(patch, 0, 0, p);
-}
-
-// Wf into s_wf [MAX_FF][HP] and the vectors (v0, ..., v6) into s_vec
-// [8][HP], zero past ff and h.
-template <int HP>
-__device__ __forceinline__ void stage_common(float* s_wf, float* s_vec, const float* wf, int ff,
-                                             int h, const float* v0, const float* v1,
-                                             const float* v2, const float* v3, const float* v4,
-                                             const float* v5, const float* v6) {
-  for (int i = threadIdx.x; i < MAX_FF * HP; i += THREADS) {
-    const int f = i / HP, c = i % HP;
-    s_wf[i] = (f < ff && c < h) ? wf[f * h + c] : 0.f;
-  }
-  for (int i = threadIdx.x; i < 8 * HP; i += THREADS) {
-    const int v = i / HP, c = i % HP;
-    const float* src = v == 0 ? v0 : v == 1 ? v1 : v == 2 ? v2 : v == 3 ? v3 : v == 4 ? v4
-                       : v == 5 ? v5 : v6;
-    s_vec[i] = (v < 7 && c < h) ? src[c] : 0.f;
-  }
-}
-
-// acc = silu(pre) and dsil = silu'(pre) for pre = feats_k @ Wf + bf +
-// psg_k + pd; fe(i, f) is feature f of the thread's row i.
-template <int HP, int TM, typename Fe>
-__device__ __forceinline__ void corner_pre(float (&acc)[TM][4], float (&dsil)[TM][4],
-                                           const float (&ps)[TM][4], const float (&pd)[TM][4],
-                                           Fe fe, const float* s_wf, const float* s_bf, int ff,
-                                           int c0) {
-  zero_tile<TM>(acc);
-  for (int f = 0; f < ff; ++f) {
-    float w[4];
-    lds4(w, s_wf + f * HP + c0);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const float x = fe(i, f);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x, w[j], acc[i][j]);
-    }
-  }
-  float bf[4];
-  lds4(bf, s_bf + c0);
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float p = ((acc[i][j] + bf[j]) + ps[i][j]) + pd[i][j];
-      const float sg = sigmoid(p);
-      dsil[i][j] = sg * (1.f + p * (1.f - sg));
-      acc[i][j] = p * sg;
-    }
-}
-
-// Store the thread's rows of a (B*H*W, h) array, valid rows only.
-template <int TM>
-__device__ __forceinline__ void store_rows(float* base, const int (&cell)[TM],
-                                           const bool (&valid)[TM], int c0, int h, bool vec,
-                                           const float (&v)[TM][4]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-    if (valid[i]) store4(base + (long long)cell[i] * h, c0, h, vec, v[i]);
-}
-
-// Load the thread's rows of a (B*H*W, h) array, zero past the end.
-template <int TM>
-__device__ __forceinline__ void load_rows4(float (&v)[TM][4], const float* base,
-                                           const int (&cell)[TM], const bool (&valid)[TM],
-                                           int c0, int h, bool vec) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    v[i][0] = v[i][1] = v[i][2] = v[i][3] = 0.f;
-    if (valid[i]) load4(v[i], base + (long long)cell[i] * h, c0, h, vec);
-  }
 }
 
 // Sum G thread groups' [HP][HP] patch accumulators into out[rows][h].
@@ -311,7 +236,8 @@ __global__ void __launch_bounds__(THREADS, 1) corner_hop_bwd_node(Args a) {
   stage_swizzled<HP>(s_n0a, a.nd0a, h, h);
   stage_swizzled<HP>(s_n0b, a.nd0b, h, h);
   stage_swizzled<HP>(s_n1, a.nd1, h, h);
-  stage_common<HP>(s_wf, s_vec, a.wf, ff, h, a.bf, a.bo, a.lns, a.lnb, a.nb0, a.nb1, a.nlns);
+  stage_common<HP>(s_wf, s_vec, a.wf, ff, h, a.bf, a.bo, a.lns, a.lnb, a.nb0, a.nb1, a.nlns,
+                   nullptr);
   for (int i = threadIdx.x; i < 3 * G * HH; i += THREADS) s_dn[i] = 0.f;
 
   const Thread<HP> t;
@@ -366,20 +292,7 @@ __global__ void __launch_bounds__(THREADS, 1) corner_hop_bwd_node(Args a) {
           s_wf, s_vec, ff, c0);
       store_tile<HP, TM>(s_zk, r0, c0, acc);
       __syncthreads();
-      zero_tile<TM>(acc);
-      tile_mm<HP, TM>(acc, s_zk, r0, s_wo, c0);
-      float bo[4], lns[4], lnb[4];
-      lds4(bo, s_vec + HP + c0);
-      lds4(lns, s_vec + 2 * HP + c0);
-      lds4(lnb, s_vec + 3 * HP + c0);
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += bo[j];
-        ln_normalize4<S::NX>(acc[i], c0, h);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) agg[i][j] += fmaf(acc[i][j], lns[j], lnb[j]);
-      }
+      corner_into_agg<HP, TM>(agg, s_zk, r0, s_wo, s_vec, c0, h);
     }
     if (a.mean) {
 #pragma unroll
@@ -510,7 +423,8 @@ __global__ void __launch_bounds__(THREADS, 1) corner_hop_bwd_corner(Args a) {
 
   stage_swizzled<HP>(s_wd, a.wd, h, h);
   stage_swizzled<HP>(s_wo, a.wo, h, h);
-  stage_common<HP>(s_wf, s_vec, a.wf, ff, h, a.bf, a.bo, a.lns, a.lnb, a.nb0, a.nb1, a.nlns);
+  stage_common<HP>(s_wf, s_vec, a.wf, ff, h, a.bf, a.bo, a.lns, a.lnb, a.nb0, a.nb1, a.nlns,
+                   nullptr);
   for (int i = threadIdx.x; i < 2 * G * HH; i += THREADS) s_dwd[i] = 0.f;
 
   const Thread<HP> t;

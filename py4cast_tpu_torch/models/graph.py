@@ -232,6 +232,9 @@ def _build_lattice_meta(
 
     # --- m2g: mesh level 0 → grid, surrounding-4 corners
     (r0, r1), (c0, c1) = _corners_rc((h, w), hw0)
+    # the corner-hop kernel reads ps at these cells unchecked
+    if min(r0.min(), c0.min()) < 0 or r1.max() >= hw0[0] or c1.max() >= hw0[1]:
+        raise ValueError(f"m2g corner maps leave the {hw0} level-0 lattice")
     src_pos = np.stack(
         [m0_lat[rk][:, ck] for rk in (r0, r1) for ck in (c0, c1)]
     )  # (4, h, w, 2) in corner order r0c0, r0c1, r1c0, r1c1
@@ -365,14 +368,15 @@ class LatticeEncodeDecode(nn.Module):
             return v_dst + self.node(torch.cat([v_dst, agg], dim=-1))
 
         ar, ac = lat["ar"], lat["ac"]
-        ps_g = [sep_take_mm(ps, ar[k // 2], ac[k % 2]).contiguous() for k in range(4)]
         if self.hidden_layers == 1:
             # the fused m2g hop: CUDA kernels (forward and backward) on
-            # the card, their plain versions on the CPU (ops/hop_kernel.py)
+            # the card, their plain versions on the CPU (ops/hop_kernel.py);
+            # the forward kernel gathers each corner's row of ps itself
             h = self.w_d.weight.shape[0]
             nd0 = _kernel(self.node.Dense_0)
             return CornerHopFn.apply(
-                *ps_g, v_dst.contiguous(), lat["feats"],
+                ps.contiguous(), lat["rows"], lat["cols"], ar, ac, v_dst.contiguous(),
+                lat["feats"],
                 _kernel(self.w_f), self.w_f.bias, _kernel(self.w_d),
                 _kernel(self.out), self.out.bias, self.ln.weight, self.ln.bias,
                 nd0[:h].contiguous(), nd0[h:].contiguous(), self.node.Dense_0.bias,
@@ -380,6 +384,7 @@ class LatticeEncodeDecode(nn.Module):
                 self.node.LayerNorm_0.weight, self.node.LayerNorm_0.bias,
                 self.aggr == "mean",
             )
+        ps_g = [sep_take_mm(ps, ar[k // 2], ac[k % 2]).contiguous() for k in range(4)]
         pd = self.w_d(v_dst)
         pf = self.w_f(lat["feats"])  # (4, H, W, h)
         agg = sum(self._tail(pf[k] + ps_g[k] + pd) for k in range(4))
@@ -472,6 +477,9 @@ class GraphLAM(ModelBase):
                 self.register_buffer(
                     name, torch.as_tensor(np.asarray(arr, np.float32)), persistent=False
                 )
+        # the m2g corner maps (int32), which the corner-hop kernel gathers by
+        for name in ("lat_m2g_rows", "lat_m2g_cols"):
+            self.register_buffer(name, torch.as_tensor(arrays[name]), persistent=False)
 
     @classmethod
     def build_graph(cls, settings: GraphModelSettings, meshgrid) -> GraphArtifacts:
@@ -479,7 +487,7 @@ class GraphLAM(ModelBase):
 
     def _lat(self, prefix: str) -> Dict[str, torch.Tensor]:
         out = {}
-        for k in ("feats", "mask", "count", "ar", "ac", "sr", "sc"):
+        for k in ("feats", "mask", "count", "ar", "ac", "sr", "sc", "rows", "cols"):
             name = f"lat_{prefix}_{k}"
             if hasattr(self, name):
                 out[k] = getattr(self, name)

@@ -2,24 +2,30 @@
 and the backward, their plain PyTorch versions, and the autograd
 Function that joins them.
 
+    psg_k = ps gathered onto the grid by the corner maps  (4 corners)
     pd    = vd @ Wd
-    t_k   = LN(silu(feats_k @ Wf + bf + psg_k + pd) @ Wo + bo)   (4 corners)
+    t_k   = LN(silu(feats_k @ Wf + bf + psg_k + pd) @ Wo + bo)
     agg   = sum_k t_k                     (/4 for mean aggregation)
     u     = silu(vd @ Nd0a + agg @ Nd0b + nb0)
     v_out = vd + LN(u @ Nd1 + nb1)
+
+The forward takes the source projection ``ps`` on mesh level 0 and the
+int32 corner maps ``rows`` (2, H) and ``cols`` (2, W), and gathers each
+corner's row of ``ps`` itself (``gather_corners``); the backward takes
+the four gathered ``psg_k`` and returns their cotangents, which
+``CornerHopFn`` moves back onto ``ps`` (``sep_aggregate``).
 
 The forward kernel (``csrc/corner_hop.cu``) replaces the TPU kernel
 ``py4cast_tpu/ops/hop_kernel.py::_fwd_kernel``, the backward
 (``csrc/corner_hop_bwd.cu``: a node pass and a corner pass, launched
 together) its ``_bwd_kernel``; each source says what bounds it on the
-H100 and what its design does about it. The TPU
-kernels' W padding and column tiling were Mosaic constraints: here the
-corner upsamples arrive at the grid width. On a CUDA tensor
-``fused_corner_hop`` and ``fused_corner_hop_bwd`` launch their kernel
-or raise; on a CPU tensor they run ``corner_hop_plain`` and
-``corner_hop_bwd_plain``, which are also what the kernels are held
-against on the card. Models call ``CornerHopFn``, whose backward is the
-backward kernel.
+H100 and what its design does about it. The TPU kernels' W padding and
+column tiling were Mosaic constraints, and so were the corner upsamples
+built before the call. On a CUDA tensor ``fused_corner_hop`` and
+``fused_corner_hop_bwd`` launch their kernel or raise; on a CPU tensor
+they run ``corner_hop_plain`` and ``corner_hop_bwd_plain``, which are
+also what the kernels are held against on the card. Models call
+``CornerHopFn``, whose backward is the backward kernel.
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from py4cast_tpu_torch.ops import _build
+from py4cast_tpu_torch.ops.lattice_ops import sep_aggregate
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
-#: the five h x h weight matrices must fit the 227 KB of shared memory a
-#: block may use: 96 is the largest width (a multiple of 32) that does
+#: the forward's warp-row instance (65 <= h <= 96) holds the five h x h
+#: weight matrices at their true width in the 227 KB of shared memory a
+#: block may use: 96 is the largest width (a multiple of 32) that fits
 MAX_WIDTH = 96
 MAX_FEATS = 32
 #: the backward's node pass holds the five h x h weight matrices, five
@@ -44,10 +52,22 @@ MAX_FEATS = 32
 MAX_BWD_WIDTH = 64
 
 
-def corner_hop_plain(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+def gather_corners(ps, rows, cols):
+    """The four corner upsamples of ps (B, Hc, Wc, h) on the (H, W) grid,
+    in the corner order r0c0, r0c1, r1c0, r1c1:
+    ``psg_k[b, i, j] = ps[b, rows[k // 2, i], cols[k % 2, j]]``. Each grid
+    cell selects one source cell, so this is exactly what
+    ``lattice_ops.sep_take_mm(ps, ar[k // 2], ac[k % 2])`` gives."""
+    by_row = [ps.index_select(1, rows[r]) for r in range(2)]
+    return [by_row[k // 2].index_select(2, cols[k % 2]) for k in range(4)]
+
+
+def corner_hop_plain(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
                      nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, mean=False):
-    """The corner hop in plain PyTorch (same layouts as the kernel)."""
+    """The corner hop in plain PyTorch (same layouts as the kernel): the
+    corners gathered by indexing, then the formula."""
     h = wd.shape[-1]
+    psg = gather_corners(ps, rows, cols)
     pd = vd @ wd
     agg = torch.zeros_like(vd)
     for k in range(4):
@@ -145,9 +165,12 @@ def corner_hop_bwd_plain(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
 def _lib():
     lib = _build.load("corner_hop")
     fn = lib.p4t_corner_hop_fwd
-    if fn.argtypes is None:  # first use: declare the C signature
-        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    if fn.argtypes is None:  # first use: declare the C signatures
+        fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        attrs = lib.p4t_corner_hop_fwd_attributes
+        attrs.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        attrs.restype = ctypes.c_int
     return lib
 
 
@@ -166,6 +189,21 @@ def _bwd_lib():
     return lib
 
 
+_ATTRIBUTE_KEYS = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "tile_cells")
+
+
+def fwd_kernel_attributes(h) -> dict:
+    """The forward kernel that width ``h`` launches, as the card reports
+    it: registers a thread, local (spill) bytes a thread, dynamic shared
+    memory, resident blocks an SM, and the cells of a tile (for h > 64,
+    the warp-row instance: its shared memory at 32 corner features, and
+    the cells a block takes at once). Needs the card."""
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, lib.p4t_corner_hop_fwd_attributes(h, out), "corner_hop attributes")
+    return dict(zip(_ATTRIBUTE_KEYS, out))
+
+
 def bwd_kernel_attributes(h) -> dict:
     """The two backward kernels that width ``h`` launches, the node pass
     and the corner pass, as the card reports them: registers a thread,
@@ -174,29 +212,25 @@ def bwd_kernel_attributes(h) -> dict:
     lib = _bwd_lib()
     out = (ctypes.c_int * 10)()
     _build.check(lib, lib.p4t_corner_hop_bwd_attributes(h, out), "corner_hop_bwd attributes")
-    keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "tile_cells")
-    return {name: {k: out[5 * i + j] for j, k in enumerate(keys)}
+    return {name: {k: out[5 * i + j] for j, k in enumerate(_ATTRIBUTE_KEYS)}
             for i, name in enumerate(("node", "corner"))}
 
 
-def _validate(what, psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
-              nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, max_width, extra=None):
-    """The checks the forward and the backward wrapper share; returns
-    the device."""
-    if len(psg) != 4:
-        raise ValueError(f"{what} takes 4 corner arrays, got {len(psg)}")
+def _validate(what, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+              nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, max_width, extra):
+    """The checks the forward and the backward wrapper share, and theirs
+    (``extra``: name -> (tensor, expected shape)); returns the device."""
     b, hr, w, h = vd.shape
     ff = feats.shape[-1]
-    shapes = {f"psg{k}": (p, (b, hr, w, h)) for k, p in enumerate(psg)}
-    shapes.update({
+    shapes = {
+        **extra,
         "vd": (vd, (b, hr, w, h)), "feats": (feats, (4, hr, w, ff)),
         "wf": (wf, (ff, h)), "bf": (bf, (h,)), "wd": (wd, (h, h)),
         "wo": (wo, (h, h)), "bo": (bo, (h,)), "lns": (lns, (h,)),
         "lnb": (lnb, (h,)), "nd0a": (nd0a, (h, h)), "nd0b": (nd0b, (h, h)),
         "nb0": (nb0, (h,)), "nd1": (nd1, (h, h)), "nb1": (nb1, (h,)),
         "nlns": (nlns, (h,)), "nlnb": (nlnb, (h,)),
-    })
-    shapes.update(extra or {})
+    }
     device = _build.validate(what, shapes)
     if h > max_width or ff > MAX_FEATS:
         raise ValueError(
@@ -206,25 +240,46 @@ def _validate(what, psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
     return device
 
 
-def fused_corner_hop(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+def _validate_maps(what, rows, cols, hr, w, device):
+    """The corner maps: int32, (2, H) and (2, W), contiguous, on the
+    tensors' device. Their values are checked where the graph is built
+    (``models/graph.py::build_graph_artifacts``), not here: that would
+    wait for the card."""
+    for name, m, n in (("rows", rows, hr), ("cols", cols, w)):
+        if m.dtype != torch.int32:
+            raise ValueError(f"{what}: {name} is {m.dtype}; the corner maps are int32")
+        if tuple(m.shape) != (2, n):
+            raise ValueError(f"{what}: {name} has shape {tuple(m.shape)}, expected {(2, n)}")
+        if not m.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+        if m.device != device:
+            raise ValueError(f"{what}: {name} is on {m.device}, the others on {device}")
+
+
+def fused_corner_hop(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
                      nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, mean=False):
     """v_out of the m2g corner hop.
 
-    psg: sequence of FOUR (B, H, W, h) corner-upsampled source
-    projections, corner order r0c0, r0c1, r1c0, r1c1; vd: (B, H, W, h)
-    destination grid states; feats: (4, H, W, ff) static corner
-    features. wf: (ff, h), wd/wo/nd0a/nd0b/nd1: (h, h) — Dense kernels in
-    (in, out) layout, nd0a/nd0b the node MLP's first kernel split at the
-    [v_dst, agg] concat; the rest (h,). h at most 96, ff at most 32,
-    everything fp32 and contiguous. The output carries no gradient:
+    ps: (B, Hc, Wc, h) source projection on mesh level 0; rows (2, H) and
+    cols (2, W): int32 corner maps, corner k of grid cell (i, j) reading
+    ``ps[b, rows[k // 2, i], cols[k % 2, j]]`` in the corner order r0c0,
+    r0c1, r1c0, r1c1 (``gather_corners``); vd: (B, H, W, h) destination
+    grid states; feats: (4, H, W, ff) static corner features. wf: (ff, h),
+    wd/wo/nd0a/nd0b/nd1: (h, h) — Dense kernels in (in, out) layout,
+    nd0a/nd0b the node MLP's first kernel split at the [v_dst, agg]
+    concat; the rest (h,). h at most 96, ff at most 32, everything but
+    the maps fp32, all contiguous. The output carries no gradient:
     differentiate through ``CornerHopFn``.
     """
     b, hr, w, h = vd.shape
     ff = feats.shape[-1]
-    device = _validate("fused_corner_hop", psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
-                       nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, MAX_WIDTH)
+    hc, wc = ps.shape[1:3] if ps.dim() == 4 else (-1, -1)
+    device = _validate("fused_corner_hop", vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+                       nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, MAX_WIDTH,
+                       {"ps": (ps, (b, hc, wc, h))})
+    _validate_maps("fused_corner_hop", rows, cols, hr, w, device)
     if device.type == "cpu":
-        return corner_hop_plain(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+        return corner_hop_plain(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
                                 nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, mean)
 
     out = torch.empty((b, hr, w, h), device=device, dtype=torch.float32)
@@ -232,12 +287,12 @@ def fused_corner_hop(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.p4t_corner_hop_fwd(
-            *(p.data_ptr() for p in psg), vd.data_ptr(), feats.data_ptr(),
+            ps.data_ptr(), rows.data_ptr(), cols.data_ptr(), vd.data_ptr(), feats.data_ptr(),
             wf.data_ptr(), bf.data_ptr(), wd.data_ptr(), wo.data_ptr(),
             bo.data_ptr(), lns.data_ptr(), lnb.data_ptr(), nd0a.data_ptr(),
             nd0b.data_ptr(), nb0.data_ptr(), nd1.data_ptr(), nb1.data_ptr(),
             nlns.data_ptr(), nlnb.data_ptr(), out.data_ptr(),
-            b, hr, w, h, ff, int(mean), stream,
+            b, hc, wc, hr, w, h, ff, int(mean), stream,
         )
     _build.check(lib, status, "corner_hop kernel")
     fused_corner_hop.launches += 1
@@ -253,14 +308,18 @@ def fused_corner_hop_bwd(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
                          nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g, mean=False):
     """The corner hop's backward for the cotangent g (B, H, W, h) of
     v_out: the 19 gradients of ``corner_hop_bwd_plain``, in its order.
-    The forward's arguments and checks; h at most 64
-    (``MAX_BWD_WIDTH``). The weight gradients are summed in a fixed
+    The forward's arguments and checks, with the four gathered corner
+    upsamples psg, (B, H, W, h) each (``gather_corners``), in place of
+    ps and the maps; h at most 64 (``MAX_BWD_WIDTH``). The weight gradients are summed in a fixed
     order, so a call repeats bit for bit."""
     b, hr, w, h = vd.shape
     ff = feats.shape[-1]
-    device = _validate("fused_corner_hop_bwd", psg, vd, feats, wf, bf, wd, wo, bo, lns,
-                       lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, MAX_BWD_WIDTH,
-                       {"g": (g, (b, hr, w, h))})
+    if len(psg) != 4:
+        raise ValueError(f"fused_corner_hop_bwd takes 4 corner arrays, got {len(psg)}")
+    extra = {f"psg{k}": (p, (b, hr, w, h)) for k, p in enumerate(psg)}
+    extra["g"] = (g, (b, hr, w, h))
+    device = _validate("fused_corner_hop_bwd", vd, feats, wf, bf, wd, wo, bo, lns,
+                       lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, MAX_BWD_WIDTH, extra)
     if device.type == "cpu":
         return corner_hop_bwd_plain(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
                                     nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g, mean)
@@ -305,22 +364,30 @@ fused_corner_hop_bwd.launches = 0
 
 class CornerHopFn(torch.autograd.Function):
     """``fused_corner_hop`` with its backward kernel as the gradient:
-    ``CornerHopFn.apply(psg0, psg1, psg2, psg3, vd, feats, wf, bf, wd,
-    wo, bo, lns, lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, mean)``.
-    feats and the mean flag get no gradient. On CPU tensors both
-    directions run the plain versions."""
+    ``CornerHopFn.apply(ps, rows, cols, ar, ac, vd, feats, wf, bf, wd, wo,
+    bo, lns, lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, mean)``. ar
+    (2, Hc, H) and ac (2, Wc, W) are the corner maps' 0/1 selection
+    matrices (``lattice_ops.sel_matrix`` of rows[r] and cols[c]). It saves
+    ps, not its four corner upsamples: the backward gathers them again for
+    the backward kernel and moves each dpsg_k back onto ps with
+    ``sep_aggregate`` (0/1 matmuls in a fixed order, so a second call
+    repeats bit for bit). The maps, ar, ac, feats and the mean flag get no
+    gradient. On CPU tensors both directions run the plain versions."""
 
     @staticmethod
-    def forward(ctx, psg0, psg1, psg2, psg3, vd, feats, *weights_and_mean):
+    def forward(ctx, ps, rows, cols, ar, ac, vd, feats, *weights_and_mean):
         *weights, mean = weights_and_mean
         ctx.mean = bool(mean)
-        ctx.save_for_backward(psg0, psg1, psg2, psg3, vd, feats, *weights)
-        return fused_corner_hop([psg0, psg1, psg2, psg3], vd, feats, *weights, mean=ctx.mean)
+        ctx.save_for_backward(ps, rows, cols, ar, ac, vd, feats, *weights)
+        return fused_corner_hop(ps, rows, cols, vd, feats, *weights, mean=ctx.mean)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        psg0, psg1, psg2, psg3, vd, feats, *weights = ctx.saved_tensors
-        grads = fused_corner_hop_bwd([psg0, psg1, psg2, psg3], vd, feats, *weights,
+        ps, rows, cols, ar, ac, vd, feats, *weights = ctx.saved_tensors
+        grads = fused_corner_hop_bwd(gather_corners(ps, rows, cols), vd, feats, *weights,
                                      g.contiguous(), mean=ctx.mean)
-        return (*grads[:5], None, *grads[5:], None)
+        dps = sep_aggregate(grads[0], ar[0], ac[0])
+        for k in range(1, 4):
+            dps = dps + sep_aggregate(grads[k], ar[k // 2], ac[k % 2])
+        return (dps, None, None, None, None, grads[4], None, *grads[5:], None)

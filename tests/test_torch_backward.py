@@ -7,7 +7,10 @@ wrappers run their plain PyTorch versions.
 StencilMessageFn takes the source projection ps (its forward shifts it
 onto each cell); its gradients, dps included, are also held against
 ``jax.vjp`` of the JAX kernel composed with the JAX package's shift
-stack.
+stack. CornerHopFn takes the mesh projection ps and the corner maps (its
+forward gathers the corners); its gradients, dps included, are also held
+against ``jax.vjp`` of the JAX kernel composed with the JAX package's
+``sep_take_mm`` of each corner.
 
 Bars: 2e-4, the JAX kernel tests' gradient bar
 (tests/test_stencil_kernel.py, tests/test_hop_kernel.py), against JAX;
@@ -23,7 +26,9 @@ import torch
 from py4cast_tpu.ops import hop_kernel as jax_hop
 from py4cast_tpu.ops import lattice_ops as jax_lat
 from py4cast_tpu.ops import stencil_kernel as jax_stencil
+from py4cast_tpu_torch.models.graph import _corners_rc
 from py4cast_tpu_torch.ops import hop_kernel, stencil_kernel
+from py4cast_tpu_torch.ops import lattice_ops as port_lat
 from py4cast_tpu_torch.ops.hop_kernel import (
     CornerHopFn,
     corner_hop_bwd_plain,
@@ -42,6 +47,11 @@ FN_BAR = 1e-5
 #: level 0 of a 32x32 grid (coarsen factor 4), small width
 B, H, W, HID = 2, 8, 8, 16
 FF = 3
+#: CornerHopFn: a ragged 9x7 grid over a 3x3 mesh level 0, whose last row
+#: and column clip (r1 = r0, c1 = c0)
+GH, GW, MH, MW = 9, 7, 3, 3
+HOP_FN_NAMES = ("dps", "dvd", "dwf", "dbf", "dwd", "dwo", "dbo", "dlns", "dlnb",
+                "dnd0a", "dnd0b", "dnb0", "dnd1", "dnb1", "dnlns", "dnlnb")
 STENCIL_NAMES = ("de", "dvs", "dpd", "dwe", "dbe", "dwo", "dbo", "dlns", "dlnb")
 
 
@@ -99,6 +109,39 @@ def hop_case():
     ])
     (g,) = _arrays(23, [((B, H, W, HID), 1.0, 0.0)])
     return psg, [vd, feats] + params, g
+
+
+@pytest.fixture(scope="module")
+def hop_fn_case():
+    """CornerHopFn's inputs: (ps, rows, cols, ar, ac), [vd, feats,
+    weights...], and the cotangent of v_out."""
+    (ps,) = _arrays(24, [((B, MH, MW, HID), 1.0, 0.0)])
+    (r0, r1), (c0, c1) = _corners_rc((GH, GW), (MH, MW))
+    rows = np.stack([r0, r1]).astype(np.int32)
+    cols = np.stack([c0, c1]).astype(np.int32)
+    ar = np.stack([port_lat.sel_matrix(r, MH) for r in rows])
+    ac = np.stack([port_lat.sel_matrix(c, MW) for c in cols])
+    vd, feats = _arrays(25, [((B, GH, GW, HID), 1.0, 0.0), ((4, GH, GW, FF), 0.5, 0.0)])
+    params = _arrays(26, [
+        ((FF, HID), 0.5, 0.0), ((HID,), 0.1, 0.0),                  # wf, bf
+        ((HID, HID), 0.25, 0.0), ((HID, HID), 0.25, 0.0),            # wd, wo
+        ((HID,), 0.1, 0.0), ((HID,), 0.2, 1.0), ((HID,), 0.1, 0.0),  # bo, lns, lnb
+        ((HID, HID), 0.2, 0.0), ((HID, HID), 0.2, 0.0),              # nd0a, nd0b
+        ((HID,), 0.1, 0.0), ((HID, HID), 0.25, 0.0),                 # nb0, nd1
+        ((HID,), 0.1, 0.0), ((HID,), 0.2, 1.0), ((HID,), 0.1, 0.0),  # nb1, nlns, nlnb
+    ])
+    (g,) = _arrays(27, [((B, GH, GW, HID), 1.0, 0.0)])
+    return (ps, rows, cols, ar, ac), [vd, feats] + params, g
+
+
+def _hop_fn_grads(src, rest, g, fn):
+    """Gradients of sum(fn(ps, maps, vd, feats, weights) * g) for ps, vd
+    and the weights."""
+    ps = torch.from_numpy(src[0]).requires_grad_()
+    maps = _t(src[1:])
+    lr = [a.clone().requires_grad_(i != 1) for i, a in enumerate(_t(rest))]
+    loss = (fn(ps, maps, lr) * torch.from_numpy(g)).sum()
+    return torch.autograd.grad(loss, [ps] + [a for i, a in enumerate(lr) if i != 1])
 
 
 def _stencil_xla(e, vs, pd, mask, we, be, wo, bo, lns, lnb, residual):
@@ -232,31 +275,55 @@ def test_stencil_function_matches_jax_vjp(stencil_fn_case, residual, reference):
 
 
 @pytest.mark.parametrize("mean", [False, True])
-def test_hop_function_matches_autograd(hop_case, mean):
-    psg, rest, g = hop_case
-    gt = torch.from_numpy(g)
-
-    def grads(fn):
-        lp = [p.clone().requires_grad_() for p in _t(psg)]
-        lr = [a.clone().requires_grad_(i != 1) for i, a in enumerate(_t(rest))]
-        loss = (fn(lp, lr) * gt).sum()
-        return torch.autograd.grad(loss, lp + [a for i, a in enumerate(lr) if i != 1])
-
-    got = grads(lambda lp, lr: CornerHopFn.apply(*lp, *lr, mean))
-    want = grads(lambda lp, lr: corner_hop_plain(lp, *lr, mean=mean))
+def test_hop_function_matches_autograd(hop_fn_case, mean):
+    """CornerHopFn's gradients (saved tensors, grad order, mean flag, dps
+    through sep_aggregate) against autograd through the plain forward
+    and its gather."""
+    src, rest, g = hop_fn_case
+    got = _hop_fn_grads(src, rest, g, lambda ps, m, lr: CornerHopFn.apply(ps, *m, *lr, mean))
+    want = _hop_fn_grads(src, rest, g,
+                         lambda ps, m, lr: corner_hop_plain(ps, *m[:2], *lr, mean=mean))
     _assert_close(got, want, "CornerHopFn")
 
 
-def test_functions_give_no_gradient_to_mask_and_feats(stencil_fn_case, hop_case):
+@pytest.mark.parametrize("reference", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("mean", [False, True])
+def test_hop_function_matches_jax_vjp(hop_fn_case, mean, reference):
+    """CornerHopFn's gradients, dps included, against jax.vjp of the JAX
+    kernel (or its XLA formula) fed the JAX package's sep_take_mm of each
+    corner."""
+    src, rest, g = hop_fn_case
+    ar, ac = jnp.asarray(src[3]), jnp.asarray(src[4])
+    jrest = [jnp.asarray(a) for a in rest]
+    feats = jrest[1]
+
+    def fwd(ps, vd, *weights):
+        psg = [jax_lat.sep_take_mm(ps, ar[k // 2], ac[k % 2]) for k in range(4)]
+        if reference == "xla":
+            return _hop_xla(*psg, vd, feats, *weights, mean)
+        return jax_hop.fused_corner_hop(psg, vd, feats, *weights, mean=mean,
+                                        interpret=True, mode=1)
+
+    _, vjp = jax.vjp(fwd, jnp.asarray(src[0]), jrest[0], *jrest[2:])
+    want = vjp(jnp.asarray(g))
+    got = _hop_fn_grads(src, rest, g, lambda ps, m, lr: CornerHopFn.apply(ps, *m, *lr, mean))
+    assert len(got) == len(want) == len(HOP_FN_NAMES)
+    for name, gr, w in zip(HOP_FN_NAMES, got, want):
+        np.testing.assert_allclose(gr.numpy(), np.asarray(w), **JAX_TOL, err_msg=name)
+
+
+def test_functions_give_no_gradient_to_mask_and_feats(stencil_fn_case, hop_fn_case):
     args = [a.clone().requires_grad_() for a in _t(stencil_fn_case[0])]
     out, agg = StencilMessageFn.apply(*args, True)
     (out.sum() + agg.sum()).backward()
     assert args[3].grad is None and args[0].grad is not None
-    psg, rest, _ = hop_case
-    lp = [p.clone().requires_grad_() for p in _t(psg)]
+    src, rest, _ = hop_fn_case
+    ps, rows, cols, ar, ac = _t(src)
+    ps, ar, ac = (t.clone().requires_grad_() for t in (ps, ar, ac))
     lr = [a.clone().requires_grad_() for a in _t(rest)]
-    CornerHopFn.apply(*lp, *lr, False).sum().backward()
-    assert lr[1].grad is None and lr[0].grad is not None
+    CornerHopFn.apply(ps, rows, cols, ar, ac, *lr, False).sum().backward()
+    assert lr[1].grad is None and ar.grad is None and ac.grad is None
+    assert lr[0].grad is not None and ps.grad is not None
 
 
 def test_cpu_backward_calls_leave_launch_counters_at_zero(stencil_case, hop_case):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from py4cast_tpu_torch.models.graph import _corners_rc
 from py4cast_tpu_torch.ops import attention, hop_kernel, stencil_kernel
 from py4cast_tpu_torch.ops.attention import (
     ShortKVAttentionFn,
@@ -26,7 +27,9 @@ from py4cast_tpu_torch.ops.hop_kernel import (
     corner_hop_plain,
     fused_corner_hop,
     fused_corner_hop_bwd,
+    gather_corners,
 )
+from py4cast_tpu_torch.ops.lattice_ops import sel_matrix
 from py4cast_tpu_torch.ops.stencil_kernel import (
     StencilMessageFn,
     fused_stencil_message,
@@ -116,16 +119,9 @@ def test_stencil_kernels_do_not_spill(cuda):
         assert a["blocks_per_sm"] >= 1, (width, a)
 
 
-@pytest.mark.parametrize("b,hr,w,h,ff,mean", [
-    (1, 500, 500, 64, 3, False),   # GraphLAM grid
-    (2, 7, 11, 16, 3, True),
-    (1, 9, 5, 80, 2, False),
-    (3, 4, 6, 96, 5, True),        # the widest the hop takes
-])
-def test_hop_kernel_matches_plain(cuda, b, hr, w, h, ff, mean):
-    rng = np.random.default_rng(h + ff)
-    psg = [_rand(rng, b, hr, w, h) for _ in range(4)]
-    rest = (
+def _hop_weights(rng, b, hr, w, h, ff):
+    """vd, feats and the weights of the corner hop."""
+    return (
         _rand(rng, b, hr, w, h), _rand(rng, 4, hr, w, ff, scale=0.5),
         _rand(rng, ff, h, scale=ff ** -0.5), _rand(rng, h, scale=0.1),
         _rand(rng, h, h, scale=h ** -0.5), _rand(rng, h, h, scale=h ** -0.5),
@@ -134,11 +130,59 @@ def test_hop_kernel_matches_plain(cuda, b, hr, w, h, ff, mean):
         _rand(rng, h, scale=0.1), _rand(rng, h, h, scale=h ** -0.5), _rand(rng, h, scale=0.1),
         _rand(rng, h, scale=0.2, shift=1.0), _rand(rng, h, scale=0.1),
     )
+
+
+def _hop_fwd_args(rng, b, hr, w, h, ff):
+    """The forward's source: (ps, rows, cols, ar, ac) for an hr x w grid
+    over a mesh level 0 coarsened by 4 as GraphLAM's (at least 2x2), and
+    vd, feats and the weights."""
+    coarse = (max(2, hr // 4), max(2, w // 4))
+    (r0, r1), (c0, c1) = _corners_rc((hr, w), coarse)
+    rows = np.stack([r0, r1]).astype(np.int32)
+    cols = np.stack([c0, c1]).astype(np.int32)
+    src = (
+        _rand(rng, b, *coarse, h),
+        torch.from_numpy(rows).cuda(), torch.from_numpy(cols).cuda(),
+        torch.from_numpy(np.stack([sel_matrix(r, coarse[0]) for r in rows])).cuda(),
+        torch.from_numpy(np.stack([sel_matrix(c, coarse[1]) for c in cols])).cuda(),
+    )
+    return src, _hop_weights(rng, b, hr, w, h, ff)
+
+
+@pytest.mark.parametrize("b,hr,w,h,ff,mean", [
+    (1, 500, 500, 64, 3, False),   # GraphLAM grid
+    (2, 7, 11, 16, 3, True),
+    (1, 9, 5, 80, 2, False),
+    (3, 4, 6, 96, 5, True),        # the widest the hop takes
+    (1, 3, 5, 64, 3, False),       # fewer cells than one tile (64 at width 64)
+    (1, 5, 13, 64, 3, True),       # one cell past a tile
+    (1, 1, 129, 32, 3, False),     # one cell past a tile (128 at width 32)
+    (2, 5, 9, 64, 3, False),       # B = 2: a tile spans both batch entries
+    (1, 6, 7, 30, 3, True),        # width not a multiple of 4: no 128-bit loads
+    (1, 9, 9, 64, 1, False),       # one corner feature
+    (1, 5, 7, 32, 32, False),      # the most corner features the kernel takes
+    (1, 7, 9, 66, 3, False),       # width 65-96's warp-row instance, not a multiple of 4
+])
+def test_hop_kernel_matches_plain(cuda, b, hr, w, h, ff, mean):
+    rng = np.random.default_rng(h + ff)
+    src, rest = _hop_fwd_args(rng, b, hr, w, h, ff)
     before = fused_corner_hop.launches
-    got = fused_corner_hop(psg, *rest, mean=mean)
+    got = fused_corner_hop(*src[:3], *rest, mean=mean)
     torch.cuda.synchronize()
     assert fused_corner_hop.launches == before + 1
-    torch.testing.assert_close(got, corner_hop_plain(psg, *rest, mean=mean), **TOL)
+    torch.testing.assert_close(got, corner_hop_plain(*src[:3], *rest, mean=mean), **TOL)
+    # each cell's sums run in a fixed order: bit for bit again
+    assert torch.equal(got, fused_corner_hop(*src[:3], *rest, mean=mean))
+
+
+def test_hop_fwd_kernels_do_not_spill(cuda):
+    """Every instance of the corner-hop forward (widths up to 32 and 64 on
+    row tiles, up to 96 on warp rows) keeps its state in registers and
+    fits a block an SM."""
+    for h in (32, 64, 96):
+        a = hop_kernel.fwd_kernel_attributes(h)
+        assert a["local_bytes"] == 0, (h, a)
+        assert a["blocks_per_sm"] >= 1, (h, a)
 
 
 def test_row_tiles_swizzled_reads_are_free_of_bank_conflicts(cuda):
@@ -217,17 +261,10 @@ def _stencil_args(rng, b, hr, w, f_in, h):
 
 
 def _hop_args(rng, b, hr, w, h, ff):
+    """The backward's four corner upsamples psg, independent of each
+    other, and vd, feats and the weights."""
     psg = [_rand(rng, b, hr, w, h) for _ in range(4)]
-    rest = (
-        _rand(rng, b, hr, w, h), _rand(rng, 4, hr, w, ff, scale=0.5),
-        _rand(rng, ff, h, scale=ff ** -0.5), _rand(rng, h, scale=0.1),
-        _rand(rng, h, h, scale=h ** -0.5), _rand(rng, h, h, scale=h ** -0.5),
-        _rand(rng, h, scale=0.1), _rand(rng, h, scale=0.2, shift=1.0), _rand(rng, h, scale=0.1),
-        _rand(rng, h, h, scale=(2 * h) ** -0.5), _rand(rng, h, h, scale=(2 * h) ** -0.5),
-        _rand(rng, h, scale=0.1), _rand(rng, h, h, scale=h ** -0.5), _rand(rng, h, scale=0.1),
-        _rand(rng, h, scale=0.2, shift=1.0), _rand(rng, h, scale=0.1),
-    )
-    return psg, rest
+    return psg, _hop_weights(rng, b, hr, w, h, ff)
 
 
 @pytest.mark.parametrize("b,hr,w,f_in,h,residual", [
@@ -325,18 +362,19 @@ def test_bwd_kernels_raise_above_their_width_cap(cuda):
     with pytest.raises(ValueError, match="widths up to"):
         fused_stencil_message_bwd(*args, _rand(rng, 1, 8, 3, 3, h), _rand(rng, 1, 3, 3, h))
     h = hop_kernel.MAX_BWD_WIDTH + 32
-    psg, rest = _hop_args(rng, 1, 3, 3, h, 3)
-    fused_corner_hop(psg, *rest)  # the forward still takes it
+    src, rest = _hop_fwd_args(rng, 1, 3, 3, h, 3)
+    fused_corner_hop(*src[:3], *rest)  # the forward still takes it
     with pytest.raises(ValueError, match="hidden width up to"):
-        fused_corner_hop_bwd(psg, *rest, _rand(rng, 1, 3, 3, h))
+        fused_corner_hop_bwd(gather_corners(*src[:3]), *rest, _rand(rng, 1, 3, 3, h))
 
 
 def test_functions_give_the_cpu_gradients_on_the_card(cuda):
     """torch.autograd.grad through StencilMessageFn and CornerHopFn on
-    the card (both kernels each way) against the same on the CPU."""
+    the card (both kernels each way) against the same on the CPU, dps of
+    each included."""
     rng = np.random.default_rng(7)
     s_args = _stencil_fwd_args(rng, 2, 9, 7, 32, 32)
-    psg, rest = _hop_args(rng, 2, 9, 7, 32, 3)
+    src, rest = _hop_fwd_args(rng, 2, 9, 7, 32, 3)
     s_cot = (_rand(rng, 2, 8, 9, 7, 32), _rand(rng, 2, 9, 7, 32))
     h_cot = _rand(rng, 2, 9, 7, 32)
 
@@ -344,10 +382,12 @@ def test_functions_give_the_cpu_gradients_on_the_card(cuda):
         sa = [a.detach().to(device).requires_grad_(i != 3) for i, a in enumerate(s_args)]
         out, agg = StencilMessageFn.apply(*sa, True)
         loss = (out * s_cot[0].to(device)).sum() + (agg * s_cot[1].to(device)).sum()
-        hp = [p.detach().to(device).requires_grad_() for p in psg]
+        hp = src[0].detach().to(device).requires_grad_()
+        maps = [t.to(device) for t in src[1:]]
         hr = [a.detach().to(device).requires_grad_(i != 1) for i, a in enumerate(rest)]
-        loss = loss + (CornerHopFn.apply(*hp, *hr, False) * h_cot.to(device)).sum()
-        wrt = [a for i, a in enumerate(sa) if i != 3] + hp + [a for i, a in enumerate(hr) if i != 1]
+        loss = loss + (CornerHopFn.apply(hp, *maps, *hr, False) * h_cot.to(device)).sum()
+        wrt = [a for i, a in enumerate(sa) if i != 3] + [hp]
+        wrt += [a for i, a in enumerate(hr) if i != 1]
         return [t.cpu() for t in torch.autograd.grad(loss, wrt)]
 
     before = (fused_stencil_message_bwd.launches, fused_corner_hop_bwd.launches)

@@ -3,7 +3,10 @@ package's Pallas kernels (interpret mode) and their XLA formulas, on the
 CPU, where the port's wrappers run their plain PyTorch versions. The
 port's stencil message takes the source projection ps and shifts it
 itself; the JAX kernel is fed the stack of the JAX package's own
-``shift2d(ps)`` in DIRS8 order.
+``shift2d(ps)`` in DIRS8 order. The port's corner hop takes the mesh
+projection ps and the int32 corner maps and gathers the corners itself;
+the JAX kernel is fed the JAX package's ``sep_take_mm(ps, ar, ac)`` of
+each corner.
 
 Bar: rtol/atol 1e-5, the JAX kernel tests' own forward bar
 (tests/test_stencil_kernel.py, tests/test_hop_kernel.py)."""
@@ -17,14 +20,19 @@ import torch
 from py4cast_tpu.ops import hop_kernel as jax_hop
 from py4cast_tpu.ops import lattice_ops as jax_lat
 from py4cast_tpu.ops import stencil_kernel as jax_stencil
+from py4cast_tpu_torch.models.graph import _corners_rc
 from py4cast_tpu_torch.ops import hop_kernel, stencil_kernel
-from py4cast_tpu_torch.ops.hop_kernel import fused_corner_hop
+from py4cast_tpu_torch.ops import lattice_ops as port_lat
+from py4cast_tpu_torch.ops.hop_kernel import fused_corner_hop, gather_corners
 from py4cast_tpu_torch.ops.stencil_kernel import fused_stencil_message
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 #: level 0 of a 32x32 grid (coarsen factor 4), small width
 B, H, W, HID = 2, 8, 8, 16
 FF = 3  # corner features (dx, dy, length)
+#: the corner hop: a ragged 9x7 grid over a 3x3 mesh level 0, whose last
+#: row and column clip (r1 = r0, c1 = c0)
+GH, GW, MH, MW = 9, 7, 3, 3
 
 
 def _arrays(seed, shapes):
@@ -62,10 +70,22 @@ def _jax_shifted(args):
     return j
 
 
+def corner_maps(fine_hw, coarse_hw):
+    """(rows (2, H), cols (2, W)) int32 and their selection matrices
+    (ar (2, Hc, H), ac (2, Wc, W)), as build_graph_artifacts makes them."""
+    (r0, r1), (c0, c1) = _corners_rc(fine_hw, coarse_hw)
+    rows = np.stack([r0, r1]).astype(np.int32)
+    cols = np.stack([c0, c1]).astype(np.int32)
+    ar = np.stack([port_lat.sel_matrix(r, coarse_hw[0]) for r in rows])
+    ac = np.stack([port_lat.sel_matrix(c, coarse_hw[1]) for c in cols])
+    return rows, cols, ar, ac
+
+
 @pytest.fixture(scope="module")
 def hop_inputs():
-    psg = _arrays(3, [((B, H, W, HID), 1.0, 0.0)] * 4)
-    vd, feats = _arrays(4, [((B, H, W, HID), 1.0, 0.0), ((4, H, W, FF), 0.5, 0.0)])
+    """(ps, rows, cols, ar, ac) and [vd, feats, weights...]."""
+    (ps,) = _arrays(3, [((B, MH, MW, HID), 1.0, 0.0)])
+    vd, feats = _arrays(4, [((B, GH, GW, HID), 1.0, 0.0), ((4, GH, GW, FF), 0.5, 0.0)])
     params = _arrays(5, [
         ((FF, HID), 0.5, 0.0), ((HID,), 0.1, 0.0),                  # wf, bf
         ((HID, HID), 0.25, 0.0), ((HID, HID), 0.25, 0.0),            # wd, wo
@@ -74,7 +94,14 @@ def hop_inputs():
         ((HID,), 0.1, 0.0), ((HID, HID), 0.25, 0.0),                 # nb0, nd1
         ((HID,), 0.1, 0.0), ((HID,), 0.2, 1.0), ((HID,), 0.1, 0.0),  # nb1, nlns, nlnb
     ])
-    return psg, [vd, feats] + params
+    return (ps, *corner_maps((GH, GW), (MH, MW))), [vd, feats] + params
+
+
+def _jax_corners(src):
+    """The JAX package's corner upsamples of ps: sep_take_mm of each
+    corner's selection matrices."""
+    ps, _, _, ar, ac = (jnp.asarray(a) for a in src)
+    return [jax_lat.sep_take_mm(ps, ar[k // 2], ac[k % 2]) for k in range(4)]
 
 
 def _t(arrs):
@@ -142,29 +169,39 @@ def _hop_xla(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
 
 @pytest.mark.parametrize("mean", [False, True])
 def test_hop_plain_matches_pallas_interpret(hop_inputs, mean):
-    psg, rest = hop_inputs
+    src, rest = hop_inputs
     want = jax_hop.fused_corner_hop(
-        [jnp.asarray(p) for p in psg], *[jnp.asarray(a) for a in rest],
+        _jax_corners(src), *[jnp.asarray(a) for a in rest],
         mean=mean, interpret=True, mode=1,
     )
-    got = fused_corner_hop(_t(psg), *_t(rest), mean=mean)
+    got = fused_corner_hop(*_t(src[:3]), *_t(rest), mean=mean)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("mean", [False, True])
 def test_hop_plain_matches_xla_formula(hop_inputs, mean):
-    psg, rest = hop_inputs
-    want = _hop_xla([jnp.asarray(p) for p in psg], *[jnp.asarray(a) for a in rest], mean)
-    got = hop_kernel.corner_hop_plain(_t(psg), *_t(rest), mean=mean)
+    src, rest = hop_inputs
+    want = _hop_xla(_jax_corners(src), *[jnp.asarray(a) for a in rest], mean)
+    got = hop_kernel.corner_hop_plain(*_t(src[:3]), *_t(rest), mean=mean)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_hop_gather_equals_selection_matmuls(hop_inputs, k):
+    """Corner k gathered by indexing is, bit for bit, the port's
+    sep_take_mm of its selection matrices, which the model's unfused
+    path and the JAX package use."""
+    ps, rows, cols, ar, ac = _t(hop_inputs[0])
+    got = gather_corners(ps, rows, cols)[k]
+    assert torch.equal(got, port_lat.sep_take_mm(ps, ar[k // 2], ac[k % 2]))
 
 
 def test_cpu_calls_leave_launch_counters_at_zero(stencil_inputs, hop_inputs):
     fused_stencil_message.launches = 0
     fused_corner_hop.launches = 0
     fused_stencil_message(*_t(stencil_inputs), residual=True)
-    psg, rest = hop_inputs
-    fused_corner_hop(_t(psg), *_t(rest))
+    src, rest = hop_inputs
+    fused_corner_hop(*_t(src[:3]), *_t(rest))
     assert fused_stencil_message.launches == 0
     assert fused_corner_hop.launches == 0
 
@@ -194,21 +231,30 @@ def test_stencil_wrapper_rejects_bad_arguments(stencil_inputs, fault):
         fused_stencil_message(*args, residual=residual)
 
 
-@pytest.mark.parametrize("fault", ["corners", "dtype", "feats", "width", "device_mix"])
+@pytest.mark.parametrize("fault", ["corners", "dtype", "feats", "width", "device_mix",
+                                   "map_dtype", "map_shape", "ps_batch", "ps_width"])
 def test_hop_wrapper_rejects_bad_arguments(hop_inputs, fault):
-    psg, rest = _t(hop_inputs[0]), _t(hop_inputs[1])
-    if fault == "corners":
-        psg = psg[:3]
+    (ps, rows, cols), rest = _t(hop_inputs[0][:3]), _t(hop_inputs[1])
+    if fault == "corners":  # one row map where each corner pair needs its own
+        rows = rows[:1]
     elif fault == "dtype":
         rest[0] = rest[0].half()
     elif fault == "feats":
-        rest[1] = torch.zeros(4, H, W, hop_kernel.MAX_FEATS + 1)
+        rest[1] = torch.zeros(4, GH, GW, hop_kernel.MAX_FEATS + 1)
         rest[2] = torch.zeros(hop_kernel.MAX_FEATS + 1, HID)
     elif fault == "width":  # the weights would not fit in shared memory
         wide = hop_kernel.MAX_WIDTH + 32
-        psg = [torch.zeros(B, H, W, wide)] * 4
+        ps = torch.zeros(B, MH, MW, wide)
         rest = [torch.zeros(tuple(wide if d == HID else d for d in t.shape)) for t in rest]
-    else:
+    elif fault == "device_mix":
         rest[0] = rest[0].to("meta")
+    elif fault == "map_dtype":
+        cols = cols.long()
+    elif fault == "map_shape":
+        cols = torch.zeros(2, GW + 1, dtype=torch.int32)
+    elif fault == "ps_batch":
+        ps = torch.zeros(B + 1, MH, MW, HID)
+    else:
+        ps = torch.zeros(B, MH, MW, HID + 4)
     with pytest.raises(ValueError):
-        fused_corner_hop(psg, *rest)
+        fused_corner_hop(ps, rows, cols, *rest)
