@@ -27,10 +27,10 @@
 //
 // What the design does about it, for h <= 64 (the building blocks are
 // row_tiles.cuh and corner_hop_tiles.cuh, which the backward's node pass
-// shares): a block of 256 threads walks row tiles of BM cells, a row
-// being one grid cell, on a persistent grid (as many blocks as the SMs
-// hold, fewer when the tiles are fewer, balanced so that no block takes
-// more tiles than it must). Each of the eight h x h products is a block
+// shares): a block of 384 threads (256 at h <= 32) walks row tiles of BM
+// cells, a row being one grid cell, on a persistent grid (as many blocks
+// as the SMs hold, fewer when the tiles are fewer, balanced so that no
+// block takes more tiles than it must). Each of the eight h x h products is a block
 // product on register micro-tiles of 4 cells x 4 channels, fed by 128-bit
 // shared loads from a [BM][HP + 4] row tile and a swizzled weight (8
 // loads for 64 FMAs, no shuffle). pd stays in registers for the tile;
@@ -48,16 +48,21 @@
 // so the L2 latency hides behind a product.
 //
 // Shared memory, registers and barriers per tile at h = 64 (HP = 64, BM
-// = 64 cells): the five weights (80 KB, staged once a block by cp.async,
+// = 96 cells): the five weights (80 KB, staged once a block by cp.async,
 // swizzled), Wf and the eight vectors (10 KB), and four [BM][HP + 4] row
-// tiles (68 KB): vd of this tile and of the next (cp.async while this
+// tiles (102 KB): vd of this tile and of the next (cp.async while this
 // one computes), and two z tiles (corners alternate between them, so one
-// barrier a corner; they then hold agg and u): 161,792 B, one block an
+// barrier a corner; they then hold agg and u): 196,608 B, one block an
 // SM. The rows are HP + 4 floats apart so that the two row groups of a
 // warp read other banks. Seven barriers a tile: one a corner, agg, u,
-// and the end of the tile. At h <= 32 (HP = 32) a tile is 128 cells.
-// Registers and spills of each instance: chip_smoke.py phase 2 (ptxas)
-// and hop_kernel.fwd_kernel_attributes.
+// and the end of the tile. The weights hold the SM to one block, so the
+// block's size sets the warps that hide each other's latency: a thread
+// holds pd, agg, the next corner's rows and a product's sums (~167
+// registers), which 384 threads (12 warps, 170 registers a thread at
+// most) still fit; on the H100 they took 0.77 ms at 500x500 where 256
+// threads (64-cell tiles) took 0.90. At h <= 32 (HP = 32) a block is 256
+// threads and a tile 128 cells. Registers and spills of each instance:
+// chip_smoke.py phase 2 (ptxas) and hop_kernel.fwd_kernel_attributes.
 //
 // Widths 65 to 96: at HP = 128 the five swizzled weights alone would
 // take 320 KB, above the 227 KB a block may have. There the forward is
@@ -98,10 +103,11 @@ __device__ __forceinline__ long long source_cell(const Args& a, int k, int b, in
 // ------------------------------------------------------ row tiles (h <= 64)
 template <int HP>
 struct Shape {
+  static constexpr int NT = HP == 64 ? 384 : THREADS;  // threads a block
   static constexpr int TM = 4;             // rows (cells) a thread
   static constexpr int NX = HP / 4;        // lanes a row (4 columns each)
-  static constexpr int NY = THREADS / NX;  // row groups
-  static constexpr int BM = NY * TM;       // cells a tile: 64 at HP = 64, 128 at 32
+  static constexpr int NY = NT / NX;       // row groups
+  static constexpr int BM = NY * TM;       // cells a tile: 96 at HP = 64, 128 at 32
   static constexpr int LD = HP + 4;        // row stride of a tile
   static constexpr int HH = HP * HP, TILE = BM * LD;
   // Wd, Wo, Nd0a, Nd0b, Nd1 (swizzled); Wf; 8 vectors; two vd tiles (this
@@ -126,7 +132,7 @@ __device__ __forceinline__ void gather(float (&v)[TM][4], const Args& a, int k,
 }
 
 template <int HP>
-__global__ void __launch_bounds__(THREADS, 1) corner_hop_fwd(Args a) {
+__global__ void __launch_bounds__(Shape<HP>::NT, 1) corner_hop_fwd(Args a) {
   using S = Shape<HP>;
   constexpr int NX = S::NX, TM = S::TM, BM = S::BM, LD = S::LD, HH = S::HH, TILE = S::TILE;
   const int h = a.h, ff = a.ff, W = a.W, HW = a.H * a.W;
@@ -274,8 +280,8 @@ template <int HP>
 cudaError_t blocks_per_sm(int* per_sm) {
   cudaError_t err = configure<HP>();
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, corner_hop_fwd<HP>, THREADS,
-                                                       Shape<HP>::smem_bytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, corner_hop_fwd<HP>,
+                                                       Shape<HP>::NT, Shape<HP>::smem_bytes);
 }
 
 // As many blocks as the SMs hold, or fewer: the tiles spread evenly, so
@@ -292,7 +298,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long long cap = (long long)sms * per_sm;
   const long long per_block = (tiles + cap - 1) / cap;
   const long long n = (tiles + per_block - 1) / per_block;
-  corner_hop_fwd<HP><<<(int)(n > 0 ? n : 1), THREADS, Shape<HP>::smem_bytes, stream>>>(a);
+  corner_hop_fwd<HP><<<(int)(n > 0 ? n : 1), Shape<HP>::NT, Shape<HP>::smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -27,11 +27,11 @@ __device__ __forceinline__ void stage_common(float* s_wf, float* s_vec, const fl
                                              int h, const float* v0, const float* v1,
                                              const float* v2, const float* v3, const float* v4,
                                              const float* v5, const float* v6, const float* v7) {
-  for (int i = threadIdx.x; i < MAX_FF * HP; i += THREADS) {
+  for (int i = threadIdx.x; i < MAX_FF * HP; i += blockDim.x) {
     const int f = i / HP, c = i % HP;
     s_wf[i] = (f < ff && c < h) ? wf[f * h + c] : 0.f;
   }
-  for (int i = threadIdx.x; i < 8 * HP; i += THREADS) {
+  for (int i = threadIdx.x; i < 8 * HP; i += blockDim.x) {
     const int v = i / HP, c = i % HP;
     const float* src = v == 0 ? v0 : v == 1 ? v1 : v == 2 ? v2 : v == 3 ? v3 : v == 4 ? v4
                        : v == 5 ? v5 : v == 6 ? v6 : v7;
