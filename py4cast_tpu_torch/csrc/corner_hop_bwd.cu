@@ -41,10 +41,11 @@
 // sets (80 KB) come to ~250 KB, above the 227 KB a block may have, and
 // its threads could not hold the patches in registers either (each pass
 // alone takes 168 and 224 registers at h=64).
-// - corner_hop_bwd_node recomputes pd, the four corners, agg and the
-//   node MLP, runs the node backward, writes dvd = g + dupre @ Nd0a^T
-//   and dagg (a (B,H,W,h) scratch array), and adds dNd0a, dNd0b, dnb0,
-//   dNd1, dnb1, dnlns, dnlnb. Shared memory at h=64: the five weights
+// - corner_hop_bwd_node recomputes pd, the four corners (the forward's
+//   steps, corner_hop_tiles.cuh), agg and the node MLP, runs the node
+//   backward, writes dvd = g + dupre @ Nd0a^T and dagg (a (B,H,W,h)
+//   scratch array), and adds dNd0a, dNd0b, dnb0, dNd1, dnb1, dnlns,
+//   dnlnb. Shared memory at h=64: the five weights
 //   (80 KB), Wf and the vectors (10 KB), five row tiles (vd, agg, z of
 //   two corners that become u and dy, dupre; 80 KB), the dNd0a, dNd0b
 //   and dNd1 patches (48 KB): 223,232 B. 10 barriers a tile.
@@ -168,6 +169,18 @@ __device__ __forceinline__ void add_xty(float* patch, const float* X, const floa
   load_tile<HP, 4>(p, patch, 0, 0);
   xty_acc<HP>(p, X, Y, t.f0, t.pc0, t.pr0, t.pr1);
   store_tile<HP, 4>(patch, 0, 0, p);
+}
+
+// Load the thread's rows of a (B*H*W, h) array, zero past the end.
+template <int TM>
+__device__ __forceinline__ void load_rows4(float (&v)[TM][4], const float* base,
+                                           const int (&cell)[TM], const bool (&valid)[TM],
+                                           int c0, int h, bool vec) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    v[i][0] = v[i][1] = v[i][2] = v[i][3] = 0.f;
+    if (valid[i]) load4(v[i], base + (long long)cell[i] * h, c0, h, vec);
+  }
 }
 
 // Sum G thread groups' [HP][HP] patch accumulators into out[rows][h].

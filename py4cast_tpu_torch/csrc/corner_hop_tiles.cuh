@@ -104,17 +104,5 @@ __device__ __forceinline__ void store_rows(float* base, const int (&cell)[TM],
     if (valid[i]) store4(base + (long long)cell[i] * h, c0, h, vec, v[i]);
 }
 
-// Load the thread's rows of a (B*H*W, h) array, zero past the end.
-template <int TM>
-__device__ __forceinline__ void load_rows4(float (&v)[TM][4], const float* base,
-                                           const int (&cell)[TM], const bool (&valid)[TM],
-                                           int c0, int h, bool vec) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    v[i][0] = v[i][1] = v[i][2] = v[i][3] = 0.f;
-    if (valid[i]) load4(v[i], base + (long long)cell[i] * h, c0, h, vec);
-  }
-}
-
 }  // namespace hop
 }  // namespace p4t

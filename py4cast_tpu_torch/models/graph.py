@@ -8,7 +8,8 @@ m2g edges. Message passing runs in lattice form (``ops/lattice_ops.py``)
 gathers. On a CUDA device the two hot stages run as hand-written
 kernels, forward and backward: the processor's stencil edge message
 (``ops/stencil_kernel.py::StencilMessageFn``) and the m2g corner hop
-(``ops/hop_kernel.py::CornerHopFn``).
+(``ops/hop_kernel.py::CornerHopFn``), whose forward gathers each grid
+cell's four mesh corners itself through the int32 corner maps.
 
 Module and parameter names mirror the JAX package's param tree
 (``grid_embed/Dense_0``, ``processor/block/edge/w_e``, ...), so

@@ -118,6 +118,14 @@ ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__3ab277fc_17_corner_ho
 ptxas info    : Function properties for _ZN50_GLOBAL__N__3ab277fc_17_corner_hop_bwd_cu_9cff1b4f19corner_hop_bwd_nodeILi64EEEvNS_4ArgsE
     0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__5e1b0c2a_13_corner_hop_cu_8f0d2c3e14corner_hop_fwdILi64EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__5e1b0c2a_13_corner_hop_cu_8f0d2c3e14corner_hop_fwdILi64EEEvNS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 167 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__5e1b0c2a_13_corner_hop_cu_8f0d2c3e20corner_hop_fwd_warpsILi3ELi2EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__5e1b0c2a_13_corner_hop_cu_8f0d2c3e20corner_hop_fwd_warpsILi3ELi2EEEvNS_4ArgsE
+    24 bytes stack frame, 20 bytes spill stores, 28 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers
 """
     assert chip_smoke.ptxas_summary(text, "stencil_message_bwd") == [("64", 194, (0, 0))]
     assert chip_smoke.ptxas_summary(text, "short_kv_attention_fwd") == [("2,1,8", 128, (4, 12))]
@@ -125,3 +133,6 @@ ptxas info    : Used 255 registers, used 1 barriers
     assert chip_smoke.ptxas_summary(text, "corner_hop_bwd_node") == [("64", 255, (8, 8))]
     assert chip_smoke.ptxas_summary(text, "corner_hop_bwd_corner") == [("32", 168, (0, 0))]
     assert chip_smoke.ptxas_summary(text, "corner_hop_bwd") == []
+    # the corner-hop forward's row-tile and warp-row kernels, apart
+    assert chip_smoke.ptxas_summary(text, "corner_hop_fwd") == [("64", 167, (0, 0))]
+    assert chip_smoke.ptxas_summary(text, "corner_hop_fwd_warps") == [("3,2", 80, (20, 28))]
