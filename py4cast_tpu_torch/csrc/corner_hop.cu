@@ -66,10 +66,11 @@
 //
 // Widths 65 to 96: at HP = 128 the five swizzled weights alone would
 // take 320 KB, above the 227 KB a block may have. There the forward is
-// still PR 1's warp-row kernel (corner_hop_fwd_warps, on warp_rows.cuh:
-// a warp owns 2 cells, each row spread over the lanes, the weights at
-// their true width of 96 in shared memory, every product through warp
-// shuffles, below the fp32 peak), which reads ps through the same maps.
+// the port's first, warp-row design (corner_hop_fwd_warps, on
+// warp_rows.cuh: a warp owns 2 cells, each row spread over the lanes,
+// the weights at their true width of 96 in shared memory, every product
+// through warp shuffles, below the fp32 peak), which reads ps through
+// the same maps.
 // Widths that are not a multiple of 4 take plain loads in place of the
 // 128-bit ones.
 

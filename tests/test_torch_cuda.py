@@ -178,9 +178,10 @@ def test_hop_kernel_matches_plain(cuda, b, hr, w, h, ff, mean):
 def test_hop_fwd_kernels_do_not_spill(cuda):
     """Every instance of the corner-hop forward (widths up to 32 and 64 on
     row tiles, up to 96 on warp rows) keeps its state in registers and
-    fits a block an SM."""
+    fits a block an SM (-s prints each instance's attributes)."""
     for h in (32, 64, 96):
         a = hop_kernel.fwd_kernel_attributes(h)
+        print(f"corner_hop forward h<={h}: {a}")
         assert a["local_bytes"] == 0, (h, a)
         assert a["blocks_per_sm"] >= 1, (h, a)
 
