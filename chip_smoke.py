@@ -10,7 +10,8 @@ non-zero exit code and no result line:
 2. build every CUDA kernel of the main path from ``py4cast_tpu_torch/csrc``
    with nvcc (one process per source, all at once); ptxas's registers
    and spills of every a-fwd, b-fwd (row-tile and warp-row), c-fwd,
-   a-bwd and b-bwd (node and corner pass) instance;
+   a-bwd, b-bwd (node and corner pass) and c-bwd (dq and dK/dV pass)
+   instance;
 3. each forward kernel against its plain PyTorch version at the main
    path's shapes (GraphLAM at 500x500: each mesh level's lattice,
    125x125, 63x63 and 32x32, for the stencil message; the 500x500 grid
@@ -34,9 +35,11 @@ non-zero exit code and no result line:
    the fp64 logsumexp, dq against the plain backward, dk and dv against
    it in fp64, both kernels bit for bit against a second call; c-fwd's
    launch shape with its registers, spills and resident blocks (and
-   ptxas's report from phase 2); timed with CUDA events beside
+   ptxas's report from phase 2), c-bwd's the same for both its passes;
+   each with its bound; timed with CUDA events beside
    F.scaled_dot_product_attention (the library's time, never on the
-   path), and c-fwd's sum over one 512x640 model call beside it;
+   path), and c-fwd's sum over one 512x640 model call, and c-bwd's over
+   one train step's backward, beside it;
 4. ``Trainer.predict`` on the Dummy dataset with GraphLAM at the width of
    config/CLI/model/graphlam.yaml: launch counts of both forward
    kernels, finite outputs, agreement with the same module on the CPU;
@@ -152,6 +155,7 @@ PTXAS_KERNELS = {
     "short_kv_attention": ("short_kv_attention_fwd",),
     "stencil_message_bwd": ("stencil_message_bwd",),
     "corner_hop_bwd": ("corner_hop_bwd_node", "corner_hop_bwd_corner"),
+    "short_kv_attention_bwd": ("short_kv_attention_bwd_dq", "short_kv_attention_bwd_dkdv"),
 }
 
 
@@ -558,16 +562,18 @@ def check_attention(rng) -> list:
     """c-fwd and c-bwd against their plain versions at every shape of
     ATTENTION_SHAPES, and each against a second call bit for bit; both
     timed, beside the plain versions and the library, at each; c-fwd's
-    launch shape and its kernel's registers, spills and resident blocks.
-    Returns their two entries of the kernels line, the stage-1 numbers on
-    top, every shape's under "shapes", and c-fwd's sum over one 512x640
-    model call (each stage twice) beside the library's."""
+    launch shape and its kernel's registers, spills and resident blocks,
+    c-bwd's for both its kernels. Returns their two entries of the
+    kernels line, the stage-1 numbers on top, every shape's under
+    "shapes", and c-fwd's sum over one 512x640 model call (each stage
+    twice) and c-bwd's over its backward, beside the library's."""
     from py4cast_tpu_torch.ops.attention import (
+        bwd_kernel_attributes,
+        bwd_launch_shape,
         fused_short_kv_attention,
         fused_short_kv_attention_bwd,
         fwd_kernel_attributes,
         fwd_launch_shape,
-        partial_chunk_rows,
         short_kv_attention_bwd_plain,
         short_kv_attention_plain,
     )
@@ -589,6 +595,11 @@ def check_attention(rng) -> list:
         rows, splits = fwd_launch_shape(bh, lq, lk, d)
         launch = {"rows": rows, "splits": splits,
                   **fwd_kernel_attributes(d, rows, splits)}
+        rows, splits, key_tile, query_splits = bwd_launch_shape(bh, lq, lk, d)
+        b_launch = {"rows": rows, "splits": splits, "key_tile": key_tile,
+                    "query_splits": query_splits,
+                    "dkdv_blocks": -(-lk // key_tile) * query_splits * bh,
+                    **bwd_kernel_attributes(d, rows, splits)}
         got = fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale)
         torch.cuda.synchronize()
         plain32 = short_kv_attention_bwd_plain(q, k, v, do, scale)
@@ -602,12 +613,11 @@ def check_attention(rng) -> list:
 
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
         lib_out = _sdpa(ql, kl, vl, scale)
-        chunks = -(-lq // partial_chunk_rows(bh, lq, lk, d))
         pairs = bh * lq * lk
         f_bound = bound(4 * (2 * bh * lq * d + 2 * bh * lk * d + bh * lq), pairs * (4 * d + 5))
-        # q, o, dO, dq (Lq x D), lse, k, v, dk, dv (Lk x D), and the
-        # partials written once and read once
-        b_bytes = 4 * (4 * bh * lq * d + bh * lq + 4 * bh * lk * d + 2 * chunks * 2 * bh * lk * d)
+        # the function's bytes: q, o, dO, dq (Lq x D), lse, k, v, dk, dv
+        # (Lk x D), each once; not a design's scratch
+        b_bytes = 4 * (4 * bh * lq * d + bh * lq + 4 * bh * lk * d)
         b_bound = bound(b_bytes, pairs * (10 * d + 10))
         common = {"shape": f"q ({bh},{lq},{d}) k,v ({bh},{lk},{d})", "label": label}
         fwd_rows.append({
@@ -620,13 +630,14 @@ def check_attention(rng) -> list:
             "bound_ms": f_bound[0], "bound_by": f_bound[1],
         })
         bwd_rows.append({
-            **common, "max_abs_err": b_err, "max_err_over_scale": b_rel, "partial_chunks": chunks,
+            **common, "max_abs_err": b_err, "max_err_over_scale": b_rel, "launch": b_launch,
             "ms": time_ms(lambda: fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale)),
             "plain_ms": time_ms(lambda: short_kv_attention_bwd_plain(q, k, v, do, scale)),
             "library_ms": time_ms(lambda: torch.autograd.grad(
                 lib_out, (ql, kl, vl), do, retain_graph=True)),
             "bound_ms": b_bound[0], "bound_by": b_bound[1],
         })
+        bwd_rows[-1]["share_of_bound"] = b_bound[0] / bwd_rows[-1]["ms"]
         del ql, kl, vl, lib_out
 
     entries = []
@@ -646,6 +657,10 @@ def check_attention(rng) -> list:
     stages = [r for r in fwd_rows if r["label"].startswith("stage")]
     entries[0]["model_call_ms"] = 2 * sum(r["ms"] for r in stages)
     entries[0]["model_call_library_ms"] = 2 * sum(r["library_ms"] for r in stages)
+    stages = [r for r in bwd_rows if r["label"].startswith("stage")]
+    entries[1]["model_backward_ms"] = 2 * sum(r["ms"] for r in stages)
+    entries[1]["model_backward_library_ms"] = 2 * sum(r["library_ms"] for r in stages)
+    entries[1]["model_backward_bound_ms"] = 2 * sum(r["bound_ms"] for r in stages)
     return entries
 
 
@@ -794,8 +809,10 @@ GROUPS = (
     ("corner_hop_bwd kernel", ("corner_hop_bwd",)),
     ("stencil_message_bwd kernel", ("stencil_message_bwd",)),
     ("short_kv_attention kernel", ("short_kv_attention_fwd",)),
+    # c-bwd's dq pass, dK/dV pass and split sum (short_kv_attention_bwd_dq,
+    # _dkdv, _sum) all fall here
     ("short_kv_attention_bwd kernel", ("short_kv_attention_bwd",)),
-    ("weight-gradient and dK/dV partial sums", ("sum_partials",)),
+    ("weight-gradient partial sums", ("sum_partials",)),
     ("AdamW (foreach)", ("multi_tensor_apply",)),
     ("host-to-device batch copy", ("Memcpy HtoD",)),
     ("layer_norm (torch)", ("layer_norm",)),
@@ -1104,8 +1121,7 @@ def main(argv=None) -> int:
     log("tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
 
     # phase 2: build every kernel of the path; beside it, ptxas's
-    # registers and spills of the a-fwd, b-fwd, c-fwd, a-bwd and b-bwd
-    # instances
+    # registers and spills of every kernel's instances
     t0 = time.perf_counter()
     sources = _build.SOURCES if only is None else tuple(
         src for name in only for src in KERNEL_SOURCES[name])
@@ -1151,6 +1167,10 @@ def main(argv=None) -> int:
         if "model_call_ms" in k:
             log(f"  one 512x640 model call (2 x each stage): kernel {k['model_call_ms']:.4f} ms, "
                 f"library {k['model_call_library_ms']:.4f} ms")
+        if "model_backward_ms" in k:
+            log(f"  one 512x640 train step's backward (2 x each stage): kernel "
+                f"{k['model_backward_ms']:.4f} ms, library {k['model_backward_library_ms']:.4f} ms, "
+                f"bound {k['model_backward_bound_ms']:.4f} ms")
 
     if only is not None:
         log(card)

@@ -313,8 +313,7 @@ __device__ __forceinline__ void ln_backward4(float (&g)[4], const float (&xhat)[
 // A block of 8 warps takes 32 columns: warp w adds the partials b = w,
 // w + 8, ... in order, and warp 0 adds the 8 warps' sums in order, so a
 // call repeats bit for bit, and each thread reads only blocks / 8
-// partials (warp_rows.cuh's sum_partials reads all of them in one thread
-// a column).
+// partials.
 __global__ void __launch_bounds__(256) sum_partials_by_warps(const float* __restrict__ partial,
                                                              float* __restrict__ out, int n,
                                                              int blocks) {

@@ -17,7 +17,9 @@
 // Segformer's stage 1 (Lq 20,480, Lk 320, D 32) that is 0.84 GFLOP
 // against 5.4 MB: ~12.5 us of fp32 FMA peak against ~1.6 us of memory.
 //
-// Design, for 132 SMs and the fp32 FMA units. Shared memory delivers
+// Design, for 132 SMs and the fp32 FMA units (the lanes' loads, dots,
+// shuffles and the K/V ring are attention_tiles.cuh's, which the
+// backward's dq pass shares). Shared memory delivers
 // 128 bytes a cycle to an SM's registers, broadcast or not: a float of K
 // or V that a lane reads there should feed several FMAs.
 // - Lanes. A row's D channels are cut into T slices of C = 16 (T = 1, 2,
@@ -47,20 +49,10 @@
 //   filled, and a logit past Lk is -inf.
 // - Base 2. q is scaled by scale * log2(e) once, so a logit's exp is one
 //   exp2f; lse goes back to the natural log on the way out.
-#include "warp_rows.cuh"
-
-#include <math.h>
-#include <stdint.h>
+#include "attention_tiles.cuh"
 
 namespace p4t {
-namespace attn_fwd {
-
-constexpr int C = 16;    // channels of a slice (a lane holds one slice of a row)
-constexpr int CS = 20;   // a slice's stride in a shared K/V row (bank spread)
-constexpr int BK = 8;    // keys a split takes from one stage
-constexpr int NST = 3;   // stages in the K/V ring
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
+namespace attn {
 
 template <int T, int R, int S>
 struct Shape {
@@ -84,62 +76,6 @@ struct Shape {
   static constexpr size_t smem_bytes = sizeof(float) * (ring > merge ? ring : merge);
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, or 16 zero bytes when !valid
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes, or a zero
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Queue stage i of every split: split s's keys s*chunk + i*BK + [0, BK)
-// of K and V into buf as [K|V][S][BK][KROW] (slice t at t*CS, its last
-// four floats unused). Keys past Lk and channels past D are zero.
-template <int T, int R, int S>
-__device__ __forceinline__ void load_stage(float* __restrict__ buf, const float* __restrict__ kb,
-                                           const float* __restrict__ vb, int i, int chunk, int lk,
-                                           int d) {
-  using Sh = Shape<T, R, S>;
-  if ((d & 3) == 0) {  // rows of 16-byte words: one cp.async a word
-    constexpr int WORDS = C / 4 * T;  // a key's words, padding past D included
-    for (int e = threadIdx.x; e < 2 * S * BK * WORDS; e += Sh::THREADS) {
-      const int kv = e / (S * BK * WORDS), rest = e % (S * BK * WORDS);
-      const int s = rest / (BK * WORDS), j = (rest / WORDS) % BK, w = rest % WORDS;
-      const int key = s * chunk + i * BK + j, ch = 4 * w;
-      const bool valid = key < lk && ch < d;
-      const float* src = (kv ? vb : kb) + (valid ? (long long)key * d + ch : 0);
-      cp_async16(buf + kv * (S * BK * Sh::KROW) + (s * BK + j) * Sh::KROW + (ch / C) * CS + ch % C,
-                 src, valid);
-    }
-  } else {  // any D: one cp.async a float
-    constexpr int CH = C * T;
-    for (int e = threadIdx.x; e < 2 * S * BK * CH; e += Sh::THREADS) {
-      const int kv = e / (S * BK * CH), rest = e % (S * BK * CH);
-      const int s = rest / (BK * CH), j = (rest / CH) % BK, ch = rest % CH;
-      const int key = s * chunk + i * BK + j;
-      const bool valid = key < lk && ch < d;
-      const float* src = (kv ? vb : kb) + (valid ? (long long)key * d + ch : 0);
-      cp_async4(buf + kv * (S * BK * Sh::KROW) + (s * BK + j) * Sh::KROW + (ch / C) * CS + ch % C,
-                src, valid);
-    }
-  }
-}
-
 // registers as Shape::MIN_BLOCKS allows (R = 4 did not fit 168)
 template <int T, int R, int S>
 __global__ void __launch_bounds__(32 * S, (Shape<T, R, S>::MIN_BLOCKS))
@@ -161,7 +97,7 @@ __global__ void __launch_bounds__(32 * S, (Shape<T, R, S>::MIN_BLOCKS))
 
 #pragma unroll
   for (int i = 0; i < NST - 1; ++i) {
-    if (i < tiles) load_stage<T, R, S>(smem + i * Sh::STAGE, kb, vb, i, chunk, lk, d);
+    if (i < tiles) load_kv_stage<T, S>(smem + i * Sh::STAGE, kb, vb, i, chunk, lk, d, Sh::THREADS);
     cp_async_commit();
   }
 
@@ -170,23 +106,8 @@ __global__ void __launch_bounds__(32 * S, (Shape<T, R, S>::MIN_BLOCKS))
   float x[R][C], acc[R][C], m[R], l[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int row = row0 + r * Sh::LANE_ROWS + rr;
-    const float* qr = q + ((long long)bh * lq + min(row, lq - 1)) * d + t * C;
-    if ((d & 3) == 0) {  // 16-byte loads
-#pragma unroll
-      for (int c4 = 0; c4 < C / 4; ++c4) {
-        const float4 w = (row < lq && t * C + 4 * c4 < d)
-                             ? reinterpret_cast<const float4*>(qr)[c4]
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-        x[r][4 * c4] = w.x * qs;
-        x[r][4 * c4 + 1] = w.y * qs;
-        x[r][4 * c4 + 2] = w.z * qs;
-        x[r][4 * c4 + 3] = w.w * qs;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < C; ++c) x[r][c] = (row < lq && t * C + c < d) ? qr[c] * qs : 0.f;
-    }
+    load_row_slice<T>(x[r], q + (long long)bh * lq * d, row0 + r * Sh::LANE_ROWS + rr, lq, d, t,
+                      qs);
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
     m[r] = -INFINITY;
@@ -198,8 +119,8 @@ __global__ void __launch_bounds__(32 * S, (Shape<T, R, S>::MIN_BLOCKS))
     cp_async_wait<NST - 2>();
     __syncthreads();  // stage i landed for all; stage i - 1 is free
     if (i + NST - 1 < tiles)
-      load_stage<T, R, S>(smem + ((i + NST - 1) % NST) * Sh::STAGE, kb, vb, i + NST - 1, chunk,
-                          lk, d);
+      load_kv_stage<T, S>(smem + ((i + NST - 1) % NST) * Sh::STAGE, kb, vb, i + NST - 1, chunk,
+                          lk, d, Sh::THREADS);
     cp_async_commit();
 
     const int n = min(BK, lk - (key_base + i * BK));  // this split's keys in the stage
@@ -210,31 +131,10 @@ __global__ void __launch_bounds__(32 * S, (Shape<T, R, S>::MIN_BLOCKS))
 #pragma unroll
     for (int h = 0; h < BK; h += Sh::KS) {
       if (h >= n) break;
-      float s[R][Sh::KS];
+      float s[R][Sh::KS] = {};
+      slice_dots(s, x, ks + h * Sh::KROW, Sh::KROW);
 #pragma unroll
-      for (int j = 0; j < Sh::KS; ++j) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) s[r][j] = 0.f;
-#pragma unroll
-        for (int c4 = 0; c4 < C / 4; ++c4) {
-          const float4 w = *reinterpret_cast<const float4*>(ks + (h + j) * Sh::KROW + 4 * c4);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            s[r][j] = fmaf(x[r][4 * c4], w.x, s[r][j]);
-            s[r][j] = fmaf(x[r][4 * c4 + 1], w.y, s[r][j]);
-            s[r][j] = fmaf(x[r][4 * c4 + 2], w.z, s[r][j]);
-            s[r][j] = fmaf(x[r][4 * c4 + 3], w.w, s[r][j]);
-          }
-        }
-      }
-      if (T > 1) {  // the row's slices: a butterfly, the same sum in every slice
-#pragma unroll
-        for (int off = Sh::LANE_ROWS; off < 32; off *= 2)
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int j = 0; j < Sh::KS; ++j) s[r][j] += __shfl_xor_sync(FULL, s[r][j], off);
-      }
+      for (int r = 0; r < R; ++r) slice_sum<T>(s[r]);  // the same sum in every slice
 
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -256,20 +156,7 @@ __global__ void __launch_bounds__(32 * S, (Shape<T, R, S>::MIN_BLOCKS))
         }
       }
 
-#pragma unroll
-      for (int j = 0; j < Sh::KS; ++j) {
-#pragma unroll
-        for (int c4 = 0; c4 < C / 4; ++c4) {
-          const float4 w = *reinterpret_cast<const float4*>(vs + (h + j) * Sh::KROW + 4 * c4);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            acc[r][4 * c4] = fmaf(s[r][j], w.x, acc[r][4 * c4]);
-            acc[r][4 * c4 + 1] = fmaf(s[r][j], w.y, acc[r][4 * c4 + 1]);
-            acc[r][4 * c4 + 2] = fmaf(s[r][j], w.z, acc[r][4 * c4 + 2]);
-            acc[r][4 * c4 + 3] = fmaf(s[r][j], w.w, acc[r][4 * c4 + 3]);
-          }
-        }
-      }
+      slice_axpy(acc, s, vs + h * Sh::KROW, Sh::KROW);
     }
   }
 
@@ -385,7 +272,7 @@ cudaError_t dispatch(int d, int rows, int splits, F&& f) {
   return dispatch_slices<8>(rows, splits, f);
 }
 
-}  // namespace attn_fwd
+}  // namespace attn
 }  // namespace p4t
 
 // rows: R, the query rows a thread; splits: S, the key splits (warps) a
@@ -393,7 +280,7 @@ cudaError_t dispatch(int d, int rows, int splits, F&& f) {
 extern "C" int p4t_short_kv_attention_fwd(const float* q, const float* k, const float* v,
                                           float* o, float* lse, int bh, int lq, int lk, int d,
                                           float scale, int rows, int splits, void* stream) {
-  using namespace p4t::attn_fwd;
+  using namespace p4t::attn;
   if (bh < 1 || lq < 1 || lk < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)dispatch(d, rows, splits, [&](auto sh) {
@@ -406,7 +293,7 @@ extern "C" int p4t_short_kv_attention_fwd(const float* q, const float* k, const 
 // shared memory bytes, resident blocks an SM, of the kernel that
 // p4t_short_kv_attention_fwd launches for (d, rows, splits)
 extern "C" int p4t_short_kv_attention_fwd_attributes(int d, int rows, int splits, int* out) {
-  using namespace p4t::attn_fwd;
+  using namespace p4t::attn;
   return (int)dispatch(d, rows, splits, [&](auto sh) {
     using Sh = decltype(sh);
     return attributes<Sh::kT, Sh::kR, Sh::kS>(out);

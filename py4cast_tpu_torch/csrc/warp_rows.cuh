@@ -1,5 +1,5 @@
 // Warp-per-cell building blocks of the corner-hop forward (corner_hop.cu);
-// the other kernels take their constants, `stage` and `sum_partials`.
+// the other kernels take their constants and `stage`.
 //
 // A warp owns P cells at once. For each cell it keeps one feature row
 // in registers, spread over the lanes: lane l holds channels l, l+32,
@@ -108,24 +108,6 @@ cudaError_t grid_for(Kernel kernel, int threads, size_t smem, long long groups,
   const long long cap = (long long)sms * per_sm;
   *blocks = (int)(needed < cap ? (needed > 0 ? needed : 1) : cap);
   return cudaSuccess;
-}
-
-// out[i] = sum_b partial[b][i], b ascending: the second pass of the
-// weight gradients, in a fixed order so a call repeats bit for bit.
-__global__ void sum_partials(const float* __restrict__ partial, float* __restrict__ out, int n,
-                             int blocks) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += partial[(long long)b * n + i];
-    out[i] = s;
-  }
-}
-
-// Sum the partials of a backward kernel into `out` (n floats).
-inline cudaError_t launch_sum_partials(const float* partial, float* out, int n, int blocks,
-                                       cudaStream_t stream) {
-  sum_partials<<<(n + 255) / 256, 256, 0, stream>>>(partial, out, n, blocks);
-  return cudaGetLastError();
 }
 
 }  // namespace p4t

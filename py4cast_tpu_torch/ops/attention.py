@@ -32,21 +32,27 @@ from torch.autograd.function import once_differentiable
 
 from py4cast_tpu_torch.ops import _build
 
-#: the kernels hold a row's channels in registers, up to four threads
-#: (backward) or eight (forward) a row
+#: the kernels hold a row's channels in registers, 16 a lane, up to
+#: eight lanes a row
 MAX_HEAD_DIM = 128
-#: query rows a block of the backward kernel (``BQ`` in
-#: ``csrc/attention_tiles.cuh``); the forward picks its own
-#: (``fwd_launch_shape``)
-BLOCK_Q = 64
-#: streaming multiprocessors of the H100 the forward's grid is sized for
+#: streaming multiprocessors of the H100 the grids are sized for
 NUM_SMS = 132
-#: keys a split of the forward takes from one shared-memory stage (``BK``
-#: in ``csrc/short_kv_attention.cu``)
+#: keys a split of the forward (and of the backward's dq pass) takes from
+#: one shared-memory stage (``BK`` in ``csrc/attention_tiles.cuh``)
 FWD_KEY_TILE = 8
-#: the most fp32 bytes the backward's per-chunk dK/dV partials may take
-#: before the wrapper makes each chunk span more query blocks
-MAX_PARTIAL_BYTES = 64 << 20
+#: query rows a tile of the backward's dK/dV walk (``BM`` of ``DkvShape``
+#: in ``csrc/short_kv_attention_bwd.cu``)
+BWD_QUERY_TILE = 64
+#: the fewest blocks the dK/dV pass's grid should have: at most 4 of the
+#: 132 SMs idle
+BWD_MIN_BLOCKS = 128
+#: the dK/dV partials (one a query split) stay under this. At D <= 32 a
+#: grid has at most 2 NUM_SMS = 264 blocks, and a key tile's dk and dv take
+#: 2 x 64 x 32 floats: 4.3 MB. At D > 32 there are more splits than one
+#: only while key tiles x BH < BWD_MIN_BLOCKS, so splits x key tiles x BH
+#: < 2 BWD_MIN_BLOCKS = 256, and a key tile's dk and dv take 2 x BN x D
+#: <= 2 x 4,096 floats (``bwd_launch_shape``): 8 MiB.
+MAX_BWD_PARTIAL_BYTES = 8 << 20
 _MAX_GRID_Y = 65535
 
 
@@ -125,14 +131,56 @@ def fwd_kernel_attributes(d, rows, splits) -> dict:
             "blocks_per_sm": out[3]}
 
 
+def bwd_blocks_per_sm(d) -> int:
+    """Blocks of the dK/dV pass an SM holds at once: 2 at D <= 32 (128
+    registers, 97 KB of shared memory each), else 1."""
+    return 2 if d <= 32 else 1
+
+
+def bwd_launch_shape(bh, lq, lk, d) -> tuple:
+    """``(rows, splits, key_tile, query_splits)`` of the backward's two
+    kernels for a call. The dq pass, query-major, takes the forward's
+    ``(rows, splits)`` (``fwd_launch_shape``). The dK/dV pass, key-major,
+    runs a grid of ceil(Lk / key_tile) key tiles x query_splits x BH
+    blocks, each walking its run of the ceil(Lq / 64) query tiles:
+    query_splits is the most whose blocks all fit on the card at once
+    (``bwd_blocks_per_sm``), but at least as many as give BWD_MIN_BLOCKS
+    blocks, and at most one a query tile. Depends on the shape alone, so
+    a call repeats bit for bit."""
+    rows, splits = fwd_launch_shape(bh, lq, lk, d)
+    # keys a dK/dV block holds: 32 at D > 64, where its 4 x 4 patches of
+    # dK and dV already cover the 256 threads
+    bn = 32 if d > 64 else 64
+    blocks = bh * -(-lk // bn)
+    fill = NUM_SMS * bwd_blocks_per_sm(d) // blocks
+    query_splits = min(-(-lq // BWD_QUERY_TILE), max(1, fill, -(-BWD_MIN_BLOCKS // blocks)))
+    return rows, splits, bn, query_splits
+
+
 def _bwd_lib():
     lib = _build.load("short_kv_attention_bwd")
     fn = lib.p4t_short_kv_attention_bwd
-    if fn.argtypes is None:  # first use: declare the C signature
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                       + [ctypes.c_void_p])
+    if fn.argtypes is None:  # first use: declare the C signatures
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        attrs = lib.p4t_short_kv_attention_bwd_attributes
+        attrs.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        attrs.restype = ctypes.c_int
     return lib
+
+
+def bwd_kernel_attributes(d, rows, splits) -> dict:
+    """The backward's two kernels that ``(d, rows, splits)`` launches, as
+    the card reports them: ``{"dq": ..., "dkdv": ...}``, each with
+    registers a thread, local (spill) bytes a thread, dynamic shared
+    memory and resident blocks an SM. Needs the card."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * 8)()
+    _build.check(lib, lib.p4t_short_kv_attention_bwd_attributes(d, rows, splits, out),
+                 "short_kv_attention_bwd attributes")
+    keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm")
+    return {"dq": dict(zip(keys, out[:4])), "dkdv": dict(zip(keys, out[4:]))}
 
 
 def _validate(what, q, k, v, extra=None):
@@ -187,18 +235,14 @@ def fused_short_kv_attention(q, k, v, scale):
 fused_short_kv_attention.launches = 0
 
 
-def partial_chunk_rows(bh, lq, lk, d) -> int:
-    """Query rows a backward block sums into one dK/dV partial: BLOCK_Q,
-    or a multiple of it so the partials stay under MAX_PARTIAL_BYTES."""
-    max_chunks = max(1, MAX_PARTIAL_BYTES // (2 * bh * lk * d * 4))
-    return BLOCK_Q * math.ceil(math.ceil(lq / BLOCK_Q) / max_chunks)
-
-
 def fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale):
     """The attention's backward: ``(dq, dk, dv)`` for the cotangent do
     (BH, Lq, D) of o, given the forward's o and lse. The forward's
-    checks. dK and dV are summed over query chunks in a fixed order, so a
-    call repeats bit for bit."""
+    checks. On the card: a dq pass, which also writes delta =
+    rowsum(dO ∘ o) into a (BH, Lq) scratch, then a dK/dV pass on the
+    launch shape of ``bwd_launch_shape``, whose query splits' partials (if
+    more than one) a third kernel adds in split order: a call repeats bit
+    for bit."""
     device, bh, lq, lk, d = _validate(
         "fused_short_kv_attention_bwd", q, k, v,
         lambda bh, lq, lk, d: {"o": (o, (bh, lq, d)), "lse": (lse, (bh, lq)),
@@ -207,20 +251,21 @@ def fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale):
     if device.type == "cpu":
         return short_kv_attention_bwd_plain(q, k, v, do, scale)
 
-    chunk = partial_chunk_rows(bh, lq, lk, d)
-    chunks = math.ceil(lq / chunk)
+    rows, splits, key_tile, query_splits = bwd_launch_shape(bh, lq, lk, d)
     dq = torch.empty_like(q)
     dkv = torch.empty((2, bh, lk, d), device=device, dtype=torch.float32)
-    # one fp32 partial of dK and dV per query chunk, summed by a second
-    # kernel in chunk order
-    partial = torch.empty((chunks, 2, bh, lk, d), device=device, dtype=torch.float32)
+    delta = torch.empty((bh, lq), device=device, dtype=torch.float32)
+    # one fp32 partial of dK and dV a query split, when there are several
+    partial = (torch.empty((query_splits, 2, bh, lk, d), device=device, dtype=torch.float32)
+               if query_splits > 1 else None)
     lib = _bwd_lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.p4t_short_kv_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), partial.data_ptr(), dkv.data_ptr(),
-            bh, lq, lk, d, chunk, chunks, float(scale), stream,
+            do.data_ptr(), dq.data_ptr(), delta.data_ptr(),
+            None if partial is None else partial.data_ptr(), dkv.data_ptr(),
+            bh, lq, lk, d, float(scale), rows, splits, key_tile, query_splits, stream,
         )
     _build.check(lib, status, "short_kv_attention_bwd kernel")
     fused_short_kv_attention_bwd.launches += 1

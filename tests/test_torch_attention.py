@@ -145,15 +145,61 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(case, match):
         fused_short_kv_attention(q, k, v, 0.25)
 
 
-def test_backward_partials_stay_under_their_cap():
-    """Segformer's stage 1 at 512x640 keeps one partial per 64-row block
-    (26 MB); a longer K/V merges blocks until the partials fit 64 MB."""
-    assert attention.partial_chunk_rows(1, 20480, 320, 32) == 64
-    for bh, lq, lk, d in [(1, 20480, 320, 32), (8, 320, 320, 32), (4, 100000, 4097, 64)]:
-        rows = attention.partial_chunk_rows(bh, lq, lk, d)
-        assert rows % attention.BLOCK_Q == 0
-        chunks = -(-lq // rows)
-        assert chunks * 2 * bh * lk * d * 4 <= attention.MAX_PARTIAL_BYTES or chunks == 1
+#: (BH, Lq, Lk, D) -> the backward's (rows, splits, key tile, query
+#: splits): the four Segformer stages at 512x640 and phase 3c's long K/V,
+#: then each side of every boundary where the choice changes (the dq
+#: pass's (rows, splits) are the forward's, tested above): one query tile
+#: or two; at D <= 32 (two blocks an SM) 132 key tiles x BH or 133, at
+#: D > 32 127 or 128 (BWD_MIN_BLOCKS); D 64 or 65 (the key tile)
+BWD_LAUNCH_SHAPES = [
+    ((1, 20480, 320, 32), (2, 4, 64, 52)),   # 5 key tiles x 52 splits: 260 blocks
+    ((2, 5120, 320, 32), (2, 4, 64, 26)),
+    ((5, 1280, 320, 32), (2, 4, 64, 10)),
+    ((8, 320, 320, 32), (2, 8, 64, 5)),      # one split a query tile
+    ((2, 2048, 4097, 64), (2, 4, 64, 1)),    # 2 x 65 key tiles: no partial
+    ((1, 64, 320, 32), (1, 8, 64, 1)),       # one query tile: one split
+    ((1, 65, 320, 32), (1, 8, 64, 2)),
+    ((2, 2048, 4224, 32), (2, 8, 64, 2)),    # 2 x 66 key tiles: 264 blocks fit
+    ((2, 2048, 4225, 32), (2, 8, 64, 1)),    # 2 x 67
+    ((1, 2048, 8128, 64), (2, 8, 64, 2)),    # 127 key tiles
+    ((1, 2048, 8129, 64), (2, 8, 64, 1)),    # 128
+    ((1, 2048, 4064, 128), (2, 4, 32, 2)),   # 127 key tiles of 32
+    ((1, 2048, 4065, 128), (2, 4, 32, 1)),
+    ((1, 700, 320, 64), (1, 8, 64, 11)),     # 64 keys a block
+    ((1, 700, 320, 65), (2, 4, 32, 11)),     # 32 keys a block at D > 64
+    ((3, 7, 2, 128), (1, 4, 32, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,want", BWD_LAUNCH_SHAPES)
+def test_backward_launch_shape(shape, want):
+    assert attention.bwd_launch_shape(*shape) == want
+
+
+def test_backward_launch_shapes_are_ones_the_kernels_have():
+    """Every choice is an instance of the two kernels (the dq pass's
+    (rows, splits) as the forward's; a key tile of 32 at D > 64, else
+    64), gives the dK/dV pass at least min(BWD_MIN_BLOCKS, possible)
+    blocks (possible: one a key tile and query tile), never more splits
+    than query tiles, more than one only where they all fit on the card
+    at once or are the fewest that reach BWD_MIN_BLOCKS, and keeps the
+    partials under MAX_BWD_PARTIAL_BYTES."""
+    rng = np.random.default_rng(1)
+    for _ in range(3000):
+        bh = int(rng.integers(1, 200))
+        lq, lk = (int(x) for x in 10 ** rng.uniform(0, [5.5, 4.5]))
+        d = int(rng.integers(1, attention.MAX_HEAD_DIM + 1))
+        rows, splits, bn, qs = attention.bwd_launch_shape(bh, lq, lk, d)
+        assert (rows, splits) == attention.fwd_launch_shape(bh, lq, lk, d)
+        assert bn == (32 if d > 64 else 64)
+        q_tiles, key_tiles = -(-lq // attention.BWD_QUERY_TILE), -(-lk // bn)
+        assert 1 <= qs <= q_tiles
+        blocks = bh * key_tiles * qs
+        assert blocks >= min(attention.BWD_MIN_BLOCKS, bh * key_tiles * q_tiles)
+        fits = blocks <= attention.NUM_SMS * attention.bwd_blocks_per_sm(d)
+        assert qs == 1 or fits or bh * key_tiles * (qs - 1) < attention.BWD_MIN_BLOCKS
+        partial_bytes = 0 if qs == 1 else qs * 2 * bh * lk * d * 4
+        assert partial_bytes <= attention.MAX_BWD_PARTIAL_BYTES
 
 
 #: (BH, Lq, Lk, D) -> the forward's (rows a thread, key splits): the

@@ -448,23 +448,6 @@ def test_attention_kernels_match_plain(cuda, bh, lq, lk, d):
         assert torch.equal(g, g2)
 
 
-def test_attention_bwd_merges_query_blocks_into_one_partial(cuda, monkeypatch):
-    """With a small partial cap each chunk spans several 64-row blocks
-    (the kernel adds them into one partial); the result is unchanged."""
-    rng = np.random.default_rng(400)
-    q, k, v = _attention_args(rng, 2, 1000, 40, 32)
-    o, lse = fused_short_kv_attention(q, k, v, 0.2)
-    do = _rand(rng, 2, 1000, 32)
-    one_block = fused_short_kv_attention_bwd(q, k, v, o, lse, do, 0.2)
-    monkeypatch.setattr(attention, "MAX_PARTIAL_BYTES", 3 * 2 * 2 * 40 * 32 * 4)
-    assert attention.partial_chunk_rows(2, 1000, 40, 32) == 6 * attention.BLOCK_Q
-    merged = fused_short_kv_attention_bwd(q, k, v, o, lse, do, 0.2)
-    want = short_kv_attention_bwd_plain(q.double(), k.double(), v.double(), do.double(), 0.2)
-    for name, a, b, w in zip(("dq", "dk", "dv"), one_block, merged, want):
-        _close_to_fp64(name, b, w)
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-
-
 def test_attention_function_gives_the_cpu_gradients_on_the_card(cuda):
     rng = np.random.default_rng(8)
     args = _attention_args(rng, 3, 300, 64, 32)
@@ -536,3 +519,78 @@ def test_attention_forward_kernels_do_not_spill(cuda):
             a = attention.fwd_kernel_attributes(d, rows, splits)
             assert a["local_bytes"] == 0, (d, rows, splits, a)
             assert a["blocks_per_sm"] >= 1, (d, rows, splits, a)
+
+
+def test_attention_bwd_one_query_split_and_several_agree(cuda, monkeypatch):
+    """The dK/dV pass with one query split (dk and dv written by the
+    pass) and with several (partials added in split order) gives the
+    same dq, dk and dv within 1e-5, each within the fp64 bar."""
+    rng = np.random.default_rng(400)
+    q, k, v = _attention_args(rng, 2, 1000, 40, 32)
+    o, lse = fused_short_kv_attention(q, k, v, 0.2)
+    do = _rand(rng, 2, 1000, 32)
+    rows, splits, key_tile, query_splits = attention.bwd_launch_shape(2, 1000, 40, 32)
+    assert query_splits == 16
+    several = fused_short_kv_attention_bwd(q, k, v, o, lse, do, 0.2)
+    monkeypatch.setattr(attention, "bwd_launch_shape",
+                        lambda *shape: (rows, splits, key_tile, 1))
+    one = fused_short_kv_attention_bwd(q, k, v, o, lse, do, 0.2)
+    want = short_kv_attention_bwd_plain(q.double(), k.double(), v.double(), do.double(), 0.2)
+    for name, a, b, w in zip(("dq", "dk", "dv"), one, several, want):
+        _close_to_fp64(name, a, w)
+        _close_to_fp64(name, b, w)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+#: (BH, Lq, Lk, D): each side of every boundary where the backward's
+#: dK/dV launch shape changes (``bwd_launch_shape``): one query tile or
+#: two, 132 key tiles x BH or 133 at D <= 32, 127 or 128 above, D 64 or
+#: 65 (64 or 32 keys a block),
+#: and every count of thread groups a tile (D 16: 4, D 32: 2, D 64 and
+#: 128: 1), with D not a multiple of 4 and keys past a key tile
+BWD_SHAPES = [
+    (1, 64, 320, 32), (1, 65, 320, 32),
+    (1, 2048, 8128, 64), (1, 2048, 8129, 64),
+    (2, 2048, 4224, 32), (2, 2048, 4225, 32),
+    (1, 2048, 4064, 128), (1, 2048, 4065, 128),
+    (1, 700, 320, 64), (1, 700, 320, 65),
+    (3, 333, 77, 16), (2, 500, 100, 30), (1, 130, 70, 100), (2, 129, 1, 13),
+]
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", BWD_SHAPES + FWD_SHAPES)
+def test_attention_backward_at_every_launch_shape(cuda, bh, lq, lk, d):
+    """dq, dk and dv against the plain backward in fp64, one launch
+    counted, and a second call bit for bit: at each side of the dK/dV
+    pass's boundaries, then at every launch shape of the dq pass (the
+    forward's)."""
+    rng = np.random.default_rng(600 + d + lk)
+    q, k, v = _attention_args(rng, bh, lq, lk, d)
+    scale = d ** -0.5
+    o, lse = fused_short_kv_attention(q, k, v, scale)
+    do = _rand(rng, bh, lq, d)
+    before = fused_short_kv_attention_bwd.launches
+    got = fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert fused_short_kv_attention_bwd.launches == before + 1
+    want = short_kv_attention_bwd_plain(q.double(), k.double(), v.double(), do.double(), scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _close_to_fp64(name, g, w)
+    again = fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale)
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+
+
+def test_attention_bwd_kernels_do_not_spill(cuda, capsys):
+    """Both kernels of every backward instance keep their state in
+    registers and fit at least one block an SM (-s prints them)."""
+    for t, d in ((1, 16), (2, 32), (4, 64), (8, 128)):
+        for rows, splits in ((2, 4), (2, 8), (1, 4), (1, 8)):
+            if splits * t > 32:
+                continue
+            a = attention.bwd_kernel_attributes(d, rows, splits)
+            with capsys.disabled():
+                print(f"\nc-bwd d={d} rows={rows} splits={splits}: {a}")
+            for kernel in ("dq", "dkdv"):
+                assert a[kernel]["local_bytes"] == 0, (d, rows, splits, a)
+                assert a[kernel]["blocks_per_sm"] >= 1, (d, rows, splits, a)
