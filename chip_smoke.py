@@ -64,7 +64,22 @@ non-zero exit code and no result line:
 10. the full-width Segformer at 512x640 (batch 1, 21 weather and 21
    forcing features): a 3-step predict and a 1-AR-step AdamW train step,
    ms per step, peak memory, profiles, step 1 against the CPU;
-11. one JSON line with every kernel's numbers, then the result line.
+11. HalfUNet at the width of config/CLI/model/halfunet.yaml (64
+   filters, depth 4, no bias, no ghost): ``Trainer.predict`` and
+   ``Trainer.fit`` on Dummy with every hand kernel counted at 0, the
+   CLI with halfunet.yaml, and phase 10's 512x640 predict and train
+   step;
+12. HiLAM at the width of config/CLI/model/hilam.yaml (h 64, 4
+   processor layers, 3 mesh levels; lattices 125², 63², 32² at
+   500x500): ``Trainer.predict`` and ``Trainer.fit`` on Dummy with
+   exact launch counts (16 a-fwd and 1 b-fwd a forward, as many a-bwd
+   and b-bwd a backward), card against CPU, the CLI, and phases 5 and
+   7's 500x500 predict and train step;
+13. HiLAMParallel at the width of hilamparallel.yaml: the same on
+   Dummy (12 a-fwd a forward; 9 a-bwd a backward, the stages whose
+   outputs reach the loss) and a 500x500 predict;
+14. the script's wall time, one JSON line with every kernel's numbers,
+   then the result line.
 
 Each model path runs with every launch count set to 0 just before it
 and read just after; a kernel of the path that was not launched, or a
@@ -118,6 +133,17 @@ GRAPHLAM_ARGS = {
 #: settings_init_args of config/CLI/model/segformer.yaml (the other
 #: fields at SegformerSettings' defaults)
 SEGFORMER_ARGS = {"num_layers": 2, "decoder_dim": 256, "num_downsampling_chans": 32}
+
+#: settings_init_args of config/CLI/model/halfunet.yaml (depth at
+#: HalfUNetSettings' default, 4)
+HALFUNET_ARGS = {"num_filters": 64, "dilation": 1, "bias": False, "use_ghost": False,
+                 "last_activation": "Identity", "absolute_pos_embed": False,
+                 "autopad_enabled": True}
+
+#: each model's settings_init_args; hilam.yaml and hilamparallel.yaml
+#: carry graphlam.yaml's (h 64, 4 processor layers, 3 mesh levels)
+MODEL_ARGS = {"GraphLAM": GRAPHLAM_ARGS, "HiLAM": GRAPHLAM_ARGS, "HiLAMParallel": GRAPHLAM_ARGS,
+              "Segformer": SEGFORMER_ARGS, "HalfUNet": HALFUNET_ARGS}
 
 #: H100 SXM data-sheet peaks (full 700 W power limit): HBM3 bytes/s and
 #: fp32 operations/s outside the tensor cores
@@ -685,29 +711,38 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def graphlam_settings(**kw):
+def model_settings(name: str, **kw):
+    """The TrainingSettings of ``name`` at its config's width."""
     from py4cast_tpu_torch.training import TrainingSettings
 
-    return TrainingSettings(model_name="GraphLAM", settings_init_args=dict(GRAPHLAM_ARGS),
-                            training_strategy="diff_ar", **kw)
-
-
-def segformer_settings(**kw):
-    from py4cast_tpu_torch.training import TrainingSettings
-
-    return TrainingSettings(model_name="Segformer", settings_init_args=dict(SEGFORMER_ARGS),
+    return TrainingSettings(model_name=name, settings_init_args=dict(MODEL_ARGS[name]),
                             training_strategy="diff_ar", **kw)
 
 
 def launches_per_call(module) -> tuple:
     """({kernel: launches} of one model forward, and of one backward)."""
-    ms = module.model_settings
-    if module.settings.model_name == "GraphLAM":
+    name, ms = module.settings.model_name, module.model_settings
+    if name == "GraphLAM":  # one stencil stage a mesh level a layer
         per = ms.mesh_levels * ms.processor_layers
         return ({"stencil_message": per, "corner_hop": 1},
                 {"stencil_message_bwd": per, "corner_hop_bwd": 1})
-    per = len(ms.dims) * ms.num_layers  # one attention a MiT layer
-    return {"short_kv_attention": per}, {"short_kv_attention_bwd": per}
+    if name == "HiLAM":  # intra_up_{1..L-1} and intra_down_{L-2..0} a layer
+        per = 2 * (ms.mesh_levels - 1) * ms.processor_layers
+        return ({"stencil_message": per, "corner_hop": 1},
+                {"stencil_message_bwd": per, "corner_hop_bwd": 1})
+    if name == "HiLAMParallel":  # intra_{0..L-1} a layer
+        L, layers = ms.mesh_levels, ms.processor_layers
+        # backward: only the stages whose outputs reach the loss; the j-th
+        # layer from the end reaches level 0 from levels 0..j-1 alone
+        return ({"stencil_message": L * layers, "corner_hop": 1},
+                {"stencil_message_bwd": sum(min(j, L) for j in range(1, layers + 1)),
+                 "corner_hop_bwd": 1})
+    if name == "Segformer":  # one attention a MiT layer
+        per = len(ms.dims) * ms.num_layers
+        return {"short_kv_attention": per}, {"short_kv_attention_bwd": per}
+    if name == "HalfUNet":  # convolutions (cuDNN) only: no hand kernel
+        return {}, {}
+    raise ValueError(f"no launch counts for model {name!r}")
 
 
 def expected_launches(module, forwards: int, backwards: int) -> dict:
@@ -755,18 +790,22 @@ def predict_dummy(settings) -> dict:
         compare("predict (cuda vs cpu)", torch.from_numpy(g.array), torch.from_numpy(c.array))
         for g, c in zip(preds, cpu_preds)
     )
-    return {"launches": counts, "forwards": forwards, "batches": len(preds),
-            "seconds": seconds, "max_abs_err_vs_cpu": err}
+    return {"model": settings.model_name, "launches": counts, "forwards": forwards,
+            "batches": len(preds), "seconds": seconds, "max_abs_err_vs_cpu": err}
 
 
 # ------------------------------------------------------------------- phase 5
-def full_size_rollout(steps: int = 3, grid=(500, 500)) -> dict:
+def full_size_rollout(name: str = "GraphLAM", steps: int = 3, grid=(500, 500),
+                      profile_name: str = "smoke_profile.txt") -> dict:
+    """A graph model at its config's width on bench.py's GNN cell: a
+    3-step predict at batch 1, counted, timed, profiled; step 1 against
+    the CPU."""
     from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
     from py4cast_tpu_torch.training import AutoRegressiveModule
 
     # bench.py's GNN cell: 500x500 grid, 21 weather and 21 forcing features
     info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
-    settings = graphlam_settings()
+    settings = model_settings(name)
     t0 = time.perf_counter()
     module = AutoRegressiveModule(settings, info, device="cuda")
     build_s = time.perf_counter() - t0
@@ -775,6 +814,12 @@ def full_size_rollout(steps: int = 3, grid=(500, 500)) -> dict:
 
     module.predict_step(state, batch)  # warm-up: allocator, kernels' first launch
     torch.cuda.synchronize()
+    reset_counts()
+    module.predict_step(state, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != expected_launches(module, steps, 0):
+        raise AssertionError(f"{name} {grid} predict launches {counts}")
     torch.cuda.reset_peak_memory_stats()
     runs = []
     for _ in range(3):
@@ -787,7 +832,7 @@ def full_size_rollout(steps: int = 3, grid=(500, 500)) -> dict:
     if arr.shape != (1, steps, grid[0] * grid[1], 21) or not bool(torch.isfinite(arr).all()):
         raise AssertionError(f"full-size predictions: shape {tuple(arr.shape)} or non-finite")
 
-    profile = profile_step(lambda: module.predict_step(state, batch), "smoke_profile.txt")
+    profile = profile_step(lambda: module.predict_step(state, batch), profile_name)
     call_ms = float(np.median(runs)) * steps
     profile["device_idle_share"] = max(0.0, 1.0 - profile["device_busy_ms"] / call_ms)
 
@@ -796,8 +841,9 @@ def full_size_rollout(steps: int = 3, grid=(500, 500)) -> dict:
     gpu1 = module.predict_step(state, one).array.cpu()
     cpu_module = AutoRegressiveModule(settings, info, device="cpu")
     cpu1 = cpu_module.predict_step({k: v.cpu() for k, v in state.items()}, one).array
-    err = compare("full-size step 1 (cuda vs cpu)", gpu1, cpu1)
-    return {"grid": list(grid), "batch": 1, "steps": steps, "graph_build_s": build_s,
+    err = compare(f"{name} full-size step 1 (cuda vs cpu)", gpu1, cpu1)
+    return {"model": name, "grid": list(grid), "batch": 1, "steps": steps,
+            "graph_build_s": build_s, "launches": counts,
             "ms_per_step_runs": runs, "ms_per_step": float(np.median(runs)),
             "peak_mem_bytes": peak, "max_abs_err_step1_vs_cpu": err, "profile": profile}
 
@@ -816,6 +862,10 @@ GROUPS = (
     ("AdamW (foreach)", ("multi_tensor_apply",)),
     ("host-to-device batch copy", ("Memcpy HtoD",)),
     ("layer_norm (torch)", ("layer_norm",)),
+    ("group_norm (torch)", ("group_norm", "GroupNorm", "RowwiseMoments",
+                            "ComputeFusedParams", "ComputeInternalGradients",
+                            "ComputeBackwardFusedParams")),
+    ("max_pool (torch)", ("max_pool",)),
     ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn")),
     ("matmuls (cuBLAS/CUTLASS)", ("gemm",)),
 )
@@ -869,10 +919,10 @@ class _ListLogger:
         self.rows.append((tag, float(value), step))
 
 
-def train_dummy(make_settings) -> dict:
-    """Trainer.fit on Dummy (3 train batches, 1 val batch), counted;
-    resume; Trainer.test; one step's gradients against the CPU.
-    ``make_settings(**kw)`` gives the model's TrainingSettings."""
+def train_dummy(name: str) -> dict:
+    """Trainer.fit on Dummy (3 train batches, 1 val batch) with model
+    ``name``, counted; resume; Trainer.test; one step's gradients against
+    the CPU."""
     import shutil
 
     from py4cast_tpu_torch.datasets import get_datasets
@@ -881,8 +931,8 @@ def train_dummy(make_settings) -> dict:
     # 1 AR step in training, 3 in validation and test, linked into the
     # settings as the CLI links them
     train_ds, val_ds, test_ds = get_datasets("dummy", 2, 1, 3)
-    settings = make_settings(num_warmup_steps=2, num_pred_steps_train=1,
-                             num_pred_steps_val_test=3)
+    settings = model_settings(name, num_warmup_steps=2, num_pred_steps_train=1,
+                              num_pred_steps_val_test=3)
     save = BUILD / f"smoke_fit_{settings.model_name.lower()}"
     shutil.rmtree(save, ignore_errors=True)
     module = AutoRegressiveModule(settings, train_ds.dataset_info, device="cuda")
@@ -932,18 +982,27 @@ def train_dummy(make_settings) -> dict:
     grad_err = max(compare(f"grad {k} (cuda vs cpu)", grads_gpu[k].cpu(), grads_cpu[k],
                            TRAIN_GRAD_TOL) for k in grads_cpu)
     zero = [k for k, g in grads_gpu.items() if float(g.abs().max()) == 0.0]
-    if zero:
-        raise AssertionError(f"parameters with no gradient on the card: {zero[:5]}")
-    return {"launches": counts, "train_steps": train_steps, "val_forwards": val_forwards,
-            "seconds": seconds, "train_losses": losses, "resumed_step": resumed.step,
+    # HiLAMParallel's last layers cannot reach level 0 from the levels
+    # above: those parameters get zero gradients on both devices, as
+    # jax.grad gives them; every other model must move every parameter
+    unreached = ([k for k in zero if float(grads_cpu[k].abs().max()) == 0.0]
+                 if name == "HiLAMParallel" else [])
+    if len(zero) > len(unreached):
+        raise AssertionError(f"parameters with no gradient on the card: "
+                             f"{[k for k in zero if k not in unreached][:5]}")
+    return {"model": name, "launches": counts, "train_steps": train_steps,
+            "val_forwards": val_forwards, "seconds": seconds, "train_losses": losses,
+            "resumed_step": resumed.step,
             "test_scores": scores, "loss_cuda": float(loss_gpu), "loss_cpu": float(loss_cpu),
-            "loss_rel_diff": loss_rel, "max_abs_grad_err_vs_cpu": grad_err}
+            "loss_rel_diff": loss_rel, "max_abs_grad_err_vs_cpu": grad_err,
+            "unreached_params": len(unreached)}
 
 
 def cli_dummy(model_yaml: str) -> dict:
     """The port's CLI in-process: fit, then test and predict from its
     checkpoint, with config/CLI's trainer and dummy files and the model's
-    file (``graphlam``, ``segformer``)."""
+    file (``graphlam``, ``segformer``, ``halfunet``, ``hilam``,
+    ``hilamparallel``)."""
     import shutil
 
     from py4cast_tpu_torch import cli
@@ -974,18 +1033,27 @@ def cli_dummy(model_yaml: str) -> dict:
 
 
 # ------------------------------------------------------------------- phase 7
-def full_size_train_step(grid=(500, 500), reps: int = 5) -> dict:
+def full_size_train_step(name: str = "GraphLAM", grid=(500, 500), reps: int = 5,
+                         profile_name: str = "smoke_profile_train.txt") -> dict:
+    """One AdamW train step (1 AR step, batch 1) of a graph model at its
+    config's width on the GNN cell, counted, timed, profiled."""
     from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
     from py4cast_tpu_torch.training import AutoRegressiveModule
 
     info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
-    module = AutoRegressiveModule(graphlam_settings(num_warmup_steps=2), info, device="cuda")
+    module = AutoRegressiveModule(model_settings(name, num_warmup_steps=2), info, device="cuda")
     state = module.init_state(torch.Generator().manual_seed(0), num_training_steps=100)
     batch = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=0)
 
     for _ in range(2):  # warm-up: allocator, kernels' first launch, lr 0 step
         module.train_step(state, batch)
     torch.cuda.synchronize()
+    reset_counts()
+    module.train_step(state, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != expected_launches(module, 1, 1):
+        raise AssertionError(f"{name} {grid} train-step launches {counts}")
     torch.cuda.reset_peak_memory_stats()
     runs, losses = [], []
     for _ in range(reps):
@@ -1002,10 +1070,11 @@ def full_size_train_step(grid=(500, 500), reps: int = 5) -> dict:
     if bad or not np.isfinite(float(loss)):
         raise AssertionError(f"full-size gradients not finite: {bad[:5]}, loss {float(loss)}")
 
-    profile = profile_step(lambda: module.train_step(state, batch), "smoke_profile_train.txt")
+    profile = profile_step(lambda: module.train_step(state, batch), profile_name)
     step_ms = float(np.median(runs))
     profile["device_idle_share"] = max(0.0, 1.0 - profile["device_busy_ms"] / step_ms)
-    return {"grid": list(grid), "batch": 1, "pred_steps": 1, "ms_per_train_step_runs": runs,
+    return {"model": name, "grid": list(grid), "batch": 1, "pred_steps": 1, "launches": counts,
+            "ms_per_train_step_runs": runs,
             "ms_per_train_step": step_ms, "peak_mem_bytes": peak, "losses": losses,
             "profile": profile}
 
@@ -1022,16 +1091,18 @@ def _timed(fn, reps: int) -> list:
     return runs
 
 
-def segformer_full_size(grid=(512, 640), steps: int = 3, reps: int = 5) -> dict:
-    """Segformer at segformer.yaml's width on bench.py's Segformer grid
-    (512x640, 21 weather and 21 forcing features), batch 1: a 3-step
-    predict and a 1-AR-step AdamW train step, counted, timed, profiled;
-    step 1 against the CPU."""
+def grid_model_full_size(name: str = "Segformer", grid=(512, 640), steps: int = 3,
+                         reps: int = 5) -> dict:
+    """A grid model (Segformer, HalfUNet) at its config's width on
+    bench.py's Segformer grid (512x640, 21 weather and 21 forcing
+    features), batch 1: a 3-step predict and a 1-AR-step AdamW train
+    step, counted, timed, profiled; step 1 against the CPU."""
     from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
     from py4cast_tpu_torch.training import AutoRegressiveModule
 
     info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
-    settings = segformer_settings(num_warmup_steps=2)
+    settings = model_settings(name, num_warmup_steps=2)
+    tag = name.lower()
     module = AutoRegressiveModule(settings, info, device="cuda")
     params = module.init_params(torch.Generator().manual_seed(0))
     batch = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=steps, seed=0)
@@ -1044,22 +1115,23 @@ def segformer_full_size(grid=(512, 640), steps: int = 3, reps: int = 5) -> dict:
     torch.cuda.synchronize()
     counts = read_counts()
     if counts != expected_launches(module, steps, 0):
-        raise AssertionError(f"512x640 predict launches {counts}")
+        raise AssertionError(f"{name} 512x640 predict launches {counts}")
     arr = preds.array
     if arr.shape != (1, steps, *grid, 21) or not bool(torch.isfinite(arr).all()):
-        raise AssertionError(f"512x640 predictions: shape {tuple(arr.shape)} or non-finite")
+        raise AssertionError(f"{name} 512x640 predictions: shape {tuple(arr.shape)} "
+                             "or non-finite")
     torch.cuda.reset_peak_memory_stats()
     runs = [ms / steps for ms in _timed(lambda: module.predict_step(params, batch), 3)]
     peak = torch.cuda.max_memory_allocated()
     profile = profile_step(lambda: module.predict_step(params, batch),
-                           "smoke_profile_segformer.txt")
+                           f"smoke_profile_{tag}.txt")
     profile["device_idle_share"] = max(0.0, 1.0 - profile["device_busy_ms"]
                                        / (float(np.median(runs)) * steps))
     one = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=0)
     gpu1 = module.predict_step(params, one).array.cpu()
     cpu_module = AutoRegressiveModule(settings, info, device="cpu")
     cpu1 = cpu_module.predict_step({k: v.cpu() for k, v in params.items()}, one).array
-    err = compare("512x640 step 1 (cuda vs cpu)", gpu1, cpu1)
+    err = compare(f"{name} 512x640 step 1 (cuda vs cpu)", gpu1, cpu1)
     predict = {"steps": steps, "launches": counts, "ms_per_step_runs": runs,
                "ms_per_step": float(np.median(runs)), "peak_mem_bytes": peak,
                "max_abs_err_step1_vs_cpu": err, "profile": profile}
@@ -1075,22 +1147,22 @@ def segformer_full_size(grid=(512, 640), steps: int = 3, reps: int = 5) -> dict:
     torch.cuda.synchronize()
     t_counts = read_counts()
     if t_counts != expected_launches(module, 1, 1):
-        raise AssertionError(f"512x640 train-step launches {t_counts}")
+        raise AssertionError(f"{name} 512x640 train-step launches {t_counts}")
     torch.cuda.reset_peak_memory_stats()
     losses = []
     t_runs = _timed(lambda: losses.append(float(module.train_step(state, one))), reps)
     t_peak = torch.cuda.max_memory_allocated()
     if not np.isfinite(losses).all():
-        raise AssertionError(f"512x640 train losses {losses}")
+        raise AssertionError(f"{name} 512x640 train losses {losses}")
     t_profile = profile_step(lambda: module.train_step(state, one),
-                             "smoke_profile_segformer_train.txt")
+                             f"smoke_profile_{tag}_train.txt")
     step_ms = float(np.median(t_runs))
     t_profile["device_idle_share"] = max(0.0, 1.0 - t_profile["device_busy_ms"] / step_ms)
     train = {"pred_steps": 1, "launches": t_counts, "ms_per_train_step_runs": t_runs,
              "ms_per_train_step": step_ms, "peak_mem_bytes": t_peak, "losses": losses,
              "profile": t_profile}
-    return {"grid": list(grid), "batch": 1, "params": module.num_params(params),
-            "predict": predict, "train": train}
+    return {"model": name, "grid": list(grid), "batch": 1,
+            "params": module.num_params(params), "predict": predict, "train": train}
 
 
 # ---------------------------------------------------------------------- main
@@ -1101,6 +1173,7 @@ def main(argv=None) -> int:
         help="only build, check and time these kernels (phases 1 to 3c), print their "
              "numbers and stop, with no result line; names: " + ", ".join(sorted(KERNEL_SOURCES)))
     only = parser.parse_args(argv).kernels
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing to run", file=sys.stderr)
         return 1
@@ -1178,53 +1251,103 @@ def main(argv=None) -> int:
         return 0
 
     # phase 4: Trainer.predict on Dummy, counted
-    dummy = predict_dummy(graphlam_settings())
+    dummy = predict_dummy(model_settings("GraphLAM"))
     log(f"predict dummy: {json.dumps(dummy)}")
 
     # phase 5: the full-size rollout
-    full = full_size_rollout()
+    full = full_size_rollout("GraphLAM")
     log(f"full size: {json.dumps(full)}")
 
     # phase 6: Trainer.fit on Dummy, counted; resume, test, gradients
     # against the CPU; the CLI
-    fit = train_dummy(graphlam_settings)
+    fit = train_dummy("GraphLAM")
     log(f"fit dummy: {json.dumps(fit)}")
     fit["cli"] = cli_dummy("graphlam")
     log(f"cli dummy: {json.dumps(fit['cli'])}")
 
     # phase 7: one full-size train step
-    train_full = full_size_train_step()
+    train_full = full_size_train_step("GraphLAM")
     log(f"full-size train step: {json.dumps(train_full)}")
 
     # phase 8: Trainer.predict on Dummy with Segformer, counted
-    seg_dummy = predict_dummy(segformer_settings())
+    seg_dummy = predict_dummy(model_settings("Segformer"))
     log(f"segformer predict dummy: {json.dumps(seg_dummy)}")
 
     # phase 9: Trainer.fit on Dummy with Segformer, counted; resume,
     # test, gradients against the CPU; the CLI with segformer.yaml
-    seg_fit = train_dummy(segformer_settings)
+    seg_fit = train_dummy("Segformer")
     log(f"segformer fit dummy: {json.dumps(seg_fit)}")
     seg_fit["cli"] = cli_dummy("segformer")
     log(f"segformer cli dummy: {json.dumps(seg_fit['cli'])}")
 
     # phase 10: the full-width Segformer at 512x640
-    seg_full = segformer_full_size()
+    seg_full = grid_model_full_size("Segformer")
     log(f"segformer 512x640: {json.dumps(seg_full)}")
 
-    # each kernel runs on one model's path: its launches are that path's
-    # (the other path's count of it is 0, checked above)
+    # phase 11: HalfUNet (no hand kernel: every count stays 0) on Dummy,
+    # predict and fit, the CLI with halfunet.yaml; 512x640 predict and
+    # train step
+    unet_dummy = predict_dummy(model_settings("HalfUNet"))
+    log(f"halfunet predict dummy: {json.dumps(unet_dummy)}")
+    unet_fit = train_dummy("HalfUNet")
+    log(f"halfunet fit dummy: {json.dumps(unet_fit)}")
+    unet_fit["cli"] = cli_dummy("halfunet")
+    log(f"halfunet cli dummy: {json.dumps(unet_fit['cli'])}")
+    unet_full = grid_model_full_size("HalfUNet")
+    log(f"halfunet 512x640: {json.dumps(unet_full)}")
+
+    # phase 12: HiLAM on Dummy, predict and fit, the CLI with hilam.yaml;
+    # 500x500 predict and train step
+    hilam_dummy = predict_dummy(model_settings("HiLAM"))
+    log(f"hilam predict dummy: {json.dumps(hilam_dummy)}")
+    hilam_fit = train_dummy("HiLAM")
+    log(f"hilam fit dummy: {json.dumps(hilam_fit)}")
+    hilam_fit["cli"] = cli_dummy("hilam")
+    log(f"hilam cli dummy: {json.dumps(hilam_fit['cli'])}")
+    hilam_full = full_size_rollout("HiLAM", profile_name="smoke_profile_hilam.txt")
+    log(f"hilam 500x500: {json.dumps(hilam_full)}")
+    hilam_train = full_size_train_step("HiLAM", profile_name="smoke_profile_hilam_train.txt")
+    log(f"hilam 500x500 train step: {json.dumps(hilam_train)}")
+
+    # phase 13: HiLAMParallel on Dummy, predict and fit, the CLI with
+    # hilamparallel.yaml; a 500x500 predict
+    par_dummy = predict_dummy(model_settings("HiLAMParallel"))
+    log(f"hilamparallel predict dummy: {json.dumps(par_dummy)}")
+    par_fit = train_dummy("HiLAMParallel")
+    log(f"hilamparallel fit dummy: {json.dumps(par_fit)}")
+    par_fit["cli"] = cli_dummy("hilamparallel")
+    log(f"hilamparallel cli dummy: {json.dumps(par_fit['cli'])}")
+    par_full = full_size_rollout("HiLAMParallel",
+                                 profile_name="smoke_profile_hilamparallel.txt")
+    log(f"hilamparallel 500x500: {json.dumps(par_full)}")
+
+    # each model path ran with every count set to 0 just before it and
+    # checked just after (a kernel of another path launched fails); a
+    # kernel's launches are the sum over the paths that run it
+    fits = (fit, seg_fit, unet_fit, hilam_fit, par_fit)
+    predicts = (dummy, seg_dummy, unet_dummy, hilam_dummy, par_dummy)
     for k in kernels:
-        k["launches"] = fit["launches"][k["name"]] + seg_fit["launches"][k["name"]]
-        k["launches_predict"] = (dummy["launches"][k["name"]]
-                                 + seg_dummy["launches"][k["name"]])
+        k["launches"] = sum(f["launches"][k["name"]] for f in fits)
+        k["launches_predict"] = sum(d["launches"][k["name"]] for d in predicts)
+        k["launches_by_model"] = {
+            f["model"]: [f["launches"][k["name"]], d["launches"][k["name"]]]
+            for f, d in zip(fits, predicts)}
 
     (OUT_DIR / "smoke_report.json").write_text(json.dumps(
         {"card": card, "kind": kind, "kernels": kernels, "predict_dummy": dummy,
          "full_size": full, "fit_dummy": fit, "full_size_train": train_full,
          "segformer_predict_dummy": seg_dummy, "segformer_fit_dummy": seg_fit,
-         "segformer_full_size": seg_full}, indent=1))
+         "segformer_full_size": seg_full, "halfunet_predict_dummy": unet_dummy,
+         "halfunet_fit_dummy": unet_fit, "halfunet_full_size": unet_full,
+         "hilam_predict_dummy": hilam_dummy, "hilam_fit_dummy": hilam_fit,
+         "hilam_full_size": hilam_full, "hilam_full_size_train": hilam_train,
+         "hilamparallel_predict_dummy": par_dummy, "hilamparallel_fit_dummy": par_fit,
+         "hilamparallel_full_size": par_full,
+         "wall_s": time.perf_counter() - t_start}, indent=1))
+    log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(card)
-    log(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "shapes"}
+    log(json.dumps({"kernels": [{k: v for k, v in row.items()
+                                 if k not in ("shapes", "launches_by_model")}
                                 for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

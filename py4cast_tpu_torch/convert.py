@@ -8,7 +8,10 @@ is a walk over that tree with three rules:
   ``Conv`` kernel HWIO (kh, kw, in / groups, out) becomes the torch
   ``Conv2d`` weight OIHW with ``permute(3, 2, 0, 1)`` (a depthwise
   (3, 3, 1, C) kernel becomes (C, 1, 3, 3)); any other rank raises;
-- a ``LayerNorm`` ``scale`` is the torch LayerNorm ``weight``;
+- a ``LayerNorm`` or ``GroupNorm`` ``scale`` is the torch norm's
+  ``weight``;
+- a top-level ``pos_embed`` (HalfUNet's ``absolute_pos_embed``) keeps
+  its name and its (1, H, W, 1) layout;
 - the processor's params carry a leading ``processor_layers`` axis
   (``nn.scan`` stacks them); each slice goes to one layer of the
   port's ``processor`` ModuleList.
@@ -62,6 +65,8 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             out[".".join(mods + ["weight"])] = torch.tensor(arr)
         elif name == "bias":
             out[".".join(mods + ["bias"])] = torch.tensor(arr)
+        elif name == "pos_embed" and not mods:
+            out[name] = torch.tensor(arr)
         else:
             raise ValueError(f"unexpected parameter {'/'.join(path)}")
 

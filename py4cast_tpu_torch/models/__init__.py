@@ -1,8 +1,9 @@
 """Model registry.
 
-GraphLAM and Segformer are ported so far. The other names of the JAX
-package's zoo are known here, so that asking for one says it is not
-ported yet instead of that it does not exist.
+GraphLAM, HiLAM, HiLAMParallel, HalfUNet and Segformer are ported so
+far. The other names of the JAX package's zoo are known here, so that
+asking for one says it is not ported yet instead of that it does not
+exist.
 """
 
 from __future__ import annotations
@@ -10,15 +11,16 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 from py4cast_tpu_torch.models.base import ModelBase, ModelType, settings_from_dict
-from py4cast_tpu_torch.models.graph import GraphLAM
+from py4cast_tpu_torch.models.graph import GraphLAM, HiLAM, HiLAMParallel
 from py4cast_tpu_torch.models.segformer import Segformer
+from py4cast_tpu_torch.models.unet import HalfUNet
 
-registry: dict = {"GraphLAM": GraphLAM, "Segformer": Segformer}
+registry: dict = {"GraphLAM": GraphLAM, "HiLAM": HiLAM, "HiLAMParallel": HiLAMParallel,
+                  "HalfUNet": HalfUNet, "Segformer": Segformer}
 
 #: models of the JAX package the port does not have yet (ROADMAP.md, queue 1)
 NOT_YET_PORTED = (
-    "UNet", "CustomUNet", "HalfUNet", "DeepLabV3", "DeepLabV3Plus",
-    "SwinUNetR", "UNetRPP", "HiLAM", "HiLAMParallel",
+    "UNet", "CustomUNet", "DeepLabV3", "DeepLabV3Plus", "SwinUNetR", "UNetRPP",
 )
 
 all_nn_architectures = tuple(registry)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from enum import Enum
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,21 +93,96 @@ def flax_same_pad(n: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 
 class FlaxConv2d(nn.Conv2d):
-    """A Flax ``nn.Conv`` (``padding="SAME"``, the Flax default) on an NHWC
-    tensor: the input is padded as Flax pads it (``flax_same_pad``), then
+    """A Flax ``nn.Conv`` (``padding="SAME"``, the Flax default, with
+    ``kernel_dilation``) on an NHWC tensor: the input is padded as Flax
+    pads it (``flax_same_pad`` of the dilated kernel's extent), then
     convolved in NCHW and returned NHWC. The weight is torch's OIHW;
     ``convert.params_from_jax`` maps Flax's HWIO kernel onto it."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1,
-                 groups: int = 1, bias: bool = True):
+                 groups: int = 1, bias: bool = True, dilation: int = 1):
         super().__init__(in_channels, out_channels, kernel, stride=stride, padding=0,
-                         groups=groups, bias=bias)
+                         dilation=dilation, groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (kh, kw), (sh, sw) = self.kernel_size, self.stride
-        top, bottom = flax_same_pad(x.shape[1], kh, sh)
-        left, right = flax_same_pad(x.shape[2], kw, sw)
+        (kh, kw), (sh, sw), (dh, dw) = self.kernel_size, self.stride, self.dilation
+        # Flax pads SAME for the dilated extent (k - 1) * d + 1
+        top, bottom = flax_same_pad(x.shape[1], (kh - 1) * dh + 1, sh)
+        left, right = flax_same_pad(x.shape[2], (kw - 1) * dw + 1, sw)
         y = x.permute(0, 3, 1, 2)
         if top or bottom or left or right:
             y = F.pad(y, (left, right, top, bottom))
         return super().forward(y).permute(0, 2, 3, 1)
+
+
+GN_EPS = 1e-6  # flax nn.GroupNorm default; torch's is 1e-5
+
+
+class GroupNorm(nn.GroupNorm):
+    """A Flax ``nn.GroupNorm`` on an NHWC tensor: statistics over (H, W)
+    and the channels of each group, eps 1e-6, scale and bias per channel
+    (``weight``/``bias``; none when ``affine`` is off). Flax computes the
+    variance as E[x²] − E[x]² and torch in two passes; both agree within
+    the port's 1e-4 bar, so torch's ``group_norm`` runs as it is."""
+
+    def __init__(self, num_groups: int, num_channels: int, affine: bool = True):
+        super().__init__(num_groups, num_channels, eps=GN_EPS, affine=affine)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def _gn(num_channels: int) -> GroupNorm:
+    """GroupNorm with up to 8 groups, halved until they divide the
+    channels (the zoo's default norm)."""
+    groups = 8
+    while groups > 1 and num_channels % groups != 0:
+        groups //= 2
+    return GroupNorm(groups, num_channels)
+
+
+def norm_layer(name: str, features: int) -> GroupNorm:
+    """The reference's ``norm_name`` setting as a stateless norm:
+    'instance' is GroupNorm with a group a channel and no scale or bias
+    (torch ``InstanceNorm2d``'s ``affine=False``), 'layer' one group,
+    'group' ``_gn``. 'batch' raises, as in the JAX package: BatchNorm
+    carries running statistics the zoo does not keep."""
+    if name in ("instance", "INSTANCE"):
+        return GroupNorm(features, features, affine=False)
+    if name in ("layer", "LAYER"):
+        return GroupNorm(1, features)
+    if name in ("group", "GROUP"):
+        return _gn(features)
+    if name in ("batch", "BATCH"):
+        raise ValueError(
+            "norm_name 'batch' is unsupported: BatchNorm carries running "
+            "statistics the zoo does not keep. Use 'instance', 'group' or "
+            "'layer' (the reference's own default here is 'instance')."
+        )
+    raise ValueError(f"Unknown norm_name {name!r}; accepted: instance | group | layer")
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+#: the zoo's activations by name; "GELU" is Flax's default tanh form
+ACTIVATIONS: dict = {
+    "Identity": _identity,
+    "ReLU": F.relu,
+    "GELU": lambda x: F.gelu(x, approximate="tanh"),
+    "SiLU": F.silu,
+    "Tanh": torch.tanh,
+    "Sigmoid": torch.sigmoid,
+    None: _identity,
+    "null": _identity,
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+}
+
+
+def get_activation(name) -> Callable:
+    if callable(name):
+        return name
+    if name not in ACTIVATIONS:
+        raise ValueError(f"Unknown activation {name!r}; known: {list(ACTIVATIONS)}")
+    return ACTIVATIONS[name]

@@ -1,4 +1,5 @@
-"""GraphLAM on the lattice: the multiscale mesh GNN in PyTorch.
+"""The lattice graph models in PyTorch: GraphLAM (the multiscale mesh
+GNN), HiLAM and HiLAMParallel (the hierarchical ones).
 
 The multiscale mesh is built once on the host in numpy
 (``build_graph_artifacts``): regular coarsenings of the grid,
@@ -298,14 +299,17 @@ class _StencilMessage(nn.Module):
     """Edge message on an 8-neighbor lattice stencil. Edge states live as
     (B, 8, H, W, h) arrays in DIRS8 order; each edge's source state
     arrives by a shift instead of a gather. With ``residual`` the first
-    output is ``e + e_new``; agg always aggregates the raw e_new."""
+    output is ``e + e_new``; agg always aggregates the raw e_new, and
+    with ``aggr="mean"`` it is divided by ``max(count, 1)`` after the
+    fused stage."""
 
     def __init__(self, v_dim: int, e_dim: int, hidden_dim: int,
-                 hidden_layers: int = 1, residual: bool = False):
+                 hidden_layers: int = 1, residual: bool = False, aggr: str = "sum"):
         super().__init__()
         h = hidden_dim
         self.hidden_layers = hidden_layers
         self.residual = residual
+        self.aggr = aggr
         self.w_s = nn.Linear(v_dim, h, bias=False)
         self.w_d = nn.Linear(v_dim, h, bias=False)
         self.w_e = nn.Linear(e_dim, h)
@@ -314,24 +318,109 @@ class _StencilMessage(nn.Module):
         self.out = nn.Linear(h, h)
         self.ln = nn.LayerNorm(h, eps=LN_EPS)
 
-    def forward(self, v, e, mask):
+    def forward(self, v, e, mask, count=None):
         ps = self.w_s(v)
         pd = self.w_d(v)
         if self.hidden_layers == 1:
             # the fused stage: CUDA kernels (forward and backward) on the
             # card, their plain versions on the CPU (ops/stencil_kernel.py);
-            # the forward kernel shifts ps onto each cell itself
-            return StencilMessageFn.apply(
+            # the forward kernel shifts ps onto each cell itself and, with
+            # residual, already returns e + e_new
+            e_out, agg = StencilMessageFn.apply(
                 e.contiguous(), ps.contiguous(), pd.contiguous(), mask,
                 _kernel(self.w_e), self.w_e.bias, _kernel(self.out), self.out.bias,
                 self.ln.weight, self.ln.bias, self.residual,
             )
-        z = F.silu(self.w_e(e) + stack_shifts(ps) + pd[:, None])
+        else:
+            z = F.silu(self.w_e(e) + stack_shifts(ps) + pd[:, None])
+            for i in range(self.hidden_layers - 1):
+                z = F.silu(getattr(self, f"hidden_{i}")(z))
+            e_new = self.ln(self.out(z))
+            agg = (e_new * mask[None]).sum(dim=1)
+            e_out = e + e_new if self.residual else e_new
+        if self.aggr == "mean":
+            agg = agg / torch.clamp(count[None], min=1.0)
+        return e_out, agg
+
+
+class _NearestMessage(nn.Module):
+    """Edge message for a one-edge-per-fine-cell map (up_l): the fine
+    cell is the source, its nearest coarse cell the destination, whose
+    state arrives by a separable take; the aggregate is two selection
+    matmuls. Plain PyTorch: no TPU kernel sits on it."""
+
+    def __init__(self, hidden_dim: int, hidden_layers: int = 1, aggr: str = "sum"):
+        super().__init__()
+        h = hidden_dim
+        self.hidden_layers = hidden_layers
+        self.aggr = aggr
+        self.w_e = nn.Linear(h, h)
+        self.w_s = nn.Linear(h, h, bias=False)
+        self.w_d = nn.Linear(h, h, bias=False)
+        for i in range(hidden_layers - 1):
+            self.add_module(f"hidden_{i}", nn.Linear(h, h))
+        self.out = nn.Linear(h, h)
+        self.ln = nn.LayerNorm(h, eps=LN_EPS)
+
+    def _tail(self, z):
+        z = F.silu(z)
         for i in range(self.hidden_layers - 1):
             z = F.silu(getattr(self, f"hidden_{i}")(z))
-        e_new = self.ln(self.out(z))
-        agg = (e_new * mask[None]).sum(dim=1)
-        return (e + e_new if self.residual else e_new), agg
+        return self.ln(self.out(z))
+
+    def forward(self, v_fine, v_coarse, e, lat: Dict[str, torch.Tensor]):
+        pd = sep_take_mm(self.w_d(v_coarse), lat["ar"], lat["ac"])
+        e_new = self._tail(self.w_e(e) + self.w_s(v_fine) + pd)
+        agg = sep_aggregate(e_new, lat["ar"], lat["ac"])
+        if self.aggr == "mean":
+            agg = agg / torch.clamp(lat["count"][None], min=1.0)
+        return e_new, agg
+
+
+class _ReverseNearestMessage(_NearestMessage):
+    """Edge message for down_l: coarse → fine along the same nearest map
+    (one edge a fine cell, so sum and mean agree): the coarse source
+    arrives by a separable take, and the aggregate is the message."""
+
+    def forward(self, v_coarse, v_fine, e, lat: Dict[str, torch.Tensor]):
+        ps = sep_take_mm(self.w_s(v_coarse), lat["ar"], lat["ac"])
+        e_new = self._tail(self.w_e(e) + ps + self.w_d(v_fine))
+        return e_new, e_new
+
+
+class LatticeInteractionNetwork(nn.Module):
+    """An interaction network on lattice-form edges: an ``edge`` message
+    of kind ``stencil`` (intra-level, kernels a-fwd and a-bwd on the
+    card), ``nearest`` (up) or ``down``, then a residual ``node`` MLP
+    update of the destination, and with ``update_edges`` a residual
+    edge update (inside the kernel for ``stencil``)."""
+
+    def __init__(self, hidden_dim: int, hidden_layers: int = 1, aggr: str = "sum",
+                 kind: str = "stencil", update_edges: bool = True):
+        super().__init__()
+        h = hidden_dim
+        self.kind = kind
+        self.update_edges = update_edges
+        if kind == "stencil":
+            self.edge = _StencilMessage(h, h, h, hidden_layers, residual=update_edges,
+                                        aggr=aggr)
+        elif kind == "nearest":
+            self.edge = _NearestMessage(h, hidden_layers, aggr)
+        elif kind == "down":
+            self.edge = _ReverseNearestMessage(h, hidden_layers, aggr)
+        else:
+            raise ValueError(f"kind must be 'stencil', 'nearest' or 'down', got {kind!r}")
+        self.node = MLP(2 * h, h, h, hidden_layers)
+
+    def forward(self, v_src, v_dst, e, lat: Dict[str, torch.Tensor]):
+        if self.kind == "stencil":
+            e_out, agg = self.edge(v_dst, e, lat["mask"], lat.get("count"))
+            if not self.update_edges:
+                e_out = e
+        else:
+            e_new, agg = self.edge(v_src, v_dst, e, lat)
+            e_out = e + e_new if self.update_edges else e
+        return v_dst + self.node(torch.cat([v_dst, agg], dim=-1)), e_out
 
 
 class LatticeEncodeDecode(nn.Module):
@@ -436,43 +525,131 @@ class _LatticeFlatStep(nn.Module):
         return self.block(v0, e_levels, lat)
 
 
-class GraphLAM(ModelBase):
-    """Multiscale GNN on a GraphCast-style nested multi-mesh: a single
-    mesh node set (level 0) whose edge set is the union of 8-neighbor
-    edges at every coarsening scale, in lattice form.
+class _LatticeHiLAMSweepStep(nn.Module):
+    """One HiLAM processor layer on the lattice: sweep up the hierarchy,
+    then back down, updating the inter-level and intra-level edges at
+    each stop, in the JAX package's order and names (``up_{l}``,
+    ``intra_up_{l+1}``, then ``down_{l}``, ``intra_down_{l}``)."""
 
-    Static graph arrays are non-persistent buffers: they follow the
-    module to its device and stay out of the state dict."""
+    def __init__(self, hidden_dim: int, hidden_layers: int, aggr: str, num_levels: int):
+        super().__init__()
+        self.num_levels = num_levels
+
+        def lin(kind):
+            return LatticeInteractionNetwork(hidden_dim, hidden_layers, aggr, kind=kind)
+
+        for l in range(num_levels - 1):
+            self.add_module(f"up_{l}", lin("nearest"))
+            self.add_module(f"intra_up_{l + 1}", lin("stencil"))
+        for l in reversed(range(num_levels - 1)):
+            self.add_module(f"down_{l}", lin("down"))
+            self.add_module(f"intra_down_{l}", lin("stencil"))
+
+    def forward(self, mesh_v, intra_e, up_e, down_e, lat):
+        mesh_v, intra_e, up_e, down_e = list(mesh_v), list(intra_e), list(up_e), list(down_e)
+        for l in range(self.num_levels - 1):  # sweep up
+            mesh_v[l + 1], up_e[l] = getattr(self, f"up_{l}")(
+                mesh_v[l], mesh_v[l + 1], up_e[l], lat[f"up_{l}"])
+            mesh_v[l + 1], intra_e[l + 1] = getattr(self, f"intra_up_{l + 1}")(
+                mesh_v[l + 1], mesh_v[l + 1], intra_e[l + 1], lat[f"intra_{l + 1}"])
+        for l in reversed(range(self.num_levels - 1)):  # sweep down
+            mesh_v[l], down_e[l] = getattr(self, f"down_{l}")(
+                mesh_v[l + 1], mesh_v[l], down_e[l], lat[f"down_{l}"])
+            mesh_v[l], intra_e[l] = getattr(self, f"intra_down_{l}")(
+                mesh_v[l], mesh_v[l], intra_e[l], lat[f"intra_{l}"])
+        return mesh_v, intra_e, up_e, down_e
+
+
+class _LatticeHiLAMParallelStep(nn.Module):
+    """One HiLAMParallel processor layer on the lattice: every edge set
+    (intra at each level, up, down) messages at once from the current
+    node states, then each level's nodes are updated once with the sum
+    of their incoming aggregates (modules ``intra_{l}``, ``up_{l}``,
+    ``down_{l}``, ``node_{l}``)."""
+
+    def __init__(self, hidden_dim: int, hidden_layers: int, aggr: str, num_levels: int):
+        super().__init__()
+        h = hidden_dim
+        self.num_levels = num_levels
+        for l in range(num_levels):
+            self.add_module(f"intra_{l}", _StencilMessage(h, h, h, hidden_layers,
+                                                          residual=True, aggr=aggr))
+        for l in range(num_levels - 1):
+            self.add_module(f"up_{l}", _NearestMessage(h, hidden_layers, aggr))
+            self.add_module(f"down_{l}", _ReverseNearestMessage(h, hidden_layers, aggr))
+        for l in range(num_levels):
+            self.add_module(f"node_{l}", MLP(2 * h, h, h, hidden_layers))
+
+    def forward(self, mesh_v, intra_e, up_e, down_e, lat):
+        L = self.num_levels
+        new_intra, new_up, new_down, aggs = [], [], [], []
+        for l in range(L):
+            d = lat[f"intra_{l}"]
+            e_new, agg = getattr(self, f"intra_{l}")(mesh_v[l], intra_e[l], d["mask"],
+                                                     d.get("count"))
+            new_intra.append(e_new)  # the residual is inside the stage
+            aggs.append(agg)
+        for l in range(L - 1):
+            e_new, agg = getattr(self, f"up_{l}")(mesh_v[l], mesh_v[l + 1], up_e[l],
+                                                  lat[f"up_{l}"])
+            new_up.append(up_e[l] + e_new)
+            aggs[l + 1] = aggs[l + 1] + agg
+            e_new, agg = getattr(self, f"down_{l}")(mesh_v[l + 1], mesh_v[l], down_e[l],
+                                                    lat[f"down_{l}"])
+            new_down.append(down_e[l] + e_new)
+            aggs[l] = aggs[l] + agg
+        new_v = [mesh_v[l] + getattr(self, f"node_{l}")(torch.cat([mesh_v[l], aggs[l]], dim=-1))
+                 for l in range(L)]
+        return new_v, new_intra, new_up, new_down
+
+
+class _GraphModelBase(ModelBase):
+    """The lattice skeleton the graph models share: grid and mesh embeds
+    (``grid_embed``, ``mesh_embed_{l}``), the g2m hop, the processor the
+    subclass builds (``_build_processor``), the m2g hop on kernel b and
+    the decoder. Static graph arrays are non-persistent buffers: they
+    follow the module to its device and stay out of the state dict.
+
+    Only the lattice path is ported: ``use_lattice: false`` raises, as
+    does a graph whose multimesh union is not dedup-free for a model
+    that needs it (``_lattice_need_multi``, GraphLAM)."""
 
     settings_kls = GraphModelSettings
     model_type = ModelType.GRAPH
     supported_num_spatial_dims = (1,)
+    #: the model's lattice path needs a dedup-free multimesh union
+    _lattice_need_multi = False
+    #: mesh levels with an embed (None: every level)
+    _embedded_levels = None
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape: Tuple[int, ...], settings: GraphModelSettings,
                  graph: GraphArtifacts):
         super().__init__(num_input_features, num_output_features, input_shape, settings)
-        if not (settings.use_lattice and graph.multi_lattice_ok):
+        name = type(self).__name__
+        if not settings.use_lattice or (self._lattice_need_multi and not graph.multi_lattice_ok):
             raise NotImplementedError(
-                "py4cast_tpu_torch runs GraphLAM only on the lattice path; the "
-                "gather-table path (use_lattice: false, or a graph whose "
-                "multimesh union is not dedup-free) is not ported yet "
-                "(ROADMAP.md, queue 1 item 11)"
+                f"py4cast_tpu_torch runs {name} only on the lattice path; the "
+                "gather-table path (use_lattice: false"
+                + (", or a graph whose multimesh union is not dedup-free"
+                   if self._lattice_need_multi else "")
+                + ") is not ported yet (ROADMAP.md, queue 1 item 11)"
             )
         self.graph = graph
         h, hl, aggr = settings.hidden_dims, settings.hidden_layers, settings.mesh_aggr
+        self.num_levels = len(graph.level_hw)
+        self.num_embedded = self._embedded_levels or self.num_levels
         self.grid_embed = MLP(num_input_features, h, h, hl)
-        self.mesh_embed_0 = MLP(2, h, h, hl)
+        for l in range(self.num_embedded):
+            self.add_module(f"mesh_embed_{l}", MLP(2, h, h, hl))
         self.g2m = LatticeEncodeDecode(h, 3, hl, aggr, kind="nearest")
-        self.mesh_edge_embed = MLP(3, h, h, hl)
-        self.processor = nn.ModuleList(
-            _LatticeFlatStep(h, hl, aggr) for _ in range(settings.processor_layers)
-        )
+        self._build_processor(h, hl, aggr)
         self.m2g = LatticeEncodeDecode(h, 3, hl, aggr, kind="corners")
         self.decoder = MLP(h, num_output_features, h, hl, layer_norm=False)
 
         arrays = dict(graph.lattice_np)
-        arrays["mesh_pos_0"] = graph.mesh_pos[0].reshape(*graph.level_hw[0], 2)
+        for l in range(self.num_embedded):
+            arrays[f"mesh_pos_{l}"] = graph.mesh_pos[l].reshape(*graph.level_hw[l], 2)
         for name, arr in arrays.items():
             if np.issubdtype(arr.dtype, np.floating):
                 self.register_buffer(
@@ -481,6 +658,9 @@ class GraphLAM(ModelBase):
         # the m2g corner maps (int32), which the corner-hop kernel gathers by
         for name in ("lat_m2g_rows", "lat_m2g_cols"):
             self.register_buffer(name, torch.as_tensor(arrays[name]), persistent=False)
+
+    def _build_processor(self, h: int, hl: int, aggr: str) -> None:
+        raise NotImplementedError
 
     @classmethod
     def build_graph(cls, settings: GraphModelSettings, meshgrid) -> GraphArtifacts:
@@ -494,26 +674,106 @@ class GraphLAM(ModelBase):
                 out[k] = getattr(self, name)
         return out
 
-    def forward(self, x):
-        g, s = self.graph, self.settings
+    def _edge_embed(self, mlp: nn.Module, feats: torch.Tensor, b: int) -> torch.Tensor:
+        """A static edge set's embedding broadcast over the batch, made
+        contiguous: the kernel wrappers refuse a stride-0 batch."""
+        e = mlp(feats)
+        return e[None].expand((b,) + e.shape).contiguous()
+
+    def _embed(self, x):
+        """(grid_v (B, H, W, h), [mesh_v_l (B, lh, lw, h) for each embedded level])."""
+        g = self.graph
         b = x.shape[0]
         gh, gw = g.grid_hw
-        lh, lw = g.level_hw[0]
         grid_v = self.grid_embed(x.reshape(b, gh, gw, x.shape[-1]))
-        mesh_v0 = self.mesh_embed_0(self.mesh_pos_0)[None].expand(b, lh, lw, s.hidden_dims)
+        mesh_v = []
+        for l in range(self.num_embedded):
+            emb = getattr(self, f"mesh_embed_{l}")(getattr(self, f"mesh_pos_{l}"))
+            mesh_v.append(emb[None].expand((b,) + emb.shape))
+        return grid_v, mesh_v
+
+    def _decode(self, mesh_v0, grid_v):
+        """m2g, decode, and flatten back to the (B, n_grid, F) GRAPH contract."""
+        out = self.decoder(self.m2g(mesh_v0, grid_v, self._lat("m2g")))
+        return out.reshape(grid_v.shape[0], self.graph.n_grid, out.shape[-1])
+
+
+class GraphLAM(_GraphModelBase):
+    """Multiscale GNN on a GraphCast-style nested multi-mesh: a single
+    mesh node set (level 0) whose edge set is the union of 8-neighbor
+    edges at every coarsening scale, in lattice form."""
+
+    _lattice_need_multi = True
+    _embedded_levels = 1
+
+    def _build_processor(self, h, hl, aggr):
+        self.mesh_edge_embed = MLP(3, h, h, hl)
+        self.processor = nn.ModuleList(
+            _LatticeFlatStep(h, hl, aggr) for _ in range(self.settings.processor_layers)
+        )
+
+    def forward(self, x):
+        grid_v, (mesh_v0,) = self._embed(x)
         v0 = self.g2m(grid_v, mesh_v0, self._lat("g2m"))
         e_levels = tuple(
-            self.mesh_edge_embed(feats)[None].expand((b,) + feats.shape[:-1] + (s.hidden_dims,))
-            .contiguous()
-            for feats in (getattr(self, f"lat_multi_{lev}_feats") for lev in range(len(g.level_hw)))
+            self._edge_embed(self.mesh_edge_embed, getattr(self, f"lat_multi_{lev}_feats"),
+                             x.shape[0])
+            for lev in range(self.num_levels)
         )
         multi = {
             f"lat_multi_{lev}_{k}": getattr(self, f"lat_multi_{lev}_{k}")
-            for lev in range(len(g.level_hw)) for k in ("mask", "sr", "sc")
+            for lev in range(self.num_levels) for k in ("mask", "sr", "sc")
         }
         multi["lat_multi_count"] = self.lat_multi_count
         for step in self.processor:
             v0, e_levels = step(v0, e_levels, multi)
-        grid_out = self.m2g(v0, grid_v, self._lat("m2g"))
-        out = self.decoder(grid_out)
-        return out.reshape(b, g.n_grid, out.shape[-1])
+        return self._decode(v0, grid_v)
+
+
+class _HierarchicalBase(_GraphModelBase):
+    """HiLAM's and HiLAMParallel's shared forward: every level embedded,
+    edge embeds ``intra_edge_embed_{l}``, ``up_edge_embed_{l}`` and
+    ``down_edge_embed_{l}``, a processor of ``_step_kls`` layers over
+    the hierarchy's lattices (125², 63², 32² at a 500×500 grid)."""
+
+    _step_kls = None
+
+    def _build_processor(self, h, hl, aggr):
+        L = self.num_levels
+        for kind, n in (("intra", L), ("up", L - 1), ("down", L - 1)):
+            for l in range(n):
+                self.add_module(f"{kind}_edge_embed_{l}", MLP(3, h, h, hl))
+        self.processor = nn.ModuleList(
+            self._step_kls(h, hl, aggr, L) for _ in range(self.settings.processor_layers)
+        )
+
+    def forward(self, x):
+        L, b = self.num_levels, x.shape[0]
+        grid_v, mesh_v = self._embed(x)
+        mesh_v[0] = self.g2m(grid_v, mesh_v[0], self._lat("g2m"))
+        edges = {kind: [self._edge_embed(getattr(self, f"{kind}_edge_embed_{l}"),
+                                         getattr(self, f"lat_{kind}_{l}_feats"), b)
+                        for l in range(n)]
+                 for kind, n in (("intra", L), ("up", L - 1), ("down", L - 1))}
+        lat = {f"{kind}_{l}": self._lat(f"{kind}_{l}")
+               for kind, n in (("intra", L), ("up", L - 1), ("down", L - 1)) for l in range(n)}
+        intra_e, up_e, down_e = edges["intra"], edges["up"], edges["down"]
+        for step in self.processor:
+            mesh_v, intra_e, up_e, down_e = step(mesh_v, intra_e, up_e, down_e, lat)
+        return self._decode(mesh_v[0], grid_v)
+
+
+class HiLAM(_HierarchicalBase):
+    """Hierarchical GNN: each processor layer sweeps up the mesh
+    hierarchy, processing intra-level at each stop, then back down
+    (Oskarsson et al. 2023). 2·(L−1) stencil stages a layer."""
+
+    _step_kls = _LatticeHiLAMSweepStep
+
+
+class HiLAMParallel(_HierarchicalBase):
+    """HiLAM whose processor layers run every hierarchy edge set at once
+    with separate messages and one node update a level. L stencil
+    stages a layer."""
+
+    _step_kls = _LatticeHiLAMParallelStep

@@ -111,7 +111,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Draw initial weights in place with the JAX package's initializers
     (Flax's defaults): Dense and Conv kernels lecun-normal (truncated,
     fan_in = in_features, or in_channels / groups · kh · kw for a conv),
-    biases zero, LayerNorm scale one and bias zero. Draws on the
+    biases zero, LayerNorm and GroupNorm scale one and bias zero, and a
+    top-level ``pos_embed`` truncated normal of std 0.02. Draws on the
     generator's device, then copies."""
     with torch.no_grad():
         for mod in model.modules():
@@ -124,9 +125,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 mod.weight.copy_(w)
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)) and mod.weight is not None:
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+        pos = getattr(model, "pos_embed", None)
+        if isinstance(pos, nn.Parameter):  # flax truncated_normal(0.02): ±2 std
+            w = torch.empty(pos.shape, device=generator.device)
+            nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=generator)
+            pos.copy_(w)
 
 
 def warmup_cosine_schedule(peak: float, warmup_steps: int, decay_steps: int,
@@ -468,7 +474,10 @@ class AutoRegressiveModule:
         inputs, forcing, outputs = self._batch_arrays(batch, with_outputs=True)
         loss, _ = self._batch_loss(leaves, inputs, forcing, outputs, batch.num_pred_steps,
                                    generator)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        # a parameter the loss does not reach (HiLAMParallel's last layers
+        # above level 0) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), dict(zip(leaves, grads))
 
     @exact_fp32
@@ -483,10 +492,13 @@ class AutoRegressiveModule:
         loss.backward()  # sums into each parameter's .grad
         state.micro_step += 1
         if state.micro_step == state.accumulate:
-            if state.accumulate > 1:
-                for p in state.params.values():
-                    if p.grad is not None:
-                        p.grad.div_(state.accumulate)
+            for p in state.params.values():
+                if p.grad is None:
+                    # unreached by the loss: a zero gradient, so AdamW still
+                    # decays the weight as optax.adamw does
+                    p.grad = torch.zeros_like(p)
+                elif state.accumulate > 1:
+                    p.grad.div_(state.accumulate)
             state.optimizer.step()
             state.scheduler.step()
             state.optimizer.zero_grad(set_to_none=True)

@@ -160,3 +160,38 @@ def test_segformer_yaml_fits_and_tests(tmp_path):
                      "--trainer.limit_val_batches", "1"]) == 0
     scores = json.loads((tmp_path / "test_scores.json").read_text())
     assert np.isfinite(scores["test_mean_loss"])
+
+
+#: halfunet.yaml, hilam.yaml and hilamparallel.yaml, cut in width and
+#: depth for the CPU
+MODEL_YAMLS = {
+    "halfunet": (["--model.settings_init_args.num_filters", "8"], "HalfUNet", "num_filters", 8),
+    "hilam": (["--model.settings_init_args.hidden_dims", "8",
+               "--model.settings_init_args.processor_layers", "1"], "HiLAM", "hidden_dims", 8),
+    "hilamparallel": (["--model.settings_init_args.hidden_dims", "8",
+                       "--model.settings_init_args.processor_layers", "2"], "HiLAMParallel",
+                      "hidden_dims", 8),
+}
+
+
+@pytest.mark.parametrize("model_yaml", sorted(MODEL_YAMLS))
+def test_model_yaml_fits_tests_and_predicts(model_yaml, tmp_path):
+    """config/CLI/model/{halfunet,hilam,hilamparallel}.yaml through fit,
+    then test and predict from the checkpoint it wrote."""
+    cut, name, key, value = MODEL_YAMLS[model_yaml]
+    configs = [*CONFIGS[:4], "--config", str(ROOT / f"config/CLI/model/{model_yaml}.yaml"),
+               "--trainer.device", "cpu", "--trainer.save_path", str(tmp_path)]
+    assert cli.main(["fit", *configs, *cut, "--data.num_workers", "1",
+                     "--trainer.max_epochs", "1", "--trainer.limit_train_batches", "2",
+                     "--trainer.limit_val_batches", "1"]) == 0
+    manifest = json.loads((tmp_path / "checkpoints" / "manifest.json").read_text())
+    assert manifest["model_name"] == name
+    assert manifest["model_settings"][key] == value
+    assert cli.main(["test", *configs, "--trainer.ckpt_path", "last",
+                     "--trainer.limit_val_batches", "1"]) == 0
+    scores = json.loads((tmp_path / "test_scores.json").read_text())
+    assert np.isfinite(scores["test_mean_loss"])
+    assert cli.main(["predict", *configs, "--trainer.ckpt_path", "last"]) == 0
+    arr = np.load(sorted((tmp_path / "predictions").glob("batch_*.npy"))[0])
+    spatial = (64, 64) if name == "HalfUNet" else (64 * 64,)
+    assert arr.shape == (8, 3, *spatial, 1) and np.isfinite(arr).all()

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from py4cast_tpu_torch.models import graph as graph_models
 from py4cast_tpu_torch.models.graph import _corners_rc
 from py4cast_tpu_torch.ops import attention, hop_kernel, stencil_kernel
 from py4cast_tpu_torch.ops.attention import (
@@ -398,6 +399,57 @@ def test_functions_give_the_cpu_gradients_on_the_card(cuda):
     for g, want in zip(on_card, grads("cpu")):
         scale = max(1.0, float(want.abs().max()))
         assert float((g - want).abs().max()) <= GRAD_BAR * scale
+
+
+#: a whole model's gradients, card against CPU (chip_smoke.py's bar):
+#: fp32 sums in another order through every layer and LayerNorm
+MODEL_GRAD_BAR = 1e-3
+
+
+@pytest.mark.parametrize("model,aggr", [("HiLAM", "sum"), ("HiLAMParallel", "mean")])
+def test_hierarchical_models_give_the_cpu_gradients_on_the_card(cuda, model, aggr):
+    """HiLAM and HiLAMParallel at a 64x64 grid (mesh lattices 16², 8²,
+    4², tiles smaller than a block), 2 processor layers, h = 32: the
+    output and the gradients of every parameter and of the input, on
+    the card (kernels a and b each way) against the CPU. Launches: a
+    stencil stage a level pair of the sweep (HiLAM) or a level
+    (HiLAMParallel) a layer forward; backward only the stages whose
+    outputs reach the loss (HiLAMParallel's last layer reaches level 0
+    from level 0 alone, the one before from levels 0 and 1)."""
+    settings = graph_models.GraphModelSettings(hidden_dims=32, processor_layers=2,
+                                               mesh_aggr=aggr)
+    axis = np.linspace(0, 1, 64)
+    mg = np.stack(np.meshgrid(axis, axis, indexing="ij")).astype(np.float32)
+    graph = graph_models.build_graph_artifacts(mg, settings)
+    assert graph.level_hw == [(16, 16), (8, 8), (4, 4)]
+    from py4cast_tpu_torch.training import init_weights
+
+    cpu_model = getattr(graph_models, model)(7, 3, (4096,), settings, graph)
+    init_weights(cpu_model, torch.Generator().manual_seed(0))
+    card_model = getattr(graph_models, model)(7, 3, (4096,), settings, graph).to(cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(11)
+    x, cot = _rand(rng, 2, 4096, 7), _rand(rng, 2, 4096, 3)
+
+    def run(m, device):
+        xi = x.to(device).requires_grad_()
+        y = m(xi)
+        params = list(m.parameters())
+        grads = torch.autograd.grad((y * cot.to(device)).sum(), [xi] + params,
+                                    allow_unused=True, materialize_grads=True)
+        return [t.detach().cpu() for t in (y, *grads)]
+
+    kernels = (fused_stencil_message, fused_corner_hop, fused_stencil_message_bwd,
+               fused_corner_hop_bwd)
+    before = [k.launches for k in kernels]
+    on_card = run(card_model, cuda)
+    stages = 2 * 2 * 2 if model == "HiLAM" else 3 * 2
+    stages_bwd = stages if model == "HiLAM" else 1 + 2
+    assert [k.launches - b for k, b in zip(kernels, before)] == [stages, 1, stages_bwd, 1]
+    for i, (g, want) in enumerate(zip(on_card, run(cpu_model, "cpu"))):
+        scale = max(1.0, float(want.abs().max()))
+        bar = TOL["atol"] if i == 0 else MODEL_GRAD_BAR
+        assert float((g - want).abs().max()) <= bar * scale, i
 
 
 #: (BH, Lq, Lk, D): Segformer's stages 1 to 4 at 512x640, a ragged
