@@ -78,7 +78,18 @@ non-zero exit code and no result line:
 13. HiLAMParallel at the width of hilamparallel.yaml: the same on
    Dummy (12 a-fwd a forward; 9 a-bwd a backward, the stages whose
    outputs reach the loss) and a 500x500 predict;
-14. the script's wall time, one JSON line with every kernel's numbers,
+14. the observers: PSD-K, PSD-Var and ACC (``module.make_metrics``) on
+   the card over phase 11's HalfUNet 512x640 and phase 5's GraphLAM
+   500x500 predictions (graph layout) against fp64 scipy/numpy
+   versions, a second update bit for bit, no host sync inside an
+   update, the device ms of one update by CUDA events beside its
+   bound, and a profile of one update; ``Trainer.test`` with logging on, on Dummy for GraphLAM and
+   Segformer: exact launch counts, PSD-Var and ACC scores within 1e-4
+   of the CPU's, the host ms a batch with logging on and off; the
+   CLI's predict with ``data.save_gribs`` against a template
+   ``make_template`` built for Dummy's grid, every GRIB field read back
+   against the .npy predictions within the packing quantum;
+15. the script's wall time, one JSON line with every kernel's numbers,
    then the result line.
 
 Each model path runs with every launch count set to 0 just before it
@@ -796,10 +807,12 @@ def predict_dummy(settings) -> dict:
 
 # ------------------------------------------------------------------- phase 5
 def full_size_rollout(name: str = "GraphLAM", steps: int = 3, grid=(500, 500),
-                      profile_name: str = "smoke_profile.txt") -> dict:
+                      profile_name: str = "smoke_profile.txt", keep=None) -> dict:
     """A graph model at its config's width on bench.py's GNN cell: a
     3-step predict at batch 1, counted, timed, profiled; step 1 against
-    the CPU."""
+    the CPU. ``keep`` (a dict) receives the dataset info, and the
+    predictions and the batch's targets on the host (so they hold no card
+    memory in the phases between), for phase 14."""
     from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
     from py4cast_tpu_torch.training import AutoRegressiveModule
 
@@ -831,6 +844,8 @@ def full_size_rollout(name: str = "GraphLAM", steps: int = 3, grid=(500, 500),
     arr = preds.array
     if arr.shape != (1, steps, grid[0] * grid[1], 21) or not bool(torch.isfinite(arr).all()):
         raise AssertionError(f"full-size predictions: shape {tuple(arr.shape)} or non-finite")
+    if keep is not None:
+        keep.update(info=info, preds=arr.cpu(), targets=batch.outputs.array)
 
     profile = profile_step(lambda: module.predict_step(state, batch), profile_name)
     call_ms = float(np.median(runs)) * steps
@@ -910,13 +925,17 @@ def profile_step(step, out_name: str) -> dict:
 
 # ------------------------------------------------------------------- phase 6
 class _ListLogger:
-    """Keeps what the trainer logs."""
+    """Keeps what the trainer logs: scalars, and the tags of figures."""
 
     def __init__(self):
         self.rows = []
+        self.figures = []
 
     def log_scalar(self, tag, value, step):
         self.rows.append((tag, float(value), step))
+
+    def log_figure(self, tag, fig, step):
+        self.figures.append((tag, step))
 
 
 def train_dummy(name: str) -> dict:
@@ -1092,11 +1111,12 @@ def _timed(fn, reps: int) -> list:
 
 
 def grid_model_full_size(name: str = "Segformer", grid=(512, 640), steps: int = 3,
-                         reps: int = 5) -> dict:
+                         reps: int = 5, keep=None) -> dict:
     """A grid model (Segformer, HalfUNet) at its config's width on
     bench.py's Segformer grid (512x640, 21 weather and 21 forcing
     features), batch 1: a 3-step predict and a 1-AR-step AdamW train
-    step, counted, timed, profiled; step 1 against the CPU."""
+    step, counted, timed, profiled; step 1 against the CPU. ``keep`` as
+    in full_size_rollout."""
     from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
     from py4cast_tpu_torch.training import AutoRegressiveModule
 
@@ -1120,6 +1140,8 @@ def grid_model_full_size(name: str = "Segformer", grid=(512, 640), steps: int = 
     if arr.shape != (1, steps, *grid, 21) or not bool(torch.isfinite(arr).all()):
         raise AssertionError(f"{name} 512x640 predictions: shape {tuple(arr.shape)} "
                              "or non-finite")
+    if keep is not None:
+        keep.update(info=info, preds=arr.cpu(), targets=batch.outputs.array)
     torch.cuda.reset_peak_memory_stats()
     runs = [ms / steps for ms in _timed(lambda: module.predict_step(params, batch), 3)]
     peak = torch.cuda.max_memory_allocated()
@@ -1163,6 +1185,259 @@ def grid_model_full_size(name: str = "Segformer", grid=(512, 640), steps: int = 
              "profile": t_profile}
     return {"model": name, "grid": list(grid), "batch": 1,
             "params": module.num_params(params), "predict": predict, "train": train}
+
+
+# ------------------------------------------------------------------ phase 14
+#: the metrics' bars against an fp64 scipy version of the reference
+#: pipeline (tests/test_torch_metrics.py says why each)
+PSD_TOL = 1e-5
+ACC_TOL = 1e-4
+PSD_VAR_LOG10_TOL = 1e-3
+
+
+def _psd_fp64(x: np.ndarray) -> np.ndarray:
+    """The reference PSD pipeline in fp64, independent of the port:
+    scipy's orthonormal DCT-II, fx² / W², the batch mean, then the
+    'double binning' (each point of radius r adds the flat spectrum at
+    2r and half of it at 2r ± 1 to bin r < rmax); (B, C, H, W) → (C, Rmax)."""
+    from scipy.fft import dctn
+
+    sig = (dctn(x, type=2, axes=(-2, -1), norm="ortho") ** 2 / x.shape[-1] ** 2).mean(axis=0)
+    h, w = sig.shape[-2:]
+    y, xx = np.indices((h, w))
+    r = np.sqrt((xx - h // 2) ** 2 + (y - w // 2) ** 2).astype(int)
+    rmax = min(xx.max(), y.max(), r.max()) // 2
+    rr = r.ravel()
+    n = h * w
+    keep = rr < rmax
+    out = []
+    for flat in sig.reshape(sig.shape[0], -1):
+        val = (flat[np.clip(2 * rr, 0, n - 1)] + 0.5 * flat[np.clip(2 * rr - 1, 0, n - 1)]
+               + 0.5 * flat[np.clip(2 * rr + 1, 0, n - 1)])
+        out.append(np.bincount(rr[keep], val[keep], minlength=rmax)
+                   / np.maximum(np.bincount(rr[keep], minlength=rmax), 1))
+    return np.stack(out)
+
+
+def metrics_full_size(kept: dict, label: str) -> dict:
+    """PSD-K, PSD-Var and ACC (as ``make_metrics`` builds them: the PSDs
+    at the last of 3 steps) over a full-size phase's predictions against
+    its batch's targets, on the card: against fp64 scipy/numpy, a second
+    update bit for bit, no host sync inside an update, the state on the
+    card, the device ms of one update (all three) by CUDA events beside
+    its bound, and a profile of one update."""
+    import warnings
+
+    from py4cast_tpu_torch.metrics import MetricACC, MetricPSDK, MetricPSDVar
+
+    info = kept["info"]
+    preds = kept["preds"].to("cuda")
+    targets = torch.from_numpy(kept["targets"]).to("cuda").reshape(preds.shape)
+    mask = torch.ones_like(preds)
+    b, steps, nfeat = preds.shape[0], preds.shape[1], preds.shape[-1]
+    grid = tuple(info.statics.grid_shape)
+    names = info.output_feature_names
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # ACC's note on scalar climate normals
+        metrics = {
+            "psd_k": MetricPSDK(BUILD / f"smoke_metrics_{label}", names, grid,
+                                pred_step=steps - 1, device="cuda"),
+            "psd_var": MetricPSDVar(names, grid, pred_step=steps - 1, device="cuda"),
+            "acc": MetricACC(info, steps, device="cuda"),
+        }
+
+    def update_all(states):
+        return {k: m.update(states[k], preds, targets, mask) for k, m in metrics.items()}
+
+    def fresh():
+        return {k: m.init_state() for k, m in metrics.items()}
+
+    first = update_all(fresh())  # builds the DCT matrices and bin tables once
+    start = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            second = update_all(start)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:120] for w in caught if "synchroniz" in str(w.message).lower()]
+    if syncs:
+        raise AssertionError(f"{label}: a metrics update synchronized the host: {syncs}")
+    on_card = {v.device.type for st in second.values() for v in st.values()}
+    if on_card != {"cuda"}:
+        raise AssertionError(f"{label}: metric state on {on_card}, not the card")
+    repeat = all(torch.equal(first[k][n], second[k][n]) for k in first for n in first[k])
+    if not repeat:
+        raise AssertionError(f"{label}: a second metrics update differs from the first")
+
+    # fp64 references of the same pipeline
+    def bchw64(t):
+        x = t[:, steps - 1].double().cpu().numpy()
+        return np.moveaxis(x.reshape(b, grid[0], grid[1], nfeat), -1, 1)
+
+    psd_p, psd_t = _psd_fp64(bchw64(preds)), _psd_fp64(bchw64(targets))
+    k_state = second["psd_k"]
+    errs = {}
+    for key, want in (("sum_psd_pred", psd_p), ("sum_psd_target", psd_t)):
+        got = k_state[key].double().cpu().numpy()
+        errs[key] = float(np.abs(got - want).max() / np.abs(want).max())
+        if not errs[key] <= PSD_TOL:
+            raise AssertionError(f"{label} PSD-K {key}: {errs[key]:.3e} of scale > {PSD_TOL}")
+    var = metrics["psd_var"].compute(second["psd_var"], "test")
+    eps = 1e-12
+    var_ref = np.sqrt(np.mean((np.log10(psd_t + eps) - np.log10(psd_p + eps)) ** 2, axis=1))
+    errs["psd_var_log10"] = max(float(abs(var[f"test_rmse_psd/{n}"] - var_ref[i]))
+                                for i, n in enumerate(metrics["psd_var"].feature_names))
+    if not errs["psd_var_log10"] <= PSD_VAR_LOG10_TOL:
+        raise AssertionError(f"{label} PSD-Var: {errs['psd_var_log10']:.3e} log10")
+    acc = metrics["acc"].compute(second["acc"], "test")
+    means = metrics["acc"].climate_means.double().cpu().numpy()
+    p64, t64 = preds.double().cpu().numpy(), targets.double().cpu().numpy()
+    sp = tuple(range(2, p64.ndim - 1))
+    pa, ta = p64 - means, t64 - means
+    acc_ref = ((pa * ta).mean(sp) / np.sqrt((pa**2).mean(sp) * (ta**2).mean(sp) + 1e-12)).mean(0)
+    errs["acc"] = max(float(abs(acc[f"test_acc/{n}_step{j}"] - acc_ref[j, i]))
+                      for i, n in enumerate(metrics["acc"].feature_names) for j in range(steps))
+    if not errs["acc"] <= ACC_TOL:
+        raise AssertionError(f"{label} ACC: {errs['acc']:.3e} > {ACC_TOL}")
+
+    ms = time_ms(lambda: update_all(start))
+    profile = profile_step(lambda: update_all(start), f"smoke_profile_metrics_{label}.txt")
+    h, w = grid
+    images = 4 * b * nfeat  # PSD-K and PSD-Var each transform pred and target
+    flops = images * (2 * h * h * w + 2 * h * w * w)
+    bound_ms, bound_by = bound(3 * preds.numel() * 4, flops)
+    return {"label": label, "shape": list(preds.shape), "grid": list(grid),
+            "update_ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms, "dct_gflop": flops / 1e9,
+            "max_err": errs, "bit_for_bit": repeat, "host_syncs": len(syncs),
+            "profile": profile,
+            "psd_var": [float(v) for v in var.values()][:3],
+            "acc_step0": [float(acc_ref[0, i]) for i in range(3)]}
+
+
+def test_with_logging(name: str) -> dict:
+    """Trainer.test on Dummy with logging on (score cards, spatial error,
+    prediction maps, PSD-K, PSD-Var, ACC): exact launch counts, the
+    PSD-Var and ACC entries finite and within 1e-4 of the same module's
+    on the CPU; the host ms a test batch with logging on and off."""
+    import math
+
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.plots import can_draw
+    from py4cast_tpu_torch.training import AutoRegressiveModule, Trainer, TrainerConfig
+
+    _, _, test_ds = get_datasets("dummy", 2, 1, 3)
+    settings = model_settings(name, num_pred_steps_val_test=3)
+    module = AutoRegressiveModule(settings, test_ds.dataset_info, device="cuda")
+    params = module.init_params(torch.Generator().manual_seed(0))
+    cpu_module = AutoRegressiveModule(settings, test_ds.dataset_info, device="cpu")
+    save = BUILD / f"smoke_test_{name.lower()}"
+
+    def run(logging: bool, device: str = "cuda"):
+        trainer = Trainer(TrainerConfig(batch_size=8, num_workers=1, device=device,
+                                        logging_enabled=logging,
+                                        save_path=str(save / f"{device}_{logging}")),
+                          loggers=[_ListLogger()])
+        m, p = (module, params) if device == "cuda" else (
+            cpu_module, {k: v.cpu() for k, v in params.items()})
+        t0 = time.perf_counter()
+        scores = trainer.test(m, test_ds, p)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return scores, time.perf_counter() - t0
+
+    run(True)  # warm-up: allocator, kernels, DCT matrices, bin tables, figures
+    reset_counts()
+    scores, _ = run(True)
+    counts = read_counts()
+    batches = math.ceil(len(test_ds) / 8)
+    want = expected_launches(module, batches * settings.num_pred_steps_val_test, 0)
+    if counts != want:
+        raise AssertionError(f"{name} test (logging on) launches {counts}, expected {want}")
+    feat = test_ds.dataset_info.output_feature_names[0]
+    keys = [f"test_rmse_psd/{feat}"] + [f"test_acc/{feat}_step{j}" for j in range(3)]
+    if not all(k in scores and np.isfinite(scores[k]) for k in keys):
+        raise AssertionError(f"{name} test scores lack finite PSD-Var/ACC entries: {scores}")
+    cpu_scores, _ = run(True, "cpu")
+    if set(cpu_scores) != set(scores):
+        raise AssertionError(f"{name} test score keys card {sorted(scores)} vs cpu")
+    err = max(abs(scores[k] - cpu_scores[k]) / max(1.0, abs(cpu_scores[k])) for k in scores)
+    if not err <= TOL:
+        raise AssertionError(f"{name} test scores card vs cpu: {err:.3e} > {TOL}")
+    # (off, on, on, off) four times: the host ms a batch, logging off and on
+    times = {False: [], True: []}
+    for logging in (False, True, True, False) * 4:
+        times[logging].append(run(logging)[1] * 1e3 / batches)
+    off, on = float(np.median(times[False])), float(np.median(times[True]))
+    return {"model": name, "launches": counts, "batches": batches, "figures": can_draw(),
+            "scores": {k: scores[k] for k in keys}, "max_rel_err_vs_cpu": err,
+            "ms_per_batch_logging_off": times[False], "ms_per_batch_logging_on": times[True],
+            "logging_overhead_ms_per_batch": on - off}
+
+
+def cli_predict_gribs() -> dict:
+    """The CLI's predict with data.save_gribs on phase 6's GraphLAM run,
+    against a template make_template built for Dummy's grid: counted;
+    every GRIB field read back equals the .npy predictions (graph layout,
+    put back on the grid) within the simple packing's quantum."""
+    import shutil
+    from types import SimpleNamespace
+
+    from py4cast_tpu_torch import cli
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.io import grib2, outputs
+    from py4cast_tpu_torch.models import get_model_kls_and_settings
+
+    test_ds = get_datasets("dummy", 2, 1, 3)[2]
+    grid, names = test_ds.grid, test_ds.dataset_info.output_feature_names
+    out = BUILD / "smoke_gribs"
+    shutil.rmtree(out, ignore_errors=True)
+    template = grib2.make_template(out / "template.grib", grid.lat[:, 0], grid.lon[0],
+                                   outputs.template_fids_for_features(names))
+    conf = out / "io.json"
+    conf.write_text(json.dumps({
+        "template_grib": str(template), "directory": str(out / "gribs"),
+        "output_kwargs": ["dummy"], "sample_identifiers": ["date", "sample", "leadtime"],
+        "path_to_runtime": "{}/{}_{}_+{}h.grib"}))
+    run = BUILD / "smoke_cli_graphlam"
+    args = ["predict", "--config", str(ROOT / "config/CLI/trainer.yaml"),
+            "--config", str(ROOT / "config/CLI/dataset/dummy.yaml"),
+            "--config", str(ROOT / "config/CLI/model/graphlam.yaml"),
+            "--trainer.save_path", str(run), "--trainer.ckpt_path", "last",
+            "--data.save_gribs", "true", "--model.io_conf", str(conf)]
+    reset_counts()
+    t0 = time.perf_counter()
+    if cli.main(args) != 0:
+        raise AssertionError("cli predict --data.save_gribs true failed")
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    preds = np.concatenate([np.load(p) for p in sorted((run / "predictions").glob("batch_*.npy"))])
+    n, steps = preds.shape[:2]
+    _, ms = get_model_kls_and_settings("GraphLAM", dict(GRAPHLAM_ARGS))
+    graph = SimpleNamespace(settings=SimpleNamespace(model_name="GraphLAM"), model_settings=ms)
+    want = expected_launches(graph, -(-n // 8) * steps, 0)
+    if counts != want:
+        raise AssertionError(f"cli predict launches {counts}, expected {want}")
+    preds = preds.reshape(n, steps, grid.x, grid.y)
+    files, worst = 0, 0.0
+    for i, sample in enumerate(test_ds.sample_list):
+        date = sample.timestamps.datetime.strftime("%Y%m%d%H")
+        for t in range(steps):
+            path = out / "gribs" / "dummy" / f"{date}_b{i // 8}_s{i % 8}_+{t + 1}h.grib"
+            (field,) = grib2.read_grib2(path)
+            want_t = preds[i, t]
+            quantum = 2 * (want_t.max() - want_t.min()) / (2**16 - 1)
+            err = float(np.abs(np.asarray(field.values) - want_t).max())
+            if not err <= quantum:
+                raise AssertionError(f"{path.name}: read back {err:.3e} from the .npy "
+                                     f"(quantum {quantum:.3e})")
+            worst = max(worst, float(err / quantum))
+            files += 1
+    return {"launches": counts, "samples": n, "grib_files": files, "seconds": seconds,
+            "max_err_in_quanta": worst}
 
 
 # ---------------------------------------------------------------------- main
@@ -1255,7 +1530,8 @@ def main(argv=None) -> int:
     log(f"predict dummy: {json.dumps(dummy)}")
 
     # phase 5: the full-size rollout
-    full = full_size_rollout("GraphLAM")
+    graph_kept = {}
+    full = full_size_rollout("GraphLAM", keep=graph_kept)
     log(f"full size: {json.dumps(full)}")
 
     # phase 6: Trainer.fit on Dummy, counted; resume, test, gradients
@@ -1293,7 +1569,8 @@ def main(argv=None) -> int:
     log(f"halfunet fit dummy: {json.dumps(unet_fit)}")
     unet_fit["cli"] = cli_dummy("halfunet")
     log(f"halfunet cli dummy: {json.dumps(unet_fit['cli'])}")
-    unet_full = grid_model_full_size("HalfUNet")
+    unet_kept = {}
+    unet_full = grid_model_full_size("HalfUNet", keep=unet_kept)
     log(f"halfunet 512x640: {json.dumps(unet_full)}")
 
     # phase 12: HiLAM on Dummy, predict and fit, the CLI with hilam.yaml;
@@ -1321,6 +1598,22 @@ def main(argv=None) -> int:
                                  profile_name="smoke_profile_hilamparallel.txt")
     log(f"hilamparallel 500x500: {json.dumps(par_full)}")
 
+    # phase 14: the observers. (a) PSD-K, PSD-Var and ACC on the card over
+    # phase 11's HalfUNet 512x640 and phase 5's GraphLAM 500x500 (graph
+    # layout) predictions; (b) Trainer.test with logging on, counted, on
+    # Dummy for GraphLAM and Segformer; (c) the CLI's predict with
+    # data.save_gribs
+    observers = {"metrics": [metrics_full_size(unet_kept, "halfunet_512x640"),
+                             metrics_full_size(graph_kept, "graphlam_500x500")]}
+    del unet_kept, graph_kept
+    for row in observers["metrics"]:
+        log(f"metrics {row['label']}: {json.dumps(row)}")
+    observers["test_logging"] = [test_with_logging(n) for n in ("GraphLAM", "Segformer")]
+    for row in observers["test_logging"]:
+        log(f"test with logging {row['model']}: {json.dumps(row)}")
+    observers["cli_gribs"] = cli_predict_gribs()
+    log(f"cli predict gribs: {json.dumps(observers['cli_gribs'])}")
+
     # each model path ran with every count set to 0 just before it and
     # checked just after (a kernel of another path launched fails); a
     # kernel's launches are the sum over the paths that run it
@@ -1342,7 +1635,7 @@ def main(argv=None) -> int:
          "hilam_predict_dummy": hilam_dummy, "hilam_fit_dummy": hilam_fit,
          "hilam_full_size": hilam_full, "hilam_full_size_train": hilam_train,
          "hilamparallel_predict_dummy": par_dummy, "hilamparallel_fit_dummy": par_fit,
-         "hilamparallel_full_size": par_full,
+         "hilamparallel_full_size": par_full, "observers": observers,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -28,6 +28,7 @@ import yaml
 
 from py4cast_tpu_torch.checkpoint import CheckpointManager, load_manifest
 from py4cast_tpu_torch.datasets import get_datasets
+from py4cast_tpu_torch.io.outputs import save_predictions
 from py4cast_tpu_torch.loggers import default_loggers
 from py4cast_tpu_torch.training import (
     AutoRegressiveModule,
@@ -52,21 +53,13 @@ class DataConfig:
     batch_size: int = 1
     num_workers: int = 2
     prefetch_factor: int = 2
-    # inference options
+    # inference options: GIFs (matplotlib) and GRIB files (model.io_conf's
+    # template and paths) beside the .npy predictions
     save_gifs: bool = False
     save_gribs: bool = False
     list_run_hour: Optional[List[int]] = None
     #: parameters of another port checkpoint injected into the restored state
     use_old_weights: Optional[str] = None
-
-    def __post_init__(self):
-        for key in ("save_gifs", "save_gribs"):
-            if getattr(self, key):
-                raise NotImplementedError(
-                    f"data.{key}: the GIF/GRIB product export is not yet ported to "
-                    "py4cast_tpu_torch (ROADMAP.md, queue 1 item 9); predictions "
-                    "are saved as .npy"
-                )
 
 
 class DataModule:
@@ -251,6 +244,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         for i, p in enumerate(preds):
             np.save(out_dir / f"batch_{i}.npy", np.asarray(p.array))
         print(f"Saved {len(preds)} prediction batches to {out_dir}")
+        if dm.cfg.save_gifs or dm.cfg.save_gribs:
+            save_predictions(
+                preds,
+                infer_ds,
+                out_dir,
+                save_gifs=dm.cfg.save_gifs,
+                save_gribs=dm.cfg.save_gribs,
+                io_conf=module.settings.io_conf,
+            )
     for lg in trainer.loggers:
         lg.close()
     return 0

@@ -216,6 +216,16 @@ class Grid:
         lons = self.grid_config.longitude[self.subdomain[2] : self.subdomain[3]]
         return np.array(np.meshgrid(lons, lats))  # (2, x, y)
 
+    @cached_property
+    def projection(self):
+        """The cartopy projection ``proj_name(**projection_kwargs)`` for
+        map plots, or None when cartopy is not installed."""
+        try:
+            import cartopy.crs as ccrs
+        except ImportError:
+            return None
+        return getattr(ccrs, self.proj_name)(**self.projection_kwargs)
+
 
 def grid_static_features(grid: Grid, extra_statics: List[NamedArray]) -> NamedArray:
     """Static per-node features: normalized x/y coords, normalized

@@ -481,9 +481,17 @@ class WeatherDataset:
         )
 
     @cached_property
+    def domain_info(self):
+        """The grid's limits and projection, for map plots."""
+        from py4cast_tpu_torch.plots import DomainInfo
+
+        return DomainInfo(grid_limits=self.grid.grid_limits, projection=self.grid.projection)
+
+    @cached_property
     def dataset_info(self) -> DatasetInfo:
         return DatasetInfo(
             name=str(self),
+            domain_info=self.domain_info,
             shortnames={
                 "input": self.shortnames("input"),
                 "input_output": self.shortnames("input_output"),

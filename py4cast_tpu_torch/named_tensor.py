@@ -5,13 +5,13 @@ numpy arrays (the host-side data pipeline) or torch tensors (device
 compute). Every transform returns a new ``NamedArray``.
 
 The last dim is always ``features`` and ``feature_names`` labels it.
-This slice ports what the data layer and ``predict`` use.
+It carries what the data layer, ``predict`` and the product export use.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple, Union
+from typing import Iterator, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -126,6 +126,11 @@ class NamedArray:
         sl = [slice(None)] * self.ndim
         sl[axis] = slice(idx, idx + 1)
         return self.array[tuple(sl)]
+
+    def iter_dim(self, dim_name: str) -> Iterator["NamedArray"]:
+        """Each index along a named dim, dropping it."""
+        for i in range(self.dim_size(dim_name)):
+            yield self.select(dim_name, i)
 
     def __or__(self, other: "NamedArray") -> "NamedArray":
         """Concatenate along the features dim."""

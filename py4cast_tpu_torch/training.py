@@ -5,7 +5,10 @@ loss and the static device buffers (grid statics, border and interior
 masks, stats vectors), and runs one batch at a time: ``train_step``,
 ``eval_step``, ``predict_step``. ``Trainer`` drives it over datasets:
 ``fit`` (train, validate, ``last``/``best`` checkpoints, early stopping,
-resume), ``test`` (per-timestep scores) and ``predict``.
+resume), ``test`` (per-timestep scores) and ``predict``. Validation and
+test feed the observers: the plotters and score cards of ``plots.py``
+and the PSD-K, PSD-Var and ACC metrics of ``metrics.py``, whose state
+stays on the device until the epoch ends.
 
 Parameters travel as a plain ``{name: tensor}`` dict, applied with
 ``torch.func.functional_call`` — the counterpart of the JAX package's
@@ -39,13 +42,23 @@ from py4cast_tpu_torch.checkpoint import (
     state_file,
 )
 from py4cast_tpu_torch.datasets.base import DatasetInfo, ItemBatch
-from py4cast_tpu_torch.losses import CombinedLoss
+from py4cast_tpu_torch.losses import CombinedLoss, ScaledLoss
+from py4cast_tpu_torch.metrics import MetricACC, MetricPSDK, MetricPSDVar
 from py4cast_tpu_torch.models import (
     ModelType,
     build_model_from_settings,
     get_model_kls_and_settings,
 )
 from py4cast_tpu_torch.named_tensor import NamedArray
+from py4cast_tpu_torch.plots import (
+    NO_FIGURES,
+    PredictionEpochPlot,
+    PredictionTimestepPlot,
+    SpatialErrorPlot,
+    StateErrorPlot,
+    can_draw,
+    pyplot,
+)
 from py4cast_tpu_torch.rollout import RolloutConfig, common_features_index, rollout
 from py4cast_tpu_torch.utils import exact_fp32, resolve_device, str_to_dtype
 
@@ -60,12 +73,6 @@ _TRUNC_STD_CORRECTION = 0.87962566103423978
 #: torch.optim.AdamW's own default decay is 1e-2.
 ADAMW_WEIGHT_DECAY = 1e-4
 ADAMW_EPS = 1e-8
-
-#: where the plotters and the PSD/ACC metrics stand
-_NOT_COMPUTED = (
-    "plots and PSD/ACC metrics: not computed (not yet ported to "
-    "py4cast_tpu_torch, ROADMAP.md queue 1 item 9)"
-)
 
 
 @dataclass
@@ -389,17 +396,19 @@ class AutoRegressiveModule:
             arr, ("batch", "timestep") + spatial + ("features",), self.output_feature_names
         )
 
+    def _to_device(self, a) -> torch.Tensor:
+        """A (B, T, lat, lon, F) batch array on the device; (B, T, ngrid,
+        F) for GRAPH models."""
+        t = torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+        if self.is_graph:
+            t = t.reshape(t.shape[0], t.shape[1], -1, t.shape[-1])
+        return t
+
     def _batch_arrays(self, batch: ItemBatch, with_outputs: bool = False):
         """(inputs, forcing, outputs) of a batch on the device; (B, T,
         ngrid, F) for GRAPH models, (B, T, lat, lon, F) otherwise;
         outputs is None unless asked for."""
-
-        def dev(a):
-            t = torch.as_tensor(np.asarray(a, np.float32), device=self.device)
-            if self.is_graph:
-                t = t.reshape(t.shape[0], t.shape[1], -1, t.shape[-1])
-            return t
-
+        dev = self._to_device
         forcing = dev(batch.forcing.array)
         if batch.inputs is not None:
             inputs = dev(batch.inputs.array)
@@ -533,6 +542,37 @@ class AutoRegressiveModule:
             preds = preds * buf["stats_std"] + buf["stats_mean"]
         return self._named(preds)
 
+    # ----------------------------------------------------------- aux wiring
+    def named_eval_arrays(self, preds: torch.Tensor, batch: ItemBatch):
+        """(pred, target, mask) for the plotters and metrics: NamedArrays
+        over tensors on the device and the float mask, the batch's real
+        rows only (``batch.valid_count``; a padded tail's repeated rows
+        never reach an observer). Only those rows' targets are copied."""
+        nv = batch.valid_count
+        outputs = self._to_device(batch.outputs.array[:nv])
+        mask, target = self._mask_and_target(outputs)
+        return self._named(preds[:nv]), self._named(target), mask
+
+    def make_scaled_loss(self, kind: str) -> ScaledLoss:
+        """A prepared ScaledLoss for the score cards: "rmse" or "mae"."""
+        loss = ScaledLoss("MSELoss" if kind == "rmse" else "L1Loss")
+        loss.prepare(self.interior_mask_np, self.dataset_info, self.output_feature_names)
+        return loss
+
+    def make_metrics(self, save_path, num_pred_steps: int) -> dict:
+        """The PSD/ACC metric set updated during validation/test, on this
+        module's device."""
+        grid_shape = self.dataset_info.statics.grid_shape
+        # the PSD metrics score the last prediction step
+        last_step = max(0, num_pred_steps - 1)
+        return {
+            "psd_k": MetricPSDK(save_path, self.output_feature_names, grid_shape,
+                                pred_step=last_step, device=self.device),
+            "psd_var": MetricPSDVar(self.output_feature_names, grid_shape,
+                                    pred_step=last_step, device=self.device),
+            "acc": MetricACC(self.dataset_info, num_pred_steps, device=self.device),
+        }
+
     # --------------------------------------------------------------- manifest
     def manifest(self) -> dict:
         """Self-describing artifact metadata, with the JAX package's keys."""
@@ -655,6 +695,7 @@ class Trainer:
         self.device = resolve_device(config.device)
         self.save_path = Path(config.save_path)
         self.loggers = loggers if loggers is not None else []
+        self._said_no_figures = False
 
     def _check_module(self, module: AutoRegressiveModule):
         if module.device != self.device:
@@ -668,6 +709,36 @@ class Trainer:
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _say_if_no_figures(self):
+        """Print once a trainer's life that figures are not drawn, when
+        matplotlib is missing."""
+        if not self._said_no_figures and not can_draw():
+            print(NO_FIGURES)
+            self._said_no_figures = True
+
+    @staticmethod
+    def _observe(module, batch, preds, plotters, metrics, metric_states):
+        """Feed one eval batch's real rows to the plotters and metrics."""
+        pred_na, target_na, mask = module.named_eval_arrays(preds, batch)
+        for p in plotters:
+            p.update(module, batch, pred_na, target_na, mask)
+        for k, m in metrics.items():
+            metric_states[k] = m.update(metric_states[k], pred_na.array, target_na.array, mask)
+
+    def _computed(self, metrics, metric_states, prefix: str, step: int) -> dict:
+        """The metrics' scalars ({name: float}); their figures go to the
+        loggers at ``step`` and are closed."""
+        scalars = {}
+        for k, m in metrics.items():
+            for name, val in m.compute(metric_states[k], prefix).items():
+                if isinstance(val, float):
+                    scalars[name] = val
+                else:
+                    for lg in self.loggers:
+                        lg.log_figure(name, val, step)
+                    pyplot().close(val)
+        return scalars
 
     def fit(self, module: AutoRegressiveModule, train_ds, val_ds,
             ckpt_path: Optional[str] = None, params: Optional[Params] = None) -> TrainState:
@@ -721,7 +792,6 @@ class Trainer:
 
         global_step = 0
         epochs_no_improve = 0
-        said_not_computed = False
         for epoch in range(max_epochs):
             # ------------------------------ train
             t0 = time.perf_counter()
@@ -745,22 +815,45 @@ class Trainer:
             # ------------------------------ validate
             val_loss = float("nan")
             if (epoch + 1) % cfg.check_val_every_n_epoch == 0 or cfg.fast_dev_run:
+                module._plot_loggers = self.loggers
+                module.current_epoch = epoch
                 do_plots = (cfg.logging_enabled and not cfg.fast_dev_run
                             and epoch % cfg.plot_period == 0)
-                if do_plots and not said_not_computed:
-                    print(_NOT_COMPUTED)
-                    said_not_computed = True
+                plotters, metrics, metric_states = [], {}, {}
+                if do_plots:
+                    self._say_if_no_figures()
+                    plotters = [
+                        StateErrorPlot({"mae": module.make_scaled_loss("mae")},
+                                       prefix="Validation", save_path=self.save_path),
+                        PredictionTimestepPlot(num_samples_to_plot=cfg.num_samples_to_plot,
+                                               num_features_to_plot=4, prefix="Validation",
+                                               save_path=self.save_path),
+                        PredictionEpochPlot(num_samples_to_plot=cfg.num_samples_to_plot,
+                                            num_features_to_plot=4, prefix="Validation",
+                                            save_path=self.save_path),
+                    ]
+                    metrics = module.make_metrics(self.save_path,
+                                                  module.settings.num_pred_steps_val_test)
+                    metric_states = {k: m.init_state() for k, m in metrics.items()}
                 vrows = []  # per-SAMPLE (valid_count, T) loss rows
                 for i, batch in enumerate(val_loader):
                     if cfg.limit_val_batches and i >= cfg.limit_val_batches:
                         break
                     if cfg.fast_dev_run and i >= 1:
                         break
-                    _, per_step = module.eval_step(state, batch, generator)
+                    preds, per_step = module.eval_step(state, batch, generator)
                     vrows.append(per_step[: batch.valid_count].cpu().numpy())
+                    if do_plots:
+                        self._observe(module, batch, preds, plotters, metrics, metric_states)
                 val_loss = float(np.concatenate(vrows, axis=0).mean()) if vrows else float("nan")
                 self._log("val_mean_loss", val_loss, global_step)
                 self._log("mean_loss_epoch/validation", val_loss, global_step)
+                if do_plots and vrows:
+                    for p in plotters:
+                        p.on_step_end(module, label="Valid")
+                    for name, val in self._computed(metrics, metric_states, "val",
+                                                    global_step).items():
+                        self._log(name, val, global_step)
 
             print(
                 f"epoch {epoch + 1}/{max_epochs} "
@@ -844,29 +937,51 @@ class Trainer:
             json.dump(info, f, indent=1)
 
     def test(self, module: AutoRegressiveModule, test_ds, state) -> dict:
-        """Scoring loop: the loss of every real sample at each timestep,
-        their mean, written to <save_path>/test_scores.json."""
+        """Scoring loop: the loss of every real sample at each timestep
+        and their mean; with ``logging_enabled``, mae/rmse score cards
+        (JSON files and, with matplotlib, figures), the spatial-error and
+        prediction maps, and the PSD-Var and ACC scores. The scores are
+        written to <save_path>/test_scores.json."""
         self._check_module(module)
         cfg = self.config
         generator = self._generator(0)
+        module._plot_loggers = self.loggers
+        module.current_epoch = 0
         loader = test_ds.loader(
             batch_size=cfg.batch_size, num_workers=cfg.num_workers,
             drop_last=False, pad_last=True,
         )
+        plotters, metrics, metric_states = [], {}, {}
         if cfg.logging_enabled:
-            print(_NOT_COMPUTED)
+            self._say_if_no_figures()
+            plotters = [
+                StateErrorPlot({"mae": module.make_scaled_loss("mae"),
+                                "rmse": module.make_scaled_loss("rmse")},
+                               prefix="Test", save_path=self.save_path),
+                SpatialErrorPlot(prefix="Test", save_path=self.save_path),
+                PredictionTimestepPlot(num_samples_to_plot=cfg.num_samples_to_plot,
+                                       prefix="Test", save_path=self.save_path),
+            ]
+            metrics = module.make_metrics(self.save_path, module.settings.num_pred_steps_val_test)
+            metric_states = {k: m.init_state() for k, m in metrics.items()}
         rows = []  # (valid_count, T) per batch
         for i, batch in enumerate(loader):
             if cfg.limit_val_batches and i >= cfg.limit_val_batches:
                 break
-            _, per_step = module.eval_step(state, batch, generator)
+            preds, per_step = module.eval_step(state, batch, generator)
             rows.append(per_step[: batch.valid_count].cpu().numpy())
+            if cfg.logging_enabled:
+                self._observe(module, batch, preds, plotters, metrics, metric_states)
         if not rows:
             return {}
         # sample-weighted mean: every real sample counts once
         mean_per_step = np.concatenate(rows, axis=0).mean(axis=0)
         scores = {f"timestep_losses/test_step_{s}": float(v) for s, v in enumerate(mean_per_step)}
         scores["test_mean_loss"] = float(np.mean(mean_per_step))
+        if cfg.logging_enabled:
+            for p in plotters:
+                p.on_step_end(module, label="Test")
+            scores.update(self._computed(metrics, metric_states, "test", 0))
         self.save_path.mkdir(parents=True, exist_ok=True)
         with open(self.save_path / "test_scores.json", "w") as f:
             json.dump(scores, f, indent=1)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import functools
 from typing import Dict
 
+import numpy as np
 import torch
 
 
@@ -29,6 +30,11 @@ str_to_dtype: Dict[str, torch.dtype] = {
     "64": torch.float64,
     "64-true": torch.float64,
 }
+
+
+def to_host(a) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array on the host."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def resolve_device(device="cuda") -> torch.device:

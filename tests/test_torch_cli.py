@@ -121,11 +121,6 @@ def test_bad_command_lines_exit(subcommand, extra, tmp_path):
         cli.main([subcommand, *CONFIGS, *SMALL, "--trainer.save_path", str(tmp_path), *extra])
 
 
-def test_gif_export_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        cli.DataConfig(save_gifs=True)
-
-
 def test_parse_cli_composes_configs_and_overrides():
     sub, conf = cli.parse_cli(["fit", *CONFIGS, "--data.batch_size=4",
                                "--model.learning_rate", "1e-4"])

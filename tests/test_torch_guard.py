@@ -35,6 +35,32 @@ def test_port_imports_without_jax():
     assert int(out.stdout.strip().splitlines()[-1]) >= 15
 
 
+_OBSERVERS_IMPORT = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "py4cast_tpu", "matplotlib"):
+    sys.modules[name] = None
+import pkgutil
+import py4cast_tpu_torch.io
+io_mods = sorted(m.name for m in pkgutil.walk_packages(py4cast_tpu_torch.io.__path__,
+                                                      "py4cast_tpu_torch.io."))
+assert io_mods == ["py4cast_tpu_torch.io.grib2", "py4cast_tpu_torch.io.outputs"], io_mods
+import py4cast_tpu_torch.io.grib2, py4cast_tpu_torch.io.outputs
+import py4cast_tpu_torch.metrics, py4cast_tpu_torch.plots, py4cast_tpu_torch.training
+import py4cast_tpu_torch.cli
+from py4cast_tpu_torch.plots import can_draw
+assert not can_draw()
+"""
+
+
+def test_io_metrics_and_plots_import_without_jax_or_matplotlib():
+    """The io subpackage (grib2, outputs), metrics, plots, the trainer and
+    the CLI import with JAX, the JAX package and matplotlib blocked:
+    matplotlib is imported only by the functions that draw."""
+    out = subprocess.run([sys.executable, "-c", _OBSERVERS_IMPORT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_no_source_imports_the_jax_package():
     pattern = re.compile(r"^\s*(from|import)\s+(py4cast_tpu(\.|\s|$)|jax\b|flax\b|optax\b|orbax\b)",
                          re.MULTILINE)

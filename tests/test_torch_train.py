@@ -184,9 +184,13 @@ def test_schedule_matches_optax(lr, min_lr, warmup, n, accumulate):
 class _ListLogger:
     def __init__(self):
         self.rows = []
+        self.figures = []
 
     def log_scalar(self, tag, value, step):
         self.rows.append((tag, value, step))
+
+    def log_figure(self, tag, fig, step):
+        self.figures.append((tag, step))
 
 
 @pytest.fixture(scope="module")
@@ -275,8 +279,10 @@ def test_early_stopping_ends_the_fit(data, tmp_path):
 def test_test_writes_per_timestep_scores(fitted, data):
     _, (_, _, port_test) = data
     scores = fitted.trainer.test(fitted.module, port_test, fitted.state)
+    name = "dummy_parameter_500_isobaricInhPa"
     assert set(scores) == {"timestep_losses/test_step_0", "timestep_losses/test_step_1",
-                           "test_mean_loss"}
+                           "test_mean_loss", f"test_rmse_psd/{name}",
+                           f"test_acc/{name}_step0", f"test_acc/{name}_step1"}
     assert all(np.isfinite(v) for v in scores.values())
     assert json.loads((fitted.save / "test_scores.json").read_text()) == scores
 
