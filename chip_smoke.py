@@ -29,9 +29,11 @@ non-zero exit code and no result line:
    at the 500x500 grid the same way, with its share of the bound and
    both launched passes' registers, spills, resident blocks and cells a
    tile;
-3c. the short-KV attention kernels (Segformer's c-fwd and c-bwd) at the
-   512x640 cell's four stage shapes, a ragged Lq and a K/V that spills
-   its tiles: the forward against the plain version and its lse against
+3c. the short-KV attention kernels (c-fwd and c-bwd) at the Segformer
+   512x640 cell's four stage shapes, a ragged Lq, a K/V that spills its
+   tiles, UNetRPP's seven shapes at 512x640 (head dims 8, 16, 32, 64,
+   128; K/V 64 or 32 projected tokens) and its Dummy call's deepest
+   stage (K/V of 4 tokens): the forward against the plain version and its lse against
    the fp64 logsumexp, dq against the plain backward, dk and dv against
    it in fp64, both kernels bit for bit against a second call; c-fwd's
    launch shape with its registers, spills and resident blocks (and
@@ -39,7 +41,7 @@ non-zero exit code and no result line:
    each with its bound; timed with CUDA events beside
    F.scaled_dot_product_attention (the library's time, never on the
    path), and c-fwd's sum over one 512x640 model call, and c-bwd's over
-   one train step's backward, beside it;
+   one train step's backward, beside it, for Segformer and for UNetRPP;
 4. ``Trainer.predict`` on the Dummy dataset with GraphLAM at the width of
    config/CLI/model/graphlam.yaml: launch counts of both forward
    kernels, finite outputs, agreement with the same module on the CPU;
@@ -89,7 +91,20 @@ non-zero exit code and no result line:
    CLI's predict with ``data.save_gribs`` against a template
    ``make_template`` built for Dummy's grid, every GRIB field read back
    against the .npy predictions within the packing quantum;
-15. the script's wall time, one JSON line with every kernel's numbers,
+15. UNet at the width of config/CLI/model/unet.yaml (64 features,
+   depth 4): ``Trainer.predict`` and ``Trainer.fit`` on Dummy with every
+   hand kernel counted at 0, the CLI with unet.yaml, and phase 10's
+   512x640 predict and train step;
+16. UNetRPP at the width of config/CLI/model/unetrpp.yaml (hidden 1024,
+   depths 3/3/3/3, heads 16/4, linear upsampling, instance norm) with
+   ``attention_code: flash_attn``: ``Trainer.predict`` and
+   ``Trainer.fit`` on Dummy with exact launch counts (15 c-fwd a
+   forward, 15 c-bwd a backward), card against CPU, a resume,
+   ``Trainer.test``; the CLI's fit, test and predict with unetrpp.yaml
+   as shipped (``attention_code: torch``, every count 0) and its fit
+   again with ``flash_attn`` (counted); phase 10's 512x640 predict and
+   train step with ``flash_attn`` and again with ``torch``;
+17. the script's wall time, one JSON line with every kernel's numbers,
    then the result line.
 
 Each model path runs with every launch count set to 0 just before it
@@ -151,10 +166,27 @@ HALFUNET_ARGS = {"num_filters": 64, "dilation": 1, "bias": False, "use_ghost": F
                  "last_activation": "Identity", "absolute_pos_embed": False,
                  "autopad_enabled": True}
 
+#: settings_init_args of config/CLI/model/unet.yaml (depth at
+#: UNetSettings' default, 4)
+UNET_ARGS = {"init_features": 64, "autopad_enabled": True}
+
+#: settings_init_args of config/CLI/model/unetrpp.yaml, as shipped
+#: (attention_code "torch": the plain attention)
+UNETRPP_ARGS = {"hidden_size": 1024, "num_heads_encoder": 16, "num_heads_decoder": 4,
+                "pos_embed": "perceptron", "norm_name": "instance", "dropout_rate": 0.0,
+                "depths": [3, 3, 3, 3], "conv_op": "Conv2d", "linear_upsampling": True,
+                "downsampling_rate": 4, "decoder_proj_size": 64,
+                "encoder_proj_sizes": [64, 64, 64, 32], "add_skip_connections": True,
+                "attention_code": "torch"}
+#: the path of kernels c-fwd and c-bwd
+FLASH_ATTN = {"attention_code": "flash_attn"}
+
 #: each model's settings_init_args; hilam.yaml and hilamparallel.yaml
-#: carry graphlam.yaml's (h 64, 4 processor layers, 3 mesh levels)
+#: carry graphlam.yaml's (h 64, 4 processor layers, 3 mesh levels);
+#: UNetRPP's main path is the kernels' (flash_attn)
 MODEL_ARGS = {"GraphLAM": GRAPHLAM_ARGS, "HiLAM": GRAPHLAM_ARGS, "HiLAMParallel": GRAPHLAM_ARGS,
-              "Segformer": SEGFORMER_ARGS, "HalfUNet": HALFUNET_ARGS}
+              "Segformer": SEGFORMER_ARGS, "HalfUNet": HALFUNET_ARGS, "UNet": UNET_ARGS,
+              "UNetRPP": {**UNETRPP_ARGS, **FLASH_ATTN}}
 
 #: H100 SXM data-sheet peaks (full 700 W power limit): HBM3 bytes/s and
 #: fp32 operations/s outside the tensor cores
@@ -577,7 +609,12 @@ def check_hop_bwd(rng, b=1, hr=500, w=500, h=64, ff=3):
 # ------------------------------------------------------------------ phase 3c
 #: (BH, Lq, Lk, D) of the attention at the 512x640 Segformer cell (heads
 #: 1/2/5/8 of dim 32; every stage's K/V reduced to 16x20), then a ragged
-#: Lq and a K/V that spills its shared-memory tiles
+#: Lq and a K/V that spills its shared-memory tiles; then UNetRPP's at
+#: 512x640 (unetrpp.yaml, batch 1: encoder stages of 128x160 ... 16x20
+#: tokens, dims 128/256/512/1024 over 16 heads, K/V projected onto
+#: 64/64/64/32 tokens; decoder blocks dims 512/256/128 over 4 heads, 64
+#: tokens), and its Dummy call's deepest encoder stage (batch 8 x 16
+#: heads, 2x2 tokens: the K/V projection keeps all 4)
 ATTENTION_SHAPES = {
     "stage1": (1, 20480, 320, 32),
     "stage2": (2, 5120, 320, 32),
@@ -585,7 +622,21 @@ ATTENTION_SHAPES = {
     "stage4": (8, 320, 320, 32),
     "ragged": (1, 20481, 320, 32),
     "spill": (2, 2048, 4097, 64),
+    "epa_enc1": (16, 20480, 64, 8),
+    "epa_enc2": (16, 5120, 64, 16),
+    "epa_enc3": (16, 1280, 64, 32),
+    "epa_enc4": (16, 320, 32, 64),
+    "epa_dec3": (4, 1280, 64, 128),
+    "epa_dec2": (4, 5120, 64, 64),
+    "epa_dec1": (4, 20480, 64, 32),
+    "epa_dummy_enc4": (128, 4, 4, 64),
 }
+#: UNetRPP's launches a 512x640 model call at each shape: each encoder
+#: stage's depth (a stage of depth 0 still holds one block), then one
+#: decoder block for each stage but the deepest (as launches_per_call)
+_EPA_DEPTHS = [max(1, d) for d in UNETRPP_ARGS["depths"]]
+UNETRPP_CALLS = {**{f"epa_enc{i + 1}": d for i, d in enumerate(_EPA_DEPTHS)},
+                 **{f"epa_dec{i}": 1 for i in range(len(_EPA_DEPTHS) - 1, 0, -1)}}
 
 
 def _sdpa(q, k, v, scale):
@@ -698,6 +749,12 @@ def check_attention(rng) -> list:
     entries[1]["model_backward_ms"] = 2 * sum(r["ms"] for r in stages)
     entries[1]["model_backward_library_ms"] = 2 * sum(r["library_ms"] for r in stages)
     entries[1]["model_backward_bound_ms"] = 2 * sum(r["bound_ms"] for r in stages)
+    for entry, rows, key in ((entries[0], fwd_rows, "unetrpp_model_call"),
+                             (entries[1], bwd_rows, "unetrpp_model_backward")):
+        epa = [r for r in rows if r["label"] in UNETRPP_CALLS]
+        for what in ("ms", "library_ms", "bound_ms"):
+            entry[f"{key}_{what}"] = sum(UNETRPP_CALLS[r["label"]] * r[what] for r in epa)
+        entry["slower_than_library"] = [r["label"] for r in rows if r["ms"] > r["library_ms"]]
     return entries
 
 
@@ -722,11 +779,13 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def model_settings(name: str, **kw):
-    """The TrainingSettings of ``name`` at its config's width."""
+def model_settings(name: str, overrides=None, **kw):
+    """The TrainingSettings of ``name`` at its config's width, with
+    ``overrides`` of its settings_init_args."""
     from py4cast_tpu_torch.training import TrainingSettings
 
-    return TrainingSettings(model_name=name, settings_init_args=dict(MODEL_ARGS[name]),
+    return TrainingSettings(model_name=name,
+                            settings_init_args={**MODEL_ARGS[name], **(overrides or {})},
                             training_strategy="diff_ar", **kw)
 
 
@@ -751,8 +810,13 @@ def launches_per_call(module) -> tuple:
     if name == "Segformer":  # one attention a MiT layer
         per = len(ms.dims) * ms.num_layers
         return {"short_kv_attention": per}, {"short_kv_attention_bwd": per}
-    if name == "HalfUNet":  # convolutions (cuDNN) only: no hand kernel
+    if name in ("HalfUNet", "UNet"):  # convolutions (cuDNN) only: no hand kernel
         return {}, {}
+    if name == "UNetRPP":  # one attention an EPA block, on the kernels or not
+        if ms.attention_code not in ("flash_attn", "pallas"):
+            return {}, {}
+        per = sum(max(1, d) for d in ms.depths) + len(ms.depths) - 1
+        return {"short_kv_attention": per}, {"short_kv_attention_bwd": per}
     raise ValueError(f"no launch counts for model {name!r}")
 
 
@@ -881,6 +945,8 @@ GROUPS = (
                             "ComputeFusedParams", "ComputeInternalGradients",
                             "ComputeBackwardFusedParams")),
     ("max_pool (torch)", ("max_pool",)),
+    ("softmax (torch)", ("softmax",)),
+    ("bilinear resize (torch)", ("upsample_bilinear",)),
     ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn")),
     ("matmuls (cuBLAS/CUTLASS)", ("gemm",)),
 )
@@ -938,10 +1004,10 @@ class _ListLogger:
         self.figures.append((tag, step))
 
 
-def train_dummy(name: str) -> dict:
+def train_dummy(name: str, overrides=None) -> dict:
     """Trainer.fit on Dummy (3 train batches, 1 val batch) with model
-    ``name``, counted; resume; Trainer.test; one step's gradients against
-    the CPU."""
+    ``name`` (``overrides`` of its settings_init_args), counted; resume;
+    Trainer.test; one step's gradients against the CPU."""
     import shutil
 
     from py4cast_tpu_torch.datasets import get_datasets
@@ -950,7 +1016,7 @@ def train_dummy(name: str) -> dict:
     # 1 AR step in training, 3 in validation and test, linked into the
     # settings as the CLI links them
     train_ds, val_ds, test_ds = get_datasets("dummy", 2, 1, 3)
-    settings = model_settings(name, num_warmup_steps=2, num_pred_steps_train=1,
+    settings = model_settings(name, overrides, num_warmup_steps=2, num_pred_steps_train=1,
                               num_pred_steps_val_test=3)
     save = BUILD / f"smoke_fit_{settings.model_name.lower()}"
     shutil.rmtree(save, ignore_errors=True)
@@ -1017,30 +1083,62 @@ def train_dummy(name: str) -> dict:
             "unreached_params": len(unreached)}
 
 
-def cli_dummy(model_yaml: str) -> dict:
+#: what the CLI runs in cli_dummy: the fit's 2 train batches (1 AR step
+#: each) and 1 validation batch (3 steps, trainer.yaml), then test and
+#: predict over Dummy's test set (3 steps)
+CLI_STEPS = {
+    "fit": ["--trainer.max_epochs", "1", "--trainer.limit_train_batches", "2",
+            "--trainer.limit_val_batches", "1"],
+    "test": ["--trainer.ckpt_path", "last"],
+    "predict": ["--trainer.ckpt_path", "last"],
+}
+
+
+def cli_launches(model: str, args: dict, sub: str) -> dict:
+    """Every kernel's count after one CLI subcommand of cli_dummy on
+    Dummy with model ``model`` at settings_init_args ``args``."""
+    from types import SimpleNamespace
+
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.models import get_model_kls_and_settings
+
+    _, ms = get_model_kls_and_settings(model, dict(args))
+    module = SimpleNamespace(settings=SimpleNamespace(model_name=model), model_settings=ms)
+    test_batches = -(-len(get_datasets("dummy", 2, 1, 3)[2]) // 8)
+    calls = {"fit": (2 + 3, 2), "test": (3 * test_batches, 0),
+             "predict": (3 * test_batches, 0)}[sub]
+    return expected_launches(module, *calls)
+
+
+def cli_dummy(model_yaml: str, extra=(), subcommands=tuple(CLI_STEPS), want=None) -> dict:
     """The port's CLI in-process: fit, then test and predict from its
     checkpoint, with config/CLI's trainer and dummy files and the model's
     file (``graphlam``, ``segformer``, ``halfunet``, ``hilam``,
-    ``hilamparallel``)."""
+    ``hilamparallel``, ``unet``, ``unetrpp``) and ``extra`` arguments.
+    With ``want`` (a function of the subcommand), each subcommand runs
+    with every launch count set to 0 before it and must end on
+    ``want(subcommand)``."""
     import shutil
 
     from py4cast_tpu_torch import cli
 
-    save = BUILD / f"smoke_cli_{model_yaml}"
+    save = BUILD / "_".join(["smoke_cli", model_yaml, *extra[1::2]])
     shutil.rmtree(save, ignore_errors=True)
     configs = ["--config", str(ROOT / "config/CLI/trainer.yaml"),
                "--config", str(ROOT / "config/CLI/dataset/dummy.yaml"),
                "--config", str(ROOT / f"config/CLI/model/{model_yaml}.yaml"),
-               "--trainer.save_path", str(save)]
-    steps = {
-        "fit": ["--trainer.max_epochs", "1", "--trainer.limit_train_batches", "2",
-                "--trainer.limit_val_batches", "1"],
-        "test": ["--trainer.ckpt_path", "last"],
-        "predict": ["--trainer.ckpt_path", "last"],
-    }
-    for sub, extra in steps.items():
-        if cli.main([sub, *configs, *extra]) != 0:
+               "--trainer.save_path", str(save), *extra]
+    launches = {}
+    for sub in subcommands:
+        reset_counts()
+        if cli.main([sub, *configs, *CLI_STEPS[sub]]) != 0:
             raise AssertionError(f"cli {sub} failed")
+        launches[sub] = read_counts()
+        if want is not None and launches[sub] != want(sub):
+            raise AssertionError(f"cli {model_yaml} {sub} launches {launches[sub]}, "
+                                 f"expected {want(sub)}")
+    if "test" not in subcommands:
+        return {"launches": launches}
     scores = json.loads((save / "test_scores.json").read_text())
     preds = sorted((save / "predictions").glob("batch_*.npy"))
     arrays = [np.load(p) for p in preds]
@@ -1048,7 +1146,7 @@ def cli_dummy(model_yaml: str) -> dict:
             scores["test_mean_loss"]):
         raise AssertionError(f"cli outputs: {len(preds)} prediction files, scores {scores}")
     return {"test_mean_loss": scores["test_mean_loss"], "prediction_files": len(preds),
-            "prediction_shape": list(arrays[0].shape)}
+            "prediction_shape": list(arrays[0].shape), "launches": launches}
 
 
 # ------------------------------------------------------------------- phase 7
@@ -1111,18 +1209,19 @@ def _timed(fn, reps: int) -> list:
 
 
 def grid_model_full_size(name: str = "Segformer", grid=(512, 640), steps: int = 3,
-                         reps: int = 5, keep=None) -> dict:
-    """A grid model (Segformer, HalfUNet) at its config's width on
-    bench.py's Segformer grid (512x640, 21 weather and 21 forcing
-    features), batch 1: a 3-step predict and a 1-AR-step AdamW train
-    step, counted, timed, profiled; step 1 against the CPU. ``keep`` as
-    in full_size_rollout."""
+                         reps: int = 5, keep=None, overrides=None, tag=None) -> dict:
+    """A grid model (Segformer, HalfUNet, UNet, UNetRPP) at its config's
+    width (``overrides`` of its settings_init_args) on bench.py's
+    Segformer grid (512x640, 21 weather and 21 forcing features), batch
+    1: a 3-step predict and a 1-AR-step AdamW train step, counted, timed,
+    profiled (chiprun_out/smoke_profile_<tag>*.txt); step 1 against the
+    CPU. ``keep`` as in full_size_rollout."""
     from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
     from py4cast_tpu_torch.training import AutoRegressiveModule
 
     info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
-    settings = model_settings(name, num_warmup_steps=2)
-    tag = name.lower()
+    settings = model_settings(name, overrides, num_warmup_steps=2)
+    tag = tag or name.lower()
     module = AutoRegressiveModule(settings, info, device="cuda")
     params = module.init_params(torch.Generator().manual_seed(0))
     batch = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=steps, seed=0)
@@ -1183,8 +1282,8 @@ def grid_model_full_size(name: str = "Segformer", grid=(512, 640), steps: int = 
     train = {"pred_steps": 1, "launches": t_counts, "ms_per_train_step_runs": t_runs,
              "ms_per_train_step": step_ms, "peak_mem_bytes": t_peak, "losses": losses,
              "profile": t_profile}
-    return {"model": name, "grid": list(grid), "batch": 1,
-            "params": module.num_params(params), "predict": predict, "train": train}
+    return {"model": name, "settings": settings.settings_init_args, "grid": list(grid),
+            "batch": 1, "params": module.num_params(params), "predict": predict, "train": train}
 
 
 # ------------------------------------------------------------------ phase 14
@@ -1384,12 +1483,10 @@ def cli_predict_gribs() -> dict:
     every GRIB field read back equals the .npy predictions (graph layout,
     put back on the grid) within the simple packing's quantum."""
     import shutil
-    from types import SimpleNamespace
 
     from py4cast_tpu_torch import cli
     from py4cast_tpu_torch.datasets import get_datasets
     from py4cast_tpu_torch.io import grib2, outputs
-    from py4cast_tpu_torch.models import get_model_kls_and_settings
 
     test_ds = get_datasets("dummy", 2, 1, 3)[2]
     grid, names = test_ds.grid, test_ds.dataset_info.output_feature_names
@@ -1416,9 +1513,7 @@ def cli_predict_gribs() -> dict:
     counts = read_counts()
     preds = np.concatenate([np.load(p) for p in sorted((run / "predictions").glob("batch_*.npy"))])
     n, steps = preds.shape[:2]
-    _, ms = get_model_kls_and_settings("GraphLAM", dict(GRAPHLAM_ARGS))
-    graph = SimpleNamespace(settings=SimpleNamespace(model_name="GraphLAM"), model_settings=ms)
-    want = expected_launches(graph, -(-n // 8) * steps, 0)
+    want = cli_launches("GraphLAM", GRAPHLAM_ARGS, "predict")
     if counts != want:
         raise AssertionError(f"cli predict launches {counts}, expected {want}")
     preds = preds.reshape(n, steps, grid.x, grid.y)
@@ -1519,6 +1614,13 @@ def main(argv=None) -> int:
             log(f"  one 512x640 train step's backward (2 x each stage): kernel "
                 f"{k['model_backward_ms']:.4f} ms, library {k['model_backward_library_ms']:.4f} ms, "
                 f"bound {k['model_backward_bound_ms']:.4f} ms")
+        for key in ("unetrpp_model_call", "unetrpp_model_backward"):
+            if f"{key}_ms" in k:
+                log(f"  {key.replace('_', ' ')} at 512x640 (15 launches): kernel "
+                    f"{k[key + '_ms']:.4f} ms, library {k[key + '_library_ms']:.4f} ms, "
+                    f"bound {k[key + '_bound_ms']:.4f} ms")
+        if k.get("slower_than_library"):
+            log(f"  slower than the library at: {', '.join(k['slower_than_library'])}")
 
     if only is not None:
         log(card)
@@ -1614,11 +1716,43 @@ def main(argv=None) -> int:
     observers["cli_gribs"] = cli_predict_gribs()
     log(f"cli predict gribs: {json.dumps(observers['cli_gribs'])}")
 
+    # phase 15: UNet (no hand kernel: every count stays 0) on Dummy,
+    # predict and fit, the CLI with unet.yaml; 512x640 predict and train
+    # step
+    plain_dummy = predict_dummy(model_settings("UNet"))
+    log(f"unet predict dummy: {json.dumps(plain_dummy)}")
+    plain_fit = train_dummy("UNet")
+    log(f"unet fit dummy: {json.dumps(plain_fit)}")
+    plain_fit["cli"] = cli_dummy("unet", want=lambda sub: cli_launches("UNet", UNET_ARGS, sub))
+    log(f"unet cli dummy: {json.dumps(plain_fit['cli'])}")
+    plain_full = grid_model_full_size("UNet")
+    log(f"unet 512x640: {json.dumps(plain_full)}")
+
+    # phase 16: UNetRPP on kernels c-fwd and c-bwd (flash_attn) on Dummy,
+    # predict and fit; the CLI with unetrpp.yaml as shipped (torch, every
+    # count 0) and its fit with flash_attn; 512x640 with both codes
+    rpp_dummy = predict_dummy(model_settings("UNetRPP"))
+    log(f"unetrpp predict dummy: {json.dumps(rpp_dummy)}")
+    rpp_fit = train_dummy("UNetRPP")
+    log(f"unetrpp fit dummy: {json.dumps(rpp_fit)}")
+    rpp_fit["cli"] = cli_dummy(
+        "unetrpp", want=lambda sub: cli_launches("UNetRPP", UNETRPP_ARGS, sub))
+    log(f"unetrpp cli dummy (as shipped, torch): {json.dumps(rpp_fit['cli'])}")
+    rpp_fit["cli_flash_attn"] = cli_dummy(
+        "unetrpp", ["--model.settings_init_args.attention_code", "flash_attn"], ("fit",),
+        want=lambda sub: cli_launches("UNetRPP", MODEL_ARGS["UNetRPP"], sub))
+    log(f"unetrpp cli dummy fit (flash_attn): {json.dumps(rpp_fit['cli_flash_attn'])}")
+    rpp_full = {code: grid_model_full_size("UNetRPP", overrides={"attention_code": code},
+                                           tag=f"unetrpp_{code}")
+                for code in ("flash_attn", "torch")}
+    for code, row in rpp_full.items():
+        log(f"unetrpp 512x640 {code}: {json.dumps(row)}")
+
     # each model path ran with every count set to 0 just before it and
     # checked just after (a kernel of another path launched fails); a
     # kernel's launches are the sum over the paths that run it
-    fits = (fit, seg_fit, unet_fit, hilam_fit, par_fit)
-    predicts = (dummy, seg_dummy, unet_dummy, hilam_dummy, par_dummy)
+    fits = (fit, seg_fit, unet_fit, hilam_fit, par_fit, plain_fit, rpp_fit)
+    predicts = (dummy, seg_dummy, unet_dummy, hilam_dummy, par_dummy, plain_dummy, rpp_dummy)
     for k in kernels:
         k["launches"] = sum(f["launches"][k["name"]] for f in fits)
         k["launches_predict"] = sum(d["launches"][k["name"]] for d in predicts)
@@ -1636,6 +1770,9 @@ def main(argv=None) -> int:
          "hilam_full_size": hilam_full, "hilam_full_size_train": hilam_train,
          "hilamparallel_predict_dummy": par_dummy, "hilamparallel_fit_dummy": par_fit,
          "hilamparallel_full_size": par_full, "observers": observers,
+         "unet_predict_dummy": plain_dummy, "unet_fit_dummy": plain_fit,
+         "unet_full_size": plain_full, "unetrpp_predict_dummy": rpp_dummy,
+         "unetrpp_fit_dummy": rpp_fit, "unetrpp_full_size": rpp_full,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,20 +1,32 @@
 """Load the JAX package's model variables into the port.
 
 The port's modules carry the JAX param tree's names, so the conversion
-is a walk over that tree with three rules:
+is a walk over that tree with these rules:
 
-- a ``kernel`` is converted by its rank: a Flax ``Dense`` kernel (in,
-  out) is transposed to the torch ``Linear`` weight (out, in); a Flax
-  ``Conv`` kernel HWIO (kh, kw, in / groups, out) becomes the torch
-  ``Conv2d`` weight OIHW with ``permute(3, 2, 0, 1)`` (a depthwise
-  (3, 3, 1, C) kernel becomes (C, 1, 3, 3)); any other rank raises;
+- the ``kernel`` of a Flax ``ConvTranspose_*`` module, HWIO (kh, kw,
+  in, out) with ``transpose_kernel=False``, becomes the torch
+  ``ConvTranspose2d`` weight (in, out, kh, kw) flipped in both spatial
+  axes (``models.base.FlaxConvTranspose2d`` says why); it is recognised
+  by its module's name, since its rank is a Conv kernel's;
+- any other ``kernel`` is converted by its rank: a Flax ``Dense``
+  kernel (in, out) is transposed to the torch ``Linear`` weight (out,
+  in); a Flax ``Conv`` kernel HWIO (kh, kw, in / groups, out) becomes
+  the torch ``Conv2d`` weight OIHW with ``permute(3, 2, 0, 1)`` (a
+  depthwise (3, 3, 1, C) kernel becomes (C, 1, 3, 3)); any other rank
+  raises;
 - a ``LayerNorm`` or ``GroupNorm`` ``scale`` is the torch norm's
   ``weight``;
 - a top-level ``pos_embed`` (HalfUNet's ``absolute_pos_embed``) keeps
-  its name and its (1, H, W, 1) layout;
-- the processor's params carry a leading ``processor_layers`` axis
-  (``nn.scan`` stacks them); each slice goes to one layer of the
-  port's ``processor`` ModuleList.
+  its name and its (1, H, W, 1) layout, and so do an ``EPA_*``
+  module's ``temperature`` (heads, 1, 1), ``proj_k`` and ``proj_v``
+  (tokens, proj);
+- params stacked by ``nn.scan`` carry a leading layer axis; each slice
+  goes to one entry of the port's ModuleList of the same name.
+  GraphLAM's ``processor`` keeps its scanned step's name
+  (``processor.0.block...``); a UNetRPP encoder stage of depth > 1
+  (``enc_stage{i}/block/...``) is a ModuleList of EPABlocks, so the
+  step's ``block`` goes (``enc_stage0.0.EPA_0...``). A stage of depth 1
+  is a plain EPABlock, with no axis and no ``block``.
 
 The fused-kernel param modules of the JAX package (``_DenseParams``,
 ``_LNParams``, ``_NodeMLPParams``) register the same names (``w_e``,
@@ -24,6 +36,7 @@ so one walk covers both.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -31,9 +44,16 @@ import torch
 
 #: top-level param collections whose leaves are stacked over layers
 SCANNED = ("processor",)
+#: top-level scanned stages whose step (``block``) the port does not keep
+SCANNED_STAGE = re.compile(r"enc_stage\d+")
+#: an EPA module's own leaves, kept as they are
+EPA_LEAVES = ("temperature", "proj_k", "proj_v")
 
 
 def _kernel_to_torch(arr: np.ndarray, path) -> torch.Tensor:
+    if arr.ndim == 4 and len(path) > 1 and path[-2].startswith("ConvTranspose"):
+        # HWIO -> (in, out, kh, kw), flipped in both spatial axes
+        return torch.tensor(np.ascontiguousarray(arr[::-1, ::-1].transpose(2, 3, 0, 1)))
     if arr.ndim == 2:  # Dense (in, out) -> Linear (out, in)
         return torch.tensor(arr.T)
     if arr.ndim == 4:  # Conv HWIO -> Conv2d OIHW
@@ -65,20 +85,32 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             out[".".join(mods + ["weight"])] = torch.tensor(arr)
         elif name == "bias":
             out[".".join(mods + ["bias"])] = torch.tensor(arr)
-        elif name == "pos_embed" and not mods:
-            out[name] = torch.tensor(arr)
+        elif (name == "pos_embed" and not mods) or (
+                name in EPA_LEAVES and mods and mods[-1].startswith("EPA_")):
+            out[".".join(mods + [name])] = torch.tensor(arr)
         else:
-            raise ValueError(f"unexpected parameter {'/'.join(path)}")
+            raise ValueError(
+                f"unexpected parameter {name!r} of module {'/'.join(mods) or '(top level)'}: "
+                "convert.py knows kernel, scale, bias, a top-level pos_embed and an EPA "
+                f"module's {', '.join(EPA_LEAVES)}")
 
-    def walk(node, path, layer_axis):
+    def walk(node, path, scan):
+        """``scan``: how many names after the first a scanned leaf drops
+        (0 keeps the step's name, 1 drops ``block``), None if not scanned."""
         if isinstance(node, Mapping):
             for k, v in node.items():
-                walk(v, path + [str(k)], layer_axis or (not path and k in SCANNED))
-        elif layer_axis:
+                if not path and k in SCANNED:
+                    scan = 0
+                elif not path:
+                    is_stage = (SCANNED_STAGE.fullmatch(str(k)) and isinstance(v, Mapping)
+                                and set(v) == {"block"})
+                    scan = 1 if is_stage else None
+                walk(v, path + [str(k)], scan)
+        elif scan is not None:
             for i in range(node.shape[0]):
-                leaf([path[0], str(i)] + path[1:], node[i])
+                leaf([path[0], str(i)] + path[1 + scan:], node[i])
         else:
             leaf(path, node)
 
-    walk(tree, [], False)
+    walk(tree, [], None)
     return out

@@ -1,9 +1,9 @@
 """Model registry.
 
-GraphLAM, HiLAM, HiLAMParallel, HalfUNet and Segformer are ported so
-far. The other names of the JAX package's zoo are known here, so that
-asking for one says it is not ported yet instead of that it does not
-exist.
+GraphLAM, HiLAM, HiLAMParallel, HalfUNet, UNet, Segformer and UNetRPP
+are ported so far. The other names of the JAX package's zoo are known
+here, so that asking for one says it is not ported yet instead of that
+it does not exist.
 """
 
 from __future__ import annotations
@@ -13,15 +13,15 @@ from typing import Optional, Tuple
 from py4cast_tpu_torch.models.base import ModelBase, ModelType, settings_from_dict
 from py4cast_tpu_torch.models.graph import GraphLAM, HiLAM, HiLAMParallel
 from py4cast_tpu_torch.models.segformer import Segformer
-from py4cast_tpu_torch.models.unet import HalfUNet
+from py4cast_tpu_torch.models.unet import HalfUNet, UNet
+from py4cast_tpu_torch.models.unetrpp import UNetRPP
 
 registry: dict = {"GraphLAM": GraphLAM, "HiLAM": HiLAM, "HiLAMParallel": HiLAMParallel,
-                  "HalfUNet": HalfUNet, "Segformer": Segformer}
+                  "HalfUNet": HalfUNet, "UNet": UNet, "Segformer": Segformer,
+                  "UNetRPP": UNetRPP}
 
 #: models of the JAX package the port does not have yet (ROADMAP.md, queue 1)
-NOT_YET_PORTED = (
-    "UNet", "CustomUNet", "DeepLabV3", "DeepLabV3Plus", "SwinUNetR", "UNetRPP",
-)
+NOT_YET_PORTED = ("CustomUNet", "DeepLabV3", "DeepLabV3Plus", "SwinUNetR")
 
 all_nn_architectures = tuple(registry)
 

@@ -43,6 +43,16 @@ def settings_from_dict(settings_kls, d: Optional[dict]):
     return settings_kls(**coerced)
 
 
+@torch.no_grad()
+def flax_trunc_normal_(param: torch.Tensor, generator: torch.Generator,
+                       std: float = 0.02) -> None:
+    """Flax's ``truncated_normal(std)`` in place: a normal of ``std`` cut
+    at ±2 std, drawn on the generator's device, then copied."""
+    w = torch.empty(param.shape, device=generator.device)
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+    param.copy_(w)
+
+
 class ModelBase(nn.Module):
     """Base class for the port's models.
 
@@ -113,6 +123,40 @@ class FlaxConv2d(nn.Conv2d):
         if top or bottom or left or right:
             y = F.pad(y, (left, right, top, bottom))
         return super().forward(y).permute(0, 2, 3, 1)
+
+
+class FlaxConvTranspose2d(nn.ConvTranspose2d):
+    """A Flax ``nn.ConvTranspose`` (``padding="SAME"``,
+    ``transpose_kernel=False``) on an NHWC tensor, for the one kind the
+    zoo uses: kernel equal to stride, where the output is the input's
+    size times the stride and y[s·i + r] = x[i] · w_flax[k − 1 − r] on
+    each axis. The weight is torch's (in, out, kh, kw), which makes
+    y[s·i + r] = x[i] · w[r]; ``convert.params_from_jax`` flips Flax's
+    HWIO kernel in both spatial axes onto it. Another (kernel, stride)
+    pair raises: its SAME padding is not worked out here."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int):
+        if kernel != stride:
+            raise ValueError(
+                f"FlaxConvTranspose2d supports kernel == stride only (the zoo's "
+                f"upsampling), got kernel {kernel}, stride {stride}")
+        super().__init__(in_channels, out_channels, kernel, stride=stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: inverted dropout, each element kept with
+    probability 1 − ``rate`` and scaled by 1 / (1 − rate). Active only
+    when a generator is given (JAX's ``deterministic=False`` with a
+    ``dropout`` rng), which must live on ``x``'s device; the keep mask is
+    drawn from it, never from the global RNG. ``F.dropout`` takes no
+    generator."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 GN_EPS = 1e-6  # flax nn.GroupNorm default; torch's is 1e-5

@@ -1,13 +1,14 @@
-"""The UNet family of the JAX package's ``models/unet.py``, NHWC:
-HalfUNet with its ConvBlock and GhostBlock, the nearest upsampling, and
-the bilinear resize that Segformer's decoder shares. UNet and CustomUNet
-are not ported yet (ROADMAP.md, queue 1 item 10).
+"""The UNet family of the JAX package's ``models/unet.py``, NHWC: UNet
+and HalfUNet with their ConvBlock and GhostBlock, the nearest
+upsampling, and the bilinear resize that Segformer's and UNetRPP's
+decoders share. CustomUNet is not ported yet (ROADMAP.md, queue 1 item
+10).
 
 Submodules carry Flax's auto names (``ConvBlock_0/Conv_1``,
-``GhostBlock_2/GroupNorm_3``, ``Conv_0``, the top-level ``pos_embed``),
-so ``convert.params_from_jax`` maps the JAX variables one to one. No
-hand kernel runs here: cuDNN runs the convolutions (TF32 off inside
-every step, ``utils.exact_fp32``)."""
+``GhostBlock_2/GroupNorm_3``, ``ConvTranspose_0``, ``Conv_0``, the
+top-level ``pos_embed``), so ``convert.params_from_jax`` maps the JAX
+variables one to one. No hand kernel runs here: cuDNN runs the
+convolutions (TF32 off inside every step, ``utils.exact_fp32``)."""
 
 from __future__ import annotations
 
@@ -20,10 +21,12 @@ from torch import nn
 
 from py4cast_tpu_torch.models.base import (
     FlaxConv2d,
+    FlaxConvTranspose2d,
     ModelBase,
     ModelType,
     _gn,
     crop_to,
+    flax_trunc_normal_,
     get_activation,
     pad_to_multiple,
 )
@@ -100,6 +103,60 @@ def _bilinear_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 
 @dataclass(frozen=True)
+class UNetSettings:
+    init_features: int = 64
+    depth: int = 4
+    autopad_enabled: bool = True
+
+
+class UNet(ModelBase):
+    """The classic UNet (reference settings: config/CLI/model/unet.yaml):
+    ``depth`` levels of ConvBlock and 2x2 max pool with the width doubled
+    each level, a ConvBlock at the bottom, then per level a 2x2 stride-2
+    transposed convolution, the skip concatenated after it, and a
+    ConvBlock; a 1x1 convolution to the outputs."""
+
+    settings_kls = UNetSettings
+    model_type = ModelType.CONVOLUTIONAL
+
+    def __init__(self, num_input_features: int, num_output_features: int,
+                 input_shape: Tuple[int, ...], settings: UNetSettings = UNetSettings()):
+        super().__init__(num_input_features, num_output_features, input_shape, settings)
+        f, depth = settings.init_features, settings.depth
+        # ConvBlock_0..depth-1 down, ConvBlock_depth at the bottom, then
+        # ConvBlock_depth+1.. up, as Flax numbers them in call order
+        in_ch = num_input_features
+        for level in range(depth + 1):
+            self.add_module(f"ConvBlock_{level}", ConvBlock(in_ch, f * 2 ** level))
+            in_ch = f * 2 ** level
+        for j, level in enumerate(reversed(range(depth))):
+            self.add_module(f"ConvTranspose_{j}",
+                            FlaxConvTranspose2d(f * 2 ** (level + 1), f * 2 ** level, 2, 2))
+            self.add_module(f"ConvBlock_{depth + 1 + j}",
+                            ConvBlock(2 * f * 2 ** level, f * 2 ** level))
+        self.Conv_0 = FlaxConv2d(f, num_output_features, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.settings
+        if s.autopad_enabled:
+            x, hw = pad_to_multiple(x, 2 ** s.depth)
+        skips = []
+        for level in range(s.depth):
+            x = getattr(self, f"ConvBlock_{level}")(x)
+            skips.append(x)
+            x = max_pool_2x2(x)
+        x = getattr(self, f"ConvBlock_{s.depth}")(x)
+        for j, level in enumerate(reversed(range(s.depth))):
+            x = getattr(self, f"ConvTranspose_{j}")(x)
+            x = torch.cat([x, skips[level]], dim=-1)
+            x = getattr(self, f"ConvBlock_{s.depth + 1 + j}")(x)
+        x = self.Conv_0(x)
+        if s.autopad_enabled:
+            x = crop_to(x, hw)
+        return x
+
+
+@dataclass(frozen=True)
 class HalfUNetSettings:
     num_filters: int = 64
     dilation: int = 1
@@ -134,8 +191,12 @@ class HalfUNet(ModelBase):
         self.activation = get_activation(s.last_activation)
         self.block_name = name
         if s.absolute_pos_embed:
-            # drawn as flax's truncated_normal(0.02) by training.init_weights
             self.pos_embed = nn.Parameter(torch.zeros(1, *self.input_shape, 1))
+
+    def draw_params(self, generator: torch.Generator) -> None:
+        """Flax's initializer for ``pos_embed``: truncated_normal(0.02)."""
+        if self.settings.absolute_pos_embed:
+            flax_trunc_normal_(self.pos_embed, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.settings

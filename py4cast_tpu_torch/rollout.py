@@ -15,9 +15,22 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 TRAINING_STRATEGIES = ("scaled_ar", "diff_ar", "downscaling_only")
+#: the dropout seeds' own offset, so they stay apart from any other
+#: stream folded from the same keys (the JAX package's fold_in(step_rng,
+#: 1009 + k) beside mask_ratio's fold_in(step_rng, k))
+DROPOUT_STREAM = 1009
+
+
+def fold_seed(*keys: int) -> int:
+    """A 63-bit seed that depends on every one of ``keys`` (non-negative
+    ints), through numpy's SeedSequence hash: the port's counterpart of
+    ``jax.random.fold_in``. Pure host arithmetic, no RNG state read."""
+    state = np.random.SeedSequence([int(k) for k in keys]).generate_state(1, np.uint64)[0]
+    return int(state >> np.uint64(1))
 
 
 @dataclass(frozen=True)
@@ -141,6 +154,7 @@ def rollout(
     cfg: RolloutConfig,
     num_pred_steps: int,
     generator: Optional[torch.Generator] = None,
+    dropout_seed: Optional[int] = None,
 ) -> torch.Tensor:
     """Run the full AR rollout; returns predictions (B, T, *spatial, F).
 
@@ -156,6 +170,10 @@ def rollout(
       step_diff_mean/std: (F,) diff stats (scaled_ar only).
       num_pred_steps: number of AR steps (== forcing.shape[1]).
       generator: draws the block masks when ``cfg.mask_ratio`` > 0.
+      dropout_seed: when given (train rollouts of a model with an active
+        dropout rate), model_apply takes a second argument, the seed of a
+        fresh generator for each (AR step t, inter-step k):
+        ``fold_seed(dropout_seed, t, DROPOUT_STREAM + k)``.
     """
     inference = outputs is None
     force_border = cfg.force_border and not inference
@@ -182,11 +200,14 @@ def rollout(
                 border_state = torch.nan_to_num(border_state, nan=0.0)
 
         new_state = None
-        for _ in range(cfg.num_inter_steps):
+        for k in range(cfg.num_inter_steps):
             x = build_x(prev_states, forcing_t, cfg)
             if cfg.mask_ratio != 0.0:
                 x = mask_blocks(x, generator, cfg.mask_ratio)
-            y = model_apply(x)
+            if dropout_seed is not None:
+                y = model_apply(x, fold_seed(dropout_seed, t, DROPOUT_STREAM + k))
+            else:
+                y = model_apply(x)
 
             last_prev = prev_states[:, -1]
             if cfg.mask_on_nan:

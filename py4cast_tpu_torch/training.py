@@ -59,7 +59,13 @@ from py4cast_tpu_torch.plots import (
     can_draw,
     pyplot,
 )
-from py4cast_tpu_torch.rollout import RolloutConfig, common_features_index, rollout
+from py4cast_tpu_torch.rollout import (
+    DROPOUT_STREAM,
+    RolloutConfig,
+    common_features_index,
+    fold_seed,
+    rollout,
+)
 from py4cast_tpu_torch.utils import exact_fp32, resolve_device, str_to_dtype
 
 Params = Dict[str, torch.Tensor]
@@ -116,16 +122,21 @@ class TrainingSettings:
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Draw initial weights in place with the JAX package's initializers
-    (Flax's defaults): Dense and Conv kernels lecun-normal (truncated,
-    fan_in = in_features, or in_channels / groups · kh · kw for a conv),
-    biases zero, LayerNorm and GroupNorm scale one and bias zero, and a
-    top-level ``pos_embed`` truncated normal of std 0.02. Draws on the
-    generator's device, then copies."""
+    (Flax's defaults): Dense, Conv and ConvTranspose kernels lecun-normal
+    (truncated, fan_in = in_features, or in_channels / groups · kh · kw
+    for a conv, in_channels · kh · kw for a transposed one), biases zero,
+    LayerNorm and GroupNorm scale one and bias zero, then a module's own
+    leaves through its ``draw_params(generator)`` (HalfUNet's
+    ``pos_embed``; EPA's ``temperature``, ``proj_k``, ``proj_v``). Draws
+    on the generator's device, then copies."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d)):
-                # weight (out, in) or (out, in / groups, kh, kw)
-                fan_in = math.prod(mod.weight.shape[1:])
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                # weight (out, in), (out, in / groups, kh, kw), or (in, out,
+                # kh, kw) for a transposed conv
+                shape = mod.weight.shape
+                fan_in = (shape[0] * math.prod(shape[2:]) if isinstance(mod, nn.ConvTranspose2d)
+                          else math.prod(shape[1:]))
                 std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
                 w = torch.empty(mod.weight.shape, device=generator.device)
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
@@ -135,11 +146,32 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)) and mod.weight is not None:
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-        pos = getattr(model, "pos_embed", None)
-        if isinstance(pos, nn.Parameter):  # flax truncated_normal(0.02): ±2 std
-            w = torch.empty(pos.shape, device=generator.device)
-            nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=generator)
-            pos.copy_(w)
+        for mod in model.modules():
+            if hasattr(mod, "draw_params"):
+                mod.draw_params(generator)
+
+
+def _dropout_active(model_settings) -> bool:
+    """Whether any dropout field the settings class declares in
+    ``DROPOUT_FIELDS`` is nonzero. A nonzero field with "drop" in its name
+    that the class does not declare raises, so that a model's dropout
+    cannot silently stay off in training."""
+    declared = tuple(getattr(type(model_settings), "DROPOUT_FIELDS", ()))
+    if dataclasses.is_dataclass(model_settings):
+        undeclared = [
+            f.name for f in dataclasses.fields(model_settings)
+            if "drop" in f.name and f.name not in declared
+            and float(getattr(model_settings, f.name) or 0.0) > 0.0
+        ]
+        if undeclared:
+            raise ValueError(
+                f"{type(model_settings).__name__} has nonzero "
+                f"dropout-like fields {undeclared} not listed in its "
+                "DROPOUT_FIELDS — declare them so train-time rollouts "
+                "thread an rng (otherwise the rate would be a silent "
+                "no-op)."
+            )
+    return any(float(getattr(model_settings, f) or 0.0) > 0.0 for f in declared)
 
 
 def warmup_cosine_schedule(peak: float, warmup_steps: int, decay_steps: int,
@@ -254,6 +286,7 @@ class AutoRegressiveModule:
             settings.model_name, settings.settings_init_args
         )
         self.model_settings = model_settings
+        self._dropout_active = _dropout_active(model_settings)
         self.is_graph = kls.model_type == ModelType.GRAPH
         if self.is_graph and settings.mask_ratio > 0:
             raise ValueError(
@@ -424,8 +457,17 @@ class AutoRegressiveModule:
         return inputs, forcing, outputs
 
     def _model_apply(self, params: Params):
-        def apply(x):
-            return functional_call(self.model, params, (x,))
+        """``apply(x, seed=None)``: the model at ``params``; with a seed,
+        its dropout draws from a fresh generator seeded with it, made
+        inside ``apply`` so that a recomputed forward draws the same
+        masks."""
+        device = self.device
+
+        def apply(x, seed=None):
+            if seed is None:
+                return functional_call(self.model, params, (x,))
+            generator = torch.Generator(device=device).manual_seed(seed)
+            return functional_call(self.model, params, (x,), {"generator": generator})
 
         if self.settings.use_checkpointing or getattr(self.model_settings, "use_checkpointing",
                                                       False):
@@ -433,17 +475,29 @@ class AutoRegressiveModule:
             # its activations (the JAX package's jax.checkpoint)
             from torch.utils.checkpoint import checkpoint
 
-            return lambda x: checkpoint(apply, x, use_reentrant=False)
+            return lambda x, seed=None: checkpoint(apply, x, seed, use_reentrant=False)
         return apply
 
+    def _dropout_seed(self, state: Union[TrainState, Params]) -> Optional[int]:
+        """The seed of a train step's dropout, None when no dropout rate
+        is active: the run's seed folded with the dropout stream's offset
+        and the micro-batch's index (``TrainState``'s optimizer and micro
+        steps, 0 for bare params), so every train step draws new masks and
+        a resumed run draws the ones an unbroken run would have."""
+        if not self._dropout_active:
+            return None
+        index = (state.step * state.accumulate + state.micro_step
+                 if isinstance(state, TrainState) else 0)
+        return fold_seed(self.settings.seed, DROPOUT_STREAM, index)
+
     def _rollout(self, params: Params, inputs, forcing, outputs, num_pred_steps: int,
-                 generator=None):
+                 generator=None, dropout_seed: Optional[int] = None):
         buf = self._buffers
         return rollout(
             self._model_apply(params), inputs, forcing, outputs,
             buf["grid_statics"], buf["border_mask"],
             buf["step_diff_mean"], buf["step_diff_std"],
-            self.rollout_cfg, num_pred_steps, generator,
+            self.rollout_cfg, num_pred_steps, generator, dropout_seed,
         )
 
     def _mask_and_target(self, outputs):
@@ -454,10 +508,11 @@ class AutoRegressiveModule:
         return torch.ones_like(outputs), outputs
 
     def _batch_loss(self, params: Params, inputs, forcing, outputs, num_pred_steps: int,
-                    generator=None):
+                    generator=None, dropout_seed: Optional[int] = None):
         """(mean loss, (preds, per-step loss)). The rollout back-propagates
         through every AR step, as the JAX package's does."""
-        preds = self._rollout(params, inputs, forcing, outputs, num_pred_steps, generator)
+        preds = self._rollout(params, inputs, forcing, outputs, num_pred_steps, generator,
+                              dropout_seed)
         mask, target = self._mask_and_target(outputs)
         per_step = self.loss(self._named(preds), self._named(target), mask,
                              interior_mask=self._buffers["interior_mask"])
@@ -477,12 +532,14 @@ class AutoRegressiveModule:
     def loss_and_grads(self, state: Union[TrainState, Params], batch: ItemBatch,
                        generator: Optional[torch.Generator] = None):
         """(loss, {name: grad}) of one batch's training loss at the
-        state's parameters, leaving the state untouched."""
+        state's parameters, leaving the state untouched; dropout, if a
+        rate is active, draws the masks ``train_step`` would at this
+        state."""
         leaves = {k: v.detach().clone().requires_grad_(True)
                   for k, v in self._place(_params_of(state)).items()}
         inputs, forcing, outputs = self._batch_arrays(batch, with_outputs=True)
         loss, _ = self._batch_loss(leaves, inputs, forcing, outputs, batch.num_pred_steps,
-                                   generator)
+                                   generator, self._dropout_seed(state))
         # a parameter the loss does not reach (HiLAMParallel's last layers
         # above level 0) gets zeros, as jax.grad gives it
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
@@ -494,10 +551,12 @@ class AutoRegressiveModule:
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Forward, backward and (every ``accumulate_grad_batches``
         micro-batches) one AdamW step on the mean of the accumulated
-        gradients. Updates ``state`` in place; returns the batch loss."""
+        gradients. Updates ``state`` in place; returns the batch loss.
+        The only step with dropout (``_dropout_seed``); eval, test and
+        predict are deterministic."""
         inputs, forcing, outputs = self._batch_arrays(batch, with_outputs=True)
         loss, _ = self._batch_loss(state.params, inputs, forcing, outputs,
-                                   batch.num_pred_steps, generator)
+                                   batch.num_pred_steps, generator, self._dropout_seed(state))
         loss.backward()  # sums into each parameter's .grad
         state.micro_step += 1
         if state.micro_step == state.accumulate:

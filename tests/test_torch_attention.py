@@ -85,6 +85,36 @@ def test_function_gradients_match_the_pallas_kernel(bh, lq, lk, d):
         _close(a.numpy(), b, GRAD_BAR, f"d{name}")
 
 
+#: (BH, Lq, Lk, D) at UNetRPP's new head dims (8 at its encoder's first
+#: stage, 16 at the second, 128 in the decoder's deepest block) and its
+#: K/V lengths (projections of 4 tokens on Dummy's deepest stage, 32 and
+#: 64 at full size); Lq not a multiple of the TPU kernel's block
+EPA_SHAPES = [(2, 40, lk, d) for d in (8, 16, 128) for lk in (4, 32, 64)]
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", EPA_SHAPES)
+def test_plain_matches_the_pallas_kernel_at_unetrpp_head_dims(bh, lq, lk, d):
+    """The plain forward and ShortKVAttentionFn's gradients on CPU
+    tensors against the interpret-mode kernel and jax.grad through it,
+    at the bars above."""
+    q, k, v = _qkv(bh, lq, lk, d, seed=d + lk)
+    g = np.random.default_rng(d).standard_normal((bh, lq, d)).astype(np.float32)
+    scale = 1.0 / d ** 0.5
+
+    def loss(q, k, v):
+        return jnp.sum(jax_attention.short_kv_attention(q, k, v, scale, 128, True) * g)
+
+    want = jax_attention.short_kv_attention(q, k, v, scale, 128, True)
+    got = short_kv_attention_plain(*map(torch.from_numpy, (q, k, v)), scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+    want_grads = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = ShortKVAttentionFn.apply(tq, tk, tv, scale)
+    got_grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (tq, tk, tv))
+    for name, a, b in zip("qkv", got_grads, want_grads):
+        _close(a.numpy(), b, GRAD_BAR, f"d{name}")
+
+
 def test_plain_backward_is_the_gradient_of_the_plain_forward():
     """The hand-written formulas against autograd, in fp64."""
     q, k, v = (torch.from_numpy(a).double().requires_grad_() for a in _qkv(2, 40, 7, 16, 4))

@@ -157,10 +157,19 @@ def test_segformer_yaml_fits_and_tests(tmp_path):
     assert np.isfinite(scores["test_mean_loss"])
 
 
-#: halfunet.yaml, hilam.yaml and hilamparallel.yaml, cut in width and
-#: depth for the CPU
+#: halfunet.yaml, hilam.yaml, hilamparallel.yaml, unet.yaml and
+#: unetrpp.yaml, cut in width and depth for the CPU
 MODEL_YAMLS = {
     "halfunet": (["--model.settings_init_args.num_filters", "8"], "HalfUNet", "num_filters", 8),
+    "unet": (["--model.settings_init_args.init_features", "8",
+              "--model.settings_init_args.depth", "2"], "UNet", "init_features", 8),
+    "unetrpp": (["--model.settings_init_args.hidden_size", "16",
+                 "--model.settings_init_args.num_heads_encoder", "2",
+                 "--model.settings_init_args.num_heads_decoder", "2",
+                 "--model.settings_init_args.depths", "[2, 1]",
+                 "--model.settings_init_args.encoder_proj_sizes", "[16, 8]",
+                 "--model.settings_init_args.decoder_proj_size", "8"], "UNetRPP", "hidden_size",
+                16),
     "hilam": (["--model.settings_init_args.hidden_dims", "8",
                "--model.settings_init_args.processor_layers", "1"], "HiLAM", "hidden_dims", 8),
     "hilamparallel": (["--model.settings_init_args.hidden_dims", "8",
@@ -171,8 +180,8 @@ MODEL_YAMLS = {
 
 @pytest.mark.parametrize("model_yaml", sorted(MODEL_YAMLS))
 def test_model_yaml_fits_tests_and_predicts(model_yaml, tmp_path):
-    """config/CLI/model/{halfunet,hilam,hilamparallel}.yaml through fit,
-    then test and predict from the checkpoint it wrote."""
+    """config/CLI/model/{halfunet,hilam,hilamparallel,unet,unetrpp}.yaml
+    through fit, then test and predict from the checkpoint it wrote."""
     cut, name, key, value = MODEL_YAMLS[model_yaml]
     configs = [*CONFIGS[:4], "--config", str(ROOT / f"config/CLI/model/{model_yaml}.yaml"),
                "--trainer.device", "cpu", "--trainer.save_path", str(tmp_path)]
@@ -188,5 +197,29 @@ def test_model_yaml_fits_tests_and_predicts(model_yaml, tmp_path):
     assert np.isfinite(scores["test_mean_loss"])
     assert cli.main(["predict", *configs, "--trainer.ckpt_path", "last"]) == 0
     arr = np.load(sorted((tmp_path / "predictions").glob("batch_*.npy"))[0])
-    spatial = (64, 64) if name == "HalfUNet" else (64 * 64,)
+    spatial = (64 * 64,) if name.startswith("HiLAM") else (64, 64)
     assert arr.shape == (8, 3, *spatial, 1) and np.isfinite(arr).all()
+
+
+def test_unetrpp_yaml_runs_the_kernel_code_and_dropout(tmp_path):
+    """unetrpp.yaml with attention_code flash_attn (the kernels on the
+    card, their plain versions here) and a nonzero dropout_rate, cut for
+    the CPU: fit trains with dropout and records both settings, and
+    predict runs from its checkpoint (tests/test_torch_unetrpp.py holds
+    predict with dropout to the JAX package's deterministic output)."""
+    cut = MODEL_YAMLS["unetrpp"][0]
+    configs = [*CONFIGS[:4], "--config", str(ROOT / "config/CLI/model/unetrpp.yaml"),
+               "--trainer.device", "cpu", *cut,
+               "--model.settings_init_args.attention_code", "flash_attn",
+               "--model.settings_init_args.dropout_rate", "0.1"]
+    assert cli.main(["fit", *configs, "--trainer.save_path", str(tmp_path),
+                     "--data.num_workers", "1", "--trainer.max_epochs", "1",
+                     "--trainer.limit_train_batches", "2", "--trainer.limit_val_batches",
+                     "1"]) == 0
+    manifest = json.loads((tmp_path / "checkpoints" / "manifest.json").read_text())
+    assert manifest["model_settings"]["attention_code"] == "flash_attn"
+    assert manifest["model_settings"]["dropout_rate"] == 0.1
+    assert cli.main(["predict", *configs, "--trainer.save_path", str(tmp_path),
+                     "--trainer.ckpt_path", "last"]) == 0
+    arr = np.load(sorted((tmp_path / "predictions").glob("batch_*.npy"))[0])
+    assert arr.shape == (8, 3, 64, 64, 1) and np.isfinite(arr).all()

@@ -203,7 +203,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(both_test_sets):
 
 def test_unported_names_raise(both_test_sets):
     with pytest.raises(ValueError, match="not yet ported"):
-        AutoRegressiveModule(TrainingSettings(model_name="UNet"),
+        AutoRegressiveModule(TrainingSettings(model_name="SwinUNetR"),
                              both_test_sets[1].dataset_info, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1"):
         port_get_datasets("titan", 2, 1, 1)
