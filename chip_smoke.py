@@ -104,7 +104,23 @@ non-zero exit code and no result line:
    as shipped (``attention_code: torch``, every count 0) and its fit
    again with ``flash_attn`` (counted); phase 10's 512x640 predict and
    train step with ``flash_attn`` and again with ``torch``;
-17. the script's wall time, one JSON line with every kernel's numbers,
+17. bf16 (``precision: bf16``, the JAX package's mixed precision): (a)
+   the six kernel wrappers on bf16 inputs at phases 3, 3b and 3c's
+   shapes, each launching its kernel: outputs and gradients in the
+   Pallas kernels' dtypes, within one bf16 ulp of the plain version run
+   in fp32 on the same bf16 values and rounded at the same points
+   (weight gradients, fp32, against fp64), a second call bit for bit,
+   and the wrapper's time on bf16 and on fp32 inputs beside the
+   boundary casts' alone; (b) ``Trainer.predict`` and ``Trainer.fit``
+   (resume, test) on Dummy for each of the seven models in bf16: the
+   launch counts of their fp32 phases, fp32 masters and AdamW moments,
+   the card's bf16 predictions within twice the CPU's bf16-vs-fp32 gap
+   of the card's fp32 ones, and one step's gradients within twice the
+   CPU's own bf16 error of the CPU's; (c) the full-size GraphLAM
+   500x500 predict and train step, HalfUNet and UNetRPP (flash_attn)
+   512x640, in bf16 beside their fp32 numbers of phases 5, 7, 11 and
+   16: ms/step, peak memory, device time, idle share, copies and casts;
+18. the script's wall time, one JSON line with every kernel's numbers,
    then the result line.
 
 Each model path runs with every launch count set to 0 just before it
@@ -122,6 +138,7 @@ package is missing. Build outputs go to ``build/`` and long reports to
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -308,6 +325,12 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: float = TOL) 
     if not np.isfinite(err) or err > tol * scale:
         raise AssertionError(f"{name}: max abs diff {err:.3e} exceeds {tol:g} x {scale:.3g}")
     return err
+
+
+def max_abs_diff(a, b) -> float:
+    """The largest |a - b| over two lists of host arrays."""
+    return max(float(np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64)).max())
+               for x, y in zip(a, b))
 
 
 def _rand(rng, *shape, scale=1.0, shift=0.0, device="cuda"):
@@ -830,7 +853,10 @@ def expected_launches(module, forwards: int, backwards: int) -> dict:
     return want
 
 
-def predict_dummy(settings) -> dict:
+def predict_dummy(settings, keep=None) -> dict:
+    """Trainer.predict on Dummy, counted, against the same module on the
+    CPU (fp32: within TOL; under bf16 phase 17 holds them to its own
+    bar). ``keep`` (a dict) receives both predictions as host arrays."""
     from py4cast_tpu_torch.datasets import get_datasets
     from py4cast_tpu_torch.training import AutoRegressiveModule, Trainer, TrainerConfig
 
@@ -861,28 +887,37 @@ def predict_dummy(settings) -> dict:
     cpu_preds = Trainer(TrainerConfig(batch_size=8, device="cpu")).predict(
         cpu_module, test_ds, {k: v.cpu() for k, v in state.items()}
     )
-    err = max(
-        compare("predict (cuda vs cpu)", torch.from_numpy(g.array), torch.from_numpy(c.array))
-        for g, c in zip(preds, cpu_preds)
-    )
-    return {"model": settings.model_name, "launches": counts, "forwards": forwards,
-            "batches": len(preds), "seconds": seconds, "max_abs_err_vs_cpu": err}
+    if keep is not None:
+        keep.update(card=[p.array for p in preds], cpu=[c.array for c in cpu_preds])
+    if module.compute_dtype != torch.float32:
+        err = max_abs_diff([p.array for p in preds], [c.array for c in cpu_preds])
+    else:
+        err = max(
+            compare("predict (cuda vs cpu)", torch.from_numpy(g.array),
+                    torch.from_numpy(c.array))
+            for g, c in zip(preds, cpu_preds)
+        )
+    return {"model": settings.model_name, "precision": settings.precision, "launches": counts,
+            "forwards": forwards, "batches": len(preds), "seconds": seconds,
+            "max_abs_err_vs_cpu": err}
 
 
 # ------------------------------------------------------------------- phase 5
 def full_size_rollout(name: str = "GraphLAM", steps: int = 3, grid=(500, 500),
-                      profile_name: str = "smoke_profile.txt", keep=None) -> dict:
+                      profile_name: str = "smoke_profile.txt", keep=None,
+                      precision: str = "32") -> dict:
     """A graph model at its config's width on bench.py's GNN cell: a
     3-step predict at batch 1, counted, timed, profiled; step 1 against
-    the CPU. ``keep`` (a dict) receives the dataset info, and the
-    predictions and the batch's targets on the host (so they hold no card
-    memory in the phases between), for phase 14."""
+    the CPU (under bf16: its distance from the card's fp32 step 1, see
+    ``step1_against``). ``keep`` (a dict) receives the dataset info, and
+    the predictions and the batch's targets on the host (so they hold no
+    card memory in the phases between), for phase 14."""
     from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
     from py4cast_tpu_torch.training import AutoRegressiveModule
 
     # bench.py's GNN cell: 500x500 grid, 21 weather and 21 forcing features
     info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
-    settings = model_settings(name)
+    settings = model_settings(name, precision=precision)
     t0 = time.perf_counter()
     module = AutoRegressiveModule(settings, info, device="cuda")
     build_s = time.perf_counter() - t0
@@ -915,16 +950,33 @@ def full_size_rollout(name: str = "GraphLAM", steps: int = 3, grid=(500, 500),
     call_ms = float(np.median(runs)) * steps
     profile["device_idle_share"] = max(0.0, 1.0 - profile["device_busy_ms"] / call_ms)
 
-    # step 1 against the CPU module with the same weights (plain path)
     one = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=0)
-    gpu1 = module.predict_step(state, one).array.cpu()
-    cpu_module = AutoRegressiveModule(settings, info, device="cpu")
-    cpu1 = cpu_module.predict_step({k: v.cpu() for k, v in state.items()}, one).array
-    err = compare(f"{name} full-size step 1 (cuda vs cpu)", gpu1, cpu1)
-    return {"model": name, "grid": list(grid), "batch": 1, "steps": steps,
-            "graph_build_s": build_s, "launches": counts,
+    err = step1_against(module, settings, info, state, one, f"{name} full-size")
+    return {"model": name, "precision": precision, "grid": list(grid), "batch": 1,
+            "steps": steps, "graph_build_s": build_s, "launches": counts,
             "ms_per_step_runs": runs, "ms_per_step": float(np.median(runs)),
-            "peak_mem_bytes": peak, "max_abs_err_step1_vs_cpu": err, "profile": profile}
+            "peak_mem_bytes": peak, **err, "profile": profile}
+
+
+def step1_against(module, settings, info, params, one, what) -> dict:
+    """Step 1 on the card against the CPU module with the same weights
+    (plain path), within TOL. Under bf16 against the card's fp32 module
+    instead, recorded, not held to a bar: a full-size CPU run in bf16
+    costs minutes, and phase 17's Dummy runs hold bf16 to the CPU."""
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+
+    gpu1 = module.predict_step(params, one).array.cpu()
+    if module.compute_dtype == torch.float32:
+        cpu_module = AutoRegressiveModule(settings, info, device="cpu")
+        cpu1 = cpu_module.predict_step({k: v.cpu() for k, v in params.items()}, one).array
+        return {"max_abs_err_step1_vs_cpu": compare(f"{what} step 1 (cuda vs cpu)", gpu1, cpu1)}
+    fp32 = AutoRegressiveModule(dataclasses.replace(settings, precision="32"), info,
+                                device="cuda")
+    ref = fp32.predict_step(params, one).array.cpu()
+    if not bool(torch.isfinite(gpu1).all()):
+        raise AssertionError(f"{what} bf16 step 1 is not finite")
+    return {"max_abs_diff_step1_vs_fp32": float((gpu1 - ref).abs().max()),
+            "scale_step1": float(ref.abs().max())}
 
 
 #: how the profile's device activities are grouped in the report
@@ -949,6 +1001,8 @@ GROUPS = (
     ("bilinear resize (torch)", ("upsample_bilinear",)),
     ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn")),
     ("matmuls (cuBLAS/CUTLASS)", ("gemm",)),
+    # .contiguous() copies and .to(dtype) casts (the bf16 boundaries)
+    ("copies and dtype casts", ("copy_kernel",)),
 )
 
 
@@ -1004,10 +1058,13 @@ class _ListLogger:
         self.figures.append((tag, step))
 
 
-def train_dummy(name: str, overrides=None) -> dict:
+def train_dummy(name: str, overrides=None, precision: str = "32") -> dict:
     """Trainer.fit on Dummy (3 train batches, 1 val batch) with model
     ``name`` (``overrides`` of its settings_init_args), counted; resume;
-    Trainer.test; one step's gradients against the CPU."""
+    Trainer.test; one step's gradients against the CPU. Under bf16 the
+    masters and AdamW's moments must stay fp32, and the card's gradients
+    are held over the whole vector to twice the CPU's own bf16 error:
+    |g_card - g_cpu| <= 2 |g_cpu - g_cpu_fp32|."""
     import shutil
 
     from py4cast_tpu_torch.datasets import get_datasets
@@ -1017,8 +1074,9 @@ def train_dummy(name: str, overrides=None) -> dict:
     # settings as the CLI links them
     train_ds, val_ds, test_ds = get_datasets("dummy", 2, 1, 3)
     settings = model_settings(name, overrides, num_warmup_steps=2, num_pred_steps_train=1,
-                              num_pred_steps_val_test=3)
-    save = BUILD / f"smoke_fit_{settings.model_name.lower()}"
+                              num_pred_steps_val_test=3, precision=precision)
+    suffix = "" if precision == "32" else f"_{precision}"
+    save = BUILD / f"smoke_fit_{settings.model_name.lower()}{suffix}"
     shutil.rmtree(save, ignore_errors=True)
     module = AutoRegressiveModule(settings, train_ds.dataset_info, device="cuda")
     log = _ListLogger()
@@ -1062,10 +1120,32 @@ def train_dummy(name: str, overrides=None) -> dict:
     cpu_module = AutoRegressiveModule(settings, train_ds.dataset_info, device="cpu")
     loss_cpu, grads_cpu = cpu_module.loss_and_grads(params, batch)
     loss_rel = abs(float(loss_gpu) - float(loss_cpu)) / abs(float(loss_cpu))
-    if not loss_rel <= TRAIN_LOSS_RTOL:
-        raise AssertionError(f"train loss card {float(loss_gpu)} vs cpu {float(loss_cpu)}")
-    grad_err = max(compare(f"grad {k} (cuda vs cpu)", grads_gpu[k].cpu(), grads_cpu[k],
-                           TRAIN_GRAD_TOL) for k in grads_cpu)
+    extra = {}
+    if precision == "32":
+        if not loss_rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"train loss card {float(loss_gpu)} vs cpu {float(loss_cpu)}")
+        grad_err = max(compare(f"grad {k} (cuda vs cpu)", grads_gpu[k].cpu(), grads_cpu[k],
+                               TRAIN_GRAD_TOL) for k in grads_cpu)
+    else:
+        masters = list(resumed.params.values())
+        moments = [v for p in masters for v in resumed.optimizer.state[p].values()
+                   if torch.is_tensor(v) and v.is_floating_point()]
+        if {t.dtype for t in masters + moments} != {torch.float32}:
+            raise AssertionError("bf16 fit: masters or AdamW moments are not fp32")
+        fp32_module = AutoRegressiveModule(dataclasses.replace(settings, precision="32"),
+                                           train_ds.dataset_info, device="cpu")
+        _, grads_cpu32 = fp32_module.loss_and_grads(params, batch)
+
+        def norm(d):
+            return float(torch.sqrt(sum((v.double() ** 2).sum() for v in d.values())))
+
+        grad_err = norm({k: grads_gpu[k].cpu() - grads_cpu[k] for k in grads_cpu})
+        own = norm({k: grads_cpu[k] - grads_cpu32[k] for k in grads_cpu})
+        if not grad_err <= 2 * own:
+            raise AssertionError(f"bf16 gradients: |card - cpu| {grad_err:.3e} > 2 x "
+                                 f"|cpu bf16 - cpu fp32| {own:.3e}")
+        extra = {"grad_l2_card_vs_cpu": grad_err, "grad_l2_cpu_bf16_vs_fp32": own,
+                 "grad_l2": norm(grads_cpu32)}
     zero = [k for k, g in grads_gpu.items() if float(g.abs().max()) == 0.0]
     # HiLAMParallel's last layers cannot reach level 0 from the levels
     # above: those parameters get zero gradients on both devices, as
@@ -1075,12 +1155,12 @@ def train_dummy(name: str, overrides=None) -> dict:
     if len(zero) > len(unreached):
         raise AssertionError(f"parameters with no gradient on the card: "
                              f"{[k for k in zero if k not in unreached][:5]}")
-    return {"model": name, "launches": counts, "train_steps": train_steps,
-            "val_forwards": val_forwards, "seconds": seconds, "train_losses": losses,
-            "resumed_step": resumed.step,
+    return {"model": name, "precision": precision, "launches": counts,
+            "train_steps": train_steps, "val_forwards": val_forwards, "seconds": seconds,
+            "train_losses": losses, "resumed_step": resumed.step,
             "test_scores": scores, "loss_cuda": float(loss_gpu), "loss_cpu": float(loss_cpu),
             "loss_rel_diff": loss_rel, "max_abs_grad_err_vs_cpu": grad_err,
-            "unreached_params": len(unreached)}
+            "unreached_params": len(unreached), **extra}
 
 
 #: what the CLI runs in cli_dummy: the fit's 2 train batches (1 AR step
@@ -1151,14 +1231,16 @@ def cli_dummy(model_yaml: str, extra=(), subcommands=tuple(CLI_STEPS), want=None
 
 # ------------------------------------------------------------------- phase 7
 def full_size_train_step(name: str = "GraphLAM", grid=(500, 500), reps: int = 5,
-                         profile_name: str = "smoke_profile_train.txt") -> dict:
+                         profile_name: str = "smoke_profile_train.txt",
+                         precision: str = "32") -> dict:
     """One AdamW train step (1 AR step, batch 1) of a graph model at its
     config's width on the GNN cell, counted, timed, profiled."""
     from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
     from py4cast_tpu_torch.training import AutoRegressiveModule
 
     info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
-    module = AutoRegressiveModule(model_settings(name, num_warmup_steps=2), info, device="cuda")
+    module = AutoRegressiveModule(model_settings(name, num_warmup_steps=2, precision=precision),
+                                  info, device="cuda")
     state = module.init_state(torch.Generator().manual_seed(0), num_training_steps=100)
     batch = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=0)
 
@@ -1190,8 +1272,8 @@ def full_size_train_step(name: str = "GraphLAM", grid=(500, 500), reps: int = 5,
     profile = profile_step(lambda: module.train_step(state, batch), profile_name)
     step_ms = float(np.median(runs))
     profile["device_idle_share"] = max(0.0, 1.0 - profile["device_busy_ms"] / step_ms)
-    return {"model": name, "grid": list(grid), "batch": 1, "pred_steps": 1, "launches": counts,
-            "ms_per_train_step_runs": runs,
+    return {"model": name, "precision": precision, "grid": list(grid), "batch": 1,
+            "pred_steps": 1, "launches": counts, "ms_per_train_step_runs": runs,
             "ms_per_train_step": step_ms, "peak_mem_bytes": peak, "losses": losses,
             "profile": profile}
 
@@ -1209,7 +1291,8 @@ def _timed(fn, reps: int) -> list:
 
 
 def grid_model_full_size(name: str = "Segformer", grid=(512, 640), steps: int = 3,
-                         reps: int = 5, keep=None, overrides=None, tag=None) -> dict:
+                         reps: int = 5, keep=None, overrides=None, tag=None,
+                         precision: str = "32") -> dict:
     """A grid model (Segformer, HalfUNet, UNet, UNetRPP) at its config's
     width (``overrides`` of its settings_init_args) on bench.py's
     Segformer grid (512x640, 21 weather and 21 forcing features), batch
@@ -1220,7 +1303,7 @@ def grid_model_full_size(name: str = "Segformer", grid=(512, 640), steps: int = 
     from py4cast_tpu_torch.training import AutoRegressiveModule
 
     info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
-    settings = model_settings(name, overrides, num_warmup_steps=2)
+    settings = model_settings(name, overrides, num_warmup_steps=2, precision=precision)
     tag = tag or name.lower()
     module = AutoRegressiveModule(settings, info, device="cuda")
     params = module.init_params(torch.Generator().manual_seed(0))
@@ -1249,14 +1332,11 @@ def grid_model_full_size(name: str = "Segformer", grid=(512, 640), steps: int = 
     profile["device_idle_share"] = max(0.0, 1.0 - profile["device_busy_ms"]
                                        / (float(np.median(runs)) * steps))
     one = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=0)
-    gpu1 = module.predict_step(params, one).array.cpu()
-    cpu_module = AutoRegressiveModule(settings, info, device="cpu")
-    cpu1 = cpu_module.predict_step({k: v.cpu() for k, v in params.items()}, one).array
-    err = compare(f"{name} 512x640 step 1 (cuda vs cpu)", gpu1, cpu1)
+    err = step1_against(module, settings, info, params, one, f"{name} 512x640")
     predict = {"steps": steps, "launches": counts, "ms_per_step_runs": runs,
                "ms_per_step": float(np.median(runs)), "peak_mem_bytes": peak,
-               "max_abs_err_step1_vs_cpu": err, "profile": profile}
-    del preds, arr, cpu_module
+               **err, "profile": profile}
+    del preds, arr
 
     # ---- train
     state = module.init_state(None, num_training_steps=100, params=params)
@@ -1282,8 +1362,9 @@ def grid_model_full_size(name: str = "Segformer", grid=(512, 640), steps: int = 
     train = {"pred_steps": 1, "launches": t_counts, "ms_per_train_step_runs": t_runs,
              "ms_per_train_step": step_ms, "peak_mem_bytes": t_peak, "losses": losses,
              "profile": t_profile}
-    return {"model": name, "settings": settings.settings_init_args, "grid": list(grid),
-            "batch": 1, "params": module.num_params(params), "predict": predict, "train": train}
+    return {"model": name, "precision": precision, "settings": settings.settings_init_args,
+            "grid": list(grid), "batch": 1, "params": module.num_params(params),
+            "predict": predict, "train": train}
 
 
 # ------------------------------------------------------------------ phase 14
@@ -1535,6 +1616,198 @@ def cli_predict_gribs() -> dict:
             "max_err_in_quanta": worst}
 
 
+# ------------------------------------------------------------------ phase 17
+#: one bf16 ulp, relative: bf16 keeps 8 significant bits
+BF16_ULP = 2.0 ** -7
+
+
+def within_ulp(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A bf16 output against its reference, rounded to bf16 at the same
+    point: the same dtype, and elementwise within one bf16 ulp (|got -
+    want| <= 2^-7 |want| + 2^-7 1e-3 max|want|). Returns the largest
+    |got - want|."""
+    if got.dtype != want.dtype:
+        raise AssertionError(f"{name}: dtype {got.dtype}, expected {want.dtype}")
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    slack = BF16_ULP * w.abs() + BF16_ULP * 1e-3 * float(w.abs().max())
+    if not bool(torch.isfinite(g).all()) or bool((diff > slack).any()):
+        worst = float((diff - slack).max())
+        raise AssertionError(f"{name}: more than one bf16 ulp from the reference "
+                             f"(worst excess {worst:.3e})")
+    return float(diff.max())
+
+
+def _bf16(ts):
+    """Float tensors rounded to bf16; the int32 corner maps as they are."""
+    return [t.to(torch.bfloat16) if t.is_floating_point() else t for t in ts]
+
+
+def _fp32(ts):
+    return [t.float() if t.is_floating_point() else t for t in ts]
+
+
+def bf16_boundary(name, shape, call, plain, args16, n_rounded, want_dtypes) -> dict:
+    """One kernel wrapper on bf16 inputs: ``call(args)`` (the wrapper)
+    and ``plain(args)`` (its plain version) return tuples. The first
+    ``n_rounded`` outputs are held within one bf16 ulp of the plain
+    version run in fp32 on the same bf16 values and rounded to the
+    wrapper's output dtypes (``want_dtypes``); the rest (weight gradients,
+    fp32 as the TPU kernel's) against the plain version in fp64 at
+    GRAD_TOL. A second call must repeat bit for bit. Times: the wrapper
+    on the bf16 inputs, on their fp32 copies, and the boundary casts
+    alone (the inputs to fp32, the rounded outputs from it)."""
+    args32 = _fp32(args16)
+    got = call(args16)
+    torch.cuda.synchronize()
+    if [g.dtype for g in got] != list(want_dtypes):
+        raise AssertionError(f"{name} bf16: output dtypes {[g.dtype for g in got]}, "
+                             f"expected {list(want_dtypes)}")
+    ref = plain(args32)
+    err = max(within_ulp(f"{name} bf16 output {i}", g, r.to(g.dtype))
+              for i, (g, r) in enumerate(zip(got[:n_rounded], ref[:n_rounded])))
+    if len(got) > n_rounded:
+        ref64 = plain([t.double() if t.is_floating_point() else t for t in args32])
+        err_w = max(compare(f"{name} bf16 weight grad {i}", g, r, GRAD_TOL)
+                    for i, (g, r) in enumerate(zip(got[n_rounded:], ref64[n_rounded:])))
+        del ref64
+    else:
+        err_w = None
+    again = call(args16)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{name} bf16: a second call differs")
+    out32 = [g.float() for g in got[:n_rounded]]
+    del got, again, ref
+
+    def casts():
+        _fp32(args16)
+        for o, dt in zip(out32, want_dtypes):
+            o.to(dt)
+
+    return {"name": name, "shape": shape, "max_abs_err_vs_plain_rounded": err,
+            "max_abs_err_weight_grads_vs_fp64": err_w,
+            "dtypes": [str(d).replace("torch.", "") for d in want_dtypes],
+            "ms": time_ms(lambda: call(args16)), "fp32_ms": time_ms(lambda: call(args32)),
+            "cast_ms": time_ms(casts)}
+
+
+def check_bf16_kernels(rng) -> dict:
+    """Phase 17 (a): the six kernel wrappers on bf16 inputs at phase 3,
+    3b and 3c's shapes, each launching its kernel (the counts say so):
+    dtypes as the Pallas kernels', one bf16 ulp, bit for bit, times."""
+    from py4cast_tpu_torch.ops import attention
+    from py4cast_tpu_torch.ops.hop_kernel import (
+        corner_hop_bwd_plain,
+        corner_hop_plain,
+        fused_corner_hop,
+        fused_corner_hop_bwd,
+        gather_corners,
+    )
+    from py4cast_tpu_torch.ops.stencil_kernel import (
+        fused_stencil_message,
+        fused_stencil_message_bwd,
+        stencil_message_bwd_plain,
+        stencil_message_plain,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {name: [] for name in _wrappers()}
+    reset_counts()
+    for hr in GRAPHLAM_LEVELS:
+        args = _bf16(stencil_inputs(rng, 1, hr, hr, 64))
+        rows["stencil_message"].append(bf16_boundary(
+            "stencil_message", f"e (1,8,{hr},{hr},64) ps (1,{hr},{hr},64) residual=True",
+            lambda a: fused_stencil_message(*a, residual=True),
+            lambda a: stencil_message_plain(*a, residual=True), args, 2, (bf16, bf16)))
+        args = _bf16([*stencil_inputs(rng, 1, hr, hr, 64, shifted=True),
+                      _rand(rng, 1, 8, hr, hr, 64), _rand(rng, 1, hr, hr, 64)])
+        rows["stencil_message_bwd"].append(bf16_boundary(
+            "stencil_message_bwd", f"e,vs,g_out (1,8,{hr},{hr},64) residual=True",
+            lambda a: fused_stencil_message_bwd(*a, residual=True),
+            lambda a: stencil_message_bwd_plain(*a, residual=True), args, 3,
+            (bf16,) * 3 + (f32,) * 6))
+        del args
+    src, rest = hop_inputs(rng, 1, 500, 500, 64, 3)
+    args = _bf16([*src, *rest])
+    rows["corner_hop"].append(bf16_boundary(
+        "corner_hop", "ps (1,125,125,64) vd (1,500,500,64) feats (4,500,500,3) mean=False",
+        lambda a: (fused_corner_hop(*a, mean=False),),
+        lambda a: (corner_hop_plain(*a, mean=False),), args, 1, (bf16,)))
+    g = _rand(rng, 1, 500, 500, 64).to(bf16)
+    args = [*gather_corners(*args[:3]), *args[3:], g]
+    rows["corner_hop_bwd"].append(bf16_boundary(
+        "corner_hop_bwd", "psg,vd,g (1,500,500,64) feats (4,500,500,3) mean=False",
+        lambda a: fused_corner_hop_bwd(a[:4], *a[4:-1], a[-1], mean=False),
+        lambda a: corner_hop_bwd_plain(a[:4], *a[4:-1], a[-1], mean=False), args, 5,
+        (bf16,) * 5 + (f32,) * 14))
+    del src, rest, args, g
+    for label, (bh, lq, lk, d) in ATTENTION_SHAPES.items():
+        scale = d ** -0.5
+        qkv = [_rand(rng, bh, n, d).to(bf16) for n in (lq, lk, lk)]
+        shape = f"{label}: q ({bh},{lq},{d}) k,v ({bh},{lk},{d})"
+        row = bf16_boundary(
+            "short_kv_attention", shape,
+            lambda a: attention.fused_short_kv_attention(*a, scale)[:1],
+            lambda a: (attention.short_kv_attention_plain(*a, scale),), qkv, 1, (bf16,))
+        o32, lse = attention._short_kv_attention_fp32(*qkv, scale)
+        rows["short_kv_attention"].append(row)
+        do = _rand(rng, bh, lq, d).to(bf16)
+        args = [*qkv, o32, lse, do]
+        rows["short_kv_attention_bwd"].append(bf16_boundary(
+            "short_kv_attention_bwd", shape,
+            lambda a: attention.fused_short_kv_attention_bwd(*a, scale),
+            lambda a: attention.short_kv_attention_bwd_plain(*a[:3], a[5], scale), args, 3,
+            (bf16,) * 3))
+        del qkv, o32, lse, do, args
+    counts = read_counts()
+    if not all(counts[name] > 0 for name in rows):
+        raise AssertionError(f"bf16 inputs did not launch every kernel: {counts}")
+    return {"launches": counts, "kernels": rows}
+
+
+def bf16_dummy(name: str, fp32_predict: dict, fp32_kept: dict, fp32_fit: dict) -> dict:
+    """Phase 17 (b): Trainer.predict and Trainer.fit on Dummy in bf16
+    with model ``name``: the same launch counts as its fp32 phases; the
+    card's bf16 predictions within twice the CPU's own bf16 error
+    (max |cpu_bf16 - cpu_fp32|) of the card's fp32 predictions; fit's
+    checks under bf16 (``train_dummy``)."""
+    kept = {}
+    predict = predict_dummy(model_settings(name, precision="bf16"), keep=kept)
+    if predict["launches"] != fp32_predict["launches"]:
+        raise AssertionError(f"{name} bf16 predict launches {predict['launches']}, "
+                             f"fp32 {fp32_predict['launches']}")
+    gap_cpu = max_abs_diff(kept["cpu"], fp32_kept["cpu"])
+    gap_card = max_abs_diff(kept["card"], fp32_kept["card"])
+    if not gap_card <= 2 * gap_cpu:
+        raise AssertionError(f"{name} bf16 predict: card bf16 vs fp32 {gap_card:.3e} > 2 x "
+                             f"the CPU's {gap_cpu:.3e}")
+    predict.update(bf16_vs_fp32_card=gap_card, bf16_vs_fp32_cpu=gap_cpu,
+                   scale=max(float(np.abs(a).max()) for a in fp32_kept["card"]))
+    fit = train_dummy(name, precision="bf16")
+    if fit["launches"] != fp32_fit["launches"]:
+        raise AssertionError(f"{name} bf16 fit launches {fit['launches']}, "
+                             f"fp32 {fp32_fit['launches']}")
+    return {"model": name, "predict": predict, "fit": fit}
+
+
+def bf16_vs_fp32(fp32: dict, bf16: dict) -> dict:
+    """ms, peak memory, device time and idle share of a full-size cell in
+    fp32 and in bf16, side by side."""
+    def nums(row):
+        if "predict" in row:  # grid_model_full_size: a predict and a train step
+            return {**{f"predict_{k}": v for k, v in nums(row["predict"]).items()},
+                    **{f"train_{k}": v for k, v in nums(row["train"]).items()}}
+        ms = row.get("ms_per_step", row.get("ms_per_train_step"))
+        prof = row["profile"]
+        return {"ms": ms, "peak_mem_bytes": row["peak_mem_bytes"],
+                "device_busy_ms": prof["device_busy_ms"],
+                "device_idle_share": prof["device_idle_share"],
+                "casts_ms": prof["groups_ms"].get("copies and dtype casts", 0.0)}
+
+    a, b = nums(fp32), nums(bf16)
+    return {k: [a[k], b[k]] for k in a}
+
+
 # ---------------------------------------------------------------------- main
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1628,7 +1901,8 @@ def main(argv=None) -> int:
         return 0
 
     # phase 4: Trainer.predict on Dummy, counted
-    dummy = predict_dummy(model_settings("GraphLAM"))
+    kept32 = {name: {} for name in MODEL_ARGS}  # the fp32 Dummy predictions, for phase 17
+    dummy = predict_dummy(model_settings("GraphLAM"), keep=kept32["GraphLAM"])
     log(f"predict dummy: {json.dumps(dummy)}")
 
     # phase 5: the full-size rollout
@@ -1648,7 +1922,7 @@ def main(argv=None) -> int:
     log(f"full-size train step: {json.dumps(train_full)}")
 
     # phase 8: Trainer.predict on Dummy with Segformer, counted
-    seg_dummy = predict_dummy(model_settings("Segformer"))
+    seg_dummy = predict_dummy(model_settings("Segformer"), keep=kept32["Segformer"])
     log(f"segformer predict dummy: {json.dumps(seg_dummy)}")
 
     # phase 9: Trainer.fit on Dummy with Segformer, counted; resume,
@@ -1665,7 +1939,7 @@ def main(argv=None) -> int:
     # phase 11: HalfUNet (no hand kernel: every count stays 0) on Dummy,
     # predict and fit, the CLI with halfunet.yaml; 512x640 predict and
     # train step
-    unet_dummy = predict_dummy(model_settings("HalfUNet"))
+    unet_dummy = predict_dummy(model_settings("HalfUNet"), keep=kept32["HalfUNet"])
     log(f"halfunet predict dummy: {json.dumps(unet_dummy)}")
     unet_fit = train_dummy("HalfUNet")
     log(f"halfunet fit dummy: {json.dumps(unet_fit)}")
@@ -1677,7 +1951,7 @@ def main(argv=None) -> int:
 
     # phase 12: HiLAM on Dummy, predict and fit, the CLI with hilam.yaml;
     # 500x500 predict and train step
-    hilam_dummy = predict_dummy(model_settings("HiLAM"))
+    hilam_dummy = predict_dummy(model_settings("HiLAM"), keep=kept32["HiLAM"])
     log(f"hilam predict dummy: {json.dumps(hilam_dummy)}")
     hilam_fit = train_dummy("HiLAM")
     log(f"hilam fit dummy: {json.dumps(hilam_fit)}")
@@ -1690,7 +1964,7 @@ def main(argv=None) -> int:
 
     # phase 13: HiLAMParallel on Dummy, predict and fit, the CLI with
     # hilamparallel.yaml; a 500x500 predict
-    par_dummy = predict_dummy(model_settings("HiLAMParallel"))
+    par_dummy = predict_dummy(model_settings("HiLAMParallel"), keep=kept32["HiLAMParallel"])
     log(f"hilamparallel predict dummy: {json.dumps(par_dummy)}")
     par_fit = train_dummy("HiLAMParallel")
     log(f"hilamparallel fit dummy: {json.dumps(par_fit)}")
@@ -1719,7 +1993,7 @@ def main(argv=None) -> int:
     # phase 15: UNet (no hand kernel: every count stays 0) on Dummy,
     # predict and fit, the CLI with unet.yaml; 512x640 predict and train
     # step
-    plain_dummy = predict_dummy(model_settings("UNet"))
+    plain_dummy = predict_dummy(model_settings("UNet"), keep=kept32["UNet"])
     log(f"unet predict dummy: {json.dumps(plain_dummy)}")
     plain_fit = train_dummy("UNet")
     log(f"unet fit dummy: {json.dumps(plain_fit)}")
@@ -1731,7 +2005,7 @@ def main(argv=None) -> int:
     # phase 16: UNetRPP on kernels c-fwd and c-bwd (flash_attn) on Dummy,
     # predict and fit; the CLI with unetrpp.yaml as shipped (torch, every
     # count 0) and its fit with flash_attn; 512x640 with both codes
-    rpp_dummy = predict_dummy(model_settings("UNetRPP"))
+    rpp_dummy = predict_dummy(model_settings("UNetRPP"), keep=kept32["UNetRPP"])
     log(f"unetrpp predict dummy: {json.dumps(rpp_dummy)}")
     rpp_fit = train_dummy("UNetRPP")
     log(f"unetrpp fit dummy: {json.dumps(rpp_fit)}")
@@ -1748,17 +2022,54 @@ def main(argv=None) -> int:
     for code, row in rpp_full.items():
         log(f"unetrpp 512x640 {code}: {json.dumps(row)}")
 
+    # phase 17: bf16. (a) the six kernels at a bf16 boundary; (b) every
+    # model's Dummy predict and fit in bf16, counted as in fp32; (c) the
+    # full-size GraphLAM, HalfUNet and UNetRPP (flash_attn) cells in bf16
+    fits = (fit, seg_fit, unet_fit, hilam_fit, par_fit, plain_fit, rpp_fit)
+    predicts = (dummy, seg_dummy, unet_dummy, hilam_dummy, par_dummy, plain_dummy, rpp_dummy)
+    bf16 = {"boundary": check_bf16_kernels(rng)}
+    for name, rows in bf16["boundary"]["kernels"].items():
+        for row in rows:
+            log(f"bf16 kernel {row['shape']}: {json.dumps(row)}")
+    bf16["dummy"] = [bf16_dummy(f["model"], d, kept32[f["model"]], f)
+                     for f, d in zip(fits, predicts)]
+    del kept32
+    for row in bf16["dummy"]:
+        log(f"bf16 dummy {row['model']}: {json.dumps(row)}")
+    bf16["full_size"] = {
+        "graphlam_predict": full_size_rollout("GraphLAM", precision="bf16",
+                                              profile_name="smoke_profile_bf16.txt"),
+        "graphlam_train": full_size_train_step("GraphLAM", precision="bf16",
+                                               profile_name="smoke_profile_bf16_train.txt"),
+        "halfunet": grid_model_full_size("HalfUNet", precision="bf16", tag="halfunet_bf16"),
+        "unetrpp_flash_attn": grid_model_full_size("UNetRPP", overrides=FLASH_ATTN,
+                                                   precision="bf16",
+                                                   tag="unetrpp_flash_attn_bf16"),
+    }
+    fp32_full = {"graphlam_predict": full, "graphlam_train": train_full,
+                 "halfunet": unet_full, "unetrpp_flash_attn": rpp_full["flash_attn"]}
+    for cell, row in bf16["full_size"].items():
+        log(f"bf16 {cell}: {json.dumps(row)}")
+        log(f"  {cell} fp32 -> bf16: " + json.dumps(bf16_vs_fp32(fp32_full[cell], row)))
+
     # each model path ran with every count set to 0 just before it and
     # checked just after (a kernel of another path launched fails); a
     # kernel's launches are the sum over the paths that run it
-    fits = (fit, seg_fit, unet_fit, hilam_fit, par_fit, plain_fit, rpp_fit)
-    predicts = (dummy, seg_dummy, unet_dummy, hilam_dummy, par_dummy, plain_dummy, rpp_dummy)
+    by_kernel = {}
+    for row in bf16["boundary"]["kernels"].values():
+        for r in row:
+            by_kernel.setdefault(r["name"], r)  # the first shape: phase 3's top row
     for k in kernels:
         k["launches"] = sum(f["launches"][k["name"]] for f in fits)
         k["launches_predict"] = sum(d["launches"][k["name"]] for d in predicts)
+        k["launches_bf16"] = sum(b["fit"]["launches"][k["name"]] for b in bf16["dummy"])
         k["launches_by_model"] = {
             f["model"]: [f["launches"][k["name"]], d["launches"][k["name"]]]
             for f, d in zip(fits, predicts)}
+        top = by_kernel[k["name"]]
+        k["bf16"] = {"shape": top["shape"], "ms": top["ms"], "fp32_ms": top["fp32_ms"],
+                     "cast_ms": top["cast_ms"],
+                     "max_abs_err_vs_plain_rounded": top["max_abs_err_vs_plain_rounded"]}
 
     (OUT_DIR / "smoke_report.json").write_text(json.dumps(
         {"card": card, "kind": kind, "kernels": kernels, "predict_dummy": dummy,
@@ -1772,7 +2083,7 @@ def main(argv=None) -> int:
          "hilamparallel_full_size": par_full, "observers": observers,
          "unet_predict_dummy": plain_dummy, "unet_fit_dummy": plain_fit,
          "unet_full_size": plain_full, "unetrpp_predict_dummy": rpp_dummy,
-         "unetrpp_fit_dummy": rpp_fit, "unetrpp_full_size": rpp_full,
+         "unetrpp_fit_dummy": rpp_fit, "unetrpp_full_size": rpp_full, "bf16": bf16,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -160,6 +160,17 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
 
 
 GN_EPS = 1e-6  # flax nn.GroupNorm default; torch's is 1e-5
+LN_EPS = 1e-6  # flax nn.LayerNorm default; torch's is 1e-5
+
+
+class LayerNorm(nn.LayerNorm):
+    """A Flax ``nn.LayerNorm`` over the last axis: eps 1e-6 (torch's is
+    1e-5). On bf16, torch's layer_norm takes its statistics, scale and
+    bias in fp32 and rounds the result once, as Flax's
+    ``force_float32_reductions`` does: no cast around it is needed."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=LN_EPS)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -167,7 +178,8 @@ class GroupNorm(nn.GroupNorm):
     and the channels of each group, eps 1e-6, scale and bias per channel
     (``weight``/``bias``; none when ``affine`` is off). Flax computes the
     variance as E[x²] − E[x]² and torch in two passes; both agree within
-    the port's 1e-4 bar, so torch's ``group_norm`` runs as it is."""
+    the port's 1e-4 bar, so torch's ``group_norm`` runs as it is. On bf16
+    it takes fp32 statistics and rounds once, as ``LayerNorm``."""
 
     def __init__(self, num_groups: int, num_channels: int, affine: bool = True):
         super().__init__(num_groups, num_channels, eps=GN_EPS, affine=affine)

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from py4cast_tpu_torch.models.base import ModelBase, ModelType
+from py4cast_tpu_torch.models.base import LayerNorm, ModelBase, ModelType
 from py4cast_tpu_torch.ops.hop_kernel import CornerHopFn
 from py4cast_tpu_torch.ops.lattice_ops import (
     pair_feats,
@@ -40,8 +40,6 @@ from py4cast_tpu_torch.ops.lattice_ops import (
     stencil_feats,
 )
 from py4cast_tpu_torch.ops.stencil_kernel import StencilMessageFn
-
-LN_EPS = 1e-6  # flax nn.LayerNorm default; torch's is 1e-5
 
 
 @dataclass(frozen=True)
@@ -286,7 +284,7 @@ class MLP(nn.Module):
         dims = [in_dim] + [hidden_dim] * hidden_layers + [out_dim]
         for i in range(hidden_layers + 1):
             self.add_module(f"Dense_{i}", nn.Linear(dims[i], dims[i + 1]))
-        self.LayerNorm_0 = nn.LayerNorm(out_dim, eps=LN_EPS) if layer_norm else None
+        self.LayerNorm_0 = LayerNorm(out_dim) if layer_norm else None
 
     def forward(self, x):
         for i in range(self.hidden_layers):
@@ -316,7 +314,7 @@ class _StencilMessage(nn.Module):
         for i in range(hidden_layers - 1):
             self.add_module(f"hidden_{i}", nn.Linear(h, h))
         self.out = nn.Linear(h, h)
-        self.ln = nn.LayerNorm(h, eps=LN_EPS)
+        self.ln = LayerNorm(h)
 
     def forward(self, v, e, mask, count=None):
         ps = self.w_s(v)
@@ -360,7 +358,7 @@ class _NearestMessage(nn.Module):
         for i in range(hidden_layers - 1):
             self.add_module(f"hidden_{i}", nn.Linear(h, h))
         self.out = nn.Linear(h, h)
-        self.ln = nn.LayerNorm(h, eps=LN_EPS)
+        self.ln = LayerNorm(h)
 
     def _tail(self, z):
         z = F.silu(z)
@@ -441,7 +439,7 @@ class LatticeEncodeDecode(nn.Module):
         self.w_f = nn.Linear(feat_dim, h)
         self.w_d = nn.Linear(h, h, bias=False)
         self.out = nn.Linear(h, h)
-        self.ln = nn.LayerNorm(h, eps=LN_EPS)
+        self.ln = LayerNorm(h)
         self.node = MLP(2 * h, h, h, hidden_layers)
 
     def _tail(self, z):
@@ -666,12 +664,19 @@ class _GraphModelBase(ModelBase):
     def build_graph(cls, settings: GraphModelSettings, meshgrid) -> GraphArtifacts:
         return build_graph_artifacts(np.asarray(meshgrid), settings)
 
-    def _lat(self, prefix: str) -> Dict[str, torch.Tensor]:
+    def _garr(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        """A static graph buffer, cast to the activation dtype when it is
+        a float one (the JAX package's ``_garr``): under bf16 the edge
+        features, masks, counts and selection matrices are bf16 too."""
+        t = getattr(self, name)
+        return t.to(dtype) if t.is_floating_point() else t
+
+    def _lat(self, prefix: str, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
         out = {}
         for k in ("feats", "mask", "count", "ar", "ac", "sr", "sc", "rows", "cols"):
             name = f"lat_{prefix}_{k}"
             if hasattr(self, name):
-                out[k] = getattr(self, name)
+                out[k] = self._garr(name, dtype)
         return out
 
     def _edge_embed(self, mlp: nn.Module, feats: torch.Tensor, b: int) -> torch.Tensor:
@@ -688,13 +693,13 @@ class _GraphModelBase(ModelBase):
         grid_v = self.grid_embed(x.reshape(b, gh, gw, x.shape[-1]))
         mesh_v = []
         for l in range(self.num_embedded):
-            emb = getattr(self, f"mesh_embed_{l}")(getattr(self, f"mesh_pos_{l}"))
+            emb = getattr(self, f"mesh_embed_{l}")(self._garr(f"mesh_pos_{l}", x.dtype))
             mesh_v.append(emb[None].expand((b,) + emb.shape))
         return grid_v, mesh_v
 
     def _decode(self, mesh_v0, grid_v):
         """m2g, decode, and flatten back to the (B, n_grid, F) GRAPH contract."""
-        out = self.decoder(self.m2g(mesh_v0, grid_v, self._lat("m2g")))
+        out = self.decoder(self.m2g(mesh_v0, grid_v, self._lat("m2g", grid_v.dtype)))
         return out.reshape(grid_v.shape[0], self.graph.n_grid, out.shape[-1])
 
 
@@ -714,17 +719,17 @@ class GraphLAM(_GraphModelBase):
 
     def forward(self, x):
         grid_v, (mesh_v0,) = self._embed(x)
-        v0 = self.g2m(grid_v, mesh_v0, self._lat("g2m"))
+        v0 = self.g2m(grid_v, mesh_v0, self._lat("g2m", x.dtype))
         e_levels = tuple(
-            self._edge_embed(self.mesh_edge_embed, getattr(self, f"lat_multi_{lev}_feats"),
-                             x.shape[0])
+            self._edge_embed(self.mesh_edge_embed,
+                             self._garr(f"lat_multi_{lev}_feats", x.dtype), x.shape[0])
             for lev in range(self.num_levels)
         )
         multi = {
-            f"lat_multi_{lev}_{k}": getattr(self, f"lat_multi_{lev}_{k}")
+            f"lat_multi_{lev}_{k}": self._garr(f"lat_multi_{lev}_{k}", x.dtype)
             for lev in range(self.num_levels) for k in ("mask", "sr", "sc")
         }
-        multi["lat_multi_count"] = self.lat_multi_count
+        multi["lat_multi_count"] = self._garr("lat_multi_count", x.dtype)
         for step in self.processor:
             v0, e_levels = step(v0, e_levels, multi)
         return self._decode(v0, grid_v)
@@ -750,12 +755,12 @@ class _HierarchicalBase(_GraphModelBase):
     def forward(self, x):
         L, b = self.num_levels, x.shape[0]
         grid_v, mesh_v = self._embed(x)
-        mesh_v[0] = self.g2m(grid_v, mesh_v[0], self._lat("g2m"))
+        mesh_v[0] = self.g2m(grid_v, mesh_v[0], self._lat("g2m", x.dtype))
         edges = {kind: [self._edge_embed(getattr(self, f"{kind}_edge_embed_{l}"),
-                                         getattr(self, f"lat_{kind}_{l}_feats"), b)
+                                         self._garr(f"lat_{kind}_{l}_feats", x.dtype), b)
                         for l in range(n)]
                  for kind, n in (("intra", L), ("up", L - 1), ("down", L - 1))}
-        lat = {f"{kind}_{l}": self._lat(f"{kind}_{l}")
+        lat = {f"{kind}_{l}": self._lat(f"{kind}_{l}", x.dtype)
                for kind, n in (("intra", L), ("up", L - 1), ("down", L - 1)) for l in range(n)}
         intra_e, up_e, down_e = edges["intra"], edges["up"], edges["down"]
         for step in self.processor:

@@ -20,6 +20,7 @@ from torch import nn
 
 from py4cast_tpu_torch.models.base import (
     FlaxConv2d,
+    LayerNorm,
     ModelBase,
     ModelType,
     crop_to,
@@ -27,8 +28,6 @@ from py4cast_tpu_torch.models.base import (
 )
 from py4cast_tpu_torch.models.unet import _bilinear_resize
 from py4cast_tpu_torch.ops.attention import dot_product_attention_short_kv
-
-LN_EPS = 1e-6  # flax nn.LayerNorm default
 
 
 @dataclass(frozen=True)
@@ -40,10 +39,6 @@ class SegformerSettings:
     num_layers: int = 2
     decoder_dim: int = 256
     num_downsampling_chans: int = 32
-
-
-def _layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=LN_EPS)
 
 
 class EfficientSelfAttention(nn.Module):
@@ -100,7 +95,7 @@ class MiTStage(nn.Module):
                     EfficientSelfAttention(dim, heads, reduction))
             setattr(self, f"MixFFN_{i}", MixFFN(dim, expansion))
         for i in range(2 * num_layers + 1):
-            setattr(self, f"LayerNorm_{i}", _layer_norm(dim))
+            setattr(self, f"LayerNorm_{i}", LayerNorm(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.Conv_0(x)

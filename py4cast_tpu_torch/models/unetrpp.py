@@ -37,6 +37,7 @@ from torch import nn
 from py4cast_tpu_torch.models.base import (
     FlaxConv2d,
     FlaxConvTranspose2d,
+    LayerNorm,
     ModelBase,
     ModelType,
     crop_to,
@@ -48,7 +49,6 @@ from py4cast_tpu_torch.models.base import (
 from py4cast_tpu_torch.models.unet import _bilinear_resize
 from py4cast_tpu_torch.ops.attention import short_kv_attention
 
-LN_EPS = 1e-6  # flax nn.LayerNorm default
 #: the channel branch's norm guard (``unetrpp.py`` adds it to the norm)
 NORM_EPS = 1e-6
 ATTENTION_CODES = ("torch", "xla", "flash_attn", "pallas")
@@ -149,8 +149,11 @@ class EPA(nn.Module):
         # channel branch: (hd x hd) a head, q and k normalised over the tokens
         qn = q / (torch.linalg.vector_norm(q, dim=-2, keepdim=True) + NORM_EPS)
         kn = k / (torch.linalg.vector_norm(k, dim=-2, keepdim=True) + NORM_EPS)
-        attn_ch = torch.einsum("bhnd,bhne->bhde", qn, kn) * self.temperature
-        out_ch = torch.einsum("bhde,bhne->bhnd", attn_ch.softmax(dim=-1), v_ch)
+        # the logits and their softmax in fp32 (exact products of bf16
+        # values, as the JAX package's preferred_element_type), the
+        # weights back in the activation dtype for the value product
+        attn_ch = torch.einsum("bhnd,bhne->bhde", qn.float(), kn.float()) * self.temperature
+        out_ch = torch.einsum("bhde,bhne->bhnd", attn_ch.softmax(dim=-1).to(v_ch.dtype), v_ch)
 
         # spatial branch: K/V projected onto p tokens
         k_p = torch.einsum("bhnd,np->bhpd", k, self.proj_k)
@@ -163,9 +166,10 @@ class EPA(nn.Module):
                 v_p.reshape(b * heads, p, hd).contiguous(),
                 1.0 / math.sqrt(hd),
             ).reshape(b, heads, n, hd)
-        else:  # the JAX package's plain path divides by sqrt(hd)
-            attn_sp = torch.einsum("bhnd,bhpd->bhnp", q, k_p) / math.sqrt(hd)
-            out_sp = torch.einsum("bhnp,bhpd->bhnd", attn_sp.softmax(dim=-1), v_p)
+        else:  # the JAX package's plain path divides by sqrt(hd) in q's dtype
+            root = float(torch.tensor(math.sqrt(hd), dtype=q.dtype))
+            attn_sp = torch.einsum("bhnd,bhpd->bhnp", q.float(), k_p.float()) / root
+            out_sp = torch.einsum("bhnp,bhpd->bhnd", attn_sp.softmax(dim=-1).to(v_p.dtype), v_p)
 
         def merge(a):
             return a.transpose(1, 2).reshape(b, n, self.dim)
@@ -183,7 +187,7 @@ class EPABlock(nn.Module):
                  drop: float = 0.0, kernel: bool = False):
         super().__init__()
         self.drop = drop
-        self.LayerNorm_0 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.LayerNorm_0 = LayerNorm(dim)
         self.EPA_0 = EPA(dim, heads, proj_size, tokens, drop, kernel)
         self.Conv_0 = FlaxConv2d(dim, 2 * dim, 3)
         self.Conv_1 = FlaxConv2d(2 * dim, dim, 3)

@@ -130,17 +130,24 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+#: the dtypes the kernel wrappers take: the kernels read and write fp32,
+#: and a wrapper given bf16 casts it to fp32 at its boundary and rounds
+#: its outputs back, where the TPU kernel rounds them
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def validate(what: str, args: Dict[str, tuple]) -> "torch.device":
     """Check the arguments of a kernel wrapper: ``args`` maps a name to
-    ``(tensor, expected_shape)``. Every tensor must be fp32, contiguous,
-    of that shape and on one device, which is returned. Raises
-    ``ValueError`` naming the first offender."""
+    ``(tensor, expected_shape)``. Every tensor must be fp32 or bf16
+    (``FLOAT_DTYPES``), contiguous, of that shape and on one device,
+    which is returned. Raises ``ValueError`` naming the first offender."""
     device = None
     for name, (t, shape) in args.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} is {t.dtype}; only float32 is supported")
+        if t.dtype not in FLOAT_DTYPES:
+            raise ValueError(f"{what}: {name} is {t.dtype}; supported: "
+                             + ", ".join(str(d) for d in FLOAT_DTYPES))
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
         if device is None:

@@ -208,9 +208,18 @@ def fused_short_kv_attention(q, k, v, scale):
     """``(o, lse)``: softmax(q·kᵀ·scale)·v for q (BH, Lq, D) and k, v
     (BH, Lk, D), and the row logsumexp of q·kᵀ·scale (BH, Lq), which the
     backward takes as its residual. Any BH, Lq and Lk, D at most 128,
-    everything fp32 and contiguous. The outputs carry no gradient:
-    differentiate through ``ShortKVAttentionFn``."""
+    everything fp32 or bf16 and contiguous. bf16 is cast to fp32 at the
+    boundary and o rounded to q's dtype, as the TPU kernel rounds it; lse
+    stays fp32. The outputs carry no gradient: differentiate through
+    ``ShortKVAttentionFn``."""
+    o, lse = _short_kv_attention_fp32(q, k, v, scale)
+    return o.to(q.dtype), lse
+
+
+def _short_kv_attention_fp32(q, k, v, scale):
+    """``fused_short_kv_attention`` before o is rounded: o in fp32."""
     device, bh, lq, lk, d = _validate("fused_short_kv_attention", q, k, v)
+    q, k, v = q.float(), k.float(), v.float()
     if device.type == "cpu":
         s = torch.einsum("bqd,bkd->bqk", q, k) * scale
         return short_kv_attention_plain(q, k, v, scale), torch.logsumexp(s, dim=-1)
@@ -238,18 +247,24 @@ fused_short_kv_attention.launches = 0
 def fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale):
     """The attention's backward: ``(dq, dk, dv)`` for the cotangent do
     (BH, Lq, D) of o, given the forward's o and lse. The forward's
-    checks. On the card: a dq pass, which also writes delta =
-    rowsum(dO ∘ o) into a (BH, Lq) scratch, then a dK/dV pass on the
-    launch shape of ``bwd_launch_shape``, whose query splits' partials (if
-    more than one) a third kernel adds in split order: a call repeats bit
-    for bit."""
+    checks; bf16 is cast to fp32 at the boundary, and dq is rounded to
+    q's dtype, dk and dv to k's and v's, as the TPU kernel rounds them
+    (o should be the forward's fp32 o: the card's kernel takes delta =
+    rowsum(dO ∘ o) from it). On the card: a dq pass, which also writes
+    delta into a (BH, Lq) scratch, then a dK/dV pass on the launch shape
+    of ``bwd_launch_shape``, whose query splits' partials (if more than
+    one) a third kernel adds in split order: a call repeats bit for
+    bit."""
     device, bh, lq, lk, d = _validate(
         "fused_short_kv_attention_bwd", q, k, v,
         lambda bh, lq, lk, d: {"o": (o, (bh, lq, d)), "lse": (lse, (bh, lq)),
                                "do": (do, (bh, lq, d))},
     )
+    dtypes = q.dtype, k.dtype, v.dtype
+    q, k, v, o, lse, do = (t.float() for t in (q, k, v, o, lse, do))
     if device.type == "cpu":
-        return short_kv_attention_bwd_plain(q, k, v, do, scale)
+        grads = short_kv_attention_bwd_plain(q, k, v, do, scale)
+        return tuple(g.to(dt) for g, dt in zip(grads, dtypes))
 
     rows, splits, key_tile, query_splits = bwd_launch_shape(bh, lq, lk, d)
     dq = torch.empty_like(q)
@@ -269,7 +284,7 @@ def fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale):
         )
     _build.check(lib, status, "short_kv_attention_bwd kernel")
     fused_short_kv_attention_bwd.launches += 1
-    return dq, dkv[0], dkv[1]
+    return tuple(g.to(dt) for g, dt in zip((dq, dkv[0], dkv[1]), dtypes))
 
 
 #: kernel launches since the last reset (a CPU call runs the plain
@@ -280,14 +295,16 @@ fused_short_kv_attention_bwd.launches = 0
 class ShortKVAttentionFn(torch.autograd.Function):
     """``fused_short_kv_attention`` with its backward kernel as the
     gradient: ``ShortKVAttentionFn.apply(q, k, v, scale)`` returns o.
-    On CPU tensors both directions run the plain versions."""
+    It saves the fp32 o (for bf16 inputs, o before rounding), so that
+    the backward's delta is the TPU kernel's. On CPU tensors both
+    directions run the plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        o, lse = fused_short_kv_attention(q, k, v, scale)
+        o, lse = _short_kv_attention_fp32(q, k, v, scale)
         ctx.scale = float(scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        return o
+        return o.to(q.dtype)
 
     @staticmethod
     @once_differentiable

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from py4cast_tpu_torch.ops import _build
-from py4cast_tpu_torch.ops.lattice_ops import sep_aggregate
+from py4cast_tpu_torch.ops.lattice_ops import sep_aggregate, sep_take_mm_vjp
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 #: the forward's warp-row instance (65 <= h <= 96) holds the five h x h
@@ -268,8 +268,10 @@ def fused_corner_hop(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
     wd/wo/nd0a/nd0b/nd1: (h, h) — Dense kernels in (in, out) layout,
     nd0a/nd0b the node MLP's first kernel split at the [v_dst, agg]
     concat; the rest (h,). h at most 96, ff at most 32, everything but
-    the maps fp32, all contiguous. The output carries no gradient:
-    differentiate through ``CornerHopFn``.
+    the maps fp32 or bf16, all contiguous: bf16 is cast to fp32 at the
+    boundary and v_out rounded to vd's dtype, as the TPU kernel rounds
+    it. The output carries no gradient: differentiate through
+    ``CornerHopFn``.
     """
     b, hr, w, h = vd.shape
     ff = feats.shape[-1]
@@ -278,9 +280,13 @@ def fused_corner_hop(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
                        nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, MAX_WIDTH,
                        {"ps": (ps, (b, hc, wc, h))})
     _validate_maps("fused_corner_hop", rows, cols, hr, w, device)
+    dtype = vd.dtype
+    ps, vd, feats, wf, bf, wd, wo, bo, lns, lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb = (
+        t.float() for t in (ps, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+                            nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb))
     if device.type == "cpu":
         return corner_hop_plain(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
-                                nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, mean)
+                                nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, mean).to(dtype)
 
     out = torch.empty((b, hr, w, h), device=device, dtype=torch.float32)
     lib = _lib()
@@ -296,7 +302,7 @@ def fused_corner_hop(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
         )
     _build.check(lib, status, "corner_hop kernel")
     fused_corner_hop.launches += 1
-    return out
+    return out.to(dtype)
 
 
 #: kernel launches since the last reset (a CPU call runs the plain
@@ -310,8 +316,12 @@ def fused_corner_hop_bwd(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
     v_out: the 19 gradients of ``corner_hop_bwd_plain``, in its order.
     The forward's arguments and checks, with the four gathered corner
     upsamples psg, (B, H, W, h) each (``gather_corners``), in place of
-    ps and the maps; h at most 64 (``MAX_BWD_WIDTH``). The weight gradients are summed in a fixed
-    order, so a call repeats bit for bit."""
+    ps and the maps; h at most 64 (``MAX_BWD_WIDTH``). bf16 is cast to
+    fp32 at the boundary; the dpsg_k are rounded to the dtype of the
+    psg_k and dvd to vd's, as the TPU kernel rounds them, and the weight
+    gradients stay fp32 (``CornerHopFn`` casts them to each weight's
+    dtype). They are summed in a fixed order, so a call repeats bit for
+    bit."""
     b, hr, w, h = vd.shape
     ff = feats.shape[-1]
     if len(psg) != 4:
@@ -320,9 +330,15 @@ def fused_corner_hop_bwd(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
     extra["g"] = (g, (b, hr, w, h))
     device = _validate("fused_corner_hop_bwd", vd, feats, wf, bf, wd, wo, bo, lns,
                        lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, MAX_BWD_WIDTH, extra)
+    dtypes = (*(p.dtype for p in psg), vd.dtype)
+    psg = [p.float() for p in psg]
+    vd, feats, wf, bf, wd, wo, bo, lns, lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g = (
+        t.float() for t in (vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+                            nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g))
     if device.type == "cpu":
-        return corner_hop_bwd_plain(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
-                                    nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g, mean)
+        grads = corner_hop_bwd_plain(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+                                     nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g, mean)
+        return (*(d.to(dt) for d, dt in zip(grads[:5], dtypes)), *grads[5:])
 
     dpsg = [torch.empty_like(vd) for _ in range(4)]
     dvd = torch.empty_like(vd)
@@ -354,7 +370,7 @@ def fused_corner_hop_bwd(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
     for i, shape in ((0, (ff, h)), (2, (h, h)), (3, (h, h)), (7, (h, h)), (8, (h, h)),
                      (10, (h, h))):
         parts[i] = parts[i].view(shape)
-    return (*dpsg, dvd, *parts)
+    return (*(d.to(dt) for d, dt in zip((*dpsg, dvd), dtypes)), *parts)
 
 
 #: kernel launches since the last reset (a CPU call runs the plain
@@ -369,9 +385,12 @@ class CornerHopFn(torch.autograd.Function):
     (2, Hc, H) and ac (2, Wc, W) are the corner maps' 0/1 selection
     matrices (``lattice_ops.sel_matrix`` of rows[r] and cols[c]). It saves
     ps, not its four corner upsamples: the backward gathers them again for
-    the backward kernel and moves each dpsg_k back onto ps with
-    ``sep_aggregate`` (0/1 matmuls in a fixed order, so a second call
-    repeats bit for bit). The maps, ar, ac, feats and the mean flag get no
+    the backward kernel and moves each dpsg_k back onto ps with 0/1
+    matmuls in a fixed order (``sep_aggregate``; under bf16 in the
+    order the JAX package's VJP rounds in, ``sep_take_mm_vjp``), so a
+    second call repeats bit for bit. The weight gradients, summed
+    in fp32, are cast to each weight's dtype, as the JAX package's VJP
+    casts them. The maps, ar, ac, feats and the mean flag get no
     gradient. On CPU tensors both directions run the plain versions."""
 
     @staticmethod
@@ -387,7 +406,15 @@ class CornerHopFn(torch.autograd.Function):
         ps, rows, cols, ar, ac, vd, feats, *weights = ctx.saved_tensors
         grads = fused_corner_hop_bwd(gather_corners(ps, rows, cols), vd, feats, *weights,
                                      g.contiguous(), mean=ctx.mean)
-        dps = sep_aggregate(grads[0], ar[0], ac[0])
-        for k in range(1, 4):
-            dps = dps + sep_aggregate(grads[k], ar[k // 2], ac[k % 2])
-        return (dps, None, None, None, None, grads[4], None, *grads[5:], None)
+        # bf16 rounds each contraction and each add: fold the corners as
+        # jax.vjp of the JAX package's four sep_take_mm does, the last
+        # corner first, columns before rows
+        fp32 = ps.dtype == torch.float32
+        fold = sep_aggregate if fp32 else sep_take_mm_vjp
+        ar, ac = ar.to(ps.dtype), ac.to(ps.dtype)
+        dps = None
+        for k in (range(4) if fp32 else range(3, -1, -1)):
+            moved = fold(grads[k], ar[k // 2], ac[k % 2])
+            dps = moved if dps is None else dps + moved
+        dw = [d.to(w.dtype) for d, w in zip(grads[5:], weights)]
+        return (dps, None, None, None, None, grads[4], None, *dw, None)

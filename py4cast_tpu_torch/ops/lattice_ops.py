@@ -48,11 +48,15 @@ def stack_shifts(ps: torch.Tensor) -> torch.Tensor:
 def unshift_sum(dvs: torch.Tensor) -> torch.Tensor:
     """The adjoint of ``stack_shifts``: (B, 8, H, W, h) -> (B, H, W, h),
     sum_k shift2d(dvs[:, k], -di, -dj), each direction's cotangent moved
-    back onto its source cell (what fell off the lattice is dropped)."""
-    out = shift2d(dvs[:, 0], -DIRS8[0][0], -DIRS8[0][1])
-    for k in range(1, 8):
+    back onto its source cell (what fell off the lattice is dropped).
+    fp32 sums in DIRS8 order; bf16 in reverse, each add rounded, as
+    ``jax.vjp`` of the JAX package's shift stack sums its cotangents."""
+    order = range(8) if dvs.dtype == torch.float32 else range(7, -1, -1)
+    out = None
+    for k in order:
         di, dj = DIRS8[k]
-        out = out + shift2d(dvs[:, k], -di, -dj)
+        moved = shift2d(dvs[:, k], -di, -dj)
+        out = moved if out is None else out + moved
     return out
 
 
@@ -63,6 +67,15 @@ def sep_take_mm(v: torch.Tensor, a_rows: torch.Tensor, a_cols: torch.Tensor) -> 
     Exact — each output cell selects exactly one source cell."""
     x = torch.einsum("Ri,...Rjh->...ijh", a_rows, v)
     return torch.einsum("Cj,...iCh->...ijh", a_cols, x)
+
+
+def sep_take_mm_vjp(g: torch.Tensor, a_rows: torch.Tensor, a_cols: torch.Tensor) -> torch.Tensor:
+    """The adjoint of ``sep_take_mm`` as ``jax.vjp`` takes it: the
+    columns contracted first, then the rows (``sep_aggregate`` takes the
+    rows first). In exact arithmetic both are the same sum; in bf16 each
+    contraction rounds, and this order rounds where JAX does."""
+    x = torch.einsum("Cj,...ijh->...iCh", a_cols, g)
+    return torch.einsum("Ri,...iCh->...RCh", a_rows, x)
 
 
 def sep_aggregate(x: torch.Tensor, a_rows: torch.Tensor, a_cols: torch.Tensor) -> torch.Tensor:

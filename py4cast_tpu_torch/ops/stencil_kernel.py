@@ -176,16 +176,22 @@ def fused_stencil_message(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual=Fa
     lattice); pd: (B, H, W, h) destination projection; mask: (8, H, W, 1) edge
     existence. we: (F, h), wo: (h, h) — Dense kernels in (in, out)
     layout; be, bo, lns, lnb: (h,). F and h at most 128, everything
-    fp32 and contiguous. ``residual`` returns ``e + e_new`` as the first
-    output (needs F == h); agg always sums the raw e_new. The outputs
-    carry no gradient: differentiate through ``StencilMessageFn``.
+    fp32 or bf16 and contiguous: bf16 is cast to fp32 at the boundary,
+    and both outputs are rounded to e's dtype, as the TPU kernel rounds
+    them. ``residual`` returns ``e + e_new`` as the first output (needs
+    F == h); agg always sums the raw e_new. The outputs carry no
+    gradient: differentiate through ``StencilMessageFn``.
     """
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
     device = _validate("fused_stencil_message", e, pd, mask, we, be, wo, bo, lns, lnb,
                        residual, MAX_WIDTH, {"ps": (ps, (b, hr, w, h))})
+    dtype = e.dtype
+    e, ps, pd, mask, we, be, wo, bo, lns, lnb = (
+        t.float() for t in (e, ps, pd, mask, we, be, wo, bo, lns, lnb))
     if device.type == "cpu":
-        return stencil_message_plain(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual)
+        out, agg = stencil_message_plain(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual)
+        return out.to(dtype), agg.to(dtype)
 
     out = torch.empty((b, 8, hr, w, h), device=device, dtype=torch.float32)
     agg = torch.empty((b, hr, w, h), device=device, dtype=torch.float32)
@@ -200,7 +206,7 @@ def fused_stencil_message(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual=Fa
         )
     _build.check(lib, status, "stencil_message kernel")
     fused_stencil_message.launches += 1
-    return out, agg
+    return out.to(dtype), agg.to(dtype)
 
 
 #: kernel launches since the last reset (a CPU call runs the plain
@@ -214,8 +220,11 @@ def fused_stencil_message_bwd(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
     dbo, dlns, dlnb)`` for the cotangents g_out (B, 8, H, W, h) of out
     and g_agg (B, H, W, h) of agg. The forward's arguments and checks,
     with vs = ``stack_shifts(ps)`` (B, 8, H, W, h) in place of ps; F and h
-    at most 64 (``MAX_BWD_WIDTH``). The weight gradients are summed in a
-    fixed order, so a call repeats bit for bit."""
+    at most 64 (``MAX_BWD_WIDTH``). bf16 is cast to fp32 at the
+    boundary; de, dvs and dpd are rounded to the dtypes of e, vs and pd,
+    as the TPU kernel rounds them, and the weight gradients stay fp32
+    (``StencilMessageFn`` casts them to each weight's dtype). They are
+    summed in a fixed order, so a call repeats bit for bit."""
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
     device = _validate(
@@ -224,9 +233,13 @@ def fused_stencil_message_bwd(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
         {"vs": (vs, (b, 8, hr, w, h)), "g_out": (g_out, (b, 8, hr, w, h)),
          "g_agg": (g_agg, (b, hr, w, h))},
     )
+    dtypes = e.dtype, vs.dtype, pd.dtype
+    e, vs, pd, mask, we, be, wo, bo, lns, lnb, g_out, g_agg = (
+        t.float() for t in (e, vs, pd, mask, we, be, wo, bo, lns, lnb, g_out, g_agg))
     if device.type == "cpu":
-        return stencil_message_bwd_plain(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
-                                         g_out, g_agg, residual)
+        de, dvs, dpd, *dw = stencil_message_bwd_plain(e, vs, pd, mask, we, be, wo, bo, lns,
+                                                      lnb, g_out, g_agg, residual)
+        return (*(g.to(dt) for g, dt in zip((de, dvs, dpd), dtypes)), *dw)
 
     de = torch.empty_like(e)
     dvs = torch.empty((b, 8, hr, w, h), device=device, dtype=torch.float32)
@@ -252,7 +265,8 @@ def fused_stencil_message_bwd(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
     _build.check(lib, status, "stencil_message_bwd kernel")
     fused_stencil_message_bwd.launches += 1
     dwe, dbe, dwo, dbo, dlns, dlnb = torch.split(dw, sizes)
-    return de, dvs, dpd, dwe.view(f_in, h), dbe, dwo.view(h, h), dbo, dlns, dlnb
+    return (*(g.to(dt) for g, dt in zip((de, dvs, dpd), dtypes)),
+            dwe.view(f_in, h), dbe, dwo.view(h, h), dbo, dlns, dlnb)
 
 
 #: kernel launches since the last reset (a CPU call runs the plain
@@ -264,9 +278,12 @@ class StencilMessageFn(torch.autograd.Function):
     """``fused_stencil_message`` with its backward kernel as the
     gradient: ``StencilMessageFn.apply(e, ps, pd, mask, we, be, wo, bo,
     lns, lnb, residual)``. mask and the residual flag get no gradient.
-    It saves ps, not its eight shifts: the backward shifts it again for
-    the backward kernel and moves dvs back onto ps (``unshift_sum``).
-    On CPU tensors both directions run the plain versions."""
+    It saves ps (bf16 under the bf16 policy), not its eight shifts: the
+    backward shifts it again for the backward kernel and moves dvs back
+    onto ps (``unshift_sum``, in dvs's dtype). The weight gradients,
+    summed in fp32, are cast to each weight's dtype, as the JAX
+    package's VJP casts them. On CPU tensors both directions run the
+    plain versions."""
 
     @staticmethod
     def forward(ctx, e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual):
@@ -282,5 +299,6 @@ class StencilMessageFn(torch.autograd.Function):
         # an unused output arrives as zeros (grad materialisation is on)
         grads = fused_stencil_message_bwd(e, stack_shifts(ps), *rest, g_out.contiguous(),
                                           g_agg.contiguous(), ctx.residual)
-        de, dvs, dpd, dwe, dbe, dwo, dbo, dlns, dlnb = grads
-        return de, unshift_sum(dvs), dpd, None, dwe, dbe, dwo, dbo, dlns, dlnb, None
+        de, dvs, dpd, *dw = grads
+        dw = [g.to(p.dtype) for g, p in zip(dw, rest[2:])]
+        return (de, unshift_sum(dvs), dpd, None, *dw, None)

@@ -66,7 +66,7 @@ from py4cast_tpu_torch.rollout import (
     fold_seed,
     rollout,
 )
-from py4cast_tpu_torch.utils import exact_fp32, resolve_device, str_to_dtype
+from py4cast_tpu_torch.utils import compute_dtype, exact_fp32, resolve_device
 
 Params = Dict[str, torch.Tensor]
 
@@ -257,19 +257,22 @@ class AutoRegressiveModule:
     device buffers for one run. ``device`` defaults to the card; with no
     CUDA device the constructor raises unless ``device="cpu"`` is asked
     for. The steps (``loss_and_grads``, ``train_step``, ``eval_step``,
-    ``predict_step``) run in true fp32: TF32 is off for cuBLAS and cuDNN
-    inside each of them (``utils.exact_fp32``), forward and backward."""
+    ``predict_step``) run inside ``utils.exact_reductions``, forward and
+    backward: fp32 runs are true fp32 (no TF32), bf16 products sum in fp32.
+
+    ``settings.precision`` picks the JAX package's policy
+    (``compute_dtype``): under "bf16" ("bf16-mixed", "16-mixed") each
+    model call casts the fp32 master params and its input to bf16 and
+    returns fp32 (``_model_apply``), inputs and forcing travel as bf16
+    and targets as fp32 (``batch_arg_dtypes``), and the AR carry, the
+    losses, the optimizer and the predictions stay fp32."""
 
     def __init__(self, settings: TrainingSettings, dataset_info: DatasetInfo,
                  device="cuda"):
         self.device = resolve_device(device)
         self.settings = settings
         self.dataset_info = dataset_info
-        if str_to_dtype.get(settings.precision) != torch.float32:
-            raise NotImplementedError(
-                f"precision {settings.precision!r}: py4cast_tpu_torch runs fp32 "
-                "only so far (bf16 is queued in ROADMAP.md)"
-            )
+        self.compute_dtype = compute_dtype(settings.precision)
 
         statics = dataset_info.statics
         ds = settings.training_strategy == "downscaling_only"
@@ -429,10 +432,22 @@ class AutoRegressiveModule:
             arr, ("batch", "timestep") + spatial + ("features",), self.output_feature_names
         )
 
-    def _to_device(self, a) -> torch.Tensor:
-        """A (B, T, lat, lon, F) batch array on the device; (B, T, ngrid,
-        F) for GRAPH models."""
-        t = torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+    def batch_arg_dtypes(self) -> Tuple[torch.dtype, torch.dtype, torch.dtype]:
+        """The dtypes of a batch's (inputs, forcing, outputs) on the
+        device, as the JAX package's: the model's food (inputs, forcing)
+        in the compute dtype, the targets in fp32 (the loss sums in
+        fp32). ``downscaling_only`` keeps its forcing, and so its inputs,
+        fp32: the forcing carries the coarse state the predictions add
+        to."""
+        food = (self.compute_dtype if self.settings.training_strategy != "downscaling_only"
+                else torch.float32)
+        return food, food, torch.float32
+
+    def _to_device(self, a, dtype=torch.float32) -> torch.Tensor:
+        """A (B, T, lat, lon, F) batch array on the device, in ``dtype``;
+        (B, T, ngrid, F) for GRAPH models. bf16 is rounded on the host,
+        so that half the bytes cross to the card."""
+        t = torch.as_tensor(np.asarray(a, np.float32)).to(dtype).to(self.device)
         if self.is_graph:
             t = t.reshape(t.shape[0], t.shape[1], -1, t.shape[-1])
         return t
@@ -440,34 +455,43 @@ class AutoRegressiveModule:
     def _batch_arrays(self, batch: ItemBatch, with_outputs: bool = False):
         """(inputs, forcing, outputs) of a batch on the device; (B, T,
         ngrid, F) for GRAPH models, (B, T, lat, lon, F) otherwise;
-        outputs is None unless asked for."""
+        outputs is None unless asked for; in ``batch_arg_dtypes``."""
         dev = self._to_device
-        forcing = dev(batch.forcing.array)
+        in_dtype, forcing_dtype, out_dtype = self.batch_arg_dtypes()
+        forcing = dev(batch.forcing.array, forcing_dtype)
         if batch.inputs is not None:
-            inputs = dev(batch.inputs.array)
+            inputs = dev(batch.inputs.array, in_dtype)
         else:
             # downscaling-only datasets may have no prognostic inputs:
             # the window is a zero placeholder with output feature width
             inputs = torch.zeros(
                 (forcing.shape[0], self.settings.num_input_steps)
                 + tuple(forcing.shape[2:-1]) + (self.num_output_features,),
-                device=self.device,
+                device=self.device, dtype=in_dtype,
             )
-        outputs = dev(batch.outputs.array) if with_outputs else None
+        outputs = dev(batch.outputs.array, out_dtype) if with_outputs else None
         return inputs, forcing, outputs
 
     def _model_apply(self, params: Params):
         """``apply(x, seed=None)``: the model at ``params``; with a seed,
         its dropout draws from a fresh generator seeded with it, made
         inside ``apply`` so that a recomputed forward draws the same
-        masks."""
-        device = self.device
+        masks. Under bf16 the params and x are cast to bf16 inside
+        ``apply`` (differentiable casts: the fp32 masters get the
+        gradients rounded where ``jax.grad`` rounds them, and a
+        recomputed forward casts again instead of keeping the copies)
+        and the output comes back as fp32."""
+        device, dtype = self.device, self.compute_dtype
 
         def apply(x, seed=None):
-            if seed is None:
-                return functional_call(self.model, params, (x,))
-            generator = torch.Generator(device=device).manual_seed(seed)
-            return functional_call(self.model, params, (x,), {"generator": generator})
+            p = params
+            if dtype != torch.float32:
+                x = x.to(dtype)
+                p = {k: v.to(dtype) for k, v in params.items()}
+            kwargs = {}
+            if seed is not None:
+                kwargs["generator"] = torch.Generator(device=device).manual_seed(seed)
+            return functional_call(self.model, p, (x,), kwargs).to(torch.float32)
 
         if self.settings.use_checkpointing or getattr(self.model_settings, "use_checkpointing",
                                                       False):

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict
 
@@ -50,21 +51,52 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def compute_dtype(precision: str) -> torch.dtype:
+    """The activation dtype of a ``precision`` setting (``str_to_dtype``):
+    float32, or bfloat16 for "bf16", "bf16-mixed" and "16-mixed", under
+    which params are cast to bf16 inside each model call while their fp32
+    masters stay in the optimizer. "64"/"64-true" raise: the JAX package
+    without x64 computes them in fp32."""
+    if precision not in str_to_dtype:
+        raise ValueError(f"precision {precision!r} unknown; accepted: {sorted(str_to_dtype)}")
+    dtype = str_to_dtype[precision]
+    if dtype == torch.float64:
+        raise NotImplementedError(
+            f"precision {precision!r}: float64 is not supported (the JAX package, "
+            "without jax_enable_x64, computes it in fp32); use '32' or 'bf16'"
+        )
+    return dtype
+
+
+@contextlib.contextmanager
+def exact_reductions():
+    """Inside, cuBLAS and cuDNN reduce as XLA does; the previous flags
+    are restored after. TF32 is off for fp32 products and convolutions
+    (``torch.backends.cudnn.allow_tf32`` is True by default: about three
+    decimal digits, outside the port's 1e-4 bar against the JAX package),
+    and bf16 products keep their split-K partial sums in fp32
+    (``allow_bf16_reduced_precision_reduction`` is True by default and
+    lets cuBLAS round them to bf16; XLA accumulates bf16 dots in fp32)."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = (matmul.allow_tf32, cudnn.allow_tf32,
+              matmul.allow_bf16_reduced_precision_reduction)
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (matmul.allow_tf32, cudnn.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = before
+
+
 def exact_fp32(fn):
-    """Decorator: run ``fn`` in full fp32 in cuBLAS and cuDNN, the
-    previous flags restored after. torch runs fp32 convolutions in TF32
-    by default (``torch.backends.cudnn.allow_tf32`` is True): about three
-    decimal digits, outside the port's 1e-4 bar against the JAX
-    package."""
+    """Decorator: run ``fn`` inside ``exact_reductions``, so that fp32
+    steps are true fp32 and bf16 steps accumulate their products in
+    fp32."""
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
-        before = (matmul.allow_tf32, cudnn.allow_tf32)
-        matmul.allow_tf32 = cudnn.allow_tf32 = False
-        try:
+        with exact_reductions():
             return fn(*args, **kwargs)
-        finally:
-            matmul.allow_tf32, cudnn.allow_tf32 = before
 
     return wrapper

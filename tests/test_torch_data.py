@@ -209,7 +209,7 @@ def test_unported_names_raise(both_test_sets):
         port_get_datasets("titan", 2, 1, 1)
     with pytest.raises(NotImplementedError, match="fp32"):
         AutoRegressiveModule(
-            TrainingSettings(model_name="GraphLAM", precision="bf16"),
+            TrainingSettings(model_name="GraphLAM", precision="64"),
             both_test_sets[1].dataset_info, device="cpu",
         )
 
