@@ -55,6 +55,16 @@ HOP_FN_NAMES = ("dps", "dvd", "dwf", "dbf", "dwd", "dwo", "dbo", "dlns", "dlnb",
 STENCIL_NAMES = ("de", "dvs", "dpd", "dwe", "dbe", "dwo", "dbo", "dlns", "dlnb")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models here are small, and it keeps this
+    file from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _arrays(seed, shapes):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32) * sc + sh for s, sc, sh in shapes]

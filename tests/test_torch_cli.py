@@ -7,6 +7,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from py4cast_tpu_torch import cli
 
@@ -18,6 +19,16 @@ CONFIGS = ["--config", str(ROOT / "config/CLI/trainer.yaml"),
 SMALL = ["--model.settings_init_args.hidden_dims", "16",
          "--model.settings_init_args.processor_layers", "2",
          "--trainer.device", "cpu", "--data.num_workers", "1"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models here are small, and it keeps this
+    file from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

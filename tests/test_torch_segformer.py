@@ -44,6 +44,16 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models here are small, and it keeps this
+    file from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(got, want, bar, name=""):
     want = np.asarray(want)
     scale = max(1.0, float(np.abs(want).max()))

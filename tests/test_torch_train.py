@@ -31,6 +31,16 @@ GRAD_BAR = 1e-4
 LOSS_RTOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models here are small, and it keeps this
+    file from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _settings(**kw):
     base = dict(model_name="GraphLAM", settings_init_args=dict(SMALL),
                 training_strategy="diff_ar", num_pred_steps_train=2,
