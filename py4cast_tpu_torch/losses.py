@@ -12,10 +12,13 @@ members with config weights.
 
 from __future__ import annotations
 
+import warnings
+from pathlib import Path
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _huber(a, b):
@@ -131,14 +134,106 @@ class ScaledLoss(Py4CastLoss):
         return mean_loss * self.weights
 
 
-class PerceptualLossPy4Cast(Py4CastLoss):
-    """The JAX package's feature-space perceptual loss. Not ported yet."""
+#: the perceptual loss's trained features, a copy of the JAX package's file
+PERCEPTUAL_FEATS = Path(__file__).parent / "data" / "perceptual_feats.npz"
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PerceptualLossPy4Cast is not yet ported to py4cast_tpu_torch "
-            "(ROADMAP.md, queue 1 item 6); use WeightedLoss or ScaledLoss"
-        )
+
+class PerceptualLossPy4Cast(Py4CastLoss):
+    """Feature-space perceptual loss on min-max-normalized fields → (B, T).
+
+    Each field, de-normalized, min-max scaled to [0, 1] and masked, goes
+    alone through a small single-channel conv encoder (the features folded
+    into the batch: channel-iterative, mfai's multi-channel strategy):
+    per scale a 3x3 SAME conv, bias and ReLU, then a [::2, ::2] subsample
+    before the next. The loss sums over scales the mean squared feature
+    difference of each image, averaged over the fields. The encoder's
+    trained weights are ``PERCEPTUAL_FEATS`` (HWIO, layers k0, k1, ...);
+    without the file, or with ``trained=False``, a fixed random pyramid
+    drawn from ``np.random.default_rng(0)`` in the JAX package's order
+    (32 channels a scale, std 1/sqrt(9 c), zero biases) stands in, with
+    a warning when the file was asked for. The convolutions run inside
+    the steps' ``utils.exact_reductions``: TF32 off."""
+
+    def __init__(self, in_channels: int = 1, num_scales: int = 3,
+                 trained: bool = True, **_):
+        self.in_channels = in_channels  # accepted for config parity
+        self.num_scales = num_scales
+        self.trained = trained
+        self._kernels: Optional[List[np.ndarray]] = None
+        self._biases: Optional[List[np.ndarray]] = None
+
+    def _load_trained(self) -> bool:
+        if not PERCEPTUAL_FEATS.exists():
+            return False
+        with np.load(PERCEPTUAL_FEATS) as z:
+            layers = sorted(int(k[1:]) for k in z.files if k.startswith("k"))
+            self._kernels = [z[f"k{i}"] for i in layers]
+            self._biases = [z[f"b{i}"] for i in layers]
+        return True
+
+    def prepare(self, interior_mask, dataset_info, feature_names: Sequence[str]):
+        loaded = self.trained and self._load_trained()
+        if not loaded:
+            if self.trained:
+                warnings.warn(
+                    "perceptual_feats.npz not found — falling back to the "
+                    "fixed random feature pyramid")
+            rng = np.random.default_rng(0)
+            self._kernels = [
+                (rng.standard_normal((3, 3, 1 if s == 0 else 32, 32)).astype(np.float32)
+                 / np.sqrt(9.0 * (1 if s == 0 else 32))).astype(np.float32)
+                for s in range(self.num_scales)
+            ]
+            self._biases = [np.zeros(k.shape[-1], np.float32) for k in self._kernels]
+        # HWIO -> OIHW
+        self.conv_weights = [torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+                             for k in self._kernels]
+        self.conv_biases = [torch.from_numpy(b) for b in self._biases]
+        self.stats = {key: torch.tensor([dataset_info.stats[n][key] for n in feature_names],
+                                        dtype=torch.float32)
+                      for key in ("min", "max", "mean", "std")}
+
+    def _on(self, like: torch.Tensor):
+        if self.conv_weights[0].device != like.device:
+            self.conv_weights = [w.to(like.device) for w in self.conv_weights]
+            self.conv_biases = [b.to(like.device) for b in self.conv_biases]
+            self.stats = {k: v.to(like.device) for k, v in self.stats.items()}
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
+        st = self.stats
+        raw = x * st["std"] + st["mean"]
+        return ((raw - st["min"]) / (st["max"] - st["min"] + 1e-8)).clamp(0.0, 1.0)
+
+    def _features(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """x: (N, 1, H, W) → the feature map of each scale, NCHW."""
+        feats = []
+        h = x
+        for w, b in zip(self.conv_weights, self.conv_biases):
+            h = F.relu(F.conv2d(h, w, b, padding=1))
+            feats.append(h)
+            h = h[:, :, ::2, ::2]  # stride-2 subsample between scales
+        return feats
+
+    def __call__(self, prediction, target, mask, interior_mask=None):
+        # the features see the whole field; interior_mask is accepted for
+        # CombinedLoss's sake
+        self._on(prediction.array)
+        pred = self._normalize(prediction.array) * mask
+        tgt = self._normalize(target.array) * mask
+        if pred.ndim != 5:
+            raise ValueError(
+                f"PerceptualLossPy4Cast needs (batch, timestep, lat, lon, features) "
+                f"fields, got shape {tuple(pred.shape)}")
+        b, t, hh, ww, f = pred.shape
+
+        def fold(a):  # (B, T, H, W, F) -> (B·T·F, 1, H, W)
+            return a.permute(0, 1, 4, 2, 3).reshape(b * t * f, 1, hh, ww)
+
+        loss = 0.0
+        for fp, ft in zip(self._features(fold(pred)), self._features(fold(tgt))):
+            per_img = ((fp - ft) ** 2).mean(dim=(1, 2, 3))
+            loss = loss + per_img.reshape(b, t, f).mean(dim=-1)
+        return loss
 
 
 LOSS_CLASSES = {

@@ -1,7 +1,7 @@
 """Model registry.
 
-GraphLAM, HiLAM, HiLAMParallel, HalfUNet, UNet, Segformer and UNetRPP
-are ported so far. The other names of the JAX package's zoo are known
+GraphLAM, HiLAM, HiLAMParallel, HalfUNet, UNet, CustomUNet, DeepLabV3,
+DeepLabV3Plus, Segformer and UNetRPP are ported so far. The other names of the JAX package's zoo are known
 here, so that asking for one says it is not ported yet instead of that
 it does not exist.
 """
@@ -11,17 +11,19 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 from py4cast_tpu_torch.models.base import ModelBase, ModelType, settings_from_dict
+from py4cast_tpu_torch.models.deeplab import DeepLabV3, DeepLabV3Plus
 from py4cast_tpu_torch.models.graph import GraphLAM, HiLAM, HiLAMParallel
 from py4cast_tpu_torch.models.segformer import Segformer
-from py4cast_tpu_torch.models.unet import HalfUNet, UNet
+from py4cast_tpu_torch.models.unet import CustomUNet, HalfUNet, UNet
 from py4cast_tpu_torch.models.unetrpp import UNetRPP
 
 registry: dict = {"GraphLAM": GraphLAM, "HiLAM": HiLAM, "HiLAMParallel": HiLAMParallel,
-                  "HalfUNet": HalfUNet, "UNet": UNet, "Segformer": Segformer,
-                  "UNetRPP": UNetRPP}
+                  "HalfUNet": HalfUNet, "UNet": UNet, "CustomUNet": CustomUNet,
+                  "DeepLabV3": DeepLabV3, "DeepLabV3Plus": DeepLabV3Plus,
+                  "Segformer": Segformer, "UNetRPP": UNetRPP}
 
 #: models of the JAX package the port does not have yet (ROADMAP.md, queue 1)
-NOT_YET_PORTED = ("CustomUNet", "DeepLabV3", "DeepLabV3Plus", "SwinUNetR")
+NOT_YET_PORTED = ("SwinUNetR",)
 
 all_nn_architectures = tuple(registry)
 

@@ -106,22 +106,29 @@ class FlaxConv2d(nn.Conv2d):
     """A Flax ``nn.Conv`` (``padding="SAME"``, the Flax default, with
     ``kernel_dilation``) on an NHWC tensor: the input is padded as Flax
     pads it (``flax_same_pad`` of the dilated kernel's extent), then
-    convolved in NCHW and returned NHWC. The weight is torch's OIHW;
-    ``convert.params_from_jax`` maps Flax's HWIO kernel onto it."""
+    convolved in NCHW and returned NHWC. An int ``padding`` is Flax's
+    explicit ``padding=((p, p), (p, p))`` instead: p on every side, the
+    ResNet encoder's torch-style stem and strided convs, where SAME would
+    pad (2, 3) or (0, 1) at stride 2 on an even side. The weight is
+    torch's OIHW; ``convert.params_from_jax`` maps Flax's HWIO kernel
+    onto it."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1,
-                 groups: int = 1, bias: bool = True, dilation: int = 1):
-        super().__init__(in_channels, out_channels, kernel, stride=stride, padding=0,
-                         dilation=dilation, groups=groups, bias=bias)
+                 groups: int = 1, bias: bool = True, dilation: int = 1,
+                 padding: Optional[int] = None):
+        super().__init__(in_channels, out_channels, kernel, stride=stride,
+                         padding=padding or 0, dilation=dilation, groups=groups, bias=bias)
+        self.same = padding is None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (kh, kw), (sh, sw), (dh, dw) = self.kernel_size, self.stride, self.dilation
-        # Flax pads SAME for the dilated extent (k - 1) * d + 1
-        top, bottom = flax_same_pad(x.shape[1], (kh - 1) * dh + 1, sh)
-        left, right = flax_same_pad(x.shape[2], (kw - 1) * dw + 1, sw)
         y = x.permute(0, 3, 1, 2)
-        if top or bottom or left or right:
-            y = F.pad(y, (left, right, top, bottom))
+        if self.same:
+            (kh, kw), (sh, sw), (dh, dw) = self.kernel_size, self.stride, self.dilation
+            # Flax pads SAME for the dilated extent (k - 1) * d + 1
+            top, bottom = flax_same_pad(x.shape[1], (kh - 1) * dh + 1, sh)
+            left, right = flax_same_pad(x.shape[2], (kw - 1) * dw + 1, sw)
+            if top or bottom or left or right:
+                y = F.pad(y, (left, right, top, bottom))
         return super().forward(y).permute(0, 2, 3, 1)
 
 

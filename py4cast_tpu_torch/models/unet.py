@@ -1,19 +1,21 @@
 """The UNet family of the JAX package's ``models/unet.py``, NHWC: UNet
 and HalfUNet with their ConvBlock and GhostBlock, the nearest
 upsampling, and the bilinear resize that Segformer's and UNetRPP's
-decoders share. CustomUNet is not ported yet (ROADMAP.md, queue 1 item
-10).
+decoders share; CustomUNet with its ResNet encoder, which DeepLabV3 and
+DeepLabV3Plus share.
 
 Submodules carry Flax's auto names (``ConvBlock_0/Conv_1``,
 ``GhostBlock_2/GroupNorm_3``, ``ConvTranspose_0``, ``Conv_0``, the
-top-level ``pos_embed``), so ``convert.params_from_jax`` maps the JAX
-variables one to one. No hand kernel runs here: cuDNN runs the
+top-level ``pos_embed``) and the encoder its stable names
+(``encoder.stem_conv``, ``encoder.stage1_block0.proj_norm``), so
+``convert.params_from_jax`` maps the JAX variables one to one and
+``models/pretrained.py`` the pretrained npz. No hand kernel runs here: cuDNN runs the
 convolutions (TF32 off inside every step, ``utils.exact_fp32``)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -86,19 +88,16 @@ def _upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 def _bilinear_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Bilinear resize of NHWC ``x`` to (h, w), as
-    ``jax.image.resize(method="bilinear")`` upsamples (half-pixel
-    centres, edges clamped). Shrinking raises: jax antialiases when it
-    downsizes and ``F.interpolate`` does not, and no ported model
-    shrinks."""
-    if h < x.shape[1] or w < x.shape[2]:
-        raise ValueError(
-            f"_bilinear_resize only upsamples: {tuple(x.shape[1:3])} -> {(h, w)} would "
-            "need jax's antialiased downsizing, which is not ported"
-        )
+    ``jax.image.resize(method="bilinear")`` resizes: half-pixel centres,
+    edges clamped, and on an axis that shrinks the triangle filter
+    widened by the factor (jax antialiases when it downsizes). That is
+    ``F.interpolate``'s ``antialias=True``, which leaves an axis that
+    grows plain bilinear; it is taken only when an axis shrinks."""
     if (h, w) == tuple(x.shape[1:3]):
         return x
+    shrinks = h < x.shape[1] or w < x.shape[2]
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
-                      align_corners=False)
+                      align_corners=False, antialias=shrinks)
     return y.permute(0, 2, 3, 1)
 
 
@@ -213,6 +212,177 @@ class HalfUNet(ModelBase):
             summed = up if summed is None else summed + up
         y = getattr(self, f"{self.block_name}_{s.depth}")(summed)
         y = self.activation(self.Conv_0(y))
+        if s.autopad_enabled:
+            y = crop_to(y, hw)
+        return y
+
+
+@dataclass(frozen=True)
+class CustomUNetSettings:
+    encoder_name: str = "resnet18"
+    encoder_depth: int = 5
+    # False: drawn weights; True: the default pretrained npz
+    # (models/pretrained.default_weights_path); a string: an npz path
+    encoder_weights: object = False
+    # "group" (GroupNorm) or "affine" (frozen BN: per-channel scale and bias)
+    encoder_norm: str = "group"
+    autopad_enabled: bool = True
+    decoder_channels: Tuple[int, ...] = (256, 128, 64, 32, 16)
+
+
+class AffineNorm(nn.Module):
+    """Per-channel scale and bias, a BatchNorm with its running statistics
+    folded in ("frozen BN"): eval-exact for converted torchvision
+    encoders and batch-independent. Flax's ``scale`` is ``weight`` here,
+    so ``convert.params_from_jax`` maps it; 1 and 0 at init
+    (``draw_params``, which ``training.init_weights`` calls)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def draw_params(self, generator: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.weight + self.bias
+
+
+def _enc_norm(kind: str, features: int) -> nn.Module:
+    return AffineNorm(features) if kind == "affine" else _gn(features)
+
+
+class ResNetBlock(nn.Module):
+    """A ResNet basic block: conv1 (3x3, ``stride``, padded 1 on every
+    side as torch pads, not SAME), norm, ReLU, conv2 (3x3 SAME), norm,
+    plus the input, through a 1x1 ``proj`` and its norm where the shape
+    changes; ReLU."""
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1,
+                 norm: str = "group"):
+        super().__init__()
+        self.conv1 = FlaxConv2d(in_channels, features, 3, stride=stride, padding=1)
+        self.norm1 = _enc_norm(norm, features)
+        self.conv2 = FlaxConv2d(features, features, 3)
+        self.norm2 = _enc_norm(norm, features)
+        if stride != 1 or in_channels != features:
+            self.proj = FlaxConv2d(in_channels, features, 1, stride=stride)
+            self.proj_norm = _enc_norm(norm, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.norm1(self.conv1(x)))
+        y = self.norm2(self.conv2(y))
+        residual = self.proj_norm(self.proj(x)) if hasattr(self, "proj") else x
+        return F.relu(y + residual)
+
+
+#: name: (blocks per stage, base width)
+_RESNET_STAGES = {
+    "resnet18": ((2, 2, 2, 2), 64),
+    "resnet34": ((3, 4, 6, 3), 64),
+}
+
+
+def max_pool_3x3(x: torch.Tensor) -> torch.Tensor:
+    """The stem's 3x3 stride-2 max pool of NHWC ``x``, padded 1 on every
+    side with -inf (Flax's ``nn.max_pool`` with ``padding=((1, 1), (1,
+    1))``); its backward routes a window's cotangent to its first
+    maximum, as XLA's select-and-scatter does."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
+
+
+class ResNetEncoder(nn.Module):
+    """ResNet-18/34 encoder returning one feature map per depth level: the
+    stem (7x7 stride 2, padded 3 on every side, norm, ReLU) at /2, then,
+    after a 3x3 stride-2 max pool padded 1 with -inf, one map per stage.
+    ``channels`` lists the maps' widths."""
+
+    def __init__(self, in_channels: int, encoder_name: str = "resnet18", depth: int = 5,
+                 norm: str = "group"):
+        super().__init__()
+        if encoder_name not in _RESNET_STAGES:
+            raise ValueError(
+                f"Unknown encoder {encoder_name}; available: {list(_RESNET_STAGES)}")
+        blocks, width = _RESNET_STAGES[encoder_name]
+        self.stem_conv = FlaxConv2d(in_channels, width, 7, stride=2, padding=3)
+        self.stem_norm = _enc_norm(norm, width)
+        self.channels: List[int] = [width]
+        self.stages: List[int] = list(blocks[: depth - 1])
+        in_ch = width
+        for stage, n_blocks in enumerate(self.stages):
+            f = width * 2 ** stage
+            for b in range(n_blocks):
+                stride = 2 if (b == 0 and stage > 0) else 1
+                self.add_module(f"stage{stage}_block{b}",
+                                ResNetBlock(in_ch, f, stride=stride, norm=norm))
+                in_ch = f
+            self.channels.append(f)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = F.relu(self.stem_norm(self.stem_conv(x)))
+        feats = [x]
+        x = max_pool_3x3(x)
+        for stage, n_blocks in enumerate(self.stages):
+            for b in range(n_blocks):
+                x = getattr(self, f"stage{stage}_block{b}")(x)
+            feats.append(x)
+        return feats
+
+
+class CustomUNet(ModelBase):
+    """A UNet on a ResNet encoder, segmentation-models style (reference
+    settings: config/CLI/model/customunet.yaml): from the deepest map up,
+    a nearest x2 upsampling (resized bilinearly to the skip when autopad
+    is off and the sides differ), the skip concatenated and a ConvBlock
+    per decoder width; a last x2 upsampling, ConvBlock and 1x1 conv.
+    ``load_pretrained`` loads the encoder per ``encoder_weights``."""
+
+    settings_kls = CustomUNetSettings
+    model_type = ModelType.CONVOLUTIONAL
+
+    def __init__(self, num_input_features: int, num_output_features: int,
+                 input_shape: Tuple[int, ...],
+                 settings: CustomUNetSettings = CustomUNetSettings()):
+        super().__init__(num_input_features, num_output_features, input_shape, settings)
+        s = settings
+        self.encoder = ResNetEncoder(num_input_features, s.encoder_name, s.encoder_depth,
+                                     norm=s.encoder_norm)
+        channels = self.encoder.channels
+        dec = tuple(s.decoder_channels[: len(channels)])
+        skips = channels[:-1][::-1]  # deepest first
+        self.num_up = len(dec[: len(skips)])
+        y_ch = channels[-1]
+        for i, ch in enumerate(dec[: len(skips)]):
+            self.add_module(f"ConvBlock_{i}", ConvBlock(y_ch + skips[i], ch))
+            y_ch = ch
+        self.add_module(f"ConvBlock_{self.num_up}", ConvBlock(y_ch, dec[-1]))
+        self.Conv_0 = FlaxConv2d(dec[-1], num_output_features, 1)
+
+    def load_pretrained(self, params):
+        """``params`` with the pretrained encoder loaded per
+        ``settings.encoder_weights`` (the trainer calls it after init)."""
+        from py4cast_tpu_torch.models.pretrained import maybe_load_encoder
+
+        return maybe_load_encoder(params, self.settings, self.num_input_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.settings
+        if s.autopad_enabled:
+            x, hw = pad_to_multiple(x, 2 ** s.encoder_depth)
+        feats = self.encoder(x)
+        y = feats[-1]
+        skips = feats[:-1][::-1]
+        for i in range(self.num_up):
+            y = _upsample(y, 2)
+            skip = skips[i]
+            if skip.shape[1:3] != y.shape[1:3]:
+                y = _bilinear_resize(y, skip.shape[1], skip.shape[2])
+            y = getattr(self, f"ConvBlock_{i}")(torch.cat([y, skip], dim=-1))
+        # back to the input's resolution (the stem halved it)
+        y = getattr(self, f"ConvBlock_{self.num_up}")(_upsample(y, 2))
+        y = self.Conv_0(y)
         if s.autopad_enabled:
             y = crop_to(y, hw)
         return y

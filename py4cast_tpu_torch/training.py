@@ -349,9 +349,14 @@ class AutoRegressiveModule:
     # ------------------------------------------------------------------ setup
     def init_params(self, generator: torch.Generator) -> Params:
         """Draw initial weights into the model from ``generator`` and
-        return them as the parameter state."""
+        return them as the parameter state, with a pretrained encoder
+        loaded where the model has one (``load_pretrained``: CustomUNet's
+        and DeepLab's ``encoder_weights``)."""
         init_weights(self.model, generator)
-        return {k: v.detach() for k, v in self.model.named_parameters()}
+        params = {k: v.detach() for k, v in self.model.named_parameters()}
+        if hasattr(self.model, "load_pretrained"):
+            params = self.model.load_pretrained(params)
+        return params
 
     def _place(self, state: Params) -> Params:
         """The parameter state on this module's device, after checking

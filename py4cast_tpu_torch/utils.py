@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import warnings
 from typing import Dict
 
 import numpy as np
@@ -55,16 +56,17 @@ def compute_dtype(precision: str) -> torch.dtype:
     """The activation dtype of a ``precision`` setting (``str_to_dtype``):
     float32, or bfloat16 for "bf16", "bf16-mixed" and "16-mixed", under
     which params are cast to bf16 inside each model call while their fp32
-    masters stay in the optimizer. "64"/"64-true" raise: the JAX package
-    without x64 computes them in fp32."""
+    masters stay in the optimizer. "64"/"64-true" run in fp32 with a
+    warning, as the JAX package computes them without jax_enable_x64."""
     if precision not in str_to_dtype:
         raise ValueError(f"precision {precision!r} unknown; accepted: {sorted(str_to_dtype)}")
     dtype = str_to_dtype[precision]
     if dtype == torch.float64:
-        raise NotImplementedError(
-            f"precision {precision!r}: float64 is not supported (the JAX package, "
-            "without jax_enable_x64, computes it in fp32); use '32' or 'bf16'"
+        warnings.warn(
+            f"precision {precision!r} runs in fp32, as the JAX package computes "
+            "it without jax_enable_x64"
         )
+        return torch.float32
     return dtype
 
 

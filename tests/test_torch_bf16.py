@@ -222,8 +222,8 @@ def test_compute_dtype_maps_the_precision_strings():
     for name in ("32", "32-true"):
         assert compute_dtype(name) == torch.float32
     for name in ("64", "64-true"):
-        with pytest.raises(NotImplementedError, match="float64"):
-            compute_dtype(name)
+        with pytest.warns(UserWarning, match="fp32"):
+            assert compute_dtype(name) == torch.float32
     with pytest.raises(ValueError, match="unknown"):
         compute_dtype("fp8")
 

@@ -2,6 +2,7 @@
 package's, on the CPU."""
 
 import datetime as dt
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -207,11 +208,36 @@ def test_unported_names_raise(both_test_sets):
                              both_test_sets[1].dataset_info, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1"):
         port_get_datasets("titan", 2, 1, 1)
-    with pytest.raises(NotImplementedError, match="fp32"):
-        AutoRegressiveModule(
-            TrainingSettings(model_name="GraphLAM", precision="64"),
+    with pytest.warns(UserWarning, match="fp32"):
+        module = AutoRegressiveModule(
+            TrainingSettings(model_name="GraphLAM", precision="64",
+                             settings_init_args={"hidden_dims": 8, "processor_layers": 1}),
             both_test_sets[1].dataset_info, device="cpu",
         )
+    assert module.compute_dtype == torch.float32
+
+
+def test_precision_64_predicts_as_32_bit_for_bit(both_test_sets):
+    """precision "64" runs the fp32 path (the JAX package without x64
+    computes it in fp32): Trainer.predict on Dummy equals a "32" run's."""
+    port_ds = both_test_sets[1]
+    preds = {}
+    for precision in ("32", "64"):
+        settings = TrainingSettings(model_name="HalfUNet", precision=precision,
+                                    settings_init_args={"num_filters": 8, "depth": 2})
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            module = AutoRegressiveModule(settings, port_ds.dataset_info, device="cpu")
+        assert [str(w.message) for w in caught if "fp32" in str(w.message)] == (
+            [] if precision == "32" else [f"precision '64' runs in fp32, as the JAX package "
+                                          "computes it without jax_enable_x64"])
+        params = module.init_params(torch.Generator().manual_seed(0))
+        preds[precision] = Trainer(TrainerConfig(batch_size=8, device="cpu", num_workers=1)
+                                   ).predict(module, port_ds, params)
+    assert len(preds["64"]) == len(preds["32"]) == 3
+    for a, b in zip(preds["64"], preds["32"]):
+        assert a.array.dtype == np.float32
+        np.testing.assert_array_equal(a.array, b.array)
 
 
 def test_predict_rejects_a_foreign_state(both_test_sets):

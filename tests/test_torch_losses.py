@@ -133,8 +133,14 @@ def test_combined_loss_rejects_mixed_output_shapes():
 
 
 def test_perceptual_loss_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        losses.CombinedLoss([{"class": "PerceptualLossPy4Cast", "params": {}}])
+    """The perceptual loss is ported: CombinedLoss builds it as a (B, T)
+    member beside WeightedLoss (tests/test_torch_perceptual.py holds its
+    values and gradients against the JAX package's)."""
+    combined = losses.CombinedLoss([{"class": "WeightedLoss", "params": {"loss": "MSELoss"}},
+                                    {"class": "PerceptualLossPy4Cast", "params": {}}])
+    member = combined.losses[1][0]
+    assert isinstance(member, losses.PerceptualLossPy4Cast)
+    assert member.output_shape == "bt" and member.trained and member.num_scales == 3
 
 
 def test_unknown_elementwise_loss_raises():

@@ -204,8 +204,9 @@ def test_bilinear_resize_upsamples_as_jax():
     np.testing.assert_allclose(got, want, **CONV_TOL)
     same = torch.from_numpy(x)
     assert _bilinear_resize(same, 16, 20) is same
-    with pytest.raises(ValueError, match="only upsamples"):
-        _bilinear_resize(torch.from_numpy(x), 8, 20)
+    # a shrink antialiases, as jax does (tests/test_torch_resnet.py covers more)
+    np.testing.assert_allclose(_bilinear_resize(same, 8, 20).numpy(),
+                               np.asarray(jax_resize(x, 8, 20)), **CONV_TOL)
 
 
 def test_pad_to_multiple_and_crop_match_jax():
