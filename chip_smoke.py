@@ -120,7 +120,20 @@ non-zero exit code and no result line:
    500x500 predict and train step, HalfUNet and UNetRPP (flash_attn)
    512x640, in bf16 beside their fp32 numbers of phases 5, 7, 11 and
    16: ms/step, peak memory, device time, idle share, copies and casts;
-18. the script's wall time, one JSON line with every kernel's numbers,
+18. the ResNet-encoder models and the perceptual loss, no hand kernel
+   (every count stays 0): (a) ``Trainer.predict`` and ``Trainer.fit``
+   (resume, test, gradients card vs CPU) on Dummy for CustomUNet,
+   DeepLabV3 and DeepLabV3Plus at the width of their config/CLI/model
+   yamls (resnet18, depth 5, decoder 256), and the CLI with each yaml;
+   (b) CustomUNet with ``encoder_weights: true``: the bundled
+   data/pretrained/resnet18.npz loaded on the card, encoder params bit
+   for bit the CPU's; (c) each model's 512x640 predict and train step
+   as phase 10's; (d) the perceptual loss's value and gradient card vs
+   CPU, a HalfUNet Dummy fit with [WeightedLoss + 0.1 perceptual], and
+   HalfUNet's 512x640 train step with and without it beside the loss's
+   own device ms; (e) the three models' Dummy predict and fit in bf16,
+   as phase 17 (b); the phase's wall time;
+19. the script's wall time, one JSON line with every kernel's numbers,
    then the result line.
 
 Each model path runs with every launch count set to 0 just before it
@@ -198,12 +211,28 @@ UNETRPP_ARGS = {"hidden_size": 1024, "num_heads_encoder": 16, "num_heads_decoder
 #: the path of kernels c-fwd and c-bwd
 FLASH_ATTN = {"attention_code": "flash_attn"}
 
+#: settings_init_args of config/CLI/model/customunet.yaml (decoder
+#: channels at CustomUNetSettings' default, 256/128/64/32/16)
+CUSTOMUNET_ARGS = {"encoder_name": "resnet18", "encoder_depth": 5, "encoder_weights": False,
+                   "autopad_enabled": True}
+#: settings_init_args of config/CLI/model/deeplabv3.yaml and
+#: deeplabv3plus.yaml
+DEEPLAB_ARGS = {"encoder_name": "resnet18", "encoder_depth": 5, "encoder_weights": False,
+                "decoder_channels": 256, "activation": None, "upsampling": 8}
+#: the ResNet-encoder models and their config/CLI/model files
+RESNET_YAMLS = {"CustomUNet": "customunet", "DeepLabV3": "deeplabv3",
+                "DeepLabV3Plus": "deeplabv3plus"}
+#: the yamls' WeightedLoss with the perceptual loss beside it
+PERCEPTUAL_LOSSES = [{"class": "WeightedLoss", "weight": 1.0, "params": {"loss": "MSELoss"}},
+                     {"class": "PerceptualLossPy4Cast", "weight": 0.1}]
+
 #: each model's settings_init_args; hilam.yaml and hilamparallel.yaml
 #: carry graphlam.yaml's (h 64, 4 processor layers, 3 mesh levels);
 #: UNetRPP's main path is the kernels' (flash_attn)
 MODEL_ARGS = {"GraphLAM": GRAPHLAM_ARGS, "HiLAM": GRAPHLAM_ARGS, "HiLAMParallel": GRAPHLAM_ARGS,
               "Segformer": SEGFORMER_ARGS, "HalfUNet": HALFUNET_ARGS, "UNet": UNET_ARGS,
-              "UNetRPP": {**UNETRPP_ARGS, **FLASH_ATTN}}
+              "UNetRPP": {**UNETRPP_ARGS, **FLASH_ATTN}, "CustomUNet": CUSTOMUNET_ARGS,
+              "DeepLabV3": DEEPLAB_ARGS, "DeepLabV3Plus": DEEPLAB_ARGS}
 
 #: H100 SXM data-sheet peaks (full 700 W power limit): HBM3 bytes/s and
 #: fp32 operations/s outside the tensor cores
@@ -833,7 +862,7 @@ def launches_per_call(module) -> tuple:
     if name == "Segformer":  # one attention a MiT layer
         per = len(ms.dims) * ms.num_layers
         return {"short_kv_attention": per}, {"short_kv_attention_bwd": per}
-    if name in ("HalfUNet", "UNet"):  # convolutions (cuDNN) only: no hand kernel
+    if name in ("HalfUNet", "UNet", *RESNET_YAMLS):  # cuDNN's convolutions: no hand kernel
         return {}, {}
     if name == "UNetRPP":  # one attention an EPA block, on the kernels or not
         if ms.attention_code not in ("flash_attn", "pallas"):
@@ -1058,9 +1087,10 @@ class _ListLogger:
         self.figures.append((tag, step))
 
 
-def train_dummy(name: str, overrides=None, precision: str = "32") -> dict:
+def train_dummy(name: str, overrides=None, precision: str = "32", losses=None) -> dict:
     """Trainer.fit on Dummy (3 train batches, 1 val batch) with model
-    ``name`` (``overrides`` of its settings_init_args), counted; resume;
+    ``name`` (``overrides`` of its settings_init_args; ``losses`` in place
+    of the default WeightedLoss), counted; resume;
     Trainer.test; one step's gradients against the CPU. Under bf16 the
     masters and AdamW's moments must stay fp32, and the card's gradients
     are held over the whole vector to twice the CPU's own bf16 error:
@@ -1074,8 +1104,9 @@ def train_dummy(name: str, overrides=None, precision: str = "32") -> dict:
     # settings as the CLI links them
     train_ds, val_ds, test_ds = get_datasets("dummy", 2, 1, 3)
     settings = model_settings(name, overrides, num_warmup_steps=2, num_pred_steps_train=1,
-                              num_pred_steps_val_test=3, precision=precision)
-    suffix = "" if precision == "32" else f"_{precision}"
+                              num_pred_steps_val_test=3, precision=precision,
+                              **({"losses": losses} if losses else {}))
+    suffix = ("" if precision == "32" else f"_{precision}") + ("_losses" if losses else "")
     save = BUILD / f"smoke_fit_{settings.model_name.lower()}{suffix}"
     shutil.rmtree(save, ignore_errors=True)
     module = AutoRegressiveModule(settings, train_ds.dataset_info, device="cuda")
@@ -1808,6 +1839,189 @@ def bf16_vs_fp32(fp32: dict, bf16: dict) -> dict:
     return {k: [a[k], b[k]] for k in a}
 
 
+# ------------------------------------------------------------------ phase 18
+def pretrained_on_card() -> dict:
+    """Phase 18 (b): CustomUNet with ``encoder_weights: true`` loads
+    data/pretrained/resnet18.npz on the card: every encoder parameter
+    lands on the card and equals the CPU module's bit for bit, the stem
+    the npz's fp16 kernel adapted to Dummy's input channels; then
+    Trainer.predict on Dummy from those weights, counted, against the
+    CPU."""
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.models.pretrained import (
+        adapt_in_channels,
+        default_weights_path,
+        load_encoder_npz,
+    )
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+
+    settings = model_settings("CustomUNet", {"encoder_weights": True})
+    path = default_weights_path("resnet18")
+    if path != ROOT / "data" / "pretrained" / "resnet18.npz":
+        raise AssertionError(f"encoder_weights: true resolved to {path}, not the bundled npz")
+    info = get_datasets("dummy", 2, 1, 3)[2].dataset_info
+    card = AutoRegressiveModule(settings, info, device="cuda").init_params(
+        torch.Generator().manual_seed(0))
+    cpu = AutoRegressiveModule(settings, info, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    enc = [k for k in cpu if k.startswith("encoder.")]
+    differ = [k for k in enc if card[k].device.type != "cuda" or not torch.equal(card[k].cpu(),
+                                                                                   cpu[k])]
+    if differ:
+        raise AssertionError(f"pretrained encoder params differ card vs cpu: {differ[:5]}")
+    flat, meta = load_encoder_npz(path)
+    n_in = cpu["encoder.stem_conv.weight"].shape[1]
+    stem = torch.from_numpy(np.ascontiguousarray(adapt_in_channels(
+        flat["stem_conv/kernel"], n_in).astype(np.float32).transpose(3, 2, 0, 1)))
+    if not torch.equal(card["encoder.stem_conv.weight"].cpu(), stem):
+        raise AssertionError("the card's stem is not the npz's kernel adapted to the inputs")
+    predict = predict_dummy(settings)
+    return {"npz": str(path.relative_to(ROOT)), "meta": meta, "encoder_params": len(enc),
+            "encoder_values": sum(cpu[k].numel() for k in enc), "stem_in_channels": n_in,
+            "predict": predict}
+
+
+def perceptual_vs_cpu() -> dict:
+    """Phase 18 (d): the perceptual loss's value (B, T) and its gradient
+    with respect to the prediction on the card against the CPU, on
+    Dummy-shaped fields (B 8, 3 steps, 64x64) with a masked patch; each
+    within TOL of its own scale."""
+    from types import SimpleNamespace
+
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.losses import PerceptualLossPy4Cast
+    from py4cast_tpu_torch.utils import exact_reductions
+
+    info = get_datasets("dummy", 2, 1, 3)[0].dataset_info
+    names = info.output_feature_names
+    rng = np.random.default_rng(0)
+    shape = (8, 3, 64, 64, len(names))
+    pred, target = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    mask = np.ones(shape, np.float32)
+    mask[:, :, :5, :7] = 0.0
+
+    def run(device):
+        loss = PerceptualLossPy4Cast()
+        loss.prepare(np.ones((64, 64, 1), np.float32), info, names)
+        p = torch.from_numpy(pred).to(device).requires_grad_(True)
+        with exact_reductions():
+            value = loss(SimpleNamespace(array=p),
+                         SimpleNamespace(array=torch.from_numpy(target).to(device)),
+                         torch.from_numpy(mask).to(device))
+            value.sum().backward()
+        return value.detach().cpu(), p.grad.cpu()
+
+    errs = {}
+    for what, card, cpu in zip(("value", "gradient"), run("cuda"), run("cpu")):
+        scale = float(cpu.abs().max())
+        errs[what] = float((card.double() - cpu.double()).abs().max()) / scale
+        if not errs[what] <= TOL:
+            raise AssertionError(f"perceptual {what} card vs cpu: {errs[what]:.3e} of scale")
+    return {"shape": list(shape), "rel_err_value": errs["value"],
+            "rel_err_gradient": errs["gradient"]}
+
+
+def perceptual_full_size(grid=(512, 640), reps: int = 3) -> dict:
+    """Phase 18 (d): HalfUNet's 512x640 AdamW train step (halfunet.yaml's
+    width, batch 1, 1 AR step, 21 + 21 features) with the WeightedLoss
+    alone and with the perceptual loss beside it: host ms a step, peak
+    memory, device busy ms; and the perceptual loss alone, forward and
+    backward on a prediction of the cell's shape, in device ms (CUDA
+    events)."""
+    from types import SimpleNamespace
+
+    from py4cast_tpu_torch.losses import PerceptualLossPy4Cast
+    from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+    from py4cast_tpu_torch.utils import exact_reductions
+
+    info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
+    one = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=0)
+    rows = {}
+    for label, losses in (("weighted", None), ("weighted_perceptual", PERCEPTUAL_LOSSES)):
+        settings = model_settings("HalfUNet", num_warmup_steps=2,
+                                  **({"losses": losses} if losses else {}))
+        module = AutoRegressiveModule(settings, info, device="cuda")
+        state = module.init_state(torch.Generator().manual_seed(0), num_training_steps=100)
+        for _ in range(2):  # warm-up: allocator, cuDNN's choice, lr-0 step
+            module.train_step(state, one)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses_seen = []
+        runs = _timed(lambda: losses_seen.append(float(module.train_step(state, one))), reps)
+        peak = torch.cuda.max_memory_allocated()
+        if not np.isfinite(losses_seen).all():
+            raise AssertionError(f"HalfUNet 512x640 {label} train losses {losses_seen}")
+        profile = profile_step(lambda: module.train_step(state, one),
+                               f"smoke_profile_halfunet_train_{label}.txt")
+        step_ms = float(np.median(runs))
+        profile["device_idle_share"] = max(0.0, 1.0 - profile["device_busy_ms"] / step_ms)
+        rows[label] = {"ms_per_train_step_runs": runs, "ms_per_train_step": step_ms,
+                       "peak_mem_bytes": peak, "losses": losses_seen, "profile": profile}
+        del module, state
+    loss = PerceptualLossPy4Cast()
+    loss.prepare(np.ones((*grid, 1), np.float32), info, info.output_feature_names)
+    rng = np.random.default_rng(1)
+    fields = [_rand(rng, 1, 1, *grid, 21) for _ in range(2)]
+    pred = fields[0].requires_grad_(True)
+    mask = torch.ones_like(fields[1])
+
+    def loss_step():
+        value = loss(SimpleNamespace(array=pred), SimpleNamespace(array=fields[1]), mask)
+        value.sum().backward()
+
+    with exact_reductions():
+        loss_ms = time_ms(loss_step, reps=5, warmup=2, inner=3)
+    w, wp = rows["weighted"], rows["weighted_perceptual"]
+    return {"grid": list(grid), "rows": rows, "loss_fwd_bwd_device_ms": loss_ms,
+            "added_ms_per_train_step": wp["ms_per_train_step"] - w["ms_per_train_step"],
+            "added_device_busy_ms": (wp["profile"]["device_busy_ms"]
+                                     - w["profile"]["device_busy_ms"]),
+            "added_peak_mem_bytes": wp["peak_mem_bytes"] - w["peak_mem_bytes"]}
+
+
+def resnet_phase() -> dict:
+    """Phase 18, no hand kernel (every count stays 0): (a) CustomUNet,
+    DeepLabV3 and DeepLabV3Plus at their yamls' width on Dummy, predict
+    and fit, the CLI with each yaml; (b) CustomUNet's pretrained encoder
+    on the card; (c) each at 512x640; (d) the perceptual loss: card vs
+    CPU, a HalfUNet fit with it, HalfUNet's 512x640 train step with and
+    without it; (e) the three models' Dummy predict and fit in bf16."""
+    t18 = time.perf_counter()
+    resnet = {"dummy": {}, "full_size": {}, "bf16": {}}
+    resnet_kept = {name: {} for name in RESNET_YAMLS}
+    for name, yaml_name in RESNET_YAMLS.items():
+        predict = predict_dummy(model_settings(name), keep=resnet_kept[name])
+        log(f"{yaml_name} predict dummy: {json.dumps(predict)}")
+        fitted = train_dummy(name)
+        log(f"{yaml_name} fit dummy: {json.dumps(fitted)}")
+        fitted["cli"] = cli_dummy(
+            yaml_name, want=lambda sub, n=name: cli_launches(n, MODEL_ARGS[n], sub))
+        log(f"{yaml_name} cli dummy: {json.dumps(fitted['cli'])}")
+        resnet["dummy"][name] = {"predict": predict, "fit": fitted}
+    resnet["pretrained"] = pretrained_on_card()
+    log(f"customunet pretrained encoder: {json.dumps(resnet['pretrained'])}")
+    for name in RESNET_YAMLS:
+        resnet["full_size"][name] = grid_model_full_size(name, reps=3)
+        log(f"{RESNET_YAMLS[name]} 512x640: {json.dumps(resnet['full_size'][name])}")
+    resnet["perceptual"] = {"vs_cpu": perceptual_vs_cpu()}
+    log(f"perceptual card vs cpu: {json.dumps(resnet['perceptual']['vs_cpu'])}")
+    resnet["perceptual"]["fit"] = train_dummy("HalfUNet", losses=PERCEPTUAL_LOSSES)
+    log(f"halfunet fit dummy with the perceptual loss: "
+        f"{json.dumps(resnet['perceptual']['fit'])}")
+    resnet["perceptual"]["full_size"] = perceptual_full_size()
+    log(f"halfunet 512x640 train step with and without the perceptual loss: "
+        f"{json.dumps(resnet['perceptual']['full_size'])}")
+    for name in RESNET_YAMLS:
+        d = resnet["dummy"][name]
+        resnet["bf16"][name] = bf16_dummy(name, d["predict"], resnet_kept[name], d["fit"])
+        log(f"bf16 dummy {name}: {json.dumps(resnet['bf16'][name])}")
+    del resnet_kept
+    resnet["wall_s"] = time.perf_counter() - t18
+    log(f"phase 18 wall: {resnet['wall_s']:.1f} s")
+    return resnet
+
+
 # ---------------------------------------------------------------------- main
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2052,6 +2266,9 @@ def main(argv=None) -> int:
         log(f"bf16 {cell}: {json.dumps(row)}")
         log(f"  {cell} fp32 -> bf16: " + json.dumps(bf16_vs_fp32(fp32_full[cell], row)))
 
+    # phase 18: the ResNet-encoder models and the perceptual loss
+    resnet = resnet_phase()
+
     # each model path ran with every count set to 0 just before it and
     # checked just after (a kernel of another path launched fails); a
     # kernel's launches are the sum over the paths that run it
@@ -2065,7 +2282,8 @@ def main(argv=None) -> int:
         k["launches_bf16"] = sum(b["fit"]["launches"][k["name"]] for b in bf16["dummy"])
         k["launches_by_model"] = {
             f["model"]: [f["launches"][k["name"]], d["launches"][k["name"]]]
-            for f, d in zip(fits, predicts)}
+            for f, d in [*zip(fits, predicts),
+                         *((r["fit"], r["predict"]) for r in resnet["dummy"].values())]}
         top = by_kernel[k["name"]]
         k["bf16"] = {"shape": top["shape"], "ms": top["ms"], "fp32_ms": top["fp32_ms"],
                      "cast_ms": top["cast_ms"],
@@ -2084,6 +2302,7 @@ def main(argv=None) -> int:
          "unet_predict_dummy": plain_dummy, "unet_fit_dummy": plain_fit,
          "unet_full_size": plain_full, "unetrpp_predict_dummy": rpp_dummy,
          "unetrpp_fit_dummy": rpp_fit, "unetrpp_full_size": rpp_full, "bf16": bf16,
+         "resnet": resnet,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(card)

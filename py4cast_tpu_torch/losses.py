@@ -159,44 +159,41 @@ class PerceptualLossPy4Cast(Py4CastLoss):
         self.in_channels = in_channels  # accepted for config parity
         self.num_scales = num_scales
         self.trained = trained
-        self._kernels: Optional[List[np.ndarray]] = None
-        self._biases: Optional[List[np.ndarray]] = None
+        self.kernels: List[torch.Tensor] = []  # OIHW
+        self.biases: List[torch.Tensor] = []
 
-    def _load_trained(self) -> bool:
-        if not PERCEPTUAL_FEATS.exists():
-            return False
-        with np.load(PERCEPTUAL_FEATS) as z:
-            layers = sorted(int(k[1:]) for k in z.files if k.startswith("k"))
-            self._kernels = [z[f"k{i}"] for i in layers]
-            self._biases = [z[f"b{i}"] for i in layers]
-        return True
+    def _pyramid(self):
+        """(kernels, biases), HWIO numpy: the trained features, or the
+        fallback draws."""
+        if self.trained and PERCEPTUAL_FEATS.exists():
+            with np.load(PERCEPTUAL_FEATS) as z:
+                layers = sorted(int(k[1:]) for k in z.files if k.startswith("k"))
+                return [z[f"k{i}"] for i in layers], [z[f"b{i}"] for i in layers]
+        if self.trained:
+            warnings.warn(
+                "perceptual_feats.npz not found — falling back to the "
+                "fixed random feature pyramid")
+        rng = np.random.default_rng(0)
+        kernels = [
+            (rng.standard_normal((3, 3, 1 if s == 0 else 32, 32)).astype(np.float32)
+             / np.sqrt(9.0 * (1 if s == 0 else 32))).astype(np.float32)
+            for s in range(self.num_scales)
+        ]
+        return kernels, [np.zeros(k.shape[-1], np.float32) for k in kernels]
 
     def prepare(self, interior_mask, dataset_info, feature_names: Sequence[str]):
-        loaded = self.trained and self._load_trained()
-        if not loaded:
-            if self.trained:
-                warnings.warn(
-                    "perceptual_feats.npz not found — falling back to the "
-                    "fixed random feature pyramid")
-            rng = np.random.default_rng(0)
-            self._kernels = [
-                (rng.standard_normal((3, 3, 1 if s == 0 else 32, 32)).astype(np.float32)
-                 / np.sqrt(9.0 * (1 if s == 0 else 32))).astype(np.float32)
-                for s in range(self.num_scales)
-            ]
-            self._biases = [np.zeros(k.shape[-1], np.float32) for k in self._kernels]
-        # HWIO -> OIHW
-        self.conv_weights = [torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
-                             for k in self._kernels]
-        self.conv_biases = [torch.from_numpy(b) for b in self._biases]
+        kernels, biases = self._pyramid()
+        self.kernels = [torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+                        for k in kernels]
+        self.biases = [torch.from_numpy(b) for b in biases]
         self.stats = {key: torch.tensor([dataset_info.stats[n][key] for n in feature_names],
                                         dtype=torch.float32)
                       for key in ("min", "max", "mean", "std")}
 
     def _on(self, like: torch.Tensor):
-        if self.conv_weights[0].device != like.device:
-            self.conv_weights = [w.to(like.device) for w in self.conv_weights]
-            self.conv_biases = [b.to(like.device) for b in self.conv_biases]
+        if self.kernels[0].device != like.device:
+            self.kernels = [w.to(like.device) for w in self.kernels]
+            self.biases = [b.to(like.device) for b in self.biases]
             self.stats = {k: v.to(like.device) for k, v in self.stats.items()}
 
     def _normalize(self, x: torch.Tensor) -> torch.Tensor:
@@ -208,7 +205,7 @@ class PerceptualLossPy4Cast(Py4CastLoss):
         """x: (N, 1, H, W) → the feature map of each scale, NCHW."""
         feats = []
         h = x
-        for w, b in zip(self.conv_weights, self.conv_biases):
+        for w, b in zip(self.kernels, self.biases):
             h = F.relu(F.conv2d(h, w, b, padding=1))
             feats.append(h)
             h = h[:, :, ::2, ::2]  # stride-2 subsample between scales

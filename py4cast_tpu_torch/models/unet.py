@@ -92,13 +92,17 @@ def _bilinear_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     edges clamped, and on an axis that shrinks the triangle filter
     widened by the factor (jax antialiases when it downsizes). That is
     ``F.interpolate``'s ``antialias=True``, which leaves an axis that
-    grows plain bilinear; it is taken only when an axis shrinks."""
+    grows plain bilinear; it is taken only when an axis shrinks. A bf16
+    ``x`` is resized in fp32 and rounded once, forward and backward, as
+    XLA sums the resize's weights: the card's bilinear backward adds a
+    bf16 input's gradient up in bf16, which at DeepLab's x32 resize
+    loses it."""
     if (h, w) == tuple(x.shape[1:3]):
         return x
     shrinks = h < x.shape[1] or w < x.shape[2]
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(h, w), mode="bilinear",
                       align_corners=False, antialias=shrinks)
-    return y.permute(0, 2, 3, 1)
+    return y.to(x.dtype).permute(0, 2, 3, 1)
 
 
 @dataclass(frozen=True)

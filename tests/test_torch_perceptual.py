@@ -2,13 +2,15 @@
 trained features and the fallback pyramid, alone and in a CombinedLoss
 with WeightedLoss, values (B, T) and gradients with respect to the
 prediction on the same masked fields; the port's copy of the trained
-features; the fallback when the file is missing; and a HalfUNet fit on
-Dummy whose loss includes it.
+features; the fallback when the file is missing; a HalfUNet fit on
+Dummy whose loss includes it; TF32 off around it in train and eval
+steps.
 
 Bar: 1e-4 of the largest JAX value (absolute below 1): the same fp32
 convolutions, summed in another order."""
 
 import hashlib
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -124,24 +126,24 @@ def test_fallback_pyramid_is_the_jax_draws(info):
     jl.prepare(np.ones((4, 4, 1), np.float32), info, FEATURES)
     pl = losses.PerceptualLossPy4Cast(trained=False, num_scales=4)
     pl.prepare(np.ones((4, 4, 1), np.float32), info, FEATURES)
-    assert len(pl._kernels) == 4
-    for jk, pk, jb, pb in zip(jl._kernels, pl._kernels, jl._biases, pl._biases):
-        np.testing.assert_array_equal(pk, np.asarray(jk))
-        np.testing.assert_array_equal(pb, np.asarray(jb))
-    assert tuple(pl.conv_weights[1].shape) == (32, 32, 3, 3)
+    assert len(pl.kernels) == 4
+    for jk, pk, jb, pb in zip(jl._kernels, pl.kernels, jl._biases, pl.biases):
+        np.testing.assert_array_equal(pk.numpy(), np.asarray(jk).transpose(3, 2, 0, 1))
+        np.testing.assert_array_equal(pb.numpy(), np.asarray(jb))
+    assert tuple(pl.kernels[1].shape) == (32, 32, 3, 3)
 
 
 def test_trained_features_are_a_copy_of_the_jax_file(info):
     """The port reads its own copy, byte for byte the JAX package's file."""
-    jax_file = losses.Path(py4cast_tpu.__file__).parent / "data" / "perceptual_feats.npz"
+    jax_file = Path(py4cast_tpu.__file__).parent / "data" / "perceptual_feats.npz"
     digests = [hashlib.sha256(p.read_bytes()).hexdigest()
                for p in (jax_file, losses.PERCEPTUAL_FEATS)]
     assert digests[0] == digests[1]
     pl = losses.PerceptualLossPy4Cast()
     pl.prepare(np.ones((4, 4, 1), np.float32), info, FEATURES)
-    assert [tuple(k.shape) for k in pl._kernels] == [(3, 3, 1, 16), (3, 3, 16, 32),
-                                                       (3, 3, 32, 32)]
-    assert float(np.abs(pl._biases[0]).max()) > 0
+    assert [tuple(k.shape) for k in pl.kernels] == [(16, 1, 3, 3), (32, 16, 3, 3),
+                                                      (32, 32, 3, 3)]
+    assert float(pl.biases[0].abs().max()) > 0
 
 
 def test_missing_features_file_falls_back_with_a_warning(info, fields, monkeypatch, tmp_path):
@@ -186,3 +188,30 @@ def test_fit_with_the_perceptual_loss_trains(tmp_path):
     assert all(np.isfinite(v) for t, v in log if t.startswith("val"))
     scores = trainer.test(module, test, state)
     assert np.isfinite(scores["test_mean_loss"])
+
+
+def test_train_and_eval_steps_run_the_loss_with_tf32_off(monkeypatch):
+    """The perceptual convolutions run inside the steps'
+    exact_reductions: train_step and eval_step (validation and test)
+    see TF32 off even when the process turned it on."""
+    train, _, _ = port_get_datasets("dummy", 2, 1, 3)
+    settings = port_training.TrainingSettings(
+        model_name="HalfUNet", settings_init_args={"num_filters": 8, "depth": 2},
+        losses=COMBINED)
+    module = port_training.AutoRegressiveModule(settings, train.dataset_info, device="cpu")
+    seen = []
+    features = losses.PerceptualLossPy4Cast._features
+
+    def spy(self, x):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return features(self, x)
+
+    monkeypatch.setattr(losses.PerceptualLossPy4Cast, "_features", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    state = module.init_state(torch.Generator().manual_seed(0), 2)
+    batch = next(iter(train.loader(batch_size=2, num_workers=1)))
+    module.train_step(state, batch)
+    module.eval_step(state, batch)
+    assert seen == [(False, False)] * 4  # prediction and target, twice
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
