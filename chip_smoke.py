@@ -133,7 +133,22 @@ non-zero exit code and no result line:
    HalfUNet's 512x640 train step with and without it beside the loss's
    own device ms; (e) the three models' Dummy predict and fit in bf16,
    as phase 17 (b); the phase's wall time;
-19. the script's wall time, one JSON line with every kernel's numbers,
+19. SwinUNetR, plugin discovery and the gather-table GNN path, no hand
+   kernel (every count stays 0): (a) SwinUNetR at the width of
+   config/CLI/model/swinunetr.yaml (feature size 24, depths 2/2/2/2,
+   heads 3/6/12/24, window 7) on Dummy: ``Trainer.predict`` and
+   ``Trainer.fit`` (resume, test, gradients card vs CPU), the CLI with
+   swinunetr.yaml, a second predict and backward bit for bit, and
+   predict and fit in bf16 as phase 17 (b); (b) its 512x640 predict and
+   train step in fp32 and in bf16, as phase 10's; (c) the CLI's fit,
+   test and predict with ``--model.model_name Identity``, found by
+   plugin discovery; (d) GraphLAM and HiLAM with ``use_lattice: false``
+   at 500x500, as phases 5 and 7, the table path's step 1 against the
+   lattice path's from one state dict, a second predict and backward
+   bit for bit; HiLAMParallel's table path on Dummy, predict and fit;
+   (e) GraphLAM on an 8x8 grid at mesh_levels 2, whose multimesh repeats
+   edges, on the table path against the CPU; the phase's wall time;
+20. the script's wall time, one JSON line with every kernel's numbers,
    then the result line.
 
 Each model path runs with every launch count set to 0 just before it
@@ -226,13 +241,23 @@ RESNET_YAMLS = {"CustomUNet": "customunet", "DeepLabV3": "deeplabv3",
 PERCEPTUAL_LOSSES = [{"class": "WeightedLoss", "weight": 1.0, "params": {"loss": "MSELoss"}},
                      {"class": "PerceptualLossPy4Cast", "weight": 0.1}]
 
+#: settings_init_args of config/CLI/model/swinunetr.yaml (window 7,
+#: SwinUNetRSettings' default)
+SWINUNETR_ARGS = {"depths": [2, 2, 2, 2], "num_heads": [3, 6, 12, 24], "feature_size": 24,
+                  "norm_name": "instance", "drop_rate": 0.0, "attn_drop_rate": 0.0,
+                  "dropout_path_rate": 0.0, "normalize": True, "use_checkpoint": False,
+                  "downsample": "merging", "use_v2": False}
+#: the graph models' gather-table path
+TABLE = {"use_lattice": False}
+
 #: each model's settings_init_args; hilam.yaml and hilamparallel.yaml
 #: carry graphlam.yaml's (h 64, 4 processor layers, 3 mesh levels);
 #: UNetRPP's main path is the kernels' (flash_attn)
 MODEL_ARGS = {"GraphLAM": GRAPHLAM_ARGS, "HiLAM": GRAPHLAM_ARGS, "HiLAMParallel": GRAPHLAM_ARGS,
               "Segformer": SEGFORMER_ARGS, "HalfUNet": HALFUNET_ARGS, "UNet": UNET_ARGS,
               "UNetRPP": {**UNETRPP_ARGS, **FLASH_ATTN}, "CustomUNet": CUSTOMUNET_ARGS,
-              "DeepLabV3": DEEPLAB_ARGS, "DeepLabV3Plus": DEEPLAB_ARGS}
+              "DeepLabV3": DEEPLAB_ARGS, "DeepLabV3Plus": DEEPLAB_ARGS,
+              "SwinUNetR": SWINUNETR_ARGS, "Identity": {}}
 
 #: H100 SXM data-sheet peaks (full 700 W power limit): HBM3 bytes/s and
 #: fp32 operations/s outside the tensor cores
@@ -844,6 +869,8 @@ def model_settings(name: str, overrides=None, **kw):
 def launches_per_call(module) -> tuple:
     """({kernel: launches} of one model forward, and of one backward)."""
     name, ms = module.settings.model_name, module.model_settings
+    if name in ("SwinUNetR", "Identity") or not getattr(ms, "use_lattice", True):
+        return {}, {}  # window attention, a Dense, the table path's gathers: no hand kernel
     if name == "GraphLAM":  # one stencil stage a mesh level a layer
         per = ms.mesh_levels * ms.processor_layers
         return ({"stencil_message": per, "corner_hop": 1},
@@ -934,11 +961,12 @@ def predict_dummy(settings, keep=None) -> dict:
 # ------------------------------------------------------------------- phase 5
 def full_size_rollout(name: str = "GraphLAM", steps: int = 3, grid=(500, 500),
                       profile_name: str = "smoke_profile.txt", keep=None,
-                      precision: str = "32") -> dict:
+                      precision: str = "32", overrides=None) -> dict:
     """A graph model at its config's width on bench.py's GNN cell: a
     3-step predict at batch 1, counted, timed, profiled; step 1 against
     the CPU (under bf16: its distance from the card's fp32 step 1, see
-    ``step1_against``). ``keep`` (a dict) receives the dataset info, and
+    ``step1_against``); ``overrides`` of its settings_init_args (phase
+    19: the table path). ``keep`` (a dict) receives the dataset info, and
     the predictions and the batch's targets on the host (so they hold no
     card memory in the phases between), for phase 14."""
     from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
@@ -946,7 +974,7 @@ def full_size_rollout(name: str = "GraphLAM", steps: int = 3, grid=(500, 500),
 
     # bench.py's GNN cell: 500x500 grid, 21 weather and 21 forcing features
     info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
-    settings = model_settings(name, precision=precision)
+    settings = model_settings(name, overrides, precision=precision)
     t0 = time.perf_counter()
     module = AutoRegressiveModule(settings, info, device="cuda")
     build_s = time.perf_counter() - t0
@@ -981,7 +1009,8 @@ def full_size_rollout(name: str = "GraphLAM", steps: int = 3, grid=(500, 500),
 
     one = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=0)
     err = step1_against(module, settings, info, state, one, f"{name} full-size")
-    return {"model": name, "precision": precision, "grid": list(grid), "batch": 1,
+    return {"model": name, "precision": precision, "overrides": overrides or {},
+            "grid": list(grid), "batch": 1,
             "steps": steps, "graph_build_s": build_s, "launches": counts,
             "ms_per_step_runs": runs, "ms_per_step": float(np.median(runs)),
             "peak_mem_bytes": peak, **err, "profile": profile}
@@ -1221,11 +1250,12 @@ def cli_launches(model: str, args: dict, sub: str) -> dict:
     return expected_launches(module, *calls)
 
 
-def cli_dummy(model_yaml: str, extra=(), subcommands=tuple(CLI_STEPS), want=None) -> dict:
+def cli_dummy(model_yaml, extra=(), subcommands=tuple(CLI_STEPS), want=None) -> dict:
     """The port's CLI in-process: fit, then test and predict from its
     checkpoint, with config/CLI's trainer and dummy files and the model's
     file (``graphlam``, ``segformer``, ``halfunet``, ``hilam``,
-    ``hilamparallel``, ``unet``, ``unetrpp``) and ``extra`` arguments.
+    ``hilamparallel``, ``unet``, ``unetrpp``, ``swinunetr``; None for
+    none, the model named in ``extra``) and ``extra`` arguments.
     With ``want`` (a function of the subcommand), each subcommand runs
     with every launch count set to 0 before it and must end on
     ``want(subcommand)``."""
@@ -1233,11 +1263,12 @@ def cli_dummy(model_yaml: str, extra=(), subcommands=tuple(CLI_STEPS), want=None
 
     from py4cast_tpu_torch import cli
 
-    save = BUILD / "_".join(["smoke_cli", model_yaml, *extra[1::2]])
+    save = BUILD / "_".join(["smoke_cli", model_yaml or "", *extra[1::2]])
     shutil.rmtree(save, ignore_errors=True)
     configs = ["--config", str(ROOT / "config/CLI/trainer.yaml"),
                "--config", str(ROOT / "config/CLI/dataset/dummy.yaml"),
-               "--config", str(ROOT / f"config/CLI/model/{model_yaml}.yaml"),
+               *(["--config", str(ROOT / f"config/CLI/model/{model_yaml}.yaml")]
+                 if model_yaml else []),
                "--trainer.save_path", str(save), *extra]
     launches = {}
     for sub in subcommands:
@@ -1263,15 +1294,16 @@ def cli_dummy(model_yaml: str, extra=(), subcommands=tuple(CLI_STEPS), want=None
 # ------------------------------------------------------------------- phase 7
 def full_size_train_step(name: str = "GraphLAM", grid=(500, 500), reps: int = 5,
                          profile_name: str = "smoke_profile_train.txt",
-                         precision: str = "32") -> dict:
+                         precision: str = "32", overrides=None) -> dict:
     """One AdamW train step (1 AR step, batch 1) of a graph model at its
-    config's width on the GNN cell, counted, timed, profiled."""
+    config's width (``overrides`` of its settings_init_args) on the GNN
+    cell, counted, timed, profiled."""
     from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
     from py4cast_tpu_torch.training import AutoRegressiveModule
 
     info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
-    module = AutoRegressiveModule(model_settings(name, num_warmup_steps=2, precision=precision),
-                                  info, device="cuda")
+    module = AutoRegressiveModule(model_settings(name, overrides, num_warmup_steps=2,
+                                                 precision=precision), info, device="cuda")
     state = module.init_state(torch.Generator().manual_seed(0), num_training_steps=100)
     batch = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=0)
 
@@ -1303,7 +1335,8 @@ def full_size_train_step(name: str = "GraphLAM", grid=(500, 500), reps: int = 5,
     profile = profile_step(lambda: module.train_step(state, batch), profile_name)
     step_ms = float(np.median(runs))
     profile["device_idle_share"] = max(0.0, 1.0 - profile["device_busy_ms"] / step_ms)
-    return {"model": name, "precision": precision, "grid": list(grid), "batch": 1,
+    return {"model": name, "precision": precision, "overrides": overrides or {},
+            "grid": list(grid), "batch": 1,
             "pred_steps": 1, "launches": counts, "ms_per_train_step_runs": runs,
             "ms_per_train_step": step_ms, "peak_mem_bytes": peak, "losses": losses,
             "profile": profile}
@@ -2022,6 +2055,150 @@ def resnet_phase() -> dict:
     return resnet
 
 
+# ------------------------------------------------------------------ phase 19
+def repeat_bit_for_bit(module, params, batch, what: str) -> dict:
+    """A predict step, and one train step's loss and gradients, each
+    twice on the card, counted: the second call bit for bit the first,
+    and no hand kernel launched."""
+    reset_counts()
+    preds = [module.predict_step(params, batch).array for _ in range(2)]
+    (l1, g1), (l2, g2) = (module.loss_and_grads(params, batch) for _ in range(2))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{what}: hand kernels launched {counts}")
+    differ = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+    if not torch.equal(preds[0], preds[1]) or not torch.equal(l1, l2) or differ:
+        raise AssertionError(f"{what}: a second call differs (predictions equal "
+                             f"{torch.equal(preds[0], preds[1])}, loss equal "
+                             f"{torch.equal(l1, l2)}, gradients {differ[:5]})")
+    return {"predict_bit_for_bit": True, "loss_bit_for_bit": True,
+            "gradients_bit_for_bit": len(g1)}
+
+
+def dummy_repeat(name: str, overrides=None) -> dict:
+    """``repeat_bit_for_bit`` on a Dummy train batch (3 AR steps to
+    predict, 1 to train), params from seed 0."""
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+
+    train_ds = get_datasets("dummy", 2, 1, 3)[0]
+    module = AutoRegressiveModule(model_settings(name, overrides), train_ds.dataset_info,
+                                  device="cuda")
+    params = module.init_params(torch.Generator().manual_seed(0))
+    batch = next(iter(train_ds.loader(batch_size=8, num_workers=1)))
+    return repeat_bit_for_bit(module, params, batch, f"{name} Dummy")
+
+
+def table_vs_lattice(name: str, grid=(500, 500)) -> dict:
+    """Phase 19 (d): the table path's step 1 against the lattice path's
+    at 500x500 from one state dict on the card, within TOL of scale, and
+    the table path's predict and backward repeated bit for bit."""
+    from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+
+    info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
+    lattice = AutoRegressiveModule(model_settings(name), info, device="cuda")
+    table = AutoRegressiveModule(model_settings(name, TABLE), info, device="cuda")
+    if lattice.model.table_path or not table.model.table_path:
+        raise AssertionError(f"{name}: paths not as asked")
+    params = lattice.init_params(torch.Generator().manual_seed(0))
+    one = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=0)
+    got = table.predict_step(params, one).array
+    want = lattice.predict_step(params, one).array
+    err = compare(f"{name} {grid} table vs lattice step 1", got, want)
+    repeat = repeat_bit_for_bit(table, params, one, f"{name} {grid} table path")
+    return {"model": name, "grid": list(grid), "max_abs_err_table_vs_lattice": err,
+            "scale": float(want.abs().max()), **repeat}
+
+
+def degenerate_multimesh() -> dict:
+    """Phase 19 (e): GraphLAM at graphlam.yaml's width on an 8x8 grid at
+    mesh_levels 2: its 2x2 level-0 lattice repeats edges across levels,
+    so use_lattice true falls through to the table path, as in the JAX
+    package; a 3-step predict on the card, counted (0), against the
+    CPU."""
+    from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+
+    info = synthetic_dataset_info(grid_shape=(8, 8), weather_features=21, forcing_features=21)
+    settings = model_settings("GraphLAM", {"mesh_levels": 2})
+    module = AutoRegressiveModule(settings, info, device="cuda")
+    graph = module.model.graph
+    if graph.multi_lattice_ok or not module.model.table_path:
+        raise AssertionError("the 8x8 grid's multimesh did not take the table path")
+    params = module.init_params(torch.Generator().manual_seed(0))
+    batch = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=3, seed=0)
+    reset_counts()
+    preds = module.predict_step(params, batch).array
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"degenerate multimesh: hand kernels launched {counts}")
+    if preds.shape != (1, 3, 64, 21) or not bool(torch.isfinite(preds).all()):
+        raise AssertionError(f"degenerate multimesh predictions {tuple(preds.shape)}")
+    cpu = AutoRegressiveModule(settings, info, device="cpu").predict_step(
+        {k: v.cpu() for k, v in params.items()}, batch).array
+    err = compare("degenerate multimesh predict (cuda vs cpu)", preds.cpu(), cpu)
+    return {"grid": [8, 8], "level_hw": [list(hw) for hw in graph.level_hw],
+            "multi_edges": len(graph.multi), "launches": counts, "max_abs_err_vs_cpu": err}
+
+
+def swin_table_phase() -> dict:
+    """Phase 19, no hand kernel (every count stays 0): (a) SwinUNetR on
+    Dummy; (b) at 512x640 in fp32 and bf16; (c) Identity through the
+    CLI; (d) the table path at 500x500 and HiLAMParallel's on Dummy;
+    (e) the degenerate multimesh."""
+    t19 = time.perf_counter()
+    swin = {}
+    kept = {}
+    swin["predict"] = predict_dummy(model_settings("SwinUNetR"), keep=kept)
+    log(f"swinunetr predict dummy: {json.dumps(swin['predict'])}")
+    swin["fit"] = train_dummy("SwinUNetR")
+    log(f"swinunetr fit dummy: {json.dumps(swin['fit'])}")
+    swin["fit"]["cli"] = cli_dummy(
+        "swinunetr", want=lambda sub: cli_launches("SwinUNetR", SWINUNETR_ARGS, sub))
+    log(f"swinunetr cli dummy: {json.dumps(swin['fit']['cli'])}")
+    swin["repeat"] = dummy_repeat("SwinUNetR")
+    log(f"swinunetr dummy repeat: {json.dumps(swin['repeat'])}")
+    swin["bf16"] = bf16_dummy("SwinUNetR", swin["predict"], kept, swin["fit"])
+    log(f"bf16 dummy SwinUNetR: {json.dumps(swin['bf16'])}")
+    del kept
+    swin["full_size"] = grid_model_full_size("SwinUNetR", reps=3)
+    log(f"swinunetr 512x640: {json.dumps(swin['full_size'])}")
+    swin["full_size_bf16"] = grid_model_full_size("SwinUNetR", precision="bf16",
+                                                  tag="swinunetr_bf16", reps=3)
+    log(f"swinunetr 512x640 bf16: {json.dumps(swin['full_size_bf16'])}")
+    log("  swinunetr fp32 -> bf16: " + json.dumps(bf16_vs_fp32(swin["full_size"],
+                                                               swin["full_size_bf16"])))
+    out = {"swinunetr": swin}
+    out["identity_cli"] = cli_dummy(
+        None, ["--model.model_name", "Identity"],
+        want=lambda sub: cli_launches("Identity", {}, sub))
+    log(f"identity cli dummy: {json.dumps(out['identity_cli'])}")
+    table = {}
+    for name in ("GraphLAM", "HiLAM"):
+        tag = name.lower()
+        table[name] = {
+            "predict": full_size_rollout(name, overrides=TABLE,
+                                         profile_name=f"smoke_profile_{tag}_table.txt"),
+            "train": full_size_train_step(name, overrides=TABLE,
+                                          profile_name=f"smoke_profile_{tag}_table_train.txt"),
+            "vs_lattice": table_vs_lattice(name)}
+        for what, row in table[name].items():
+            log(f"{tag} table path 500x500 {what}: {json.dumps(row)}")
+    table["HiLAMParallel"] = {"predict": predict_dummy(model_settings("HiLAMParallel", TABLE)),
+                              "fit": train_dummy("HiLAMParallel", TABLE)}
+    for what, row in table["HiLAMParallel"].items():
+        log(f"hilamparallel table path dummy {what}: {json.dumps(row)}")
+    out["table"] = table
+    out["degenerate_multimesh"] = degenerate_multimesh()
+    log(f"graphlam degenerate multimesh: {json.dumps(out['degenerate_multimesh'])}")
+    out["wall_s"] = time.perf_counter() - t19
+    log(f"phase 19 wall: {out['wall_s']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------- main
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2269,6 +2446,12 @@ def main(argv=None) -> int:
     # phase 18: the ResNet-encoder models and the perceptual loss
     resnet = resnet_phase()
 
+    # phase 19: SwinUNetR, the Identity plugin, the gather-table path
+    swin_table = swin_table_phase()
+    phase19_runs = [(swin_table["swinunetr"]["fit"], swin_table["swinunetr"]["predict"]),
+                    (swin_table["table"]["HiLAMParallel"]["fit"],
+                     swin_table["table"]["HiLAMParallel"]["predict"])]
+
     # each model path ran with every count set to 0 just before it and
     # checked just after (a kernel of another path launched fails); a
     # kernel's launches are the sum over the paths that run it
@@ -2284,6 +2467,11 @@ def main(argv=None) -> int:
             f["model"]: [f["launches"][k["name"]], d["launches"][k["name"]]]
             for f, d in [*zip(fits, predicts),
                          *((r["fit"], r["predict"]) for r in resnet["dummy"].values())]}
+        # phase 19's models launch none: each run above checked its counts
+        k["launches_by_model"].update({
+            f"{f['model']}{'' if f['model'] == 'SwinUNetR' else ' (table)'}":
+                [f["launches"][k["name"]], d["launches"][k["name"]]]
+            for f, d in phase19_runs})
         top = by_kernel[k["name"]]
         k["bf16"] = {"shape": top["shape"], "ms": top["ms"], "fp32_ms": top["fp32_ms"],
                      "cast_ms": top["cast_ms"],
@@ -2302,7 +2490,7 @@ def main(argv=None) -> int:
          "unet_predict_dummy": plain_dummy, "unet_fit_dummy": plain_fit,
          "unet_full_size": plain_full, "unetrpp_predict_dummy": rpp_dummy,
          "unetrpp_fit_dummy": rpp_fit, "unetrpp_full_size": rpp_full, "bf16": bf16,
-         "resnet": resnet,
+         "resnet": resnet, "swin_table": swin_table,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(card)

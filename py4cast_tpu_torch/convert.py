@@ -19,7 +19,8 @@ is a walk over that tree with these rules:
 - a top-level ``pos_embed`` (HalfUNet's ``absolute_pos_embed``) keeps
   its name and its (1, H, W, 1) layout, and so do an ``EPA_*``
   module's ``temperature`` (heads, 1, 1), ``proj_k`` and ``proj_v``
-  (tokens, proj);
+  (tokens, proj), and a ``WindowAttention_*`` module's
+  ``rel_pos_bias`` (heads, (2·ws − 1)²) (SwinUNetR);
 - params stacked by ``nn.scan`` carry a leading layer axis; each slice
   goes to one entry of the port's ModuleList of the same name.
   GraphLAM's ``processor`` keeps its scanned step's name
@@ -46,8 +47,9 @@ import torch
 SCANNED = ("processor",)
 #: top-level scanned stages whose step (``block``) the port does not keep
 SCANNED_STAGE = re.compile(r"enc_stage\d+")
-#: an EPA module's own leaves, kept as they are
-EPA_LEAVES = ("temperature", "proj_k", "proj_v")
+#: leaves kept as they are, by the prefix of their module's name
+OWN_LEAVES = {"EPA_": ("temperature", "proj_k", "proj_v"),
+              "WindowAttention_": ("rel_pos_bias",)}
 
 
 def _kernel_to_torch(arr: np.ndarray, path) -> torch.Tensor:
@@ -85,14 +87,16 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             out[".".join(mods + ["weight"])] = torch.tensor(arr)
         elif name == "bias":
             out[".".join(mods + ["bias"])] = torch.tensor(arr)
-        elif (name == "pos_embed" and not mods) or (
-                name in EPA_LEAVES and mods and mods[-1].startswith("EPA_")):
+        elif (name == "pos_embed" and not mods) or (mods and any(
+                mods[-1].startswith(prefix) and name in leaves
+                for prefix, leaves in OWN_LEAVES.items())):
             out[".".join(mods + [name])] = torch.tensor(arr)
         else:
             raise ValueError(
                 f"unexpected parameter {name!r} of module {'/'.join(mods) or '(top level)'}: "
-                "convert.py knows kernel, scale, bias, a top-level pos_embed and an EPA "
-                f"module's {', '.join(EPA_LEAVES)}")
+                "convert.py knows kernel, scale, bias, a top-level pos_embed, an EPA "
+                "module's temperature, proj_k, proj_v and a WindowAttention module's "
+                "rel_pos_bias")
 
     def walk(node, path, scan):
         """``scan``: how many names after the first a scanned leaf drops

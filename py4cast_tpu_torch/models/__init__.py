@@ -1,29 +1,62 @@
-"""Model registry.
+"""Model registry and plugin discovery.
 
-GraphLAM, HiLAM, HiLAMParallel, HalfUNet, UNet, CustomUNet, DeepLabV3,
-DeepLabV3Plus, Segformer and UNetRPP are ported so far. The other names of the JAX package's zoo are known
-here, so that asking for one says it is not ported yet instead of that
-it does not exist.
+A name → class dict over the port's model zoo (every model of the JAX
+package's: GraphLAM, HiLAM, HiLAMParallel, HalfUNet, UNet, CustomUNet,
+DeepLabV3, DeepLabV3Plus, Segformer, SwinUNetR, UNetRPP), extended by
+plugin discovery: any importable top-level module named
+``py4cast_tpu_torch_plugin_*`` contributes its ``ModelBase`` subclasses
+with ``register = True`` (``py4cast_tpu_torch_plugin_example.py``'s
+``Identity``). The JAX package's plugins (``py4cast_tpu_plugin_*``) are
+Flax modules and are not scanned here.
 """
 
 from __future__ import annotations
 
+import importlib
+import inspect
+import pkgutil
+import traceback
+import warnings
 from typing import Optional, Tuple
 
 from py4cast_tpu_torch.models.base import ModelBase, ModelType, settings_from_dict
 from py4cast_tpu_torch.models.deeplab import DeepLabV3, DeepLabV3Plus
 from py4cast_tpu_torch.models.graph import GraphLAM, HiLAM, HiLAMParallel
 from py4cast_tpu_torch.models.segformer import Segformer
+from py4cast_tpu_torch.models.swin import SwinUNetR
 from py4cast_tpu_torch.models.unet import CustomUNet, HalfUNet, UNet
 from py4cast_tpu_torch.models.unetrpp import UNetRPP
+
+PLUGIN_PREFIX = "py4cast_tpu_torch_plugin_"
 
 registry: dict = {"GraphLAM": GraphLAM, "HiLAM": HiLAM, "HiLAMParallel": HiLAMParallel,
                   "HalfUNet": HalfUNet, "UNet": UNet, "CustomUNet": CustomUNet,
                   "DeepLabV3": DeepLabV3, "DeepLabV3Plus": DeepLabV3Plus,
-                  "Segformer": Segformer, "UNetRPP": UNetRPP}
+                  "Segformer": Segformer, "SwinUNetR": SwinUNetR, "UNetRPP": UNetRPP}
 
-#: models of the JAX package the port does not have yet (ROADMAP.md, queue 1)
-NOT_YET_PORTED = ("SwinUNetR",)
+
+def _discover_plugins() -> None:
+    """Register the ``ModelBase`` subclasses with ``register = True`` of
+    every top-level ``py4cast_tpu_torch_plugin_*`` module. A module that
+    fails to import warns; a name already registered by another class
+    raises ValueError."""
+    for _, name, _ in pkgutil.iter_modules():
+        if not name.startswith(PLUGIN_PREFIX):
+            continue
+        try:
+            mod = importlib.import_module(name)
+        except ImportError:
+            warnings.warn(f"Could not import plugin {name}:\n{traceback.format_exc(limit=2)}")
+            continue
+        for _, kls in inspect.getmembers(mod, inspect.isclass):
+            if issubclass(kls, ModelBase) and kls is not ModelBase and kls.register:
+                if registry.get(kls.__name__, kls) is not kls:
+                    raise ValueError(f"Plugin model name collision: {kls.__name__} from {name} "
+                                     "already registered")
+                registry[kls.__name__] = kls
+
+
+_discover_plugins()
 
 all_nn_architectures = tuple(registry)
 
@@ -32,11 +65,6 @@ def get_model_kls_and_settings(model_name: str, settings_init_args: Optional[dic
     lookup = {k.lower(): v for k, v in registry.items()}
     kls = lookup.get(model_name.lower())
     if kls is None:
-        if model_name.lower() in {n.lower() for n in NOT_YET_PORTED}:
-            raise ValueError(
-                f"Model {model_name} is not yet ported to py4cast_tpu_torch "
-                f"(ROADMAP.md, queue 1); ported: {sorted(registry)}"
-            )
         raise ValueError(
             f"Model {model_name} not found in registry; available: {sorted(registry)}"
         )

@@ -1,28 +1,36 @@
-"""The lattice graph models in PyTorch: GraphLAM (the multiscale mesh
-GNN), HiLAM and HiLAMParallel (the hierarchical ones).
+"""The graph models in PyTorch: GraphLAM (the multiscale mesh GNN),
+HiLAM and HiLAMParallel (the hierarchical ones).
 
 The multiscale mesh is built once on the host in numpy
 (``build_graph_artifacts``): regular coarsenings of the grid,
 8-neighbor intra-level edges, nearest-neighbor g2m and surrounding-4
-m2g edges. Message passing runs in lattice form (``ops/lattice_ops.py``)
-— stencil shifts and separable 0/1 selection matmuls, no per-edge
-gathers. On a CUDA device the two hot stages run as hand-written
-kernels, forward and backward: the processor's stencil edge message
-(``ops/stencil_kernel.py::StencilMessageFn``) and the m2g corner hop
-(``ops/hop_kernel.py::CornerHopFn``), whose forward gathers each grid
-cell's four mesh corners itself through the int32 corner maps.
+m2g edges. Message passing has two paths with one state dict, chosen
+as the JAX package's ``_lattice_on`` chooses:
+
+- the lattice path (``use_lattice: true``, the default): stencil shifts
+  and separable 0/1 selection matmuls (``ops/lattice_ops.py``), no
+  per-edge gathers. On a CUDA device the two hot stages run as
+  hand-written kernels, forward and backward: the processor's stencil
+  edge message (``ops/stencil_kernel.py::StencilMessageFn``) and the
+  m2g corner hop (``ops/hop_kernel.py::CornerHopFn``), whose forward
+  gathers each grid cell's four mesh corners itself through the int32
+  corner maps;
+- the gather-table path (``use_lattice: false``, and GraphLAM on a graph
+  whose multimesh union repeats edges across levels, as small grids
+  do): per-edge gathers and sums over padded inverse-index tables
+  (``ops/graph_ops.py``), in a fixed order both ways, and no hand
+  kernel.
 
 Module and parameter names mirror the JAX package's param tree
-(``grid_embed/Dense_0``, ``processor/block/edge/w_e``, ...), so
-``convert.params_from_jax`` is a plain walk over that tree. Only the
-lattice path is ported: the gather-table path (``use_lattice: false``,
-or graphs whose multimesh union is not dedup-free) raises.
+(``grid_embed/Dense_0``, ``processor/block/edge/w_e``, ...), which is
+one tree for both paths, so ``convert.params_from_jax`` is a plain walk
+over it and a checkpoint of one path loads into the other.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from py4cast_tpu_torch.models.base import LayerNorm, ModelBase, ModelType
+from py4cast_tpu_torch.ops.graph_ops import build_table, edge_aggregate, gather_nodes
 from py4cast_tpu_torch.ops.hop_kernel import CornerHopFn
 from py4cast_tpu_torch.ops.lattice_ops import (
     pair_feats,
@@ -53,16 +62,30 @@ class GraphModelSettings:
     processor_layers: int = 4
     mesh_levels: int = 3
     coarsen_factor: int = 4
-    #: lattice-form message passing; the only path the port has
+    #: lattice-form message passing; false takes the gather-table path
+    #: (same parameters, so checkpoints interchange)
     use_lattice: bool = True
 
 
 # -------------------------------------------------------- graph construction
+class EdgeSet:
+    """A static edge set: src/dst indices and edge features, sorted by
+    destination (stable)."""
+
+    def __init__(self, src: np.ndarray, dst: np.ndarray, feats: np.ndarray):
+        order = np.argsort(dst, kind="stable")
+        self.src = src[order].astype(np.int32)
+        self.dst = dst[order].astype(np.int32)
+        self.feats = feats[order].astype(np.float32)
+
+    def __len__(self):
+        return len(self.src)
+
+
 @dataclass
 class GraphArtifacts:
-    """The static graph data of the lattice path. (The JAX package's
-    artifacts also carry per-edge tables for the gather-table path,
-    which is not ported.)"""
+    """The static graph data: the edge sets of the gather-table path and
+    the lattice metadata of the lattice path."""
 
     n_grid: int
     mesh_pos: List[np.ndarray]  # per-level (Nl, 2) normalized positions
@@ -73,6 +96,26 @@ class GraphArtifacts:
     #: only when that union is dedup-free (fails on degenerate tiny
     #: lattices)
     multi_lattice_ok: bool
+    intra: List[EdgeSet]  # per-level 8-neighbor edges
+    up: List[EdgeSet]  # level l -> l+1, each fine node to its nearest coarse node
+    down: List[EdgeSet]  # level l+1 -> l, reversed
+    g2m: EdgeSet  # grid -> mesh level 0, nearest
+    m2g: EdgeSet  # mesh level 0 -> grid, surrounding 4
+    multi: EdgeSet  # every level's edges on the level-0 node set, deduplicated
+    #: ``graph_arrays``'s result, made once
+    arrays: Optional[Tuple[dict, dict]] = field(default=None, repr=False)
+
+    @property
+    def level_sizes(self) -> List[int]:
+        return [p.shape[0] for p in self.mesh_pos]
+
+
+def _edge_feats(pos_src: np.ndarray, pos_dst: np.ndarray) -> np.ndarray:
+    """Static per-edge features: displacement + length, max-normalized."""
+    d = pos_src - pos_dst
+    length = np.linalg.norm(d, axis=-1, keepdims=True)
+    scale = max(length.max(), 1e-12)
+    return np.concatenate([d / scale, length / scale], axis=-1)
 
 
 def _neighbors8(h: int, w: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -103,6 +146,12 @@ def _nearest_rc(
     return ri, ci
 
 
+def _nearest_on_lattice(fine_hw: Tuple[int, int], coarse_hw: Tuple[int, int]) -> np.ndarray:
+    """Nearest coarse-lattice node per fine node, by index arithmetic."""
+    ri, ci = _nearest_rc(fine_hw, coarse_hw)
+    return (ri[:, None] * coarse_hw[1] + ci[None, :]).ravel()
+
+
 def _corners_rc(
     fine_hw: Tuple[int, int], coarse_hw: Tuple[int, int]
 ) -> Tuple[Tuple[np.ndarray, np.ndarray], Tuple[np.ndarray, np.ndarray]]:
@@ -116,6 +165,16 @@ def _corners_rc(
     c0 = np.clip(np.floor(c).astype(int), 0, cw - 1)
     c1 = np.clip(c0 + 1, 0, cw - 1)
     return (r0, r1), (c0, c1)
+
+
+def _surrounding4_on_lattice(fine_hw: Tuple[int, int], coarse_hw: Tuple[int, int]) -> np.ndarray:
+    """The 4 surrounding coarse-lattice nodes per fine node: (Nf, 4), in
+    corner order r0c0, r0c1, r1c0, r1c1."""
+    cw = coarse_hw[1]
+    (r0, r1), (c0, c1) = _corners_rc(fine_hw, coarse_hw)
+    out = np.stack([r0[:, None] * cw + c0[None, :], r0[:, None] * cw + c1[None, :],
+                    r1[:, None] * cw + c0[None, :], r1[:, None] * cw + c1[None, :]], axis=-1)
+    return out.reshape(-1, 4)
 
 
 def build_graph_artifacts(meshgrid: np.ndarray, settings: GraphModelSettings) -> GraphArtifacts:
@@ -152,9 +211,33 @@ def build_graph_artifacts(meshgrid: np.ndarray, settings: GraphModelSettings) ->
         mesh_pos.append(pos[sel])
         level_hw.append((len(ii), len(jj)))
 
+    # ---- intra-level 8-neighbor edges
+    intra = []
+    for (lh, lw), p in zip(level_hw, mesh_pos):
+        src, dst = _neighbors8(lh, lw)
+        intra.append(EdgeSet(src, dst, _edge_feats(p[src], p[dst])))
+
+    # ---- up (l → l+1: each fine node sends to its nearest coarse node)
+    #      and down (l+1 → l: reversed)
+    up, down = [], []
+    for level in range(settings.mesh_levels - 1):
+        fine, coarse = mesh_pos[level], mesh_pos[level + 1]
+        near_c = _nearest_on_lattice(level_hw[level], level_hw[level + 1])
+        src_u = np.arange(len(fine))
+        up.append(EdgeSet(src_u, near_c, _edge_feats(fine[src_u], coarse[near_c])))
+        down.append(EdgeSet(near_c, src_u, _edge_feats(coarse[near_c], fine[src_u])))
+
+    # ---- grid ↔ mesh level 0
+    m0 = mesh_pos[0]
+    g2m_dst = _nearest_on_lattice((h, w), level_hw[0])
+    g2m = EdgeSet(np.arange(len(pos)), g2m_dst, _edge_feats(pos, m0[g2m_dst]))
+    m2g_src = _surrounding4_on_lattice((h, w), level_hw[0]).ravel()
+    m2g_dst = np.repeat(np.arange(len(pos)), 4)
+    m2g = EdgeSet(m2g_src, m2g_dst, _edge_feats(m0[m2g_src], pos[m2g_dst]))
+
     # ---- nested multimesh: each level's 8-neighbor edges mapped onto
-    # the level-0 node set via the nesting indices; the lattice form
-    # needs their union to have no duplicate edge
+    # the level-0 node set via the nesting indices, deduplicated; the
+    # lattice form needs their union to have no duplicate edge
     msrc, mdst = [], []
     lw0_ = level_hw[0][1]
     for level, (lh, lw) in enumerate(level_hw):
@@ -163,11 +246,58 @@ def build_graph_artifacts(meshgrid: np.ndarray, settings: GraphModelSettings) ->
         to0 = (r0[:, None] * lw0_ + c0[None, :]).ravel()
         msrc.append(to0[s])
         mdst.append(to0[t])
-    key = np.concatenate(msrc).astype(np.int64) * (lw0_ * level_hw[0][0]) + np.concatenate(mdst)
-    multi_lattice_ok = len(np.unique(key)) == len(key)
+    msrc, mdst = np.concatenate(msrc), np.concatenate(mdst)
+    key = msrc.astype(np.int64) * len(m0) + mdst
+    uniq_keys, uniq = np.unique(key, return_index=True)
+    multi_lattice_ok = len(uniq_keys) == len(key)
+    msrc, mdst = msrc[uniq], mdst[uniq]
+    multi = EdgeSet(msrc, mdst, _edge_feats(m0[msrc], m0[mdst]))
 
     lat = _build_lattice_meta(pos, (h, w), mesh_pos, level_hw, row_in0, col_in0, settings)
-    return GraphArtifacts(len(pos), mesh_pos, (h, w), level_hw, lat, multi_lattice_ok)
+    return GraphArtifacts(len(pos), mesh_pos, (h, w), level_hw, lat, multi_lattice_ok,
+                          intra, up, down, g2m, m2g, multi)
+
+
+def graph_arrays(g: GraphArtifacts) -> Tuple[dict, dict]:
+    """The static graph data as a flat name → numpy dict, the JAX
+    package's ``_GraphModelBase.graph_arrays``: ``mesh_pos_{l}``, for
+    each edge set ``{prefix}_src``, ``_dst``, ``_feats``, ``_src_table``,
+    ``_dst_table`` (``build_table``, padded with the edge count) and
+    ``_dst_count``, and the lattice metadata; with the regular-K map
+    (prefix → K where the edge set has exactly K contiguous edges a
+    destination, in order). Made once a graph."""
+    if g.arrays is not None:
+        return g.arrays
+    d: dict = {f"mesh_pos_{l}": p for l, p in enumerate(g.mesh_pos)}
+    regular: dict = {}
+
+    def add(prefix, es, n_src, n_dst):
+        d[f"{prefix}_src"] = es.src
+        d[f"{prefix}_dst"] = es.dst
+        d[f"{prefix}_feats"] = es.feats
+        d[f"{prefix}_src_table"] = build_table(es.src, n_src)
+        dst_table = build_table(es.dst, n_dst)
+        d[f"{prefix}_dst_table"] = dst_table
+        counts = np.bincount(es.dst, minlength=n_dst)
+        d[f"{prefix}_dst_count"] = counts.astype(np.float32)
+        k = int(counts[0]) if len(counts) else 0
+        if k > 0 and (counts == k).all() and np.array_equal(
+                dst_table, np.arange(n_dst * k).reshape(n_dst, k)):
+            regular[prefix] = k
+
+    sizes = g.level_sizes
+    add("g2m", g.g2m, g.n_grid, sizes[0])
+    add("m2g", g.m2g, sizes[0], g.n_grid)
+    for l, es in enumerate(g.intra):
+        add(f"intra_{l}", es, sizes[l], sizes[l])
+    for l, es in enumerate(g.up):
+        add(f"up_{l}", es, sizes[l], sizes[l + 1])
+    for l, es in enumerate(g.down):
+        add(f"down_{l}", es, sizes[l + 1], sizes[l])
+    add("multi", g.multi, sizes[0], sizes[0])
+    d.update(g.lattice_np)
+    g.arrays = (d, regular)
+    return g.arrays
 
 
 def _build_lattice_meta(
@@ -293,7 +423,44 @@ class MLP(nn.Module):
         return self.LayerNorm_0(x) if self.LayerNorm_0 is not None else x
 
 
-class _StencilMessage(nn.Module):
+class _EdgeMessage(nn.Module):
+    """An edge message's layers (``w_e``, ``w_s``, ``w_d``, ``hidden_{i}``,
+    ``out``, ``ln``; the subclass registers them) and its gather-table
+    form, the JAX package's ``EdgeMessage``."""
+
+    def _tail(self, z):
+        z = F.silu(z)
+        for i in range(self.hidden_layers - 1):
+            z = F.silu(getattr(self, f"hidden_{i}")(z))
+        return self.ln(self.out(z))
+
+    def table(self, v_src, v_dst, e, edges: Dict[str, torch.Tensor], regular_k=None,
+              aggr=None):
+        """(e_new (B, E, h), agg (B, Nd, h)) over a static edge set: the
+        first dense split over [e ‖ v_s ‖ v_d], node states projected
+        before they are gathered; with ``regular_k`` (exactly K
+        contiguous edges a destination) v_d broadcasts over K and the
+        aggregate is a reshape-sum. ``aggr`` (default the message's
+        own) "mean" divides by max(in-degree, 1)."""
+        pe = self.w_e(e)
+        ps = gather_nodes(self.w_s(v_src), edges["src"], edges["src_table"])
+        pd = self.w_d(v_dst)
+        if regular_k:
+            b, n_e, h = pe.shape
+            nd = n_e // regular_k
+            e_new = self._tail(pe.reshape(b, nd, regular_k, h) + ps.reshape(b, nd, regular_k, h)
+                               + pd[:, :, None])
+            agg = e_new.sum(dim=2)
+            e_new = e_new.reshape(b, n_e, h)
+        else:
+            e_new = self._tail(pe + ps + gather_nodes(pd, edges["dst"], edges["dst_table"]))
+            agg = edge_aggregate(e_new, edges["dst_table"], edges["dst"])
+        if (aggr or self.aggr) == "mean":
+            agg = agg / torch.clamp(edges["dst_count"], min=1.0)[None, :, None]
+        return e_new, agg
+
+
+class _StencilMessage(_EdgeMessage):
     """Edge message on an 8-neighbor lattice stencil. Edge states live as
     (B, 8, H, W, h) arrays in DIRS8 order; each edge's source state
     arrives by a shift instead of a gather. With ``residual`` the first
@@ -330,10 +497,7 @@ class _StencilMessage(nn.Module):
                 self.ln.weight, self.ln.bias, self.residual,
             )
         else:
-            z = F.silu(self.w_e(e) + stack_shifts(ps) + pd[:, None])
-            for i in range(self.hidden_layers - 1):
-                z = F.silu(getattr(self, f"hidden_{i}")(z))
-            e_new = self.ln(self.out(z))
+            e_new = self._tail(self.w_e(e) + stack_shifts(ps) + pd[:, None])
             agg = (e_new * mask[None]).sum(dim=1)
             e_out = e + e_new if self.residual else e_new
         if self.aggr == "mean":
@@ -341,7 +505,7 @@ class _StencilMessage(nn.Module):
         return e_out, agg
 
 
-class _NearestMessage(nn.Module):
+class _NearestMessage(_EdgeMessage):
     """Edge message for a one-edge-per-fine-cell map (up_l): the fine
     cell is the source, its nearest coarse cell the destination, whose
     state arrives by a separable take; the aggregate is two selection
@@ -359,12 +523,6 @@ class _NearestMessage(nn.Module):
             self.add_module(f"hidden_{i}", nn.Linear(h, h))
         self.out = nn.Linear(h, h)
         self.ln = LayerNorm(h)
-
-    def _tail(self, z):
-        z = F.silu(z)
-        for i in range(self.hidden_layers - 1):
-            z = F.silu(getattr(self, f"hidden_{i}")(z))
-        return self.ln(self.out(z))
 
     def forward(self, v_fine, v_coarse, e, lat: Dict[str, torch.Tensor]):
         pd = sep_take_mm(self.w_d(v_coarse), lat["ar"], lat["ac"])
@@ -387,11 +545,12 @@ class _ReverseNearestMessage(_NearestMessage):
 
 
 class LatticeInteractionNetwork(nn.Module):
-    """An interaction network on lattice-form edges: an ``edge`` message
-    of kind ``stencil`` (intra-level, kernels a-fwd and a-bwd on the
-    card), ``nearest`` (up) or ``down``, then a residual ``node`` MLP
-    update of the destination, and with ``update_edges`` a residual
-    edge update (inside the kernel for ``stencil``)."""
+    """An interaction network: an ``edge`` message of kind ``stencil``
+    (intra-level, kernels a-fwd and a-bwd on the card), ``nearest`` (up)
+    or ``down``, then a residual ``node`` MLP update of the destination,
+    and with ``update_edges`` a residual edge update (inside the kernel
+    for ``stencil``). ``forward`` takes lattice-form edges, ``table`` a
+    static edge set (the JAX package's ``InteractionNetwork``)."""
 
     def __init__(self, hidden_dim: int, hidden_layers: int = 1, aggr: str = "sum",
                  kind: str = "stencil", update_edges: bool = True):
@@ -420,11 +579,17 @@ class LatticeInteractionNetwork(nn.Module):
             e_out = e + e_new if self.update_edges else e
         return v_dst + self.node(torch.cat([v_dst, agg], dim=-1)), e_out
 
+    def table(self, v_src, v_dst, e, edges: Dict[str, torch.Tensor], regular_k=None):
+        e_new, agg = self.edge.table(v_src, v_dst, e, edges, regular_k)
+        v_out = v_dst + self.node(torch.cat([v_dst, agg], dim=-1))
+        return v_out, (e + e_new if self.update_edges else e)
+
 
 class LatticeEncodeDecode(nn.Module):
-    """The encode/decode hop on the lattice: 'nearest' is the g2m hop
-    (grid → mesh0), 'corners' the m2g hop (mesh0 → grid through the 4
-    surrounding coarse cells)."""
+    """The encode/decode hop: 'nearest' is the g2m hop (grid → mesh0),
+    'corners' the m2g hop (mesh0 → grid through the 4 surrounding coarse
+    cells). ``forward`` on the lattice, ``table`` on a static edge set
+    (the JAX package's ``EncodeDecodeInteraction``)."""
 
     def __init__(self, hidden_dim: int, feat_dim: int, hidden_layers: int = 1,
                  aggr: str = "sum", kind: str = "nearest"):
@@ -480,12 +645,32 @@ class LatticeEncodeDecode(nn.Module):
             agg = agg / 4.0
         return v_dst + self.node(torch.cat([v_dst, agg], dim=-1))
 
+    def table(self, v_src, v_dst, feats, edges: Dict[str, torch.Tensor], regular_k=None):
+        """The hop over a static edge set: the edge features enter through
+        one linear, silu → dense → LN a edge, aggregated (a reshape-sum
+        with ``regular_k``), then the node update."""
+        pf = self.w_f(feats)[None]
+        ps = gather_nodes(self.w_s(v_src), edges["src"], edges["src_table"])
+        pd = self.w_d(v_dst)
+        if regular_k:
+            b, nd, h = pd.shape
+            pre = (pf.reshape(1, nd, regular_k, h) + ps.reshape(b, nd, regular_k, h)
+                   + pd[:, :, None])
+            agg = self._tail(pre).sum(dim=2)
+        else:
+            pre = pf + ps + gather_nodes(pd, edges["dst"], edges["dst_table"])
+            agg = edge_aggregate(self._tail(pre), edges["dst_table"], edges["dst"])
+        if self.aggr == "mean":
+            agg = agg / torch.clamp(edges["dst_count"], min=1.0)[None, :, None]
+        return v_dst + self.node(torch.cat([v_dst, agg], dim=-1))
+
 
 class _LatticeUnionBlock(nn.Module):
     """The multimesh union interaction (one shared edge message + one
-    node update) on the lattice: each mesh level is a dilated stencil on
-    a level-0 sub-lattice; per-level aggregates are scattered back into
-    the level-0 lattice with selection matmuls."""
+    node update). ``forward`` on the lattice: each mesh level is a
+    dilated stencil on a level-0 sub-lattice; per-level aggregates are
+    scattered back into the level-0 lattice with selection matmuls.
+    ``table`` on the deduplicated union edge set."""
 
     def __init__(self, hidden_dim: int, hidden_layers: int = 1, aggr: str = "sum"):
         super().__init__()
@@ -511,9 +696,13 @@ class _LatticeUnionBlock(nn.Module):
         v_new = self.node(torch.cat([v0, agg_total], dim=-1))
         return v0 + v_new, tuple(new_e)
 
+    def table(self, v0, e, edges: Dict[str, torch.Tensor]):
+        e_new, agg = self.edge.table(v0, v0, e, edges, aggr=self.aggr)
+        return v0 + self.node(torch.cat([v0, agg], dim=-1)), e + e_new
+
 
 class _LatticeFlatStep(nn.Module):
-    """One multimesh processor layer on the lattice (GraphLAM)."""
+    """One multimesh processor layer (GraphLAM)."""
 
     def __init__(self, hidden_dim: int, hidden_layers: int, aggr: str):
         super().__init__()
@@ -522,12 +711,15 @@ class _LatticeFlatStep(nn.Module):
     def forward(self, v0, e_levels, lat):
         return self.block(v0, e_levels, lat)
 
+    def table(self, v0, e, edges):
+        return self.block.table(v0, e, edges)
+
 
 class _LatticeHiLAMSweepStep(nn.Module):
-    """One HiLAM processor layer on the lattice: sweep up the hierarchy,
-    then back down, updating the inter-level and intra-level edges at
-    each stop, in the JAX package's order and names (``up_{l}``,
-    ``intra_up_{l+1}``, then ``down_{l}``, ``intra_down_{l}``)."""
+    """One HiLAM processor layer: sweep up the hierarchy, then back down,
+    updating the inter-level and intra-level edges at each stop, in the
+    JAX package's order and names (``up_{l}``, ``intra_up_{l+1}``, then
+    ``down_{l}``, ``intra_down_{l}``)."""
 
     def __init__(self, hidden_dim: int, hidden_layers: int, aggr: str, num_levels: int):
         super().__init__()
@@ -543,27 +735,37 @@ class _LatticeHiLAMSweepStep(nn.Module):
             self.add_module(f"down_{l}", lin("down"))
             self.add_module(f"intra_down_{l}", lin("stencil"))
 
-    def forward(self, mesh_v, intra_e, up_e, down_e, lat):
+    def forward(self, mesh_v, intra_e, up_e, down_e, lat, down_ks=None):
+        """On lattice-form edges (``lat``), or with ``down_ks`` (the
+        regular K of each down edge set, or None) on static edge sets
+        (``lat`` then maps each prefix to its ``_GraphModelBase._edges``)."""
+        table = down_ks is not None
         mesh_v, intra_e, up_e, down_e = list(mesh_v), list(intra_e), list(up_e), list(down_e)
+
+        def run(name, *args, **kw):
+            mod = getattr(self, name)
+            return mod.table(*args, **kw) if table else mod(*args)
+
         for l in range(self.num_levels - 1):  # sweep up
-            mesh_v[l + 1], up_e[l] = getattr(self, f"up_{l}")(
-                mesh_v[l], mesh_v[l + 1], up_e[l], lat[f"up_{l}"])
-            mesh_v[l + 1], intra_e[l + 1] = getattr(self, f"intra_up_{l + 1}")(
-                mesh_v[l + 1], mesh_v[l + 1], intra_e[l + 1], lat[f"intra_{l + 1}"])
+            mesh_v[l + 1], up_e[l] = run(f"up_{l}", mesh_v[l], mesh_v[l + 1], up_e[l],
+                                         lat[f"up_{l}"])
+            mesh_v[l + 1], intra_e[l + 1] = run(f"intra_up_{l + 1}", mesh_v[l + 1], mesh_v[l + 1],
+                                                intra_e[l + 1], lat[f"intra_{l + 1}"])
         for l in reversed(range(self.num_levels - 1)):  # sweep down
-            mesh_v[l], down_e[l] = getattr(self, f"down_{l}")(
-                mesh_v[l + 1], mesh_v[l], down_e[l], lat[f"down_{l}"])
-            mesh_v[l], intra_e[l] = getattr(self, f"intra_down_{l}")(
-                mesh_v[l], mesh_v[l], intra_e[l], lat[f"intra_{l}"])
+            kw = {"regular_k": down_ks[l]} if table else {}
+            mesh_v[l], down_e[l] = run(f"down_{l}", mesh_v[l + 1], mesh_v[l], down_e[l],
+                                       lat[f"down_{l}"], **kw)
+            mesh_v[l], intra_e[l] = run(f"intra_down_{l}", mesh_v[l], mesh_v[l], intra_e[l],
+                                        lat[f"intra_{l}"])
         return mesh_v, intra_e, up_e, down_e
 
 
 class _LatticeHiLAMParallelStep(nn.Module):
-    """One HiLAMParallel processor layer on the lattice: every edge set
-    (intra at each level, up, down) messages at once from the current
-    node states, then each level's nodes are updated once with the sum
-    of their incoming aggregates (modules ``intra_{l}``, ``up_{l}``,
-    ``down_{l}``, ``node_{l}``)."""
+    """One HiLAMParallel processor layer: every edge set (intra at each
+    level, up, down) messages at once from the current node states, then
+    each level's nodes are updated once with the sum of their incoming
+    aggregates (modules ``intra_{l}``, ``up_{l}``, ``down_{l}``,
+    ``node_{l}``)."""
 
     def __init__(self, hidden_dim: int, hidden_layers: int, aggr: str, num_levels: int):
         super().__init__()
@@ -578,39 +780,56 @@ class _LatticeHiLAMParallelStep(nn.Module):
         for l in range(num_levels):
             self.add_module(f"node_{l}", MLP(2 * h, h, h, hidden_layers))
 
-    def forward(self, mesh_v, intra_e, up_e, down_e, lat):
+    def forward(self, mesh_v, intra_e, up_e, down_e, lat, down_ks=None):
+        """On lattice-form edges, or on static edge sets with ``down_ks``,
+        as ``_LatticeHiLAMSweepStep.forward``."""
         L = self.num_levels
+        table = down_ks is not None
         new_intra, new_up, new_down, aggs = [], [], [], []
         for l in range(L):
-            d = lat[f"intra_{l}"]
-            e_new, agg = getattr(self, f"intra_{l}")(mesh_v[l], intra_e[l], d["mask"],
-                                                     d.get("count"))
-            new_intra.append(e_new)  # the residual is inside the stage
+            mod = getattr(self, f"intra_{l}")
+            if table:
+                e_new, agg = mod.table(mesh_v[l], mesh_v[l], intra_e[l], lat[f"intra_{l}"])
+                new_intra.append(intra_e[l] + e_new)
+            else:
+                d = lat[f"intra_{l}"]
+                e_out, agg = mod(mesh_v[l], intra_e[l], d["mask"], d.get("count"))
+                new_intra.append(e_out)  # the residual is inside the stage
             aggs.append(agg)
         for l in range(L - 1):
-            e_new, agg = getattr(self, f"up_{l}")(mesh_v[l], mesh_v[l + 1], up_e[l],
-                                                  lat[f"up_{l}"])
-            new_up.append(up_e[l] + e_new)
-            aggs[l + 1] = aggs[l + 1] + agg
-            e_new, agg = getattr(self, f"down_{l}")(mesh_v[l + 1], mesh_v[l], down_e[l],
-                                                    lat[f"down_{l}"])
-            new_down.append(down_e[l] + e_new)
-            aggs[l] = aggs[l] + agg
+            up, down = getattr(self, f"up_{l}"), getattr(self, f"down_{l}")
+            if table:
+                e_up, agg_up = up.table(mesh_v[l], mesh_v[l + 1], up_e[l], lat[f"up_{l}"])
+                e_down, agg_down = down.table(mesh_v[l + 1], mesh_v[l], down_e[l],
+                                              lat[f"down_{l}"], down_ks[l])
+            else:
+                e_up, agg_up = up(mesh_v[l], mesh_v[l + 1], up_e[l], lat[f"up_{l}"])
+                e_down, agg_down = down(mesh_v[l + 1], mesh_v[l], down_e[l], lat[f"down_{l}"])
+            new_up.append(up_e[l] + e_up)
+            aggs[l + 1] = aggs[l + 1] + agg_up
+            new_down.append(down_e[l] + e_down)
+            aggs[l] = aggs[l] + agg_down
         new_v = [mesh_v[l] + getattr(self, f"node_{l}")(torch.cat([mesh_v[l], aggs[l]], dim=-1))
                  for l in range(L)]
         return new_v, new_intra, new_up, new_down
 
 
-class _GraphModelBase(ModelBase):
-    """The lattice skeleton the graph models share: grid and mesh embeds
-    (``grid_embed``, ``mesh_embed_{l}``), the g2m hop, the processor the
-    subclass builds (``_build_processor``), the m2g hop on kernel b and
-    the decoder. Static graph arrays are non-persistent buffers: they
-    follow the module to its device and stay out of the state dict.
+#: the arrays of an edge set the gather-table path keeps as buffers
+TABLE_KEYS = ("src", "dst", "src_table", "dst_table", "feats", "dst_count")
 
-    Only the lattice path is ported: ``use_lattice: false`` raises, as
-    does a graph whose multimesh union is not dedup-free for a model
-    that needs it (``_lattice_need_multi``, GraphLAM)."""
+
+class _GraphModelBase(ModelBase):
+    """The skeleton the graph models share: grid and mesh embeds
+    (``grid_embed``, ``mesh_embed_{l}``), the g2m hop, the processor the
+    subclass builds (``_build_processor``), the m2g hop (kernel b on the
+    lattice path) and the decoder. Static graph arrays are non-persistent
+    buffers: they follow the module to its device and stay out of the
+    state dict, which is one for both paths.
+
+    The path is the JAX package's ``_lattice_on``: the gather-table path
+    (``table_path``) for ``use_lattice: false``, and for a graph whose
+    multimesh union is not dedup-free where the model needs it
+    (``_lattice_need_multi``, GraphLAM); the lattice path otherwise."""
 
     settings_kls = GraphModelSettings
     model_type = ModelType.GRAPH
@@ -624,16 +843,9 @@ class _GraphModelBase(ModelBase):
                  input_shape: Tuple[int, ...], settings: GraphModelSettings,
                  graph: GraphArtifacts):
         super().__init__(num_input_features, num_output_features, input_shape, settings)
-        name = type(self).__name__
-        if not settings.use_lattice or (self._lattice_need_multi and not graph.multi_lattice_ok):
-            raise NotImplementedError(
-                f"py4cast_tpu_torch runs {name} only on the lattice path; the "
-                "gather-table path (use_lattice: false"
-                + (", or a graph whose multimesh union is not dedup-free"
-                   if self._lattice_need_multi else "")
-                + ") is not ported yet (ROADMAP.md, queue 1 item 11)"
-            )
         self.graph = graph
+        self.table_path = not settings.use_lattice or (
+            self._lattice_need_multi and not graph.multi_lattice_ok)
         h, hl, aggr = settings.hidden_dims, settings.hidden_layers, settings.mesh_aggr
         self.num_levels = len(graph.level_hw)
         self.num_embedded = self._embedded_levels or self.num_levels
@@ -645,6 +857,18 @@ class _GraphModelBase(ModelBase):
         self.m2g = LatticeEncodeDecode(h, 3, hl, aggr, kind="corners")
         self.decoder = MLP(h, num_output_features, h, hl, layer_norm=False)
 
+        if self.table_path:
+            arrays, regular = graph_arrays(graph)
+            #: prefix → K of the regular edge sets (m2g: 4, down_{l}: 1)
+            self.regular = dict(regular)
+            names = [f"mesh_pos_{l}" for l in range(self.num_embedded)] + [
+                f"{prefix}_{k}" for prefix in self._table_prefixes() for k in TABLE_KEYS]
+            for name in names:
+                arr = arrays[name]
+                dtype = np.float32 if np.issubdtype(arr.dtype, np.floating) else np.int64
+                self.register_buffer(name, torch.as_tensor(np.asarray(arr, dtype)),
+                                     persistent=False)
+            return
         arrays = dict(graph.lattice_np)
         for l in range(self.num_embedded):
             arrays[f"mesh_pos_{l}"] = graph.mesh_pos[l].reshape(*graph.level_hw[l], 2)
@@ -659,6 +883,10 @@ class _GraphModelBase(ModelBase):
 
     def _build_processor(self, h: int, hl: int, aggr: str) -> None:
         raise NotImplementedError
+
+    def _table_prefixes(self) -> List[str]:
+        """The edge sets the model's gather-table path reads."""
+        return ["g2m", "m2g"]
 
     @classmethod
     def build_graph(cls, settings: GraphModelSettings, meshgrid) -> GraphArtifacts:
@@ -679,6 +907,12 @@ class _GraphModelBase(ModelBase):
                 out[k] = self._garr(name, dtype)
         return out
 
+    def _edges(self, prefix: str, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+        """An edge set's index tables and in-degrees (the JAX package's
+        ``_edge_dict``), the counts in the activation dtype."""
+        return {k: self._garr(f"{prefix}_{k}", dtype)
+                for k in ("src", "dst", "src_table", "dst_table", "dst_count")}
+
     def _edge_embed(self, mlp: nn.Module, feats: torch.Tensor, b: int) -> torch.Tensor:
         """A static edge set's embedding broadcast over the batch, made
         contiguous: the kernel wrappers refuse a stride-0 batch."""
@@ -686,27 +920,45 @@ class _GraphModelBase(ModelBase):
         return e[None].expand((b,) + e.shape).contiguous()
 
     def _embed(self, x):
-        """(grid_v (B, H, W, h), [mesh_v_l (B, lh, lw, h) for each embedded level])."""
+        """(grid_v, [mesh_v_l for each embedded level]): on the lattice
+        path (B, H, W, h) and (B, lh, lw, h), on the table path
+        (B, n_grid, h) and (B, N_l, h)."""
         g = self.graph
         b = x.shape[0]
-        gh, gw = g.grid_hw
-        grid_v = self.grid_embed(x.reshape(b, gh, gw, x.shape[-1]))
+        if not self.table_path:
+            x = x.reshape(b, *g.grid_hw, x.shape[-1])
+        grid_v = self.grid_embed(x)
         mesh_v = []
         for l in range(self.num_embedded):
             emb = getattr(self, f"mesh_embed_{l}")(self._garr(f"mesh_pos_{l}", x.dtype))
             mesh_v.append(emb[None].expand((b,) + emb.shape))
         return grid_v, mesh_v
 
+    def _encode(self, grid_v, mesh_v0):
+        """The g2m hop onto mesh level 0."""
+        dt = grid_v.dtype
+        if self.table_path:
+            return self.g2m.table(grid_v, mesh_v0, self._garr("g2m_feats", dt),
+                                  self._edges("g2m", dt))
+        return self.g2m(grid_v, mesh_v0, self._lat("g2m", dt))
+
     def _decode(self, mesh_v0, grid_v):
         """m2g, decode, and flatten back to the (B, n_grid, F) GRAPH contract."""
-        out = self.decoder(self.m2g(mesh_v0, grid_v, self._lat("m2g", grid_v.dtype)))
+        dt = grid_v.dtype
+        if self.table_path:
+            hop = self.m2g.table(mesh_v0, grid_v, self._garr("m2g_feats", dt),
+                                 self._edges("m2g", dt), regular_k=self.regular.get("m2g"))
+        else:
+            hop = self.m2g(mesh_v0, grid_v, self._lat("m2g", dt))
+        out = self.decoder(hop)
         return out.reshape(grid_v.shape[0], self.graph.n_grid, out.shape[-1])
 
 
 class GraphLAM(_GraphModelBase):
     """Multiscale GNN on a GraphCast-style nested multi-mesh: a single
     mesh node set (level 0) whose edge set is the union of 8-neighbor
-    edges at every coarsening scale, in lattice form."""
+    edges at every coarsening scale; per level on the lattice path, the
+    deduplicated union on the table path."""
 
     _lattice_need_multi = True
     _embedded_levels = 1
@@ -717,19 +969,28 @@ class GraphLAM(_GraphModelBase):
             _LatticeFlatStep(h, hl, aggr) for _ in range(self.settings.processor_layers)
         )
 
+    def _table_prefixes(self):
+        return super()._table_prefixes() + ["multi"]
+
     def forward(self, x):
+        b, dt = x.shape[0], x.dtype
         grid_v, (mesh_v0,) = self._embed(x)
-        v0 = self.g2m(grid_v, mesh_v0, self._lat("g2m", x.dtype))
+        v0 = self._encode(grid_v, mesh_v0)
+        if self.table_path:
+            e = self._edge_embed(self.mesh_edge_embed, self._garr("multi_feats", dt), b)
+            edges = self._edges("multi", dt)
+            for step in self.processor:
+                v0, e = step.table(v0, e, edges)
+            return self._decode(v0, grid_v)
         e_levels = tuple(
-            self._edge_embed(self.mesh_edge_embed,
-                             self._garr(f"lat_multi_{lev}_feats", x.dtype), x.shape[0])
+            self._edge_embed(self.mesh_edge_embed, self._garr(f"lat_multi_{lev}_feats", dt), b)
             for lev in range(self.num_levels)
         )
         multi = {
-            f"lat_multi_{lev}_{k}": self._garr(f"lat_multi_{lev}_{k}", x.dtype)
+            f"lat_multi_{lev}_{k}": self._garr(f"lat_multi_{lev}_{k}", dt)
             for lev in range(self.num_levels) for k in ("mask", "sr", "sc")
         }
-        multi["lat_multi_count"] = self._garr("lat_multi_count", x.dtype)
+        multi["lat_multi_count"] = self._garr("lat_multi_count", dt)
         for step in self.processor:
             v0, e_levels = step(v0, e_levels, multi)
         return self._decode(v0, grid_v)
@@ -739,39 +1000,52 @@ class _HierarchicalBase(_GraphModelBase):
     """HiLAM's and HiLAMParallel's shared forward: every level embedded,
     edge embeds ``intra_edge_embed_{l}``, ``up_edge_embed_{l}`` and
     ``down_edge_embed_{l}``, a processor of ``_step_kls`` layers over
-    the hierarchy's lattices (125², 63², 32² at a 500×500 grid)."""
+    the hierarchy (lattices 125², 63², 32² at a 500×500 grid)."""
 
     _step_kls = None
+    _KINDS = ("intra", "up", "down")
 
     def _build_processor(self, h, hl, aggr):
         L = self.num_levels
-        for kind, n in (("intra", L), ("up", L - 1), ("down", L - 1)):
+        for kind, n in zip(self._KINDS, (L, L - 1, L - 1)):
             for l in range(n):
                 self.add_module(f"{kind}_edge_embed_{l}", MLP(3, h, h, hl))
         self.processor = nn.ModuleList(
             self._step_kls(h, hl, aggr, L) for _ in range(self.settings.processor_layers)
         )
 
+    def _table_prefixes(self):
+        L = self.num_levels
+        return super()._table_prefixes() + [
+            f"{kind}_{l}" for kind, n in zip(self._KINDS, (L, L - 1, L - 1)) for l in range(n)]
+
     def forward(self, x):
-        L, b = self.num_levels, x.shape[0]
+        L, b, dt = self.num_levels, x.shape[0], x.dtype
         grid_v, mesh_v = self._embed(x)
-        mesh_v[0] = self.g2m(grid_v, mesh_v[0], self._lat("g2m", x.dtype))
-        edges = {kind: [self._edge_embed(getattr(self, f"{kind}_edge_embed_{l}"),
-                                         self._garr(f"lat_{kind}_{l}_feats", x.dtype), b)
-                        for l in range(n)]
-                 for kind, n in (("intra", L), ("up", L - 1), ("down", L - 1))}
-        lat = {f"{kind}_{l}": self._lat(f"{kind}_{l}", x.dtype)
-               for kind, n in (("intra", L), ("up", L - 1), ("down", L - 1)) for l in range(n)}
+        mesh_v[0] = self._encode(grid_v, mesh_v[0])
+        sets = [(kind, l) for kind, n in zip(self._KINDS, (L, L - 1, L - 1)) for l in range(n)]
+        feats = "{}_{}_feats" if self.table_path else "lat_{}_{}_feats"
+        edges = {kind: [] for kind in self._KINDS}
+        for kind, l in sets:
+            edges[kind].append(self._edge_embed(getattr(self, f"{kind}_edge_embed_{l}"),
+                                                self._garr(feats.format(kind, l), dt), b))
+        if self.table_path:
+            static = {f"{kind}_{l}": self._edges(f"{kind}_{l}", dt) for kind, l in sets}
+            down_ks = [self.regular.get(f"down_{l}") for l in range(L - 1)]
+        else:
+            static = {f"{kind}_{l}": self._lat(f"{kind}_{l}", dt) for kind, l in sets}
+            down_ks = None
         intra_e, up_e, down_e = edges["intra"], edges["up"], edges["down"]
         for step in self.processor:
-            mesh_v, intra_e, up_e, down_e = step(mesh_v, intra_e, up_e, down_e, lat)
+            mesh_v, intra_e, up_e, down_e = step(mesh_v, intra_e, up_e, down_e, static, down_ks)
         return self._decode(mesh_v[0], grid_v)
 
 
 class HiLAM(_HierarchicalBase):
     """Hierarchical GNN: each processor layer sweeps up the mesh
     hierarchy, processing intra-level at each stop, then back down
-    (Oskarsson et al. 2023). 2·(L−1) stencil stages a layer."""
+    (Oskarsson et al. 2023). 2·(L−1) stencil stages a layer on the
+    lattice path."""
 
     _step_kls = _LatticeHiLAMSweepStep
 
@@ -779,6 +1053,6 @@ class HiLAM(_HierarchicalBase):
 class HiLAMParallel(_HierarchicalBase):
     """HiLAM whose processor layers run every hierarchy edge set at once
     with separate messages and one node update a level. L stencil
-    stages a layer."""
+    stages a layer on the lattice path."""
 
     _step_kls = _LatticeHiLAMParallelStep

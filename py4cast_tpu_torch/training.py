@@ -498,10 +498,12 @@ class AutoRegressiveModule:
                 kwargs["generator"] = torch.Generator(device=device).manual_seed(seed)
             return functional_call(self.model, p, (x,), kwargs).to(torch.float32)
 
-        if self.settings.use_checkpointing or getattr(self.model_settings, "use_checkpointing",
-                                                      False):
+        ms = self.model_settings
+        if (self.settings.use_checkpointing or getattr(ms, "use_checkpointing", False)
+                or getattr(ms, "use_checkpoint", False)):
             # recompute the forward in the backward instead of keeping
-            # its activations (the JAX package's jax.checkpoint)
+            # its activations (the JAX package's jax.checkpoint; the
+            # graph models' use_checkpointing, SwinUNetR's use_checkpoint)
             from torch.utils.checkpoint import checkpoint
 
             return lambda x, seed=None: checkpoint(apply, x, seed, use_reentrant=False)

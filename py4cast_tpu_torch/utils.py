@@ -76,19 +76,23 @@ def exact_reductions():
     are restored after. TF32 is off for fp32 products and convolutions
     (``torch.backends.cudnn.allow_tf32`` is True by default: about three
     decimal digits, outside the port's 1e-4 bar against the JAX package),
-    and bf16 products keep their split-K partial sums in fp32
+    bf16 products keep their split-K partial sums in fp32
     (``allow_bf16_reduced_precision_reduction`` is True by default and
-    lets cuBLAS round them to bf16; XLA accumulates bf16 dots in fp32)."""
+    lets cuBLAS round them to bf16; XLA accumulates bf16 dots in fp32),
+    and cuDNN picks deterministic algorithms only (its default choice
+    for a weight gradient may add partial sums with atomics, so that a
+    second backward differs in the last bits)."""
     matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
     before = (matmul.allow_tf32, cudnn.allow_tf32,
-              matmul.allow_bf16_reduced_precision_reduction)
+              matmul.allow_bf16_reduced_precision_reduction, cudnn.deterministic)
     matmul.allow_tf32 = cudnn.allow_tf32 = False
     matmul.allow_bf16_reduced_precision_reduction = False
+    cudnn.deterministic = True
     try:
         yield
     finally:
         (matmul.allow_tf32, cudnn.allow_tf32,
-         matmul.allow_bf16_reduced_precision_reduction) = before
+         matmul.allow_bf16_reduced_precision_reduction, cudnn.deterministic) = before
 
 
 def exact_fp32(fn):

@@ -229,25 +229,28 @@ def test_compute_dtype_maps_the_precision_strings():
 
 
 def test_exact_reductions_sets_and_restores_the_cublas_flags():
-    matmul = torch.backends.cuda.matmul
-    before = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-              matmul.allow_bf16_reduced_precision_reduction)
+    """TF32 off, bf16 split-K sums in fp32 and cuDNN's deterministic
+    algorithms inside; the flags as they were after, also on an error."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = (matmul.allow_tf32, cudnn.allow_tf32,
+              matmul.allow_bf16_reduced_precision_reduction, cudnn.deterministic)
     matmul.allow_bf16_reduced_precision_reduction = True
+    cudnn.deterministic = False
 
     @exact_fp32
     def inside():
-        return (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-                matmul.allow_bf16_reduced_precision_reduction)
+        return (matmul.allow_tf32, cudnn.allow_tf32,
+                matmul.allow_bf16_reduced_precision_reduction, cudnn.deterministic)
 
     try:
-        assert inside() == (False, False, False)
-        assert matmul.allow_bf16_reduced_precision_reduction
+        assert inside() == (False, False, False, True)
+        assert matmul.allow_bf16_reduced_precision_reduction and not cudnn.deterministic
         with pytest.raises(KeyError), exact_reductions():
             raise KeyError("restored on the way out")
-        assert matmul.allow_bf16_reduced_precision_reduction
+        assert matmul.allow_bf16_reduced_precision_reduction and not cudnn.deterministic
     finally:
-        (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-         matmul.allow_bf16_reduced_precision_reduction) = before
+        (matmul.allow_tf32, cudnn.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction, cudnn.deterministic) = before
 
 
 @pytest.mark.parametrize("norm", ["layer", "group", "instance"])

@@ -646,3 +646,73 @@ def test_attention_bwd_kernels_do_not_spill(cuda, capsys):
             for kernel in ("dq", "dkdv"):
                 assert a[kernel]["local_bytes"] == 0, (d, rows, splits, a)
                 assert a[kernel]["blocks_per_sm"] >= 1, (d, rows, splits, a)
+
+
+# ------------------------------------------ gather-table path, SwinUNetR
+@pytest.mark.parametrize("model", ["GraphLAM", "HiLAM"])
+def test_table_path_repeats_bit_for_bit_and_gives_the_cpu_gradients(cuda, model):
+    """The gather-table path (``use_lattice: false``) at a 64x64 grid on
+    the card: forward and backward (every parameter and the input) twice
+    bit for bit, no hand kernel launched, and the CPU's output within
+    1e-4 and gradients within MODEL_GRAD_BAR of scale."""
+    from py4cast_tpu_torch.training import init_weights
+
+    settings = graph_models.GraphModelSettings(hidden_dims=32, processor_layers=2,
+                                               use_lattice=False)
+    axis = np.linspace(0, 1, 64)
+    mg = np.stack(np.meshgrid(axis, axis, indexing="ij")).astype(np.float32)
+    graph = graph_models.build_graph_artifacts(mg, settings)
+    cpu_model = getattr(graph_models, model)(7, 3, (4096,), settings, graph)
+    init_weights(cpu_model, torch.Generator().manual_seed(0))
+    card_model = getattr(graph_models, model)(7, 3, (4096,), settings, graph).to(cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    assert card_model.table_path
+    rng = np.random.default_rng(12)
+    x, cot = _rand(rng, 2, 4096, 7), _rand(rng, 2, 4096, 3)
+
+    def run(m, device):
+        xi = x.to(device).requires_grad_()
+        y = m(xi)
+        grads = torch.autograd.grad((y * cot.to(device)).sum(), [xi] + list(m.parameters()))
+        return [t.detach().cpu() for t in (y, *grads)]
+
+    kernels = (fused_stencil_message, fused_corner_hop, fused_stencil_message_bwd,
+               fused_corner_hop_bwd)
+    before = [k.launches for k in kernels]
+    first, second = run(card_model, cuda), run(card_model, cuda)
+    assert [k.launches for k in kernels] == before
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for i, (g, want) in enumerate(zip(first, run(cpu_model, "cpu"))):
+        scale = max(1.0, float(want.abs().max()))
+        bar = TOL["atol"] if i == 0 else MODEL_GRAD_BAR
+        assert float((g - want).abs().max()) <= bar * scale, i
+
+
+def test_swin_rel_pos_bias_gradient_repeats_bit_for_bit(cuda):
+    """SwinUNetR's relative-position-bias gradient (the 0/1 product's
+    backward, no atomics) on the card: two backward passes give the same
+    bits, and the CPU's gradients within MODEL_GRAD_BAR of scale."""
+    from py4cast_tpu_torch.models.swin import SwinUNetR, SwinUNetRSettings
+    from py4cast_tpu_torch.training import init_weights
+    from py4cast_tpu_torch.utils import exact_reductions
+
+    settings = SwinUNetRSettings(feature_size=12, depths=(2, 2), num_heads=(3, 6))
+    cpu_model = SwinUNetR(5, 3, (60, 52), settings)
+    init_weights(cpu_model, torch.Generator().manual_seed(0))
+    card_model = SwinUNetR(5, 3, (60, 52), settings).to(cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    x = _rand(np.random.default_rng(13), 2, 60, 52, 5)
+
+    def rpb_grads(m, device):
+        m.zero_grad()
+        with exact_reductions():  # TF32 off in cuDNN's convolutions too
+            (m(x.to(device)) ** 2).sum().backward()
+        return {k: p.grad.detach().cpu() for k, p in m.named_parameters()
+                if k.endswith("rel_pos_bias")}
+
+    first, second = rpb_grads(card_model, cuda), rpb_grads(card_model, cuda)
+    assert len(first) == 4
+    assert all(torch.equal(first[k], second[k]) for k in first)
+    for k, want in rpb_grads(cpu_model, "cpu").items():
+        scale = max(1.0, float(want.abs().max()))
+        assert float((first[k] - want).abs().max()) <= MODEL_GRAD_BAR * scale, k

@@ -93,12 +93,20 @@ def test_graphlam_unfused_path_matches_jax(small_graphlam):
 
 
 def test_gather_table_path_is_not_ported(small_graphlam):
-    mg = small_graphlam[0]
+    """The name predates the gather-table path's port: ``use_lattice:
+    false`` now builds GraphLAM on that path, which computes the JAX
+    package's lattice-path output from the same variables
+    (tests/test_torch_gather.py holds it against the JAX table path)."""
+    mg, model, variables, x = small_graphlam
     settings = port_graph.GraphModelSettings(**SMALL, use_lattice=False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        port_graph.GraphLAM(
-            F_IN, F_OUT, (1024,), settings, port_graph.build_graph_artifacts(mg, settings)
-        )
+    port = port_graph.GraphLAM(
+        F_IN, F_OUT, (1024,), settings, port_graph.build_graph_artifacts(mg, settings)
+    )
+    assert port.table_path
+    port.load_state_dict(params_from_jax(variables), strict=True)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(model.apply(variables, x)), **TOL)
 
 
 @pytest.fixture(scope="module")

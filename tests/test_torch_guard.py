@@ -1,6 +1,7 @@
-"""The port stands alone: every module of py4cast_tpu_torch, and
-chip_smoke.py, imports with JAX and the JAX package blocked, and no
-source imports from py4cast_tpu."""
+"""The port stands alone: every module of py4cast_tpu_torch, its example
+plugin (py4cast_tpu_torch_plugin_example.py) and chip_smoke.py import
+with JAX and the JAX package blocked, and no source imports from
+py4cast_tpu."""
 
 import re
 import subprocess
@@ -19,6 +20,9 @@ mods = [m.name for m in pkgutil.walk_packages(py4cast_tpu_torch.__path__, "py4ca
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+import py4cast_tpu_torch_plugin_example
+import py4cast_tpu_torch.models as models
+assert models.registry["Identity"] is py4cast_tpu_torch_plugin_example.Identity
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "py4cast_tpu")
                 and sys.modules[k] is not None)
 assert not loaded, loaded
@@ -66,7 +70,8 @@ def test_no_source_imports_the_jax_package():
                          re.MULTILINE)
     offenders = [
         str(p.relative_to(ROOT))
-        for p in list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+        for p in list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                             ROOT / "py4cast_tpu_torch_plugin_example.py"]
         if pattern.search(p.read_text())
     ]
     assert offenders == []
@@ -117,6 +122,16 @@ def test_chip_smoke_segformer_args_match_the_config():
 
     conf = yaml.safe_load((ROOT / "config/CLI/model/segformer.yaml").read_text())
     assert chip_smoke.SEGFORMER_ARGS == conf["model"]["settings_init_args"]
+
+
+def test_chip_smoke_swinunetr_args_match_the_config():
+    import yaml
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    conf = yaml.safe_load((ROOT / "config/CLI/model/swinunetr.yaml").read_text())
+    assert chip_smoke.SWINUNETR_ARGS == conf["model"]["settings_init_args"]
 
 
 def test_ptxas_summary_reads_every_instance():

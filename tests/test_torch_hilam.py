@@ -152,9 +152,21 @@ def test_gradients_match_jax(case):
 
 
 def test_gather_table_path_is_not_ported():
+    """The name predates the gather-table path's port: ``use_lattice:
+    false`` now builds HiLAM and HiLAMParallel on that path, which takes
+    the lattice path's state dict and gives its output within 1e-5."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 1024, F_IN))
+                         .astype(np.float32))
     for model in ("HiLAM", "HiLAMParallel"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            _port_model(model, **SMALL, use_lattice=False)
+        lattice = _port_model(model, **SMALL)
+        port_training.init_weights(lattice, torch.Generator().manual_seed(0))
+        table = _port_model(model, **SMALL, use_lattice=False)
+        assert table.table_path and not lattice.table_path
+        table.load_state_dict(lattice.state_dict(), strict=True)
+        with torch.no_grad():
+            got, want = table(x), lattice(x)
+        assert got.shape == (2, 1024, F_OUT) and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(scope="module")

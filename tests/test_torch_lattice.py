@@ -139,7 +139,8 @@ def test_build_graph_artifacts_exact(hw, levels):
 
 def test_degenerate_multimesh_is_flagged():
     """A 2x2 level-0 lattice repeats edges across levels: both packages
-    flag it, and the port's GraphLAM refuses the table path it needs."""
+    flag it, and the port's GraphLAM falls through to the table path, as
+    the JAX package's does, and runs."""
     mg = np.stack(np.meshgrid(np.linspace(0, 1, 8), np.linspace(0, 1, 8),
                               indexing="ij")).astype(np.float32)
     js = jax_graph.GraphModelSettings(mesh_levels=2)
@@ -147,5 +148,8 @@ def test_degenerate_multimesh_is_flagged():
     assert not jax_graph.build_graph_artifacts(mg, js).multi_lattice_ok
     graph = port_graph.build_graph_artifacts(mg, ps)
     assert not graph.multi_lattice_ok
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        port_graph.GraphLAM(4, 1, (64,), ps, graph)
+    model = port_graph.GraphLAM(4, 1, (64,), ps, graph)
+    assert model.table_path
+    with torch.no_grad():
+        y = model(torch.ones(2, 64, 4))
+    assert y.shape == (2, 64, 1) and bool(torch.isfinite(y).all())
