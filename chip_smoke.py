@@ -148,7 +148,19 @@ non-zero exit code and no result line:
    bit for bit; HiLAMParallel's table path on Dummy, predict and fit;
    (e) GraphLAM on an 8x8 grid at mesh_levels 2, whose multimesh repeats
    edges, on the table path against the CPU; the phase's wall time;
-20. the script's wall time, one JSON line with every kernel's numbers,
+20. the data axis (``parallel.mesh``): (a) an NCCL process group of one
+   rank (MASTER_ADDR 127.0.0.1, a free port): three AdamW steps of
+   GraphLAM at 500x500 and of Segformer at 512x640, bit for bit as the
+   same steps without a group (which repeat bit for bit themselves),
+   with the same launches (phase 7's a step, three times), and the
+   gradient all-reduce's buffer bytes and ms for GraphLAM, Segformer and
+   UNetRPP at 512x640; (b) ``torchrun --standalone --nproc-per-node 1 -m
+   py4cast_tpu_torch`` fit, test and predict on Dummy with
+   halfunet.yaml, one set of outputs written; (c) HiLAM and HalfUNet on
+   a 1791x64 crop padded to 1792 rows (``lat_multiple=2``): a train step
+   and a predict, counted, predictions back at 1791 rows; (d) on two
+   cards or more, two NCCL ranks against one; the phase's wall time;
+21. the script's wall time, one JSON line with every kernel's numbers,
    then the result line.
 
 Each model path runs with every launch count set to 0 just before it
@@ -2199,6 +2211,258 @@ def swin_table_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 20
+#: the launcher variables phase 20 (a) sets for its group of one rank
+_GROUP_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+
+def data_axis_steps(name: str, grid, steps: int = 3) -> dict:
+    """``steps`` AdamW steps (1 AR step, batch 1) of ``name`` at its
+    config's width on ``grid``, each on its own synthetic batch, counted:
+    the launches must be ``steps`` forwards' and backwards'. Inside a
+    process group when one is up."""
+    from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+
+    info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
+    module = AutoRegressiveModule(model_settings(name, num_warmup_steps=2), info, device="cuda")
+    state = module.init_state(torch.Generator().manual_seed(0), num_training_steps=100)
+    batches = [synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=k)
+               for k in range(steps)]
+    reset_counts()
+    losses = [module.train_step(state, b) for b in batches]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != expected_launches(module, steps, steps):
+        raise AssertionError(f"{name} {grid} {steps} train steps: launches {counts}")
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name} {grid} train losses {losses}")
+    return {"module": module, "state": state, "losses": losses, "launches": counts,
+            "distributed": module.mesh.distributed}
+
+
+def time_all_reduce(params: dict, label: str) -> dict:
+    """The gradient all-reduce of a process group's train step on
+    ``params``' layout (gradients of ones): its flat fp32 buffer's bytes,
+    the ms of ``all_reduce_grads`` (copy in, all_reduce, divide, copy
+    back) and of the ``all_reduce`` alone, CUDA events."""
+    import torch.distributed as dist
+
+    from py4cast_tpu_torch.parallel.mesh import all_reduce_grads
+
+    for p in params.values():
+        p.grad = torch.ones_like(p)
+    n_bytes = all_reduce_grads(params, 1)
+    flat = torch.cat([p.grad.reshape(-1) for p in params.values()])
+    row = {"label": label, "params": sum(p.numel() for p in params.values()),
+           "buffer_bytes": n_bytes,
+           "all_reduce_grads_ms": time_ms(lambda: all_reduce_grads(params, 1), reps=10, inner=5),
+           "all_reduce_ms": time_ms(lambda: dist.all_reduce(flat), reps=10, inner=5),
+           "world_size": dist.get_world_size(), "backend": dist.get_backend()}
+    for p in params.values():
+        p.grad = None
+    return row
+
+
+def torchrun_cli() -> dict:
+    """Phase 20 (b): ``torchrun --standalone --nproc-per-node 1 -m
+    py4cast_tpu_torch`` fit, test and predict on Dummy with
+    halfunet.yaml; one set of outputs written."""
+    import shutil
+
+    from py4cast_tpu_torch.datasets import get_datasets
+
+    save = BUILD / "smoke_torchrun"
+    shutil.rmtree(save, ignore_errors=True)
+    configs = ["--config", str(ROOT / "config/CLI/trainer.yaml"),
+               "--config", str(ROOT / "config/CLI/dataset/dummy.yaml"),
+               "--config", str(ROOT / "config/CLI/model/halfunet.yaml"),
+               "--trainer.save_path", str(save)]
+    env = {k: v for k, v in os.environ.items() if k not in _GROUP_ENV}
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    # where site-packages holds no bytecode, each process would compile
+    # torch's sources again (8 s): fit writes it here, test and predict
+    # read it
+    env["PYTHONPYCACHEPREFIX"] = str(BUILD / "pycache")
+    env.pop("PYTHONDONTWRITEBYTECODE", None)
+    seconds = {}
+    for sub in CLI_STEPS:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "py4cast_tpu_torch", sub, *configs,
+             *CLI_STEPS[sub]],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        seconds[sub] = time.perf_counter() - t0
+        (OUT_DIR / f"smoke_torchrun_{sub}.log").write_text(out.stdout + out.stderr)
+        if out.returncode != 0:
+            raise AssertionError(f"torchrun {sub} exited with {out.returncode}:\n"
+                                 f"{(out.stdout + out.stderr)[-3000:]}")
+    test_batches = -(-len(get_datasets("dummy", 2, 1, 3)[2]) // 8)
+    written = sorted(str(p.relative_to(save)) for p in save.rglob("*") if p.is_file())
+    preds = [w for w in written if w.startswith("predictions/")]
+    once = {name: sum(w.endswith(name) for w in written)
+            for name in ("test_scores.json", "manifest.json", "run_info.json", "signature.json")}
+    states = [w for w in written if w.endswith("state.pt")]
+    if (set(once.values()) != {1} or len(preds) != test_batches
+            or sorted(states) != ["checkpoints/best/state.pt", "checkpoints/last/state.pt"]):
+        raise AssertionError(f"torchrun outputs: {once}, {len(preds)} prediction files "
+                             f"(expected {test_batches}), checkpoints {states}")
+    scores = json.loads((save / "test_scores.json").read_text())
+    arrays = [np.load(save / p) for p in preds]
+    if not np.isfinite(scores["test_mean_loss"]) or not all(np.isfinite(a).all()
+                                                             for a in arrays):
+        raise AssertionError(f"torchrun outputs not finite: {scores}")
+    return {"seconds": seconds, "files": len(written), "prediction_files": len(preds),
+            "prediction_shape": list(arrays[0].shape),
+            "test_mean_loss": scores["test_mean_loss"]}
+
+
+def lat_padding_1791(name: str, grid=(1791, 64)) -> dict:
+    """Phase 20 (c): ``name`` at its config's width on a 1791-row crop,
+    padded to 1792 (lat_multiple 2): one train step and a 1-step
+    predict, counted; a finite loss, predictions back at 1791 rows."""
+    from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+
+    info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
+    module = AutoRegressiveModule(model_settings(name, num_warmup_steps=2), info, device="cuda",
+                                  lat_multiple=2)
+    if module._lat_pad != 1 or getattr(module.model, "table_path", False):
+        raise AssertionError(f"{name} {grid}: lat pad {module._lat_pad}, not the lattice path")
+    state = module.init_state(torch.Generator().manual_seed(0), num_training_steps=100)
+    batch = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=0)
+    reset_counts()
+    loss = float(module.train_step(state, batch))
+    preds = module.predict_step(state, batch).array
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != expected_launches(module, 2, 1):
+        raise AssertionError(f"{name} {grid} padded: launches {counts}")
+    spatial = (grid[0] * grid[1],) if module.is_graph else tuple(grid)
+    if (not np.isfinite(loss) or tuple(preds.shape) != (1, 1, *spatial, 21)
+            or not bool(torch.isfinite(preds).all())):
+        raise AssertionError(f"{name} {grid} padded: loss {loss}, predictions "
+                             f"{tuple(preds.shape)}")
+    return {"model": name, "grid": list(grid), "padded_lat": grid[0] + module._lat_pad,
+            "loss": loss, "prediction_shape": list(preds.shape), "launches": counts}
+
+
+def two_ranks_vs_one() -> dict:
+    """Phase 20 (d), on two cards or more: two NCCL ranks (one card
+    each) against one, three AdamW steps of GraphLAM at graphlam.yaml's
+    width on a 64x64 grid, global batch 2: losses and parameters within
+    TOL of scale."""
+    from py4cast_tpu_torch.testing import run_ranks
+
+    kwargs = {"model_name": "GraphLAM", "settings_init_args": GRAPHLAM_ARGS, "grid": [64, 64],
+              "batch_size": 2, "device": "cuda"}
+    one = run_ranks("py4cast_tpu_torch.testing:train_report", 1, kwargs, device="cuda",
+                    timeout=300)[0]
+    two = run_ranks("py4cast_tpu_torch.testing:train_report", 2, kwargs, device="cuda",
+                    timeout=300)
+    loss_err = max(abs(a - b) / abs(b) for r in two for a, b in zip(r["losses"], one["losses"]))
+    param_err = max(compare(f"two ranks vs one: {k}", r["params"][k], v)
+                    for r in two for k, v in one["params"].items())
+    if not loss_err <= TOL:
+        raise AssertionError(f"two ranks vs one: losses {[r['losses'] for r in two]} vs "
+                             f"{one['losses']}")
+    return {"losses_one": one["losses"], "losses_two": two[0]["losses"],
+            "loss_rel_err": loss_err, "max_abs_param_err": param_err}
+
+
+def data_axis_phase(train_full=None) -> dict:
+    """Phase 20, the data axis: (a) an NCCL group of one rank, three
+    AdamW steps of GraphLAM at 500x500 and of Segformer at 512x640 bit
+    for bit as without a group (where two runs without one agree bit for
+    bit), counted as phase 7 counts
+    (``train_full``, phase 7's result, when given), and the gradient
+    all-reduce's bytes and ms for GraphLAM, Segformer and UNetRPP
+    (512x640); (b) torchrun's fit, test and predict; (c) lat padding at
+    1791 rows; (d) two ranks against one, on two cards or more."""
+    from py4cast_tpu_torch.parallel.mesh import distributed, maybe_init_distributed
+    from py4cast_tpu_torch.testing import _free_port
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+
+    t20 = time.perf_counter()
+    log(f"phase 20 card: {card_line()}")
+    cells = {"GraphLAM": (500, 500), "Segformer": (512, 640)}
+    alone = {name: data_axis_steps(name, grid) for name, grid in cells.items()}
+    for name, grid in cells.items():  # the baseline repeats bit for bit
+        again, want = data_axis_steps(name, grid), alone[name]
+        differ = [k for k, p in want["state"].params.items()
+                  if not torch.equal(again["state"].params[k], p)]
+        if again["losses"] != want["losses"] or differ:
+            raise AssertionError(f"{name}: a second run without a group differs: losses "
+                                 f"{again['losses']} vs {want['losses']}, params {differ[:5]}")
+        del again
+    per_step = {k: v * 3 for k, v in (train_full or {}).get("launches", {}).items()}
+    if per_step and alone["GraphLAM"]["launches"] != per_step:
+        raise AssertionError(f"GraphLAM 3 steps {alone['GraphLAM']['launches']}, phase 7's "
+                             f"x 3 {per_step}")
+    saved = {k: os.environ.get(k) for k in _GROUP_ENV}
+    os.environ.update({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+                       "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"})
+    import torch.distributed as dist
+
+    try:
+        if not maybe_init_distributed("cuda", timeout=300) or dist.get_backend() != "nccl":
+            raise AssertionError("no NCCL process group")
+        group = {}
+        for name, grid in cells.items():
+            run = data_axis_steps(name, grid)
+            want = alone[name]
+            if not run["distributed"] or run["launches"] != want["launches"]:
+                raise AssertionError(f"{name} in the group: launches {run['launches']}, "
+                                     f"alone {want['launches']}")
+            differ = [k for k, p in want["state"].params.items()
+                      if not torch.equal(run["state"].params[k], p)]
+            if run["losses"] != want["losses"] or differ:
+                raise AssertionError(f"{name}: one NCCL rank differs from no group: losses "
+                                     f"{run['losses']} vs {want['losses']}, params {differ[:5]}")
+            group[name] = {"grid": list(grid), "losses": run["losses"],
+                           "launches": run["launches"], "bit_for_bit": True,
+                           "all_reduce": time_all_reduce(run["state"].params, name)}
+            del run
+        from py4cast_tpu_torch.testing import synthetic_dataset_info
+
+        rpp = AutoRegressiveModule(
+            model_settings("UNetRPP"),
+            synthetic_dataset_info(grid_shape=(512, 640), weather_features=21,
+                                   forcing_features=21), device="cuda")
+        group["UNetRPP"] = {"grid": [512, 640], "all_reduce": time_all_reduce(
+            {k: torch.zeros_like(v).requires_grad_() for k, v in rpp.model.named_parameters()},
+            "UNetRPP")}
+        del rpp
+    finally:
+        if distributed():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del alone
+    torch.cuda.empty_cache()
+    out = {"one_rank_group": group}
+    for name, row in group.items():
+        log(f"phase 20 (a) {name}: {json.dumps(row)}")
+    out["torchrun"] = torchrun_cli()
+    log(f"phase 20 (b) torchrun fit/test/predict: {json.dumps(out['torchrun'])}")
+    out["lat_padding"] = [lat_padding_1791(n) for n in ("HiLAM", "HalfUNet")]
+    for row in out["lat_padding"]:
+        log(f"phase 20 (c) {row['model']} 1791 rows: {json.dumps(row)}")
+    if torch.cuda.device_count() >= 2:
+        out["two_ranks"] = two_ranks_vs_one()
+        log(f"phase 20 (d) two NCCL ranks vs one: {json.dumps(out['two_ranks'])}")
+    else:
+        log("phase 20 (d): not run, 1 card")
+    out["wall_s"] = time.perf_counter() - t20
+    log(f"phase 20 wall: {out['wall_s']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------- main
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2452,6 +2716,10 @@ def main(argv=None) -> int:
                     (swin_table["table"]["HiLAMParallel"]["fit"],
                      swin_table["table"]["HiLAMParallel"]["predict"])]
 
+    # phase 20: the data axis: an NCCL group of one rank bit for bit,
+    # torchrun, lat padding at 1791 rows
+    data_axis = data_axis_phase(train_full)
+
     # each model path ran with every count set to 0 just before it and
     # checked just after (a kernel of another path launched fails); a
     # kernel's launches are the sum over the paths that run it
@@ -2472,6 +2740,10 @@ def main(argv=None) -> int:
             f"{f['model']}{'' if f['model'] == 'SwinUNetR' else ' (table)'}":
                 [f["launches"][k["name"]], d["launches"][k["name"]]]
             for f, d in phase19_runs})
+        # the same in a process group (phase 20 (a): GraphLAM and Segformer)
+        k["launches_process_group"] = sum(
+            row["launches"][k["name"]] for row in data_axis["one_rank_group"].values()
+            if "launches" in row)
         top = by_kernel[k["name"]]
         k["bf16"] = {"shape": top["shape"], "ms": top["ms"], "fp32_ms": top["fp32_ms"],
                      "cast_ms": top["cast_ms"],
@@ -2490,7 +2762,7 @@ def main(argv=None) -> int:
          "unet_predict_dummy": plain_dummy, "unet_fit_dummy": plain_fit,
          "unet_full_size": plain_full, "unetrpp_predict_dummy": rpp_dummy,
          "unetrpp_fit_dummy": rpp_fit, "unetrpp_full_size": rpp_full, "bf16": bf16,
-         "resnet": resnet, "swin_table": swin_table,
+         "resnet": resnet, "swin_table": swin_table, "data_axis": data_axis,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -98,14 +98,21 @@ class CheckpointManager:
     """Saves `last` and `best` (lowest val_mean_loss) checkpoints.
 
     Layout: <dir>/last/state.pt, <dir>/best/state.pt + <dir>/manifest.json
+
+    ``write=False`` (every rank but 0 under a process group) writes
+    nothing: ``maybe_save_best`` still tracks the best metric, so that
+    every rank takes the same early-stopping decisions, and ``restore``
+    reads what rank 0 wrote.
     """
 
-    def __init__(self, directory: Path, manifest: Optional[dict] = None):
+    def __init__(self, directory: Path, manifest: Optional[dict] = None, write: bool = True):
         self.directory = Path(directory)
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self.write = write
         self.best_metric = float("inf")
-        if manifest is not None:
-            self.write_manifest(manifest)
+        if write:
+            self.directory.mkdir(parents=True, exist_ok=True)
+            if manifest is not None:
+                self.write_manifest(manifest)
 
     def write_manifest(self, manifest: dict):
         with open(self.directory / "manifest.json", "w") as f:
@@ -115,6 +122,8 @@ class CheckpointManager:
         """Crash-safe replace: write to a temp sibling, then swap via
         renames — a valid copy of the previous checkpoint stays on disk
         until the new one is fully written."""
+        if not self.write:
+            return
         final = (self.directory / name).absolute()
         tmp = (self.directory / f".{name}.tmp").absolute()
         old = (self.directory / f".{name}.old").absolute()

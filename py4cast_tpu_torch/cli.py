@@ -9,6 +9,15 @@ model), plus dotted-path overrides (``--model.learning_rate 1e-4`` or
 ``--data.batch_size=8``). One key more: ``--trainer.device`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels).
 
+Several ranks, one card each, from torchrun (or a SLURM step, see
+``parallel.mesh.maybe_init_distributed``):
+
+    torchrun --nproc-per-node 4 -m py4cast_tpu_torch fit --config ...
+
+``data.batch_size`` is then the global batch (each rank loads its
+slice), ``trainer.mesh_data_parallel`` is -1 or the world size, and
+rank 0 alone writes checkpoints, logs, scores and predictions.
+
 Cross-section links: ``data.num_input_steps``, ``data.num_pred_steps_*``
 and ``data.batch_size`` flow into the training settings and trainer.
 ``test`` and ``predict`` rebuild the model from the checkpoint's
@@ -24,12 +33,18 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from py4cast_tpu_torch.checkpoint import CheckpointManager, load_manifest
 from py4cast_tpu_torch.datasets import get_datasets
 from py4cast_tpu_torch.io.outputs import save_predictions
 from py4cast_tpu_torch.loggers import default_loggers
+from py4cast_tpu_torch.parallel.mesh import (
+    is_main_process,
+    main_process_first,
+    maybe_init_distributed,
+)
 from py4cast_tpu_torch.training import (
     AutoRegressiveModule,
     Trainer,
@@ -163,9 +178,16 @@ def build_all(conf: dict, manifest: Optional[dict] = None):
 
     With ``manifest`` (test/predict) the model is rebuilt from the
     checkpoint's stored training settings, not the current config, and
-    the dataset is checked against the stored feature/stats contract."""
+    the dataset is checked against the stored feature/stats contract.
+    Under a launcher (torchrun, SLURM) this joins its process group
+    first; rank 0 then builds the datasets before the other ranks, so
+    that files a dataset creates on first touch are whole when they
+    read them."""
+    trainer_conf = dict(conf.get("trainer", {}))
+    maybe_init_distributed(trainer_conf.get("device", TrainerConfig.device))
     data_cfg = DataConfig(**_filter_fields(DataConfig, conf.get("data", {})))
-    dm = DataModule(data_cfg)
+    with main_process_first():
+        dm = DataModule(data_cfg)
 
     if manifest is not None:
         model_conf = dict(manifest["training_settings"])
@@ -184,35 +206,44 @@ def build_all(conf: dict, manifest: Optional[dict] = None):
         model_conf["betas"] = tuple(model_conf["betas"])
     settings = TrainingSettings(**_filter_fields(TrainingSettings, model_conf))
 
-    trainer_conf = dict(conf.get("trainer", {}))
     ckpt_path = trainer_conf.pop("ckpt_path", None)
     trainer_conf.setdefault("batch_size", data_cfg.batch_size)
     trainer_conf.setdefault("num_workers", data_cfg.num_workers)
     tcfg = TrainerConfig(**_filter_fields(TrainerConfig, trainer_conf))
 
     module = AutoRegressiveModule(settings, dm.train_dataset_info, device=tcfg.device)
-    trainer = Trainer(tcfg, loggers=default_loggers(Path(tcfg.save_path)))
+    loggers = default_loggers(Path(tcfg.save_path)) if is_main_process() else []
+    trainer = Trainer(tcfg, loggers=loggers)
     return dm, module, trainer, ckpt_path
 
 
 def _restore_state(module: AutoRegressiveModule, trainer: Trainer, ckpt_path: str):
     state = module.init_state(torch.Generator().manual_seed(0), num_training_steps=1)
-    ckpt = CheckpointManager(Path(trainer.config.save_path) / "checkpoints")
+    ckpt = CheckpointManager(Path(trainer.config.save_path) / "checkpoints", write=False)
     return ckpt.restore(ckpt_path, state)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     subcommand, conf = parse_cli(argv if argv is not None else sys.argv[1:])
-    manifest = None
-    if subcommand in ("test", "predict"):
-        manifest = _load_ckpt_manifest(conf)
-        if manifest is None:
-            print(
-                "WARNING: no manifest.json next to the checkpoint — "
-                "rebuilding the model from the CURRENT config without a "
-                "train/predict contract check"
-            )
+    grouped = dist.is_available() and dist.is_initialized()
+    try:
+        return _run(subcommand, conf)
+    finally:
+        if not grouped and dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()  # the group this call joined
+
+
+def _run(subcommand: str, conf: dict) -> int:
+    inference = subcommand in ("test", "predict")
+    manifest = _load_ckpt_manifest(conf) if inference else None
     dm, module, trainer, ckpt_path = build_all(conf, manifest=manifest)
+    main_rank = is_main_process()
+    if inference and manifest is None and main_rank:
+        print(
+            "WARNING: no manifest.json next to the checkpoint — "
+            "rebuilding the model from the CURRENT config without a "
+            "train/predict contract check"
+        )
 
     if subcommand == "fit":
         trainer.fit(module, dm.train_ds, dm.val_ds, ckpt_path=ckpt_path)
@@ -220,14 +251,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not ckpt_path:
             raise SystemExit("test requires --trainer.ckpt_path")
         state = _restore_state(module, trainer, ckpt_path)
-        print(trainer.test(module, dm.test_ds, state))
+        scores = trainer.test(module, dm.test_ds, state)
+        if main_rank:
+            print(scores)
     elif subcommand == "predict":
         if not ckpt_path:
             raise SystemExit("predict requires --trainer.ckpt_path")
         state = _restore_state(module, trainer, ckpt_path)
         if dm.cfg.use_old_weights:
             state = module.load_raw_params(state, dm.cfg.use_old_weights)
-            print(f"Injected raw params from {dm.cfg.use_old_weights}")
+            if main_rank:
+                print(f"Injected raw params from {dm.cfg.use_old_weights}")
         infer_ds = dm.infer_ds
         if dm.cfg.list_run_hour:
             # keep only samples whose run hour is requested
@@ -239,6 +273,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             except ValueError:
                 raise SystemExit(f"No samples with run hour in {sorted(hours)}")
         preds = trainer.predict(module, infer_ds, state)
+        if not main_rank:
+            return 0  # every rank has every row: rank 0 writes them
         out_dir = Path(trainer.config.save_path) / "predictions"
         out_dir.mkdir(parents=True, exist_ok=True)
         for i, p in enumerate(preds):

@@ -146,6 +146,28 @@ class Statics:
         flat.interior_mask = self.interior_mask.reshape(-1, 1)
         return flat
 
+    def pad_lat(self, pad: int) -> "Statics":
+        """A copy with ``pad`` lat rows appended, all border (border_mask
+        1, interior 0): they never enter a loss or metric denominator and
+        are border-forced in rollouts. The coordinate channels carry on
+        the last row spacing, so graph builders see monotone node
+        positions. ``pad_lat(0)`` returns ``self``."""
+        if pad <= 0:
+            return self
+        arr = np.asarray(self.grid_statics.array, np.float32)
+        names = list(self.grid_statics.feature_names)
+        tail = np.zeros((pad,) + arr.shape[1:], arr.dtype)
+        if arr.shape[0] >= 2:
+            step = arr[-1] - arr[-2]
+            for k in range(pad):
+                tail[k] = arr[-1] + (k + 1) * step
+        tail[..., names.index("border_mask")] = 1.0
+        return Statics(
+            grid_statics=NamedArray(np.concatenate([arr, tail], axis=0),
+                                    self.grid_statics.names, self.grid_statics.feature_names),
+            grid_shape=(self.grid_shape[0] + pad, self.grid_shape[1]),
+        )
+
 
 @dataclass
 class DatasetInfo:

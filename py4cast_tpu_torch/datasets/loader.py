@@ -2,8 +2,8 @@
 
 Sample loading is numpy I/O + light math that releases the GIL, so a
 thread pool gives worker parallelism without process-spawn overhead and
-without pickling batches. One process, one loader: the multi-process
-slicing of the JAX package's loader comes with the scale-out slice.
+without pickling batches. Under a process group each rank loads its
+slice of every global batch.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from py4cast_tpu_torch.datasets.base import ItemBatch, collate_fn
 
@@ -28,7 +29,7 @@ class DataLoader:
     ``drop_last`` keeps batch shapes equal across the epoch. Inference
     loaders use ``drop_last=False, pad_last=True``: the final short batch
     is padded to ``batch_size`` by repeating its last sample and
-    ``ItemBatch.num_valid`` marks the real row count.
+    ``ItemBatch.num_valid`` marks the real row count of the global batch.
     """
 
     def __init__(
@@ -41,9 +42,30 @@ class DataLoader:
         seed: int = 0,
         drop_last: bool = True,
         pad_last: bool = False,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
     ):
+        """``batch_size`` is the GLOBAL batch. Rank ``process_index`` of
+        ``process_count`` loads only its ``batch_size / process_count``
+        rows of every batch; the seeded shuffle is the same on every rank,
+        so the slices are disjoint. Both default to the process group's
+        rank and world size (0 and 1 without one)."""
+        if process_count is None:
+            group = dist.is_available() and dist.is_initialized()
+            process_count = dist.get_world_size() if group else 1
+            process_index = dist.get_rank() if group else 0
+        elif process_index is None:
+            process_index = 0
+        if batch_size % process_count:
+            raise ValueError(
+                f"Global batch size {batch_size} is not divisible by the "
+                f"process count ({process_count})"
+            )
         self.dataset = dataset
         self.batch_size = batch_size
+        self.process_index = process_index
+        self.process_count = process_count
+        self.local_batch_size = batch_size // process_count
         self.num_workers = max(1, num_workers)
         self.shuffle = shuffle
         self.prefetch = max(1, prefetch)
@@ -59,18 +81,24 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def _batch_indices(self) -> List[Tuple[np.ndarray, int]]:
-        """Per batch: (sample indices, number of REAL samples)."""
+        """Per batch: (THIS rank's sample indices, number of REAL samples
+        in the GLOBAL batch)."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
+            # the same global order on every rank: disjoint slices
             rng = np.random.default_rng(self.seed + self._epoch)
             rng.shuffle(idx)
         out = []
+        lo = self.process_index * self.local_batch_size
         for i in range(len(self)):
             b = idx[i * self.batch_size : (i + 1) * self.batch_size]
             nv = len(b)
             if self.pad_last and nv < self.batch_size:
                 b = np.concatenate([b, np.full(self.batch_size - nv, b[-1], b.dtype)])
-            out.append((b, nv))
+            local = b[lo : lo + self.local_batch_size]
+            if len(local) == 0:
+                continue  # a short unpadded tail wholly on earlier ranks
+            out.append((local, nv))
         return out
 
     def __iter__(self) -> Iterator[ItemBatch]:

@@ -14,9 +14,11 @@ convolutions (TF32 off inside every step, ``utils.exact_fp32``)."""
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -86,6 +88,44 @@ def _upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
     return x.repeat_interleave(factor, dim=1).repeat_interleave(factor, dim=2)
 
 
+@functools.lru_cache(maxsize=64)
+def _linear_weights(n_out: int, n_in: int, device: torch.device) -> torch.Tensor:
+    """(n_out, n_in) weights of ``F.interpolate``'s linear mode along one
+    axis that grows (half-pixel centres, edges clamped), built in
+    float64."""
+    src = np.maximum((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5, 0.0)
+    lo = np.floor(src).astype(np.int64)
+    frac = src - lo
+    m = np.zeros((n_out, n_in))
+    np.add.at(m, (np.arange(n_out), lo), 1.0 - frac)
+    np.add.at(m, (np.arange(n_out), np.minimum(lo + 1, n_in - 1)), frac)
+    return torch.as_tensor(m, dtype=torch.float32, device=device)
+
+
+class _GrowBilinear(torch.autograd.Function):
+    """Bilinear growth of NCHW ``x`` to (h, w): ``F.interpolate``'s
+    forward, and a backward of two products with each axis's weights
+    (``_linear_weights``), which sum in a fixed order on every device.
+    CUDA's own backward adds each input's gradient up with atomics, in
+    no fixed order, so that two backward passes differ in the last
+    bits."""
+
+    @staticmethod
+    def forward(ctx, x, h: int, w: int):
+        ctx.in_hw = tuple(x.shape[2:])
+        return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (hi, wi), (n, c, ho, wo) = ctx.in_hw, g.shape
+        wh = _linear_weights(ho, hi, g.device)
+        ww = _linear_weights(wo, wi, g.device)
+        # in NHWC order, which the models' gradients come in: no copy
+        rows = torch.matmul(ww.t(), g.permute(0, 2, 3, 1).reshape(n * ho, wo, c))
+        dx = torch.matmul(wh.t(), rows.reshape(n, ho, wi * c))
+        return dx.reshape(n, hi, wi, c).permute(0, 3, 1, 2), None, None
+
+
 def _bilinear_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Bilinear resize of NHWC ``x`` to (h, w), as
     ``jax.image.resize(method="bilinear")`` resizes: half-pixel centres,
@@ -96,12 +136,17 @@ def _bilinear_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     ``x`` is resized in fp32 and rounded once, forward and backward, as
     XLA sums the resize's weights: the card's bilinear backward adds a
     bf16 input's gradient up in bf16, which at DeepLab's x32 resize
-    loses it."""
+    loses it. A growth runs through ``_GrowBilinear``, so that its
+    backward repeats bit for bit."""
     if (h, w) == tuple(x.shape[1:3]):
         return x
     shrinks = h < x.shape[1] or w < x.shape[2]
-    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(h, w), mode="bilinear",
-                      align_corners=False, antialias=shrinks)
+    xc = x.permute(0, 3, 1, 2).float()
+    if shrinks:
+        y = F.interpolate(xc, size=(h, w), mode="bilinear", align_corners=False,
+                          antialias=True)
+    else:
+        y = _GrowBilinear.apply(xc, h, w)
     return y.to(x.dtype).permute(0, 2, 3, 1)
 
 

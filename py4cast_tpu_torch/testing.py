@@ -1,16 +1,32 @@
 """Synthetic in-memory fixtures for smoke runs and tests: a full
-DatasetInfo (grid statics, stats, diff stats) and batches drawn from a
-numpy seed, without touching disk."""
+DatasetInfo (grid statics, stats, diff stats), batches and datasets
+drawn from a numpy seed, without touching disk; and ``run_ranks``, which
+runs a function on several local ranks joined in a process group, with
+two such functions (``train_report``, ``fit_test_report``)."""
 
 from __future__ import annotations
 
 import datetime as dt
-from typing import Tuple
+import importlib
+import importlib.util
+import json
+import os
+import shutil
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed
 
 from py4cast_tpu_torch.datasets.access import Stats
 from py4cast_tpu_torch.datasets.base import DatasetInfo, Item, ItemBatch, Statics, collate_fn
+from py4cast_tpu_torch.datasets.loader import DataLoader
 from py4cast_tpu_torch.named_tensor import NamedArray
 
 
@@ -67,19 +83,20 @@ def synthetic_dataset_info(
     )
 
 
-def synthetic_batch(
+def synthetic_items(
     info: DatasetInfo,
-    batch_size: int = 1,
+    n: int = 1,
     num_input_steps: int = 2,
     num_pred_steps: int = 1,
     seed: int = 0,
-) -> ItemBatch:
-    """A batch of standard-normal fields drawn from a numpy seed."""
+) -> List[Item]:
+    """``n`` samples of standard-normal fields drawn from a numpy seed,
+    in order."""
     rng = np.random.default_rng(seed)
     h, w = info.statics.grid_shape
     names = ("timestep", "lat", "lon", "features")
     items = []
-    for _ in range(batch_size):
+    for _ in range(n):
         def field(steps, n_feat):
             return rng.standard_normal((steps, h, w, n_feat)).astype(np.float32)
 
@@ -95,4 +112,190 @@ def synthetic_batch(
                 validity_times=[t0 + dt.timedelta(hours=i) for i in range(num_pred_steps)],
             )
         )
-    return collate_fn(items)
+    return items
+
+
+def synthetic_batch(
+    info: DatasetInfo,
+    batch_size: int = 1,
+    num_input_steps: int = 2,
+    num_pred_steps: int = 1,
+    seed: int = 0,
+) -> ItemBatch:
+    """A batch of standard-normal fields drawn from a numpy seed."""
+    return collate_fn(synthetic_items(info, batch_size, num_input_steps, num_pred_steps, seed))
+
+
+class SyntheticDataset:
+    """``synthetic_items`` as a dataset with the datasets' ``loader``:
+    sample i is row i of ``synthetic_batch(info, n, ..., seed)``."""
+
+    def __init__(self, info: DatasetInfo, n: int, num_input_steps: int = 2,
+                 num_pred_steps: int = 1, seed: int = 0):
+        self.dataset_info = info
+        self.items = synthetic_items(info, n, num_input_steps, num_pred_steps, seed)
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, i: int) -> Item:
+        return self.items[i]
+
+    def loader(self, **kwargs) -> DataLoader:
+        return DataLoader(self, **kwargs)
+
+
+# ----------------------------------------------------------- several ranks
+#: what a rank process runs: join the group, call the target, save its
+#: report, leave the group
+_RANK_MAIN = ("import sys; from py4cast_tpu_torch.testing import _rank_main; "
+              "_rank_main(sys.argv[1:])")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _target(spec: str) -> Callable:
+    """The function ``module:function`` or ``path/to/file.py:function``."""
+    where, name = spec.rsplit(":", 1)
+    if where.endswith(".py"):
+        loaded = importlib.util.spec_from_file_location(Path(where).stem, where)
+        module = importlib.util.module_from_spec(loaded)
+        loaded.loader.exec_module(module)
+    else:
+        module = importlib.import_module(where)
+    return getattr(module, name)
+
+
+def _rank_main(argv: List[str]) -> None:
+    target, kwargs, out, device, timeout = argv
+    torch.set_num_threads(1)
+    from py4cast_tpu_torch.parallel.mesh import maybe_init_distributed
+
+    if not maybe_init_distributed(device, timeout=float(timeout)):
+        raise RuntimeError("no process group: RANK and WORLD_SIZE are unset")
+    try:
+        torch.save(_target(target)(**json.loads(kwargs)), out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_ranks(target: str, world_size: int, kwargs: Optional[dict] = None,
+              device: str = "cpu", timeout: float = 120.0) -> List[dict]:
+    """Run ``target`` (``module:function`` or ``file.py:function``) on
+    ``world_size`` local ranks, one process each, joined in a process
+    group on a free localhost port (gloo for ``device="cpu"``, NCCL for
+    ``"cuda"``, rank r on ``cuda:r``), and return each rank's report: the
+    target's return value (what ``torch.load(weights_only=True)`` reads:
+    tensors, numbers, strings, lists, dicts), in rank order. Each rank
+    runs torch on one intra-op thread.
+
+    ``timeout`` (seconds) bounds the whole run and every collective in
+    it. A rank that fails, or a run past its time, kills every rank
+    still running and raises with the failed rank's output: a dead rank
+    never leaves the others waiting."""
+    root = str(Path(__file__).resolve().parent.parent)
+    port = _free_port()
+    tmp = Path(tempfile.mkdtemp(prefix="p4t_ranks_"))
+    procs, logs = [], []
+    try:
+        for rank in range(world_size):
+            env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                   "RANK": str(rank), "WORLD_SIZE": str(world_size), "LOCAL_RANK": str(rank),
+                   "OMP_NUM_THREADS": "1",
+                   "PYTHONPATH": os.pathsep.join(
+                       p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+            logs.append(open(tmp / f"rank{rank}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _RANK_MAIN, target, json.dumps(kwargs or {}),
+                 str(tmp / f"rank{rank}.pt"), device, str(timeout)],
+                stdout=logs[-1], stderr=subprocess.STDOUT, env=env, cwd=root))
+        deadline = time.monotonic() + timeout
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if failed:
+                r = failed[0]
+                raise RuntimeError(f"rank {r} of {world_size} exited with {codes[r]}:\n"
+                                   + (tmp / f"rank{r}.log").read_text()[-4000:])
+            if all(c == 0 for c in codes):
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world_size} ranks of {target} still running after "
+                                   f"{timeout} s (exit codes {codes})")
+            time.sleep(0.05)
+        return [torch.load(tmp / f"rank{r}.pt", weights_only=True) for r in range(world_size)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _small_module(model_name: str, settings_init_args: dict, grid, device: str,
+                  lat_multiple: Optional[int] = None, **settings):
+    from py4cast_tpu_torch.training import AutoRegressiveModule, TrainingSettings
+
+    info = synthetic_dataset_info(grid_shape=tuple(grid), weather_features=3,
+                                  forcing_features=6, border_size=2)
+    settings = TrainingSettings(model_name=model_name, settings_init_args=dict(settings_init_args),
+                                training_strategy="scaled_ar", num_input_steps=2,
+                                num_warmup_steps=2, **settings)
+    return AutoRegressiveModule(settings, info, device=device, lat_multiple=lat_multiple), info
+
+
+def train_report(model_name: str, settings_init_args: dict, grid=(32, 32), batch_size: int = 4,
+                 steps: int = 3, seed: int = 0, params_path: Optional[str] = None,
+                 device: str = "cpu") -> dict:
+    """``steps`` AdamW steps of a small ``scaled_ar`` module, alone or on
+    every rank of a group: step k trains on the global batch
+    ``synthetic_batch(info, batch_size, seed=seed + k)``, of which each
+    rank loads its slice through ``DataLoader``. The parameters start
+    from ``params_path`` (a ``torch.save``d dict) or from seed 0. Reports
+    the rank, the world size, the losses and the final parameters."""
+    module, info = _small_module(model_name, settings_init_args, grid, device)
+    params = torch.load(params_path, weights_only=True) if params_path else None
+    state = module.init_state(torch.Generator().manual_seed(0), steps, params)
+    losses = []
+    for k in range(steps):
+        data = SyntheticDataset(info, batch_size, num_pred_steps=1, seed=seed + k)
+        batch = next(iter(data.loader(batch_size=batch_size, num_workers=1)))
+        losses.append(float(module.train_step(state, batch)))
+    return {"rank": module.mesh.rank, "world_size": module.mesh.world_size, "losses": losses,
+            "params": {k: v.detach().cpu() for k, v in state.params.items()}}
+
+
+def fit_test_report(save_path: str, n_test: int = 11, batch_size: int = 4, grid=(32, 32),
+                    device: str = "cpu") -> dict:
+    """A small HalfUNet's ``Trainer.fit`` (2 train batches, a padded
+    validation tail), ``Trainer.test`` with logging (figures, scores,
+    PSD-K, PSD-Var, ACC) over ``n_test`` samples, the per-sample test
+    rows (``Trainer.eval_rows``) and ``Trainer.predict``, alone or on
+    every rank of a group; rank r saves under ``<save_path>/rank{r}``,
+    so that what each rank wrote can be told apart."""
+    from py4cast_tpu_torch.parallel.mesh import is_main_process, make_mesh
+    from py4cast_tpu_torch.training import Trainer, TrainerConfig
+
+    module, info = _small_module("HalfUNet", {"num_filters": 8, "depth": 2}, grid, device,
+                                 num_pred_steps_val_test=2)
+    rank = make_mesh().rank
+    trainer = Trainer(TrainerConfig(max_epochs=1, batch_size=batch_size, num_workers=1,
+                                    limit_train_batches=2, save_path=f"{save_path}/rank{rank}",
+                                    device=device))
+    train = SyntheticDataset(info, 2 * batch_size, num_pred_steps=1, seed=0)
+    val = SyntheticDataset(info, batch_size + 1, num_pred_steps=2, seed=1)
+    test = SyntheticDataset(info, n_test, num_pred_steps=2, seed=2)
+    state = trainer.fit(module, train, val)
+    scores = trainer.test(module, test, state)
+    rows = trainer.eval_rows(module, state, test.loader(batch_size=batch_size, num_workers=1,
+                                                        drop_last=False, pad_last=True))
+    preds = trainer.predict(module, test, state)
+    return {"rank": rank, "is_main": is_main_process(), "scores": scores,
+            "rows": torch.from_numpy(rows), "step": state.step,
+            "predictions": torch.from_numpy(np.concatenate([p.array for p in preds]))}

@@ -10,6 +10,11 @@ test feed the observers: the plotters and score cards of ``plots.py``
 and the PSD-K, PSD-Var and ACC metrics of ``metrics.py``, whose state
 stays on the device until the epoch ends.
 
+Under a ``torch.distributed`` process group (``parallel.mesh``) every
+rank runs the same loop on its slice of each global batch: one gradient
+all-reduce an optimizer step, eval rows and predictions gathered to
+every rank, writes on rank 0.
+
 Parameters travel as a plain ``{name: tensor}`` dict, applied with
 ``torch.func.functional_call`` — the counterpart of the JAX package's
 ``model.apply(params, x)``: ``init_params`` draws one from a
@@ -50,6 +55,17 @@ from py4cast_tpu_torch.models import (
     get_model_kls_and_settings,
 )
 from py4cast_tpu_torch.named_tensor import NamedArray
+from py4cast_tpu_torch.parallel.mesh import (
+    Mesh,
+    MeshConfig,
+    all_gather_rows,
+    all_reduce_grads,
+    barrier,
+    broadcast_object,
+    is_main_process,
+    make_mesh,
+    to_host,
+)
 from py4cast_tpu_torch.plots import (
     NO_FIGURES,
     PredictionEpochPlot,
@@ -252,6 +268,23 @@ def _params_of(state: Union[TrainState, Params]) -> Params:
     return state.params if isinstance(state, TrainState) else state
 
 
+def _zero_fill_grads(params: Params) -> None:
+    """A zero gradient for every parameter the loss did not reach, so
+    that AdamW still decays it (as optax.adamw does) and every rank lays
+    out the same all-reduce buffer."""
+    for p in params.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
+def _global_rows(t: torch.Tensor, batch: ItemBatch) -> np.ndarray:
+    """A batch's per-sample rows on the host: gathered over the ranks in
+    global order, cut to the global batch's real samples (a padded
+    tail's repeats never count)."""
+    rows = to_host(t)
+    return rows[: batch.num_valid or len(rows)]
+
+
 class AutoRegressiveModule:
     """Owns the model, the loss, the rollout configuration and the static
     device buffers for one run. ``device`` defaults to the card; with no
@@ -265,11 +298,23 @@ class AutoRegressiveModule:
     model call casts the fp32 master params and its input to bf16 and
     returns fp32 (``_model_apply``), inputs and forcing travel as bf16
     and targets as fp32 (``batch_arg_dtypes``), and the AR carry, the
-    losses, the optimizer and the predictions stay fp32."""
+    losses, the optimizer and the predictions stay fp32.
+
+    ``mesh`` (default: ``make_mesh()`` over the current process group,
+    one rank without one) places this process on the data axis: each
+    train step all-reduces its gradients over the ranks.
+    ``lat_multiple`` pads the lat dim up to a multiple of it with
+    all-border rows (``Statics.pad_lat``), the layout a lat-sharded mesh
+    needs: padded rows are excluded from the loss, border-forced in
+    rollouts and cut off every prediction and eval array, while
+    ``dataset_info``, manifests and everything the host sees keep the
+    original grid."""
 
     def __init__(self, settings: TrainingSettings, dataset_info: DatasetInfo,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[Mesh] = None,
+                 lat_multiple: Optional[int] = None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh()
         self.settings = settings
         self.dataset_info = dataset_info
         self.compute_dtype = compute_dtype(settings.precision)
@@ -298,6 +343,14 @@ class AutoRegressiveModule:
                 "operates on the (lat, lon) grid layout. Set mask_ratio: 0."
             )
 
+        multiple = lat_multiple or self.mesh.spatial
+        self._lat_pad = (-statics.grid_shape[0]) % multiple if multiple > 1 else 0
+        self._orig_grid_shape = tuple(statics.grid_shape)
+        if self._lat_pad:
+            statics = statics.pad_lat(self._lat_pad)
+            print(f"Padding lat {self._orig_grid_shape[0]} -> {statics.grid_shape[0]} "
+                  f"(all-border rows) to a multiple of {multiple}")
+
         grid_shape = statics.grid_shape
         input_shape = (grid_shape[0] * grid_shape[1],) if self.is_graph else tuple(grid_shape)
         extra = {}
@@ -312,13 +365,18 @@ class AutoRegressiveModule:
             **extra,
         ).to(self.device).eval()
 
+        host_statics = dataset_info.statics
         if self.is_graph:
             statics = statics.flatten_spatial()
+            host_statics = host_statics.flatten_spatial()
         out_names = tuple(dataset_info.output_feature_names)
         forcing_names = tuple(dataset_info.forcing_feature_names)
         self.output_feature_names = out_names
         self.forcing_feature_names = forcing_names
-        self.interior_mask_np = np.asarray(statics.interior_mask, np.float32)
+        # the host-facing mask (score cards, plotters) keeps the original
+        # grid; the loss inside a step reads the padded one: the same
+        # interior count, as pad rows are all border
+        self.interior_mask_np = np.asarray(host_statics.interior_mask, np.float32)
 
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -326,7 +384,7 @@ class AutoRegressiveModule:
         self._buffers = {
             "grid_statics": dev(statics.grid_statics.array),
             "border_mask": dev(statics.border_mask),
-            "interior_mask": dev(self.interior_mask_np),
+            "interior_mask": dev(statics.interior_mask),
             "step_diff_mean": dev(dataset_info.diff_stats.to_array("mean", out_names)),
             "step_diff_std": dev(dataset_info.diff_stats.to_array("std", out_names)),
             "stats_mean": dev(dataset_info.stats.to_array("mean", out_names)),
@@ -448,6 +506,24 @@ class AutoRegressiveModule:
                 else torch.float32)
         return food, food, torch.float32
 
+    def _pad_lat_np(self, a) -> np.ndarray:
+        """Zero-pad the lat axis (2) of a host (B, T, lat, lon, F) batch
+        array up to the padded grid; the pad rows are all border."""
+        if not self._lat_pad:
+            return a
+        widths = [(0, 0)] * np.ndim(a)
+        widths[2] = (0, self._lat_pad)
+        return np.pad(np.asarray(a, np.float32), widths)
+
+    def _unpad(self, t: torch.Tensor) -> torch.Tensor:
+        """Cut the padded lat rows off a (B, T, lat, lon, F) prediction;
+        on a GRAPH model's (B, T, ngrid, F), whose ngrid is lat-major,
+        the first lat·lon nodes are the real ones."""
+        if not self._lat_pad:
+            return t
+        lat, lon = self._orig_grid_shape
+        return t[:, :, : lat * lon] if self.is_graph else t[:, :, :lat]
+
     def _to_device(self, a, dtype=torch.float32) -> torch.Tensor:
         """A (B, T, lat, lon, F) batch array on the device, in ``dtype``;
         (B, T, ngrid, F) for GRAPH models. bf16 is rounded on the host,
@@ -460,8 +536,11 @@ class AutoRegressiveModule:
     def _batch_arrays(self, batch: ItemBatch, with_outputs: bool = False):
         """(inputs, forcing, outputs) of a batch on the device; (B, T,
         ngrid, F) for GRAPH models, (B, T, lat, lon, F) otherwise;
-        outputs is None unless asked for; in ``batch_arg_dtypes``."""
-        dev = self._to_device
+        outputs is None unless asked for; in ``batch_arg_dtypes``; the
+        lat axis padded as the module pads it."""
+        def dev(a, dtype):
+            return self._to_device(self._pad_lat_np(a), dtype)
+
         in_dtype, forcing_dtype, out_dtype = self.batch_arg_dtypes()
         forcing = dev(batch.forcing.array, forcing_dtype)
         if batch.inputs is not None:
@@ -514,12 +593,16 @@ class AutoRegressiveModule:
         is active: the run's seed folded with the dropout stream's offset
         and the micro-batch's index (``TrainState``'s optimizer and micro
         steps, 0 for bare params), so every train step draws new masks and
-        a resumed run draws the ones an unbroken run would have."""
+        a resumed run draws the ones an unbroken run would have. With
+        several ranks the rank is folded in too, so that ranks draw
+        different masks for their different rows: topologies then agree
+        in distribution, not in value."""
         if not self._dropout_active:
             return None
         index = (state.step * state.accumulate + state.micro_step
                  if isinstance(state, TrainState) else 0)
-        return fold_seed(self.settings.seed, DROPOUT_STREAM, index)
+        seed = fold_seed(self.settings.seed, DROPOUT_STREAM, index)
+        return fold_seed(seed, self.mesh.rank) if self.mesh.world_size > 1 else seed
 
     def _rollout(self, params: Params, inputs, forcing, outputs, num_pred_steps: int,
                  generator=None, dropout_seed: Optional[int] = None):
@@ -584,26 +667,33 @@ class AutoRegressiveModule:
         micro-batches) one AdamW step on the mean of the accumulated
         gradients. Updates ``state`` in place; returns the batch loss.
         The only step with dropout (``_dropout_seed``); eval, test and
-        predict are deterministic."""
+        predict are deterministic.
+
+        Under a process group the step's gradients are all-reduced once,
+        after the backward (``parallel.mesh.all_reduce_grads``), so that
+        every rank steps on the global mean; the returned loss is the
+        mean over the ranks, the global batch's loss."""
         inputs, forcing, outputs = self._batch_arrays(batch, with_outputs=True)
         loss, _ = self._batch_loss(state.params, inputs, forcing, outputs,
                                    batch.num_pred_steps, generator, self._dropout_seed(state))
         loss.backward()  # sums into each parameter's .grad
         state.micro_step += 1
         if state.micro_step == state.accumulate:
-            for p in state.params.values():
-                if p.grad is None:
-                    # unreached by the loss: a zero gradient, so AdamW still
-                    # decays the weight as optax.adamw does
-                    p.grad = torch.zeros_like(p)
-                elif state.accumulate > 1:
+            _zero_fill_grads(state.params)
+            if self.mesh.distributed:
+                all_reduce_grads(state.params, self.mesh.world_size, state.accumulate)
+            elif state.accumulate > 1:
+                for p in state.params.values():
                     p.grad.div_(state.accumulate)
             state.optimizer.step()
             state.scheduler.step()
             state.optimizer.zero_grad(set_to_none=True)
             state.micro_step = 0
             state.step += 1
-        return loss.detach()
+        loss = loss.detach()
+        if self.mesh.distributed:
+            loss = all_gather_rows(loss.reshape(1)).mean()
+        return loss
 
     @exact_fp32
     def eval_step(self, state: Union[TrainState, Params], batch: ItemBatch,
@@ -620,8 +710,9 @@ class AutoRegressiveModule:
     @exact_fp32
     def predict_step(self, state: Union[TrainState, Params], batch: ItemBatch,
                      generator: Optional[torch.Generator] = None) -> NamedArray:
-        """De-normalized predictions (B, T, *spatial, F) for one batch,
-        as a NamedArray over a tensor on the module's device."""
+        """De-normalized predictions (B, T, *spatial, F) for one batch on
+        the original grid, as a NamedArray over a tensor on the module's
+        device."""
         self.check_feature_contract(batch)
         params = self._place(_params_of(state))
         inputs, forcing, _ = self._batch_arrays(batch)
@@ -630,17 +721,25 @@ class AutoRegressiveModule:
             preds = self._rollout(params, inputs, forcing, None, batch.num_pred_steps,
                                   generator)
             preds = preds * buf["stats_std"] + buf["stats_mean"]
-        return self._named(preds)
+        return self._named(self._unpad(preds))
 
     # ----------------------------------------------------------- aux wiring
     def named_eval_arrays(self, preds: torch.Tensor, batch: ItemBatch):
         """(pred, target, mask) for the plotters and metrics: NamedArrays
-        over tensors on the device and the float mask, the batch's real
-        rows only (``batch.valid_count``; a padded tail's repeated rows
-        never reach an observer). Only those rows' targets are copied."""
-        nv = batch.valid_count
-        outputs = self._to_device(batch.outputs.array[:nv])
-        mask, target = self._mask_and_target(outputs)
+        over tensors on the device and the float mask, on the original
+        grid, the batch's real rows only (a padded tail's repeated rows
+        never reach an observer). Under a process group this is a
+        collective: every rank gets the global batch's rows, in global
+        order. Alone, only the real rows' targets are copied."""
+        preds = self._unpad(preds)
+        if self.mesh.distributed:
+            preds = all_gather_rows(preds)
+            outputs = all_gather_rows(self._to_device(batch.outputs.array))
+            nv = batch.num_valid or preds.shape[0]
+        else:
+            nv = batch.valid_count
+            outputs = self._to_device(batch.outputs.array[:nv])
+        mask, target = self._mask_and_target(outputs[:nv])
         return self._named(preds[:nv]), self._named(target), mask
 
     def make_scaled_loss(self, kind: str) -> ScaledLoss:
@@ -737,7 +836,9 @@ def check_manifest_contract(manifest: dict, dataset_info: DatasetInfo):
 @dataclass
 class TrainerConfig:
     """The `trainer:` config section (the JAX package's keys), plus the
-    device the port runs on."""
+    device the port runs on. ``mesh_data_parallel`` is -1 or the world
+    size of the current process group (1 without one); ``mesh_spatial``
+    > 1 is not ported (ROADMAP.md, queue 1 item 12b)."""
 
     max_epochs: int = 1
     batch_size: int = 1
@@ -749,7 +850,8 @@ class TrainerConfig:
     logging_enabled: bool = True
     plot_period: int = 1
     num_samples_to_plot: int = 1
-    #: device mesh layout of the JAX package; one card has none
+    #: the mesh layout (parallel.mesh.MeshConfig): ranks on the data axis
+    #: and on the spatial one
     mesh_data_parallel: int = -1
     mesh_spatial: int = 1
     early_stopping_patience: int = 50
@@ -761,30 +863,39 @@ class TrainerConfig:
     device: str = "cuda"
 
     def __post_init__(self):
-        one_card = {"mesh_data_parallel": -1, "mesh_spatial": 1}
-        for key, default in one_card.items():
-            if getattr(self, key) != default:
-                raise ValueError(
-                    f"trainer.{key}={getattr(self, key)}: py4cast_tpu_torch runs on "
-                    "one card; data-parallel and spatial meshes are not ported yet "
-                    "(ROADMAP.md, queue 1 item 12)"
-                )
+        try:
+            self.mesh_config()
+        except ValueError as e:
+            raise ValueError(f"trainer.mesh_data_parallel={self.mesh_data_parallel}, "
+                             f"trainer.mesh_spatial={self.mesh_spatial}: {e}") from None
         if self.profiler == "jax":
             raise ValueError(
                 "trainer.profiler='jax' traces with jax.profiler, which the port "
-                "does not use (ROADMAP.md, queue 1 item 12); use torch.profiler "
-                "around the Trainer instead"
+                "does not use (ROADMAP.md, queue 2: tracing comes with the "
+                "benchmark); use torch.profiler around the Trainer instead"
             )
+
+    def mesh_config(self) -> MeshConfig:
+        """The mesh layout, checked against the current process group."""
+        config = MeshConfig(int(self.mesh_data_parallel), int(self.mesh_spatial))
+        make_mesh(config)
+        return config
 
 
 class Trainer:
-    """Host-side loop over datasets: fit / test / predict."""
+    """Host-side loop over datasets: fit / test / predict.
+
+    Under a process group every rank runs the loop; rank 0 alone writes
+    (the save directory, checkpoints, the loggers, figures, scores and
+    the model signature) and every rank waits after each checkpoint
+    write, so that a resume on any rank reads a whole file."""
 
     def __init__(self, config: TrainerConfig, loggers=None):
         self.config = config
         self.device = resolve_device(config.device)
         self.save_path = Path(config.save_path)
-        self.loggers = loggers if loggers is not None else []
+        self.is_main = is_main_process()
+        self.loggers = (loggers if loggers is not None else []) if self.is_main else []
         self._said_no_figures = False
 
     def _check_module(self, module: AutoRegressiveModule):
@@ -803,13 +914,15 @@ class Trainer:
     def _say_if_no_figures(self):
         """Print once a trainer's life that figures are not drawn, when
         matplotlib is missing."""
-        if not self._said_no_figures and not can_draw():
+        if self.is_main and not self._said_no_figures and not can_draw():
             print(NO_FIGURES)
             self._said_no_figures = True
 
     @staticmethod
     def _observe(module, batch, preds, plotters, metrics, metric_states):
-        """Feed one eval batch's real rows to the plotters and metrics."""
+        """Feed one eval batch's real rows to the plotters and metrics
+        (gathered over the ranks: every rank calls this, rank 0 alone has
+        plotters and metrics)."""
         pred_na, target_na, mask = module.named_eval_arrays(preds, batch)
         for p in plotters:
             p.update(module, batch, pred_na, target_na, mask)
@@ -830,6 +943,51 @@ class Trainer:
                     pyplot().close(val)
         return scalars
 
+    def eval_rows(self, module: AutoRegressiveModule, state, loader,
+                  limit: Optional[int] = None, generator=None, observe=None) -> np.ndarray:
+        """(N, T) per-step losses of every real sample in the first
+        ``limit`` batches of ``loader`` (all without one), gathered over
+        the ranks in global order; ``observe(batch, preds)`` sees each
+        batch on every rank."""
+        rows = []
+        for i, batch in enumerate(loader):
+            if limit and i >= limit:
+                break
+            preds, per_step = module.eval_step(state, batch, generator)
+            rows.append(_global_rows(per_step, batch))
+            if observe is not None:
+                observe(batch, preds)
+        return np.concatenate(rows, axis=0) if rows else np.zeros((0, 0), np.float32)
+
+    def _eval_observers(self, module, prefix: str, test: bool = False):
+        """(plotters, metrics, metric states) of a validation or test
+        pass: rank 0's; empty on the other ranks."""
+        if not self.is_main:
+            return [], {}, {}
+        cfg = self.config
+        if test:
+            plotters = [
+                StateErrorPlot({"mae": module.make_scaled_loss("mae"),
+                                "rmse": module.make_scaled_loss("rmse")},
+                               prefix=prefix, save_path=self.save_path),
+                SpatialErrorPlot(prefix=prefix, save_path=self.save_path),
+                PredictionTimestepPlot(num_samples_to_plot=cfg.num_samples_to_plot,
+                                       prefix=prefix, save_path=self.save_path),
+            ]
+        else:
+            plotters = [
+                StateErrorPlot({"mae": module.make_scaled_loss("mae")},
+                               prefix=prefix, save_path=self.save_path),
+                PredictionTimestepPlot(num_samples_to_plot=cfg.num_samples_to_plot,
+                                       num_features_to_plot=4, prefix=prefix,
+                                       save_path=self.save_path),
+                PredictionEpochPlot(num_samples_to_plot=cfg.num_samples_to_plot,
+                                    num_features_to_plot=4, prefix=prefix,
+                                    save_path=self.save_path),
+            ]
+        metrics = module.make_metrics(self.save_path, module.settings.num_pred_steps_val_test)
+        return plotters, metrics, {k: m.init_state() for k, m in metrics.items()}
+
     def fit(self, module: AutoRegressiveModule, train_ds, val_ds,
             ckpt_path: Optional[str] = None, params: Optional[Params] = None) -> TrainState:
         """Train for ``max_epochs``; validate every
@@ -840,7 +998,8 @@ class Trainer:
         ``params`` starts from given weights instead of drawn ones."""
         self._check_module(module)
         cfg = self.config
-        self.save_path.mkdir(parents=True, exist_ok=True)
+        if self.is_main:
+            self.save_path.mkdir(parents=True, exist_ok=True)
         generator = self._generator(module.settings.seed)
 
         train_loader = train_ds.loader(
@@ -860,7 +1019,8 @@ class Trainer:
         num_training_steps = max(1, steps_per_epoch * max_epochs)
 
         state = module.init_state(generator, num_training_steps, params)
-        ckpt = CheckpointManager(self.save_path / "checkpoints", module.manifest())
+        ckpt = CheckpointManager(self.save_path / "checkpoints", module.manifest(),
+                                 write=self.is_main)
         if ckpt_path:
             # param-semantics gate before the restore
             try:
@@ -870,15 +1030,18 @@ class Trainer:
             if old_manifest is not None:
                 check_format_version(old_manifest)
             state = ckpt.restore(ckpt_path, state)
-            print(f"Resumed from checkpoint {ckpt_path} at optimizer step {state.step}")
+            if self.is_main:
+                print(f"Resumed from checkpoint {ckpt_path} at optimizer step {state.step}")
 
-        print(
-            f"Model: {module.settings.model_name} | params: "
-            f"{module.num_params(state) / 1e6:.2f}M | strategy: "
-            f"{module.settings.training_strategy} | device: {self.device}"
-        )
-        print(module.summarize(state))
-        self._dump_run_info(module)
+        if self.is_main:
+            print(
+                f"Model: {module.settings.model_name} | params: "
+                f"{module.num_params(state) / 1e6:.2f}M | strategy: "
+                f"{module.settings.training_strategy} | device: {self.device} | "
+                f"ranks: {module.mesh.world_size}"
+            )
+            print(module.summarize(state))
+            self._dump_run_info(module)
 
         global_step = 0
         epochs_no_improve = 0
@@ -898,7 +1061,7 @@ class Trainer:
                     self._log("lr-AdamW", state.lr, global_step)
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
             dt_train = time.perf_counter() - t0
-            sps = len(losses) * cfg.batch_size / max(dt_train, 1e-9)
+            sps = len(losses) * cfg.batch_size / max(dt_train, 1e-9)  # global batch
             self._log("mean_loss_epoch/train", train_loss, global_step)
             self._log("train/samples_per_sec", sps, global_step)
 
@@ -910,59 +1073,53 @@ class Trainer:
                 do_plots = (cfg.logging_enabled and not cfg.fast_dev_run
                             and epoch % cfg.plot_period == 0)
                 plotters, metrics, metric_states = [], {}, {}
+                observe = None
                 if do_plots:
                     self._say_if_no_figures()
-                    plotters = [
-                        StateErrorPlot({"mae": module.make_scaled_loss("mae")},
-                                       prefix="Validation", save_path=self.save_path),
-                        PredictionTimestepPlot(num_samples_to_plot=cfg.num_samples_to_plot,
-                                               num_features_to_plot=4, prefix="Validation",
-                                               save_path=self.save_path),
-                        PredictionEpochPlot(num_samples_to_plot=cfg.num_samples_to_plot,
-                                            num_features_to_plot=4, prefix="Validation",
-                                            save_path=self.save_path),
-                    ]
-                    metrics = module.make_metrics(self.save_path,
-                                                  module.settings.num_pred_steps_val_test)
-                    metric_states = {k: m.init_state() for k, m in metrics.items()}
-                vrows = []  # per-SAMPLE (valid_count, T) loss rows
-                for i, batch in enumerate(val_loader):
-                    if cfg.limit_val_batches and i >= cfg.limit_val_batches:
-                        break
-                    if cfg.fast_dev_run and i >= 1:
-                        break
-                    preds, per_step = module.eval_step(state, batch, generator)
-                    vrows.append(per_step[: batch.valid_count].cpu().numpy())
-                    if do_plots:
+                    plotters, metrics, metric_states = self._eval_observers(module, "Validation")
+
+                    def observe(batch, preds):
                         self._observe(module, batch, preds, plotters, metrics, metric_states)
-                val_loss = float(np.concatenate(vrows, axis=0).mean()) if vrows else float("nan")
+                # every real val sample, the same rows on every rank
+                vrows = self.eval_rows(module, state, val_loader,
+                                       1 if cfg.fast_dev_run else cfg.limit_val_batches,
+                                       generator, observe)
+                val_loss = float(vrows.mean()) if len(vrows) else float("nan")
                 self._log("val_mean_loss", val_loss, global_step)
                 self._log("mean_loss_epoch/validation", val_loss, global_step)
-                if do_plots and vrows:
+                if do_plots and len(vrows):
                     for p in plotters:
                         p.on_step_end(module, label="Valid")
                     for name, val in self._computed(metrics, metric_states, "val",
                                                     global_step).items():
                         self._log(name, val, global_step)
 
-            print(
-                f"epoch {epoch + 1}/{max_epochs} "
-                f"train_loss={train_loss:.5f} val_loss={val_loss:.5f} "
-                f"({sps:.2f} samples/s)"
-            )
+            if self.is_main:
+                print(
+                    f"epoch {epoch + 1}/{max_epochs} "
+                    f"train_loss={train_loss:.5f} val_loss={val_loss:.5f} "
+                    f"({sps:.2f} samples/s)"
+                )
 
             # ------------------------------ checkpoint + early stop
+            # (the same val_loss on every rank: the same decisions)
             if not cfg.fast_dev_run:
+                if module.mesh.distributed and state.micro_step:
+                    # each rank holds its own partial sums: keep their mean,
+                    # whose sum over the ranks is the same, so that rank 0's
+                    # file resumes every rank
+                    _zero_fill_grads(state.params)
+                    all_reduce_grads(state.params, module.mesh.world_size)
                 ckpt.save_last(state)
-                if not np.isnan(val_loss):
-                    if ckpt.maybe_save_best(state, val_loss):
-                        epochs_no_improve = 0
-                    else:
-                        epochs_no_improve += 1
+                improved = None if np.isnan(val_loss) else ckpt.maybe_save_best(state, val_loss)
+                barrier()
+                if improved is not None:
+                    epochs_no_improve = 0 if improved else epochs_no_improve + 1
                     if epochs_no_improve >= cfg.early_stopping_patience:
-                        print(f"Early stopping at epoch {epoch + 1}")
+                        if self.is_main:
+                            print(f"Early stopping at epoch {epoch + 1}")
                         break
-        if not cfg.fast_dev_run:
+        if not cfg.fast_dev_run and self.is_main:
             self._log_model(module, state)
         return state
 
@@ -1031,7 +1188,8 @@ class Trainer:
         and their mean; with ``logging_enabled``, mae/rmse score cards
         (JSON files and, with matplotlib, figures), the spatial-error and
         prediction maps, and the PSD-Var and ACC scores. The scores are
-        written to <save_path>/test_scores.json."""
+        written to <save_path>/test_scores.json. Under a process group
+        every rank scores the gathered rows and returns rank 0's scores."""
         self._check_module(module)
         cfg = self.config
         generator = self._generator(0)
@@ -1042,48 +1200,38 @@ class Trainer:
             drop_last=False, pad_last=True,
         )
         plotters, metrics, metric_states = [], {}, {}
+        observe = None
         if cfg.logging_enabled:
             self._say_if_no_figures()
-            plotters = [
-                StateErrorPlot({"mae": module.make_scaled_loss("mae"),
-                                "rmse": module.make_scaled_loss("rmse")},
-                               prefix="Test", save_path=self.save_path),
-                SpatialErrorPlot(prefix="Test", save_path=self.save_path),
-                PredictionTimestepPlot(num_samples_to_plot=cfg.num_samples_to_plot,
-                                       prefix="Test", save_path=self.save_path),
-            ]
-            metrics = module.make_metrics(self.save_path, module.settings.num_pred_steps_val_test)
-            metric_states = {k: m.init_state() for k, m in metrics.items()}
-        rows = []  # (valid_count, T) per batch
-        for i, batch in enumerate(loader):
-            if cfg.limit_val_batches and i >= cfg.limit_val_batches:
-                break
-            preds, per_step = module.eval_step(state, batch, generator)
-            rows.append(per_step[: batch.valid_count].cpu().numpy())
-            if cfg.logging_enabled:
+            plotters, metrics, metric_states = self._eval_observers(module, "Test", test=True)
+
+            def observe(batch, preds):
                 self._observe(module, batch, preds, plotters, metrics, metric_states)
-        if not rows:
+        rows = self.eval_rows(module, state, loader, cfg.limit_val_batches, generator, observe)
+        if not len(rows):
             return {}
         # sample-weighted mean: every real sample counts once
-        mean_per_step = np.concatenate(rows, axis=0).mean(axis=0)
+        mean_per_step = rows.mean(axis=0)
         scores = {f"timestep_losses/test_step_{s}": float(v) for s, v in enumerate(mean_per_step)}
         scores["test_mean_loss"] = float(np.mean(mean_per_step))
         if cfg.logging_enabled:
             for p in plotters:
                 p.on_step_end(module, label="Test")
             scores.update(self._computed(metrics, metric_states, "test", 0))
-        self.save_path.mkdir(parents=True, exist_ok=True)
-        with open(self.save_path / "test_scores.json", "w") as f:
-            json.dump(scores, f, indent=1)
+        scores = broadcast_object(scores)
+        if self.is_main:
+            self.save_path.mkdir(parents=True, exist_ok=True)
+            with open(self.save_path / "test_scores.json", "w") as f:
+                json.dump(scores, f, indent=1)
         for k, v in scores.items():
             self._log(k, v, 0)
         return scores
 
     def predict(self, module: AutoRegressiveModule, infer_ds, state) -> List[NamedArray]:
         """De-normalized predictions for every sample of ``infer_ds``, one
-        host (numpy) NamedArray per batch; the padded tail rows of the
-        last batch are sliced off. ``state``: a TrainState or a
-        parameter dict."""
+        host (numpy) NamedArray per batch, gathered over the ranks (every
+        rank gets every row); the padded tail rows of the last batch are
+        sliced off. ``state``: a TrainState or a parameter dict."""
         self._check_module(module)
         cfg = self.config
         generator = self._generator(cfg.seed)
@@ -1094,6 +1242,5 @@ class Trainer:
         preds = []
         for batch in loader:
             p = module.predict_step(state, batch, generator)
-            arr = p.array.cpu().numpy()
-            preds.append(NamedArray(arr[: batch.valid_count], p.names, p.feature_names))
+            preds.append(NamedArray(_global_rows(p.array, batch), p.names, p.feature_names))
         return preds

@@ -4,11 +4,13 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
 import warnings
 from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed
 
 
 def merge_dicts(a: dict, b: dict) -> dict:
@@ -42,13 +44,20 @@ def to_host(a) -> np.ndarray:
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on. The default is the card: with
     no CUDA device the call raises instead of carrying on on the CPU,
-    which a caller must ask for (``device="cpu"``)."""
+    which a caller must ask for (``device="cpu"``). Under a process
+    group, ``"cuda"`` means this rank's card, ``cuda:LOCAL_RANK``, made
+    the current device."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={device!r} was requested but torch finds no CUDA "
             "device; pass device='cpu' to run on the CPU"
         )
+    if (dev.type == "cuda" and dev.index is None and torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        if torch.cuda.current_device() != dev.index:
+            torch.cuda.set_device(dev)
     return dev
 
 

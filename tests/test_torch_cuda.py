@@ -716,3 +716,23 @@ def test_swin_rel_pos_bias_gradient_repeats_bit_for_bit(cuda):
     for k, want in rpb_grads(cpu_model, "cpu").items():
         scale = max(1.0, float(want.abs().max()))
         assert float((first[k] - want).abs().max()) <= MODEL_GRAD_BAR * scale, k
+
+
+def test_bilinear_growth_backward_repeats_bit_for_bit(cuda):
+    """The models' bilinear growth (Segformer's decoder, DeepLab's,
+    UNet's and UNetRPP's skips) on the card: two backward passes give
+    the same bits (CUDA's own backward adds with atomics), and the CPU's
+    gradient within TOL."""
+    from py4cast_tpu_torch.models.unet import _bilinear_resize
+
+    x = _rand(np.random.default_rng(14), 2, 16, 20, 64)
+    g = _rand(np.random.default_rng(15), 2, 128, 160, 64)
+
+    def grad(device):
+        xd = x.to(device).requires_grad_(True)
+        _bilinear_resize(xd, 128, 160).backward(g.to(device))
+        return xd.grad.cpu()
+
+    first, second = grad(cuda), grad(cuda)
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, grad("cpu"), **TOL)

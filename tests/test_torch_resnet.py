@@ -232,6 +232,27 @@ def test_bilinear_resize_shrinks_as_jax(src, dst):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), **PIECE_TOL)
 
 
+@pytest.mark.parametrize("src, dst", [((4, 5), (16, 20)), ((16, 20), (128, 160)),
+                                      ((5, 7), (13, 9)), ((3, 3), (12, 12))])
+def test_grow_bilinear_function_matches_interpolate_and_jax(src, dst):
+    """The models' growth (``_GrowBilinear``, whose backward is two
+    fixed-order products): F.interpolate's forward bit for bit, and the
+    VJP of jax.image.resize."""
+    x = np.random.default_rng(6).standard_normal((2, *src, 3)).astype(np.float32)
+    g = np.random.default_rng(7).standard_normal((2, *dst, 3)).astype(np.float32)
+    want, vjp = jax.vjp(lambda a: jax_unet._bilinear_resize(a, *dst), jnp.asarray(x))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_(True)
+    got = port_unet._GrowBilinear.apply(xt, *dst)
+    plain = torch.nn.functional.interpolate(xt.detach(), size=dst, mode="bilinear",
+                                            align_corners=False)
+    assert torch.equal(got.detach(), plain)
+    got.backward(torch.from_numpy(g).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.detach().permute(0, 2, 3, 1).numpy(), np.asarray(want),
+                               **PIECE_TOL)
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(vjp(jnp.asarray(g))[0]), **PIECE_TOL)
+
+
 def test_deeplab_refuses_aux_params_and_unknown_encoders():
     with pytest.raises(ValueError, match="aux_params"):
         port_deeplab.DeepLabSettings(aux_params={"classes": 2})
