@@ -160,7 +160,23 @@ non-zero exit code and no result line:
    a 1791x64 crop padded to 1792 rows (``lat_multiple=2``): a train step
    and a predict, counted, predictions back at 1791 rows; (d) on two
    cards or more, two NCCL ranks against one; the phase's wall time;
-21. the script's wall time, one JSON line with every kernel's numbers,
+21. the spatial axis (``parallel.spatial``): (a) on every card count,
+   the band pieces at full width fed by hand from a whole-grid tensor on
+   the card and held to the whole-grid call, forward and backward, on 2
+   and on 4 bands: HalfUNet 512x640's first ConvBlock (halo rows, band
+   statistics) and its GroupNorm; GraphLAM 500x500's g2m (partial
+   aggregates) and m2g (kernels b-fwd and b-bwd on each band, counted;
+   ``dps`` and the weight gradients summed over the bands); (b) with two
+   cards or more, S = 2 NCCL ranks against one, with four 2 x 2 too:
+   three AdamW steps of HalfUNet 512x640, GraphLAM and HiLAM 500x500
+   at their yamls' widths, losses and parameters within TOL, the first
+   step's reduced gradients within GRAD_TOL, a-fwd, a-bwd and b
+   launched each step as often as on one rank, per-rank ms a step, peak
+   memory and the bytes the halo exchanges received; with four, one HalfUNet train
+   step on the 1791x2801 Titan grid (padded to 1792) at S = 1, 2 and 4
+   and each rank's peak memory; "not run, N card(s)" otherwise; the
+   phase's wall time;
+22. the script's wall time, one JSON line with every kernel's numbers,
    then the result line.
 
 Each model path runs with every launch count set to 0 just before it
@@ -169,6 +185,9 @@ kernel of another path that was, fails the run.
 
 ``--kernels NAME ...`` runs phases 1 to 3c for those kernels alone and
 stops without a result line: the short loop for one kernel's work.
+``--spatial`` runs phases 1, 2, 20 (d) and 21 alone and stops without a
+result line: the multi-card loop for the data and spatial axes, which
+saves running every one-card phase again on four cards.
 
 Exits non-zero without a result when torch sees no CUDA device or the
 package is missing. Build outputs go to ``build/`` and long reports to
@@ -849,14 +868,9 @@ def check_attention(rng) -> list:
 
 # ------------------------------------------------------------------- phase 4
 def _wrappers() -> dict:
-    from py4cast_tpu_torch.ops import attention, hop_kernel, stencil_kernel
+    from py4cast_tpu_torch.testing import kernel_wrappers
 
-    return {"stencil_message": stencil_kernel.fused_stencil_message,
-            "corner_hop": hop_kernel.fused_corner_hop,
-            "stencil_message_bwd": stencil_kernel.fused_stencil_message_bwd,
-            "corner_hop_bwd": hop_kernel.fused_corner_hop_bwd,
-            "short_kv_attention": attention.fused_short_kv_attention,
-            "short_kv_attention_bwd": attention.fused_short_kv_attention_bwd}
+    return kernel_wrappers()
 
 
 def reset_counts():
@@ -2463,6 +2477,334 @@ def data_axis_phase(train_full=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 21
+#: the band counts phase 21 (a) feeds by hand on one card
+BAND_COUNTS = (2, 4)
+
+
+def _fed_rows(x, band, halo: int):
+    """Band ``band``'s rows of NHWC ``x`` with ``halo`` rows a side from
+    the neighbour bands and zeros at the global edges: what
+    ``parallel.spatial.halo_rows`` hands a band, cut from the whole grid."""
+    import torch.nn.functional as F
+
+    rows = band.rows(x.shape[1])
+    return F.pad(x, (0, 0, 0, 0, halo, halo))[:, rows.start:rows.stop + 2 * halo]
+
+
+def _rel_l2(name: str, got, want, tol: float = TOL) -> float:
+    """||got - want|| / ||want||; raises above ``tol``."""
+    err = float((got.double() - want.double()).norm() / want.double().norm())
+    if not err <= tol:
+        raise AssertionError(f"{name}: relative L2 difference {err:.3e} exceeds {tol:g}")
+    return err
+
+
+def _grads(out, g, leaves):
+    return torch.autograd.grad((out * g).sum(), leaves, allow_unused=True,
+                               materialize_grads=True)
+
+
+def _block_on_bands(block, x, count: int):
+    """HalfUNet's ConvBlock on ``count`` bands of NHWC ``x``: each conv fed
+    its halo rows from the whole grid of the layer before, each GroupNorm
+    the sums of every band, added up by hand; the bands' outputs
+    concatenated."""
+    from py4cast_tpu_torch.parallel.spatial import Band
+
+    bands = [Band(s, count) for s in range(count)]
+    h = x
+    for i in range(2):
+        conv, norm = getattr(block, f"Conv_{i}"), getattr(block, f"GroupNorm_{i}")
+        halo = conv.band_halo()
+        ys = [conv.forward_halo(_fed_rows(h, b, halo)) for b in bands]
+        sums = sum(norm.band_sums(y) for y in ys)
+        n = x.shape[1] * x.shape[2] * (ys[0].shape[-1] // norm.num_groups)
+        h = torch.cat([torch.relu(norm.normalize(y, sums, n)) for y in ys], dim=1)
+    return h
+
+
+def halfunet_band_block(rng, grid=(512, 640)) -> dict:
+    """Phase 21 (a), HalfUNet: the first ConvBlock at halfunet.yaml's width
+    (67 inputs at 21 + 21 features, 64 filters, no bias) on 2 and on 4
+    bands (``_block_on_bands``) against the whole-grid call, and its
+    first GroupNorm alone, each band fed its sums by hand.
+
+    Held to TOL of scale: in fp32 the block's forward and the
+    GroupNorm's forward and gradients; in fp64 the block's forward and
+    every gradient. The block's fp32 gradients are printed, not held:
+    cuDNN picks other algorithms for a band's shape than for the whole
+    grid's (FFT and Winograd among them), and a ReLU input within their
+    rounding of zero passes its gradient on one side of the kink and not
+    on the other; fp64 leaves no such input, so it holds the bands'
+    arithmetic itself. Beside the fp32 gradients' relative L2 difference
+    stands the whole-grid fp32 call's own, against fp64."""
+    from py4cast_tpu_torch.models.unet import ConvBlock
+    from py4cast_tpu_torch.parallel.spatial import Band
+    from py4cast_tpu_torch.training import init_weights
+
+    block = ConvBlock(67, HALFUNET_ARGS["num_filters"], use_bias=HALFUNET_ARGS["bias"]).cuda()
+    init_weights(block, torch.Generator(device="cuda").manual_seed(0))
+    x32 = _rand(rng, 1, *grid, 67).requires_grad_()
+    g32 = _rand(rng, 1, *grid, 64)
+    want = {}
+    for dtype in (torch.float32, torch.float64):
+        blk = block.to(dtype)
+        x, g = x32.detach().to(dtype).requires_grad_(), g32.to(dtype)
+        out = blk(x)
+        want[dtype] = (x, g, out.detach(), _grads(out, g, [x, *blk.parameters()]))
+        del out
+    rows = []
+    for count in BAND_COUNTS:
+        row = {"bands": count}
+        for dtype, tag in ((torch.float32, "fp32"), (torch.float64, "fp64")):
+            blk = block.to(dtype)
+            x, g, out, grads = want[dtype]
+            h = _block_on_bands(blk, x, count)
+            row[f"block_forward_max_abs_err_{tag}"] = compare(
+                f"ConvBlock on {count} bands ({tag})", h.detach(), out)
+            got = _grads(h, g, [x, *blk.parameters()])
+            names = ["x", *(k for k, _ in blk.named_parameters())]
+            if dtype == torch.float64:
+                row["block_grad_max_abs_err_fp64"] = max(
+                    compare(f"ConvBlock on {count} bands (fp64): d{k}", a, b)
+                    for k, a, b in zip(names, got, grads))
+            else:
+                row["block_grad_rel_l2_fp32"] = max(
+                    float((a - b).norm() / b.norm()) for a, b in zip(got, grads))
+                row["whole_fp32_vs_fp64_grad_rel_l2"] = max(
+                    float((a.double() - b).norm() / b.norm())
+                    for a, b in zip(grads, want[torch.float64][3]))
+            del h, got
+        blk = block.to(torch.float32)
+        gn = blk.GroupNorm_0
+        x2 = _rand(rng, 1, *grid, 64, scale=3.0, shift=1.5).requires_grad_()
+        gn_leaves = [x2, gn.weight, gn.bias]
+        gn_want = gn(x2)
+        gn_want_grads = _grads(gn_want, g32, gn_leaves)
+        parts = [Band(s, count).cut(x2, 1) for s in range(count)]
+        sums = sum(gn.band_sums(p) for p in parts)
+        gn_got = torch.cat([gn.normalize(p, sums, grid[0] * grid[1] * 8) for p in parts], dim=1)
+        row["groupnorm_forward_max_abs_err"] = compare(
+            f"GroupNorm on {count} bands", gn_got.detach(), gn_want.detach())
+        row["groupnorm_grad_max_abs_err"] = max(
+            compare(f"GroupNorm on {count} bands: d{k}", a, b)
+            for k, a, b in zip(("x", "weight", "bias"), _grads(gn_got, g32, gn_leaves),
+                               gn_want_grads))
+        rows.append(row)
+    return {"model": "HalfUNet", "grid": list(grid), "piece": "ConvBlock_0 (67 -> 64)",
+            "rows": rows}
+
+
+def graph_band_hops(rng, grid=(500, 500)) -> dict:
+    """Phase 21 (a), GraphLAM: the g2m and m2g hops at graphlam.yaml's
+    width (h 64, 3 levels; level 0 125x125) on 2 and on 4 bands against
+    the whole grid's, each band's grid-side metadata cut by a model built
+    on that band. g2m: the bands' partial aggregates added up by hand,
+    then the node update. m2g: ``CornerHopFn`` on each band's rows
+    against the whole mesh projection, kernels b-fwd and b-bwd launched
+    once a band and counted; its output rows, ``dps`` and the weight
+    gradients summed over the bands against the whole's. Forwards within
+    TOL of scale, gradients within GRAD_TOL."""
+    from py4cast_tpu_torch.models.graph import GraphLAM, GraphModelSettings
+    from py4cast_tpu_torch.parallel.spatial import Band
+    from py4cast_tpu_torch.testing import synthetic_statics
+    from py4cast_tpu_torch.training import init_weights
+
+    settings = GraphModelSettings(**GRAPHLAM_ARGS)
+    graph = GraphLAM.build_graph(settings, synthetic_statics(grid, 10).meshgrid)
+    whole = GraphLAM(67, 21, (grid[0] * grid[1],), settings, graph).cuda()
+    init_weights(whole, torch.Generator(device="cuda").manual_seed(0))
+    h = GRAPHLAM_ARGS["hidden_dims"]
+    level0 = graph.level_hw[0]
+    grid_v = _rand(rng, 1, *grid, h).requires_grad_()
+    mesh_v = _rand(rng, 1, *level0, h).requires_grad_()
+    g_mesh, g_grid = _rand(rng, 1, *level0, h), _rand(rng, 1, *grid, h)
+    f32 = torch.float32
+    rows = []
+    g2m, m2g = whole.g2m, whole.m2g
+    g2m_leaves = [grid_v, mesh_v, *g2m.parameters()]
+    m2g_leaves = [mesh_v, grid_v, *m2g.parameters()]
+    g2m_want = g2m(grid_v, mesh_v, whole._lat("g2m", f32))
+    g2m_want_grads = _grads(g2m_want, g_mesh, g2m_leaves)
+    m2g_want = m2g(mesh_v, grid_v, whole._lat("m2g", f32))
+    m2g_want_grads = _grads(m2g_want, g_grid, m2g_leaves)
+    torch.cuda.synchronize()
+    for count in BAND_COUNTS:
+        bands = [Band(s, count) for s in range(count)]
+        lats = [GraphLAM(67, 21, (grid[0] * grid[1],), settings, graph, band=(s, count)).cuda()
+                for s in range(count)]
+        agg = sum(g2m.aggregate(b.cut(grid_v, 1), mesh_v, m._lat("g2m", f32))
+                  for b, m in zip(bands, lats))
+        got = g2m.update(mesh_v, agg, whole._lat("g2m", f32))
+        g2m_fwd = compare(f"g2m on {count} bands", got.detach(), g2m_want.detach())
+        g2m_grad = max(compare(f"g2m on {count} bands: grad {i}", a, b, GRAD_TOL)
+                       for i, (a, b) in enumerate(zip(_grads(got, g_mesh, g2m_leaves),
+                                                      g2m_want_grads)))
+        reset_counts()
+        got = torch.cat([m2g(mesh_v, b.cut(grid_v, 1), m._lat("m2g", f32))
+                         for b, m in zip(bands, lats)], dim=1)
+        got_grads = _grads(got, g_grid, m2g_leaves)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_counts = {name: 0 for name in counts}
+        want_counts.update(corner_hop=count, corner_hop_bwd=count)
+        if counts != want_counts:
+            raise AssertionError(f"m2g on {count} bands: launches {counts}")
+        m2g_fwd = compare(f"m2g on {count} bands", got.detach(), m2g_want.detach())
+        m2g_grad = max(compare(f"m2g on {count} bands: grad {i}", a, b, GRAD_TOL)
+                       for i, (a, b) in enumerate(zip(got_grads, m2g_want_grads)))
+        rows.append({"bands": count, "band_rows": grid[0] // count,
+                     "g2m_forward_max_abs_err": g2m_fwd, "g2m_grad_max_abs_err": g2m_grad,
+                     "m2g_forward_max_abs_err": m2g_fwd, "m2g_grad_max_abs_err": m2g_grad,
+                     "launches": counts})
+        del lats, got, got_grads
+    return {"model": "GraphLAM", "grid": list(grid), "level0": list(level0), "rows": rows}
+
+
+#: phase 21 (b)'s cells: model -> (grid, settings_init_args)
+SPATIAL_CELLS = {"HalfUNet": ((512, 640), HALFUNET_ARGS), "GraphLAM": ((500, 500), GRAPHLAM_ARGS),
+                 "HiLAM": ((500, 500), GRAPHLAM_ARGS)}
+
+
+def spatial_ranks_vs_one(layout) -> dict:
+    """Phase 21 (b): data x spatial NCCL ranks (one card each) against one
+    process, three AdamW steps of each ``SPATIAL_CELLS`` model at its
+    yaml's width (global batch: one sample a data rank), all run in one
+    launch of the ranks: losses within TOL (relative); parameters within
+    TOL of scale (HalfUNet's in relative L2, for the ReLU kinks of
+    ``halfunet_band_block``, its max-abs printed beside); the first step's
+    gradients as AdamW receives them (summed over the bands, averaged
+    over the data ranks), which AdamW's steps cannot show the scale of,
+    within GRAD_TOL of the largest one-process gradient (HalfUNet's, for
+    the same kinks, by the ratio of their norms to one process's, within
+    GRAD_TOL of 1, the differences printed beside); kernels a-fwd, a-bwd
+    and b launched as often each step as one rank launches them. Per
+    rank: host ms a step, peak memory and the bytes its halo exchanges
+    received a step."""
+    from py4cast_tpu_torch.testing import run_ranks, train_report
+
+    data, spatial = layout
+    cases = [{"model_name": name, "settings_init_args": args, "grid": list(grid),
+              "batch_size": data, "device": "cuda"}
+             for name, (grid, args) in SPATIAL_CELLS.items()]
+    one = [train_report(**case) for case in cases]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks("py4cast_tpu_torch.testing:train_reports", data * spatial,
+                      {"cases": cases, "mesh": [data, spatial]}, device="cuda", timeout=600)
+    wall = time.perf_counter() - t0
+    out = {"layout": [data, spatial], "wall_s": wall, "cells": []}
+    for i, (case, want) in enumerate(zip(cases, one)):
+        name = case["model_name"]
+        got = [r[i] for r in ranks]
+        loss_err = max(abs(a - b) / abs(b)
+                       for r in got for a, b in zip(r["losses"], want["losses"]))
+        if not loss_err <= TOL:
+            raise AssertionError(f"{name} {layout}: losses {[r['losses'] for r in got]} vs "
+                                 f"{want['losses']}")
+        max_err = max(float((r["params"][k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+                      for r in got for k, v in want["params"].items())
+        # over every parameter at once: ||theta_ranks - theta_one|| / ||theta_one||
+        flat = torch.cat([v.double().reshape(-1) for v in want["params"].values()])
+        l2_err = max(float((torch.cat([r["params"][k].double().reshape(-1)
+                                       for k in want["params"]]) - flat).norm() / flat.norm())
+                     for r in got)
+        if not (l2_err if name == "HalfUNet" else max_err) <= TOL:
+            raise AssertionError(f"{name} {layout}: parameters {max_err:.3e} of scale, "
+                                 f"{l2_err:.3e} in relative L2")
+        g_one = torch.cat([v.double().reshape(-1) for v in want["grads"].values()])
+        g_ranks = [torch.cat([r["grads"][k].double().reshape(-1) for k in want["grads"]])
+                   for r in got]
+        grad_err = max(float((g - g_one).abs().max()) for g in g_ranks) / float(g_one.abs().max())
+        grad_l2 = max(float((g - g_one).norm() / g_one.norm()) for g in g_ranks)
+        grad_scale = max(abs(float(g.norm() / g_one.norm()) - 1.0) for g in g_ranks)
+        if not (grad_scale if name == "HalfUNet" else grad_err) <= GRAD_TOL:
+            raise AssertionError(f"{name} {layout}: first-step gradients {grad_err:.3e} of the "
+                                 f"largest, {grad_l2:.3e} in relative L2, norm ratio off 1 by "
+                                 f"{grad_scale:.3e}")
+        for r in got:
+            for step, (a, b) in enumerate(zip(r["launches"], want["launches"])):
+                if a != b:
+                    raise AssertionError(f"{name} {layout} rank {r['rank']} step {step}: "
+                                         f"launches {a}, one process {b}")
+        out["cells"].append({
+            "model": name, "grid": case["grid"], "losses_one": want["losses"],
+            "losses_ranks": got[0]["losses"], "loss_rel_err": loss_err,
+            "param_max_err_over_scale": max_err, "param_rel_l2": l2_err,
+            "grad_max_err_over_largest": grad_err, "grad_rel_l2": grad_l2,
+            "grad_norm_ratio_off_1": grad_scale,
+            "launches_a_step": want["launches"][-1],
+            "one": {"host_ms": want["host_ms"], "peak_bytes": want["peak_bytes"]},
+            "ranks": [{"rank": r["rank"], "host_ms": r["host_ms"], "peak_bytes": r["peak_bytes"],
+                       "halo_bytes": r["halo_bytes"]} for r in got]})
+    return out
+
+
+def titan_halfunet(spatials, grid=(1791, 2801)) -> dict:
+    """Phase 21 (b), four cards: one HalfUNet train step (halfunet.yaml:
+    64 filters, depth 4) on the full-resolution Titan grid, lat padded to
+    1792 (``lat_multiple`` 4), at each spatial extent of ``spatials`` (1
+    in this process, more on that many NCCL ranks): the loss, host ms
+    and each rank's peak memory."""
+    from py4cast_tpu_torch.testing import run_ranks, train_report
+
+    case = {"model_name": "HalfUNet", "settings_init_args": HALFUNET_ARGS, "grid": list(grid),
+            "batch_size": 1, "steps": 1, "device": "cuda", "lat_multiple": 4}
+    rows = []
+    for sp in spatials:
+        if sp == 1:
+            reports = [train_report(**case)]
+            torch.cuda.empty_cache()
+        else:
+            reports = run_ranks("py4cast_tpu_torch.testing:train_report", sp,
+                                {**case, "mesh": [1, sp]}, device="cuda", timeout=600)
+        rows.append({"spatial": sp, "loss": reports[0]["losses"][0],
+                     "host_ms": [r["host_ms"][0] for r in reports],
+                     "peak_bytes": [r["peak_bytes"] for r in reports],
+                     "halo_bytes": [r["halo_bytes"][0] for r in reports]})
+        if not np.isfinite(rows[-1]["loss"]):
+            raise AssertionError(f"Titan HalfUNet at spatial {sp}: loss {rows[-1]['loss']}")
+    losses = [r["loss"] for r in rows]
+    if max(losses) - min(losses) > TOL * abs(losses[0]):
+        raise AssertionError(f"Titan HalfUNet: losses {losses} differ across spatial extents")
+    return {"grid": list(grid), "padded_lat": 1792, "rows": rows}
+
+
+def spatial_phase() -> dict:
+    """Phase 21, the spatial axis: (a) on every card count, the band
+    pieces at full width fed by hand (``halfunet_band_block``,
+    ``graph_band_hops``: b-fwd and b-bwd counted); (b) with two cards or
+    more, S = 2 NCCL ranks against one, and with four, 2 x 2 against one
+    (``spatial_ranks_vs_one``) and the Titan-size HalfUNet step
+    (``titan_halfunet``); "not run, N card(s)" otherwise."""
+    t21 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    out = {"halfunet_bands": halfunet_band_block(rng)}
+    log(f"phase 21 (a) HalfUNet bands: {json.dumps(out['halfunet_bands'])}")
+    torch.cuda.empty_cache()
+    out["graph_bands"] = graph_band_hops(rng)
+    log(f"phase 21 (a) GraphLAM bands: {json.dumps(out['graph_bands'])}")
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    out["ranks"] = []
+    for layout in ((1, 2), (2, 2)):
+        if cards >= layout[0] * layout[1]:
+            row = spatial_ranks_vs_one(layout)
+            out["ranks"].append(row)
+            log(f"phase 21 (b) {layout[0]}x{layout[1]} NCCL ranks vs one: {json.dumps(row)}")
+        else:
+            log(f"phase 21 (b) {layout[0]}x{layout[1]}: not run, {cards} card(s)")
+    if cards >= 4:
+        out["titan"] = titan_halfunet((1, 2, 4))
+        log(f"phase 21 (b) Titan HalfUNet: {json.dumps(out['titan'])}")
+    else:
+        log(f"phase 21 (b) Titan HalfUNet at spatial 1, 2, 4: not run, {cards} card(s)")
+    out["wall_s"] = time.perf_counter() - t21
+    log(f"phase 21 wall: {out['wall_s']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------- main
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2470,7 +2812,12 @@ def main(argv=None) -> int:
         "--kernels", nargs="+", choices=sorted(KERNEL_SOURCES), metavar="NAME",
         help="only build, check and time these kernels (phases 1 to 3c), print their "
              "numbers and stop, with no result line; names: " + ", ".join(sorted(KERNEL_SOURCES)))
-    only = parser.parse_args(argv).kernels
+    parser.add_argument(
+        "--spatial", action="store_true",
+        help="only build the kernels and run phases 20 (d) and 21 (the data and spatial "
+             "axes across cards), with no result line")
+    parsed = parser.parse_args(argv)
+    only = parsed.kernels
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing to run", file=sys.stderr)
@@ -2519,8 +2866,8 @@ def main(argv=None) -> int:
               "corner_hop_bwd": lambda: [check_hop_bwd(rng)],
               # phase 3c: the attention kernels at the Segformer cell's shapes
               "short_kv_attention": lambda: check_attention(rng)}
-    kernels = [k for name, check in checks.items() if only is None or name in only
-               for k in check()]
+    kernels = [] if parsed.spatial else [
+        k for name, check in checks.items() if only is None or name in only for k in check()]
     for k in kernels:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e} ms {k['ms']:.4f} "
             f"plain_ms {k['plain_ms']:.4f} bound_ms {k['bound_ms']:.4f} ({k['bound_by']})"
@@ -2553,6 +2900,18 @@ def main(argv=None) -> int:
     if only is not None:
         log(card)
         log(json.dumps({"kernels": kernels}))
+        return 0
+    if parsed.spatial:
+        out = {"card": card, "cards": torch.cuda.device_count()}
+        if torch.cuda.device_count() >= 2:
+            out["two_ranks"] = two_ranks_vs_one()
+            log(f"phase 20 (d) two NCCL ranks vs one: {json.dumps(out['two_ranks'])}")
+        else:
+            log("phase 20 (d): not run, 1 card")
+        out["spatial"] = spatial_phase()
+        (OUT_DIR / "smoke_spatial_report.json").write_text(json.dumps(out, indent=1))
+        log(f"wall: {time.perf_counter() - t_start:.1f} s")
+        log(card)
         return 0
 
     # phase 4: Trainer.predict on Dummy, counted
@@ -2720,6 +3079,10 @@ def main(argv=None) -> int:
     # torchrun, lat padding at 1791 rows
     data_axis = data_axis_phase(train_full)
 
+    # phase 21: the spatial axis: the band pieces fed by hand, and NCCL
+    # ranks on bands against one when the machine has the cards
+    spatial = spatial_phase()
+
     # each model path ran with every count set to 0 just before it and
     # checked just after (a kernel of another path launched fails); a
     # kernel's launches are the sum over the paths that run it
@@ -2744,6 +3107,12 @@ def main(argv=None) -> int:
         k["launches_process_group"] = sum(
             row["launches"][k["name"]] for row in data_axis["one_rank_group"].values()
             if "launches" in row)
+        # phase 21: the band pieces (b on each band), and a step of each
+        # NCCL rank layout's cells, per rank
+        k["launches_spatial"] = sum(row["launches"][k["name"]]
+                                    for row in spatial["graph_bands"]["rows"]) + sum(
+            cell["launches_a_step"][k["name"]] for row in spatial["ranks"]
+            for cell in row["cells"])
         top = by_kernel[k["name"]]
         k["bf16"] = {"shape": top["shape"], "ms": top["ms"], "fp32_ms": top["fp32_ms"],
                      "cast_ms": top["cast_ms"],
@@ -2763,6 +3132,7 @@ def main(argv=None) -> int:
          "unet_full_size": plain_full, "unetrpp_predict_dummy": rpp_dummy,
          "unetrpp_fit_dummy": rpp_fit, "unetrpp_full_size": rpp_full, "bf16": bf16,
          "resnet": resnet, "swin_table": swin_table, "data_axis": data_axis,
+         "spatial": spatial,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(card)

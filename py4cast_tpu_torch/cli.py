@@ -14,9 +14,16 @@ Several ranks, one card each, from torchrun (or a SLURM step, see
 
     torchrun --nproc-per-node 4 -m py4cast_tpu_torch fit --config ...
 
-``data.batch_size`` is then the global batch (each rank loads its
-slice), ``trainer.mesh_data_parallel`` is -1 or the world size, and
-rank 0 alone writes checkpoints, logs, scores and predictions.
+``data.batch_size`` is then the global batch (each data index loads
+its slice), ``trainer.mesh_data_parallel`` × ``trainer.mesh_spatial``
+is the world size (``mesh_data_parallel`` -1 takes what ``mesh_spatial``
+leaves), and rank 0 alone writes checkpoints, logs, scores and
+predictions. ``--trainer.mesh_spatial S`` cuts the grid's lat into S
+bands, one a rank (HalfUNet, UNet and the lattice-path GraphLAM, HiLAM
+and HiLAMParallel; one card a rank, so S cards a data group):
+
+    torchrun --nproc-per-node 4 -m py4cast_tpu_torch fit --config ... \\
+        --trainer.mesh_spatial 2
 
 Cross-section links: ``data.num_input_steps``, ``data.num_pred_steps_*``
 and ``data.batch_size`` flow into the training settings and trainer.
@@ -43,6 +50,7 @@ from py4cast_tpu_torch.loggers import default_loggers
 from py4cast_tpu_torch.parallel.mesh import (
     is_main_process,
     main_process_first,
+    make_mesh,
     maybe_init_distributed,
 )
 from py4cast_tpu_torch.training import (
@@ -211,7 +219,8 @@ def build_all(conf: dict, manifest: Optional[dict] = None):
     trainer_conf.setdefault("num_workers", data_cfg.num_workers)
     tcfg = TrainerConfig(**_filter_fields(TrainerConfig, trainer_conf))
 
-    module = AutoRegressiveModule(settings, dm.train_dataset_info, device=tcfg.device)
+    module = AutoRegressiveModule(settings, dm.train_dataset_info, device=tcfg.device,
+                                  mesh=make_mesh(tcfg.mesh_config()))
     loggers = default_loggers(Path(tcfg.save_path)) if is_main_process() else []
     trainer = Trainer(tcfg, loggers=loggers)
     return dm, module, trainer, ckpt_path

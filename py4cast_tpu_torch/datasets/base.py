@@ -29,6 +29,7 @@ from py4cast_tpu_torch.datasets.access import (
 )
 from py4cast_tpu_torch.datasets.forcing import generate_forcings
 from py4cast_tpu_torch.named_tensor import NamedArray
+from py4cast_tpu_torch.parallel.spatial import Band
 from py4cast_tpu_torch.utils import merge_dicts
 
 
@@ -167,6 +168,18 @@ class Statics:
                                     self.grid_statics.names, self.grid_statics.feature_names),
             grid_shape=(self.grid_shape[0] + pad, self.grid_shape[1]),
         )
+
+    def band(self, index: int, count: int) -> "Statics":
+        """Lat band ``index`` of ``count`` (rows ``[index·H/count,
+        (index+1)·H/count)``): its grid statics, border and interior
+        masks, and meshgrid. ``band(0, 1)`` returns ``self``. A graph is
+        built on the whole grid and cut after, never on a band."""
+        if count == 1:
+            return self
+        g = self.grid_statics
+        rows = Band(index, count).cut(np.asarray(g.array), 0)
+        return Statics(grid_statics=NamedArray(rows, g.names, g.feature_names),
+                       grid_shape=(rows.shape[0], self.grid_shape[1]))
 
 
 @dataclass
@@ -398,6 +411,8 @@ class WeatherDataset:
         seed: int = 0,
         drop_last: bool = True,
         pad_last: bool = False,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
     ):
         from py4cast_tpu_torch.datasets.loader import DataLoader
 
@@ -410,6 +425,8 @@ class WeatherDataset:
             seed=seed,
             drop_last=drop_last,
             pad_last=pad_last,
+            process_index=process_index,
+            process_count=process_count,
         )
 
     # -------------------------------------------------------------- derived

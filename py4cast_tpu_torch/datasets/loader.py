@@ -2,8 +2,9 @@
 
 Sample loading is numpy I/O + light math that releases the GIL, so a
 thread pool gives worker parallelism without process-spawn overhead and
-without pickling batches. Under a process group each rank loads its
-slice of every global batch.
+without pickling batches. Under a process group each data index loads
+its slice of every global batch; the spatial ranks of one data index
+load the same samples (each keeps its lat band on the device).
 """
 
 from __future__ import annotations
@@ -45,11 +46,12 @@ class DataLoader:
         process_index: Optional[int] = None,
         process_count: Optional[int] = None,
     ):
-        """``batch_size`` is the GLOBAL batch. Rank ``process_index`` of
-        ``process_count`` loads only its ``batch_size / process_count``
+        """``batch_size`` is the GLOBAL batch. Data index ``process_index``
+        of ``process_count`` loads only its ``batch_size / process_count``
         rows of every batch; the seeded shuffle is the same on every rank,
         so the slices are disjoint. Both default to the process group's
-        rank and world size (0 and 1 without one)."""
+        rank and world size (0 and 1 without one); under spatial > 1 pass
+        the mesh's ``data_index`` and ``data``, as ``Trainer`` does."""
         if process_count is None:
             group = dist.is_available() and dist.is_initialized()
             process_count = dist.get_world_size() if group else 1

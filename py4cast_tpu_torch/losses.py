@@ -8,6 +8,12 @@ parity holds.
 
 Losses return per-(batch, timestep) values; ``CombinedLoss`` sums its
 members with config weights.
+
+On a lat band of a spatial mesh (called inside ``parallel.spatial.on_band``,
+as model code is) a loss returns the band's share of the global loss, so that the bands' values
+sum to it: ``WeightedLoss`` divides the band's sums by the global
+denominators; ``ScaledLoss`` all-reduces its band sums before the square
+root and returns a 1/S share of the result.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from py4cast_tpu_torch.parallel.spatial import band_all_reduce, current_band
 
 
 def _huber(a, b):
@@ -64,9 +72,10 @@ class Py4CastLoss:
 
     def _union_denominator(self, mask: torch.Tensor) -> torch.Tensor:
         """num_interior corrected by the spatial points that are invalid
-        for every batch row, timestep and feature."""
+        for every batch row, timestep and feature (counted over every
+        band of a lat-sharded grid)."""
         union = (mask != 0).any(dim=0).any(dim=0).any(dim=-1)  # (*spatial,)
-        return self.num_interior - (~union).sum()
+        return self.num_interior - band_all_reduce((~union).sum())
 
     def _on(self, like: torch.Tensor):
         """The prepared tensors on ``like``'s device (moved once)."""
@@ -128,9 +137,12 @@ class ScaledLoss(Py4CastLoss):
         denom = self._union_denominator(mask)
         sp = _spatial_axes(elem.ndim)
         im = interior_mask if interior_mask is not None else self.interior_mask
-        mean_loss = (elem * im).sum(dim=sp) / denom  # (B, T, F)
+        mean_loss = band_all_reduce((elem * im).sum(dim=sp)) / denom  # (B, T, F)
         if self.loss_name == "MSELoss":
             mean_loss = torch.sqrt(mean_loss)
+        band = current_band()
+        if band is not None:
+            mean_loss = mean_loss / band.count  # this band's share
         return mean_loss * self.weights
 
 
@@ -213,7 +225,8 @@ class PerceptualLossPy4Cast(Py4CastLoss):
 
     def __call__(self, prediction, target, mask, interior_mask=None):
         # the features see the whole field; interior_mask is accepted for
-        # CombinedLoss's sake
+        # CombinedLoss's sake (the module refuses this loss on a lat band:
+        # ROADMAP.md, queue 1 item 12c)
         self._on(prediction.array)
         pred = self._normalize(prediction.array) * mask
         tgt = self._normalize(target.array) * mask

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from py4cast_tpu_torch.parallel.spatial import band_all_reduce, current_band, halo_rows
+
 
 class ModelType(Enum):
     CONVOLUTIONAL = "convolutional"
@@ -69,6 +71,13 @@ class ModelBase(nn.Module):
     #: a plugin module's subclass with ``register = True`` joins the
     #: registry (``models._discover_plugins``)
     register: bool = False
+    #: the model runs on a lat band of a spatial mesh (``parallel.spatial``)
+    spatial_shardable: bool = False
+
+    def spatial_lat_multiple(self) -> int:
+        """The rows a lat band must be a multiple of to run alone (its
+        pools' windows): 1 unless the model pools."""
+        return 1
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape: Tuple[int, ...], settings):
@@ -114,7 +123,13 @@ class FlaxConv2d(nn.Conv2d):
     ResNet encoder's torch-style stem and strided convs, where SAME would
     pad (2, 3) or (0, 1) at stride 2 on an even side. The weight is
     torch's OIHW; ``convert.params_from_jax`` maps Flax's HWIO kernel
-    onto it."""
+    onto it.
+
+    On a lat band (``parallel.spatial.current_band``) a SAME conv takes
+    (k − 1)·d / 2 halo rows a side from its neighbour bands in place of
+    zero rows (zeros only at the global top and bottom) and pads its
+    columns as it does off a band; a stride > 1 or an asymmetric row pad
+    raises there (the sharded models use neither)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1,
                  groups: int = 1, bias: bool = True, dilation: int = 1,
@@ -123,13 +138,37 @@ class FlaxConv2d(nn.Conv2d):
                          padding=padding or 0, dilation=dilation, groups=groups, bias=bias)
         self.same = padding is None
 
+    def _rows_and_cols(self, h: int, w: int):
+        """Flax's SAME pads (top, bottom), (left, right) for an h x w input:
+        for the dilated extent (k - 1) * d + 1."""
+        (kh, kw), (sh, sw), (dh, dw) = self.kernel_size, self.stride, self.dilation
+        return (flax_same_pad(h, (kh - 1) * dh + 1, sh),
+                flax_same_pad(w, (kw - 1) * dw + 1, sw))
+
+    def band_halo(self) -> int:
+        """The halo rows a side this conv reads on a lat band."""
+        (top, bottom), _ = self._rows_and_cols(1, 1)
+        if self.stride[0] != 1 or top != bottom:
+            raise ValueError(
+                f"a {self.kernel_size} conv at stride {self.stride} pads its rows "
+                f"({top}, {bottom}): only stride-1 symmetric SAME convs run on a lat band")
+        return top
+
+    def forward_halo(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv of a band grown by its halo rows (``band_halo`` a
+        side, NHWC): no row padding, the columns padded as off a band."""
+        top = self.band_halo()
+        _, (left, right) = self._rows_and_cols(x.shape[1] - 2 * top, x.shape[2])
+        y = F.pad(x.permute(0, 3, 1, 2), (left, right))
+        return super().forward(y).permute(0, 2, 3, 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.same and current_band() is not None:
+            top = self.band_halo()
+            return self.forward_halo(halo_rows(x, top, top))
         y = x.permute(0, 3, 1, 2)
         if self.same:
-            (kh, kw), (sh, sw), (dh, dw) = self.kernel_size, self.stride, self.dilation
-            # Flax pads SAME for the dilated extent (k - 1) * d + 1
-            top, bottom = flax_same_pad(x.shape[1], (kh - 1) * dh + 1, sh)
-            left, right = flax_same_pad(x.shape[2], (kw - 1) * dw + 1, sw)
+            (top, bottom), (left, right) = self._rows_and_cols(x.shape[1], x.shape[2])
             if top or bottom or left or right:
                 y = F.pad(y, (left, right, top, bottom))
         return super().forward(y).permute(0, 2, 3, 1)
@@ -211,12 +250,43 @@ class GroupNorm(nn.GroupNorm):
     (``weight``/``bias``; none when ``affine`` is off). Flax computes the
     variance as E[x²] − E[x]² and torch in two passes; both agree within
     the port's 1e-4 bar, so torch's ``group_norm`` runs as it is. On bf16
-    it takes fp32 statistics and rounds once, as ``LayerNorm``."""
+    it takes fp32 statistics and rounds once, as ``LayerNorm``.
+
+    On a lat band the statistics span every band: fp32 sums of x and x²
+    a (batch, group) over the band (``band_sums``), all-reduced over the
+    band group, then Flax's E[x²] − E[x]² (``normalize``)."""
 
     def __init__(self, num_groups: int, num_channels: int, affine: bool = True):
         super().__init__(num_groups, num_channels, eps=GN_EPS, affine=affine)
 
+    def band_sums(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, G, 2), in fp32 or wider: the sums of x and of x² over a
+        band's rows, columns and each group's channels."""
+        b, h, w, c = x.shape
+        xg = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(
+            b, h * w, self.num_groups, c // self.num_groups)
+        return torch.stack([xg.sum(dim=(1, 3)), (xg * xg).sum(dim=(1, 3))], dim=-1)
+
+    def normalize(self, x: torch.Tensor, sums: torch.Tensor, count: int) -> torch.Tensor:
+        """x normalized with the statistics of ``sums`` (``band_sums``
+        over every band) of ``count`` elements a (batch, group), in
+        ``sums``' dtype, rounded once to x's."""
+        b, h, w, c = x.shape
+        mean = sums[..., 0] / count
+        var = torch.clamp(sums[..., 1] / count - mean * mean, min=0.0)
+        xg = x.to(sums.dtype).reshape(b, h * w, self.num_groups, c // self.num_groups)
+        y = ((xg - mean[:, None, :, None]) * torch.rsqrt(var + self.eps)[:, None, :, None])
+        y = y.reshape(b, h, w, c)
+        if self.affine:
+            y = y * self.weight.to(sums.dtype) + self.bias.to(sums.dtype)
+        return y.to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        band = current_band()
+        if band is not None:
+            b, h, w, c = x.shape
+            count = h * band.count * w * (c // self.num_groups)
+            return self.normalize(x, band_all_reduce(self.band_sums(x), band), count)
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 

@@ -49,6 +49,14 @@ from py4cast_tpu_torch.ops.lattice_ops import (
     stencil_feats,
 )
 from py4cast_tpu_torch.ops.stencil_kernel import StencilMessageFn
+from py4cast_tpu_torch.parallel.spatial import Band, band_all_reduce
+
+#: the grid-side lattice metadata, by its lat axis: what a lat band cuts
+#: (a band's columns of a separable selection matrix, ``ar[:, band]``,
+#: aggregate the band's edges alone, so the bands' sums add up to the
+#: whole grid's; the mesh-side metadata stays whole)
+GRID_LAT_AXES = {"lat_g2m_feats": 0, "lat_g2m_rows": 0, "lat_g2m_ar": 1,
+                 "lat_m2g_feats": 1, "lat_m2g_rows": 1, "lat_m2g_ar": 2}
 
 
 @dataclass(frozen=True)
@@ -610,16 +618,30 @@ class LatticeEncodeDecode(nn.Module):
     def _tail(self, z):
         return self.ln(self.out(F.silu(z)))
 
-    def forward(self, v_src, v_dst, lat: Dict[str, torch.Tensor]):
-        ps = self.w_s(v_src)
-        if self.kind == "nearest":
-            pd = self.w_d(v_dst)
-            pre = self.w_f(lat["feats"])[None] + ps + sep_take_mm(pd, lat["ar"], lat["ac"])
-            agg = sep_aggregate(self._tail(pre), lat["ar"], lat["ac"])
-            if self.aggr == "mean":
-                agg = agg / torch.clamp(lat["count"][None], min=1.0)
-            return v_dst + self.node(torch.cat([v_dst, agg], dim=-1))
+    def aggregate(self, v_src, v_dst, lat: Dict[str, torch.Tensor]):
+        """The g2m hop's sum of its edges' messages onto mesh level 0; on
+        a lat band, of the band's edges alone (its rows of ``feats`` and
+        ``ar``): a partial sum."""
+        pd = self.w_d(v_dst)
+        pre = self.w_f(lat["feats"])[None] + self.w_s(v_src) + sep_take_mm(pd, lat["ar"],
+                                                                            lat["ac"])
+        return sep_aggregate(self._tail(pre), lat["ar"], lat["ac"])
 
+    def update(self, v_dst, agg, lat: Dict[str, torch.Tensor]):
+        """The g2m hop's node update from the whole aggregate (divided by
+        the in-degree ``count`` for mean aggregation)."""
+        if self.aggr == "mean":
+            agg = agg / torch.clamp(lat["count"][None], min=1.0)
+        return v_dst + self.node(torch.cat([v_dst, agg], dim=-1))
+
+    def forward(self, v_src, v_dst, lat: Dict[str, torch.Tensor]):
+        if self.kind == "nearest":
+            # on a lat band the bands' partial sums are all-reduced before
+            # the count division and the node update: the one collective
+            # of a graph model's forward
+            return self.update(v_dst, band_all_reduce(self.aggregate(v_src, v_dst, lat)), lat)
+
+        ps = self.w_s(v_src)
         ar, ac = lat["ar"], lat["ac"]
         if self.hidden_layers == 1:
             # the fused m2g hop: CUDA kernels (forward and backward) on
@@ -829,11 +851,22 @@ class _GraphModelBase(ModelBase):
     The path is the JAX package's ``_lattice_on``: the gather-table path
     (``table_path``) for ``use_lattice: false``, and for a graph whose
     multimesh union is not dedup-free where the model needs it
-    (``_lattice_need_multi``, GraphLAM); the lattice path otherwise."""
+    (``_lattice_need_multi``, GraphLAM); the lattice path otherwise.
+
+    With ``band`` (index, count) the model runs on that lat band of the
+    grid (``parallel.spatial``): the graph is built on the whole grid and
+    its grid-side lattice metadata cut to the band's rows once, here
+    (``GRID_LAT_AXES``); the grid embed,
+    the m2g hop (kernel b on the band's rows, against the whole mesh
+    projection) and the decoder run on the band; the g2m hop all-reduces
+    its partial aggregate; the mesh levels and their processor (kernel a)
+    run replicated on every band. The gather-table path refuses a band,
+    as the JAX package's does."""
 
     settings_kls = GraphModelSettings
     model_type = ModelType.GRAPH
     supported_num_spatial_dims = (1,)
+    spatial_shardable = True
     #: the model's lattice path needs a dedup-free multimesh union
     _lattice_need_multi = False
     #: mesh levels with an embed (None: every level)
@@ -841,11 +874,20 @@ class _GraphModelBase(ModelBase):
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape: Tuple[int, ...], settings: GraphModelSettings,
-                 graph: GraphArtifacts):
+                 graph: GraphArtifacts, band: Optional[Tuple[int, int]] = None):
         super().__init__(num_input_features, num_output_features, input_shape, settings)
         self.graph = graph
         self.table_path = not settings.use_lattice or (
             self._lattice_need_multi and not graph.multi_lattice_ok)
+        count = band[1] if band is not None else 1
+        if count > 1 and self.table_path:
+            raise ValueError(
+                f"{type(self).__name__} runs the gather-table path (use_lattice: false, "
+                f"or a multimesh union that repeats edges): it cannot run on a lat band "
+                f"of a spatial mesh (spatial={count}), as in the JAX package "
+                f"(ROADMAP.md, queue 1 item 12c); use use_lattice: true or spatial=1")
+        #: the (band's) grid the model reads and writes
+        self.grid_hw = (graph.grid_hw[0] // count, graph.grid_hw[1])
         h, hl, aggr = settings.hidden_dims, settings.hidden_layers, settings.mesh_aggr
         self.num_levels = len(graph.level_hw)
         self.num_embedded = self._embedded_levels or self.num_levels
@@ -870,6 +912,9 @@ class _GraphModelBase(ModelBase):
                                      persistent=False)
             return
         arrays = dict(graph.lattice_np)
+        if count > 1:
+            arrays.update({name: np.ascontiguousarray(Band(*band).cut(arrays[name], axis))
+                           for name, axis in GRID_LAT_AXES.items()})
         for l in range(self.num_embedded):
             arrays[f"mesh_pos_{l}"] = graph.mesh_pos[l].reshape(*graph.level_hw[l], 2)
         for name, arr in arrays.items():
@@ -923,10 +968,9 @@ class _GraphModelBase(ModelBase):
         """(grid_v, [mesh_v_l for each embedded level]): on the lattice
         path (B, H, W, h) and (B, lh, lw, h), on the table path
         (B, n_grid, h) and (B, N_l, h)."""
-        g = self.graph
         b = x.shape[0]
         if not self.table_path:
-            x = x.reshape(b, *g.grid_hw, x.shape[-1])
+            x = x.reshape(b, *self.grid_hw, x.shape[-1])
         grid_v = self.grid_embed(x)
         mesh_v = []
         for l in range(self.num_embedded):
@@ -951,7 +995,7 @@ class _GraphModelBase(ModelBase):
         else:
             hop = self.m2g(mesh_v0, grid_v, self._lat("m2g", dt))
         out = self.decoder(hop)
-        return out.reshape(grid_v.shape[0], self.graph.n_grid, out.shape[-1])
+        return out.reshape(grid_v.shape[0], -1, out.shape[-1])
 
 
 class GraphLAM(_GraphModelBase):

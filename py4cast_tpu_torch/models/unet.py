@@ -35,6 +35,7 @@ from py4cast_tpu_torch.models.base import (
     pad_to_multiple,
 )
 from py4cast_tpu_torch.ops.pool import max_pool_2x2
+from py4cast_tpu_torch.parallel.spatial import current_band
 
 
 class ConvBlock(nn.Module):
@@ -162,10 +163,17 @@ class UNet(ModelBase):
     ``depth`` levels of ConvBlock and 2x2 max pool with the width doubled
     each level, a ConvBlock at the bottom, then per level a 2x2 stride-2
     transposed convolution, the skip concatenated after it, and a
-    ConvBlock; a 1x1 convolution to the outputs."""
+    ConvBlock; a 1x1 convolution to the outputs. On a lat band the
+    ConvBlocks take halo rows and band statistics, and the pools, the
+    k = stride transposed convolutions and the skips are the band's own
+    (``depth`` pools: bands of a multiple of 2^depth rows)."""
 
     settings_kls = UNetSettings
     model_type = ModelType.CONVOLUTIONAL
+    spatial_shardable = True
+
+    def spatial_lat_multiple(self) -> int:
+        return 2 ** self.settings.depth
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape: Tuple[int, ...], settings: UNetSettings = UNetSettings()):
@@ -220,10 +228,17 @@ class HalfUNet(ModelBase):
     """Half-UNet: a shared-width encoder whose per-scale features are
     upsampled to full resolution and summed, with no decoder convs (Lu et
     al. 2022; reference settings: config/CLI/model/halfunet.yaml). The
-    JAX package's default model."""
+    JAX package's default model. On a lat band the blocks take halo rows
+    and band statistics, the pools and the nearest upsamples are the
+    band's own (``depth`` − 1 pools: bands of a multiple of 2^(depth − 1)
+    rows), and ``pos_embed`` is cut to the band's rows."""
 
     settings_kls = HalfUNetSettings
     model_type = ModelType.CONVOLUTIONAL
+    spatial_shardable = True
+
+    def spatial_lat_multiple(self) -> int:
+        return 2 ** (self.settings.depth - 1)
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape: Tuple[int, ...], settings: HalfUNetSettings = HalfUNetSettings()):
@@ -249,7 +264,8 @@ class HalfUNet(ModelBase):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.settings
         if s.absolute_pos_embed:
-            x = x + self.pos_embed
+            band = current_band()
+            x = x + (self.pos_embed if band is None else band.cut(self.pos_embed, 1))
         if s.autopad_enabled:
             x, hw = pad_to_multiple(x, 2 ** (s.depth - 1))
         summed = None

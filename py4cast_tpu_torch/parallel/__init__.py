@@ -1,4 +1,5 @@
-"""Scale-out: process groups, the data axis and its collectives."""
+"""Scale-out: process groups, the data axis, the spatial axis and their
+collectives."""
 
 from py4cast_tpu_torch.parallel.mesh import (
     Mesh,
@@ -15,8 +16,17 @@ from py4cast_tpu_torch.parallel.mesh import (
     shard_batch,
     to_host,
 )
+from py4cast_tpu_torch.parallel.spatial import (
+    Band,
+    band_all_reduce,
+    current_band,
+    gather_lat,
+    halo_rows,
+    on_band,
+)
 
 __all__ = [
+    "Band", "band_all_reduce", "current_band", "gather_lat", "halo_rows", "on_band",
     "Mesh", "MeshConfig", "all_gather_rows", "all_reduce_grads",
     "barrier", "broadcast_object", "distributed", "is_main_process", "main_process_first",
     "make_mesh", "maybe_init_distributed", "shard_batch", "to_host",

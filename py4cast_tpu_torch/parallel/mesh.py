@@ -1,23 +1,48 @@
-"""Process groups and the data axis — the scale-out layer.
+"""Process groups, the data axis and the spatial axis — the scale-out layer.
 
 The JAX package lays its devices out as one ``jax.sharding.Mesh`` with
-axes ``('data', 'spatial')`` and lets XLA insert the gradient
-all-reduce. Here one process drives one device, ``torch.distributed``
-joins the processes, and the collectives are explicit:
+axes ``('data', 'spatial')`` and lets XLA insert the collectives. Here
+one process drives one device, ``torch.distributed`` joins the
+processes, and the collectives are explicit.
 
-- parameters are replicated; every rank loads its slice of each global
-  batch (``datasets.loader.DataLoader``);
-- after the backward of an optimizer step, ``all_reduce_grads`` sums
-  every gradient across ranks in one flat fp32 buffer and divides it by
-  the world size, so each rank steps AdamW on the global mean;
-- eval rows and predictions are gathered to every rank in rank order
-  (``to_host``), which is global row order;
-- writes (checkpoints, logs, figures, scores) happen on rank 0
-  (``is_main_process``).
+**The layout.** Ranks are laid out data-major: ``rank = d · S + s``, so
+the S spatial ranks of one data group are neighbours (one host, one
+NVLink domain). ``make_mesh`` builds one spatial group a data index and
+one data group a spatial index (every rank creates every group, in the
+same order).
 
-The backend follows the device: NCCL for ``cuda``, gloo for ``cpu``.
-The spatial axis (lat sharding with halo exchanges) is not ported:
-``spatial > 1`` raises (ROADMAP.md, queue 1 item 12b).
+**The data axis.** Parameters are replicated; every data group loads
+its slice of each global batch (``Trainer`` hands ``DataLoader`` the
+module mesh's ``data_index`` and ``data``); eval rows and predictions are gathered over
+the data group in its order, which is global row order; writes happen
+on rank 0 (``is_main_process``).
+
+**The spatial axis** (``parallel.spatial``). The padded lat H is cut
+into S bands of H / S rows; spatial rank s holds rows
+``[s·H/S, (s+1)·H/S)`` of every grid tensor, of the statics and of the
+grid-side lattice metadata. Convolutions take halo rows from their
+neighbours, GroupNorm and the g2m hop all-reduce band sums, the graph
+models' mesh levels run replicated on every band.
+
+**The gradient semantics.**
+- Each rank's loss is its band's share of the global loss: the band's
+  sums over the global denominators (``losses.py``). The sum over the
+  spatial ranks is the global loss.
+- Replicated computation (the graph models' mesh levels) gets only its
+  band's share of the cotangent.
+- Hence a parameter's gradient is the sum over the spatial ranks and
+  the mean over the data ranks: ``all_reduce_grads`` sums every
+  gradient over all ranks in one flat fp32 buffer and divides it by
+  ``data · accumulate``.
+- A collective that sums partial values in the forward pass
+  (``band_all_reduce``) all-reduces its cotangent in the backward pass;
+  a halo exchange sends each halo row's gradient back to its owner,
+  which adds it to its edge row in a fixed order, so two backward
+  passes repeat bit for bit.
+
+The backend follows the device: NCCL for ``cuda`` (one card a rank:
+spatial > 1 needs S cards a data group), gloo for ``cpu``; nothing falls
+back from one to the other.
 """
 
 from __future__ import annotations
@@ -26,18 +51,19 @@ import contextlib
 import datetime
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional
+from dataclasses import field
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from py4cast_tpu_torch.parallel.spatial import Band
 from py4cast_tpu_torch.utils import resolve_device
 
-SPATIAL_NOT_PORTED = (
-    "spatial={}: lat sharding with halo exchanges is not ported to "
-    "py4cast_tpu_torch yet (ROADMAP.md, queue 1 item 12b); use spatial=1"
-)
+#: the ROADMAP.md item that ports the spatial axis to the remaining
+#: models (cited by every refusal under spatial > 1)
+SPATIAL_NEXT_ITEM = "ROADMAP.md, queue 1 item 12c"
 
 
 @dataclass(frozen=True)
@@ -53,9 +79,10 @@ class MeshConfig:
 class Mesh:
     """This process's place in the group: its rank, its local rank (the
     card it drives on its host), the world size, the extent of each
-    axis, and whether a process group is up (``distributed``; without
-    one, nothing runs a collective). The spatial axis is not ported:
-    ``spatial`` > 1 raises (queue 1 item 12b)."""
+    axis, whether a process group is up (``distributed``; without one,
+    nothing runs a collective), and under spatial > 1 the process groups
+    of its band (``spatial_group``) and of its data axis
+    (``data_group``; None means the whole world)."""
 
     rank: int = 0
     local_rank: int = 0
@@ -63,10 +90,23 @@ class Mesh:
     data: int = 1
     spatial: int = 1
     distributed: bool = False
+    spatial_group: Optional[object] = field(default=None, compare=False, repr=False)
+    data_group: Optional[object] = field(default=None, compare=False, repr=False)
 
-    def __post_init__(self):
-        if self.spatial > 1:
-            raise ValueError(SPATIAL_NOT_PORTED.format(self.spatial))
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial
+
+    @property
+    def band(self) -> Optional[Band]:
+        """This rank's lat band, None when spatial is 1."""
+        if self.spatial == 1:
+            return None
+        return Band(self.spatial_index, self.spatial, self.spatial_group)
 
 
 def distributed() -> bool:
@@ -110,7 +150,14 @@ def maybe_init_distributed(device="cuda", timeout: Optional[float] = None) -> bo
     dev = torch.device(device)
     if dev.type == "cuda":
         resolve_device(dev)  # raises when torch finds no card
-        torch.cuda.set_device(int(env.get("LOCAL_RANK", "0")))
+        local, cards = int(env.get("LOCAL_RANK", "0")), torch.cuda.device_count()
+        if local >= cards:
+            raise RuntimeError(
+                f"local rank {local} has no card of its own: this host has {cards} "
+                f"card(s), and NCCL runs one card a rank, so data x spatial ranks need as "
+                f"many cards (spatial > 1 needs spatial cards a data group); the port does "
+                f"not fall back to gloo on cards")
+        torch.cuda.set_device(local)
         backend = "nccl"
     elif dev.type == "cpu":
         backend = "gloo"
@@ -121,22 +168,46 @@ def maybe_init_distributed(device="cuda", timeout: Optional[float] = None) -> bo
     return True
 
 
+#: the process groups of each layout made in the current world:
+#: (data, spatial) -> (world group, spatial groups, data groups)
+_GROUPS: dict = {}
+
+
+def _layout_groups(dp: int, sp: int) -> Tuple[list, list]:
+    """(spatial groups by data index, data groups by spatial index) of
+    the data-major layout ``rank = d · sp + s``, made once a world: every
+    rank creates every group, in the same order."""
+    world = dist.group.WORLD
+    cached = _GROUPS.get((dp, sp))
+    if cached is not None and cached[0] is world:
+        return cached[1], cached[2]
+    spatial = [dist.new_group([d * sp + s for s in range(sp)]) for d in range(dp)]
+    data = [dist.new_group([d * sp + s for d in range(dp)]) for s in range(sp)]
+    _GROUPS[(dp, sp)] = (world, spatial, data)
+    return spatial, data
+
+
 def make_mesh(config: MeshConfig = MeshConfig()) -> Mesh:
     """This process's ``Mesh`` over the current process group (one rank
-    without one). Raises for any spatial axis (queue 1 item 12b), and
-    when data × spatial is not the world size."""
+    without one), laid out data-major. Raises when data × spatial is not
+    the world size. Under spatial > 1 it makes the layout's process
+    groups (a collective: every rank calls it with the same config)."""
     group = distributed()
     world = dist.get_world_size() if group else 1
     rank = dist.get_rank() if group else 0
-    dp = config.data_parallel if config.data_parallel > 0 else world
+    sp = max(1, config.spatial)
+    dp = config.data_parallel if config.data_parallel > 0 else max(1, world // sp)
     local_rank = int(os.environ.get("LOCAL_RANK", rank)) if group else 0
-    mesh = Mesh(rank, local_rank, world, dp, config.spatial, group)
-    if dp * config.spatial != world:
+    if dp * sp != world:
         raise ValueError(
-            f"mesh {dp}x{config.spatial} does not match {world} processes; "
+            f"mesh {dp}x{sp} does not match {world} processes; "
             f"set data_parallel/spatial to divide the world size"
         )
-    return mesh
+    spatial_group = data_group = None
+    if group and sp > 1:
+        spatial_groups, data_groups = _layout_groups(dp, sp)
+        spatial_group, data_group = spatial_groups[rank // sp], data_groups[rank % sp]
+    return Mesh(rank, local_rank, world, dp, sp, group, spatial_group, data_group)
 
 
 def shard_batch(mesh: Mesh, *arrays):
@@ -159,23 +230,26 @@ def shard_batch(mesh: Mesh, *arrays):
     return arrays if len(arrays) > 1 else arrays[0]
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``t`` stacked on the row axis in rank order, on every
-    rank (``t`` itself without a process group). Every rank passes the
-    same shape — padded local rows, never a ragged tail — on the device
-    the backend serves."""
+    rank of ``group`` (default the world; ``t`` itself without a process
+    group). Every rank passes the same shape — padded local rows, never
+    a ragged tail — on the device the backend serves. Under spatial > 1
+    pass the mesh's ``data_group``: the spatial ranks of one data index
+    hold the same rows."""
     t = t.detach().contiguous()
     if not distributed():
         return t
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=0)
 
 
-def to_host(t: torch.Tensor) -> np.ndarray:
-    """``all_gather_rows(t)`` as a numpy array on every rank: the global
-    rows, since the loader slices each global batch by rank."""
-    return all_gather_rows(t).cpu().numpy()
+def to_host(t: torch.Tensor, group=None) -> np.ndarray:
+    """``all_gather_rows(t, group)`` as a numpy array on every rank: the
+    global rows, since the loader slices each global batch by data
+    index."""
+    return all_gather_rows(t, group).cpu().numpy()
 
 
 def is_main_process() -> bool:
@@ -216,10 +290,11 @@ def main_process_first():
 
 
 def all_reduce_grads(params: Dict[str, torch.Tensor], world_size: int,
-                     accumulate: int = 1) -> int:
+                     accumulate: int = 1, spatial: int = 1) -> int:
     """Replace every parameter's ``.grad`` by its sum over ranks divided
-    by ``world_size * accumulate``: the global mean gradient of the
-    step's micro-batches. The gradients are copied into one contiguous
+    by ``world_size / spatial * accumulate``: summed over the spatial
+    ranks (each holds its band's share) and averaged over the data ranks
+    and the step's micro-batches. The gradients are copied into one contiguous
     fp32 buffer in ``params``' order, reduced with one ``all_reduce``
     (none without a process group) and copied back. Every parameter must
     have a gradient, so that every rank lays out the same buffer.
@@ -228,7 +303,7 @@ def all_reduce_grads(params: Dict[str, torch.Tensor], world_size: int,
     flat = torch.cat([g.reshape(-1) for g in grads])
     if distributed():
         dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-    flat.div_(world_size * accumulate)
+    flat.div_(world_size // spatial * accumulate)
     offset = 0
     for g in grads:
         n = g.numel()

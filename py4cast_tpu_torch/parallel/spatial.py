@@ -1,0 +1,192 @@
+"""The spatial axis: lat bands and the collectives that join them.
+
+A grid of H (padded) lat rows is cut into S contiguous bands of H / S
+rows; spatial rank s holds rows ``[s·H/S, (s+1)·H/S)`` of every grid
+tensor. Graph models flatten the grid row-major, so a band of the flat
+``ngrid`` axis is a band of lat rows. A ``Band`` names this rank's band
+and the process group of the S ranks that share one data index.
+
+Three collectives join the bands, each an autograd ``Function``
+(``gather_lat`` takes no gradient):
+
+- ``halo_rows(x, top, bottom)``: ``x`` (B, H/S, W, C) with the last
+  ``top`` rows of the band above and the first ``bottom`` rows of the
+  band below around it, zeros at the global top and bottom. Its
+  backward sends each halo row's gradient back to its owner, which adds
+  it to its edge rows in a fixed order;
+- ``band_all_reduce(x)``: the sum of every band's partial ``x`` (a
+  GroupNorm's band statistics, the g2m hop's partial aggregate). Its
+  backward all-reduces the cotangent: every band's partial reaches the
+  sum that every rank goes on from;
+- ``gather_lat(x, dim)``: the bands concatenated on ``dim``, for eval,
+  predict, the observers and the writers.
+
+Model code and the losses read this rank's band from ``current_band()``,
+which ``on_band`` sets around a step; the module passes its mesh's band
+where it calls a primitive itself, outside a step's forward (the logged
+loss, the eval rows, ``gather_lat``), and a graph model is handed its
+band at build only to cut its grid-side metadata. With no band (S = 1)
+every primitive is the identity and the code path is the unsharded
+one. The collectives run on the band's group (gloo on the CPU, NCCL on
+cards); every rank of a group must call them in the same order, which
+the same model on the same shapes does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass, field
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+
+@dataclass(frozen=True)
+class Band:
+    """This rank's lat band: ``index`` s of ``count`` S, and ``group``,
+    the process group of the S spatial ranks of its data index, in
+    spatial order."""
+
+    index: int
+    count: int
+    group: Optional[object] = field(default=None, compare=False, repr=False)
+
+    def rows(self, n: int) -> slice:
+        """This band's rows of an axis of ``n`` (global, padded) rows."""
+        if n % self.count:
+            raise ValueError(f"{n} lat rows do not split into {self.count} bands")
+        per = n // self.count
+        return slice(self.index * per, (self.index + 1) * per)
+
+    def cut(self, a, axis: int):
+        """This band's rows of ``a`` (numpy or torch) along ``axis``."""
+        index = [slice(None)] * a.ndim
+        index[axis] = self.rows(a.shape[axis])
+        return a[tuple(index)]
+
+
+_CURRENT: Optional[Band] = None
+
+
+def current_band() -> Optional[Band]:
+    """The band model code runs on, None off the spatial axis."""
+    return _CURRENT
+
+
+@contextlib.contextmanager
+def on_band(band: Optional[Band]):
+    """Run the body on ``band`` (None or a band of one: unsharded)."""
+    global _CURRENT
+    saved = _CURRENT
+    _CURRENT = band if band is not None and band.count > 1 else None
+    try:
+        yield
+    finally:
+        _CURRENT = saved
+
+
+def _gather(t: torch.Tensor, band: Band):
+    """Every band's ``t`` (the same shape on each), in band order."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(band.count)]
+    dist.all_gather(parts, t, group=band.group)
+    return parts
+
+
+class _HaloRows(torch.autograd.Function):
+    """``halo_rows``: each band sends its last ``top`` and first
+    ``bottom`` rows in one all-gather of the band group and keeps its
+    neighbours'; the backward gathers the halo rows' gradients the same
+    way and adds them to the edge rows they came from."""
+
+    @staticmethod
+    def forward(ctx, x, top: int, bottom: int, band: Band):
+        ctx.top, ctx.bottom, ctx.band = top, bottom, band
+        h = x.shape[1]
+        if h < max(top, bottom):
+            raise ValueError(f"a lat band of {h} rows cannot send a halo of {max(top, bottom)}")
+        edges = torch.cat([x[:, h - top:], x[:, :bottom]], dim=1)
+        parts = _gather(edges, band)
+        s, n = band.index, band.count
+        zeros = x.new_zeros
+        above = parts[s - 1][:, :top] if s > 0 else zeros((x.shape[0], top) + x.shape[2:])
+        below = parts[s + 1][:, top:] if s < n - 1 else zeros((x.shape[0], bottom) + x.shape[2:])
+        halo_rows.bytes += (n - 1) * edges.numel() * edges.element_size()
+        return torch.cat([above, x, below], dim=1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        top, bottom, band = ctx.top, ctx.bottom, ctx.band
+        h = g.shape[1] - top - bottom
+        edges = torch.cat([g[:, :top], g[:, top + h:]], dim=1)
+        parts = _gather(edges, band)
+        s, n = band.index, band.count
+        halo_rows.bytes += (n - 1) * edges.numel() * edges.element_size()
+        dx = g[:, top:top + h].clone()
+        # the band above's bottom halo is this band's first rows, the band
+        # below's top halo its last rows: added in that order
+        if s > 0:
+            dx[:, :bottom] += parts[s - 1][:, top:]
+        if s < n - 1:
+            dx[:, h - top:] += parts[s + 1][:, :top]
+        return dx, None, None, None
+
+
+def halo_rows(x: torch.Tensor, top: int, bottom: int,
+              band: Optional[Band] = None) -> torch.Tensor:
+    """NHWC ``x`` (a band's rows) grown by ``top`` rows of the band above
+    and ``bottom`` rows of the band below, zeros at the global edges;
+    off a band, ``x`` padded with zero rows."""
+    band = band or current_band()
+    if band is None or band.count == 1:
+        return F.pad(x, (0, 0, 0, 0, top, bottom))
+    if top == bottom == 0:
+        return x
+    return _HaloRows.apply(x, top, bottom, band)
+
+
+#: bytes this process received from the other bands in halo exchanges,
+#: forward and backward, since the last reset: each exchange is an
+#: all-gather of every band's edge rows, (S − 1)·(top + bottom) rows a
+#: call on every band, of which a band keeps its neighbours' alone
+halo_rows.bytes = 0
+
+
+class _BandAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, band: Band):
+        ctx.band = band
+        out = x.clone(memory_format=torch.contiguous_format)  # NCCL reduces dense rows
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=band.group)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        out = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.band.group)
+        return out, None
+
+
+def band_all_reduce(x: torch.Tensor, band: Optional[Band] = None) -> torch.Tensor:
+    """The sum over the band group of every band's partial ``x``, on
+    every band; its cotangent is all-reduced the same way. ``x`` itself
+    off a band."""
+    band = band or current_band()
+    if band is None or band.count == 1:
+        return x
+    return _BandAllReduce.apply(x, band)
+
+
+def gather_lat(x: torch.Tensor, dim: int, band: Optional[Band] = None) -> torch.Tensor:
+    """Every band's ``x`` concatenated on ``dim`` in band order: the
+    whole grid on every rank of the band group (``x`` itself off a band).
+    Takes no gradient."""
+    band = band or current_band()
+    if band is None or band.count == 1:
+        return x
+    return torch.cat(_gather(x.detach(), band), dim=dim)

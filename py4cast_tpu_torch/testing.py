@@ -239,7 +239,10 @@ def run_ranks(target: str, world_size: int, kwargs: Optional[dict] = None,
 
 
 def _small_module(model_name: str, settings_init_args: dict, grid, device: str,
-                  lat_multiple: Optional[int] = None, **settings):
+                  lat_multiple: Optional[int] = None, mesh=None, **settings):
+    """A small ``scaled_ar`` module; ``mesh`` (data, spatial) lays out the
+    process group (``MeshConfig``; default every rank on the data axis)."""
+    from py4cast_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from py4cast_tpu_torch.training import AutoRegressiveModule, TrainingSettings
 
     info = synthetic_dataset_info(grid_shape=tuple(grid), weather_features=3,
@@ -247,44 +250,115 @@ def _small_module(model_name: str, settings_init_args: dict, grid, device: str,
     settings = TrainingSettings(model_name=model_name, settings_init_args=dict(settings_init_args),
                                 training_strategy="scaled_ar", num_input_steps=2,
                                 num_warmup_steps=2, **settings)
-    return AutoRegressiveModule(settings, info, device=device, lat_multiple=lat_multiple), info
+    layout = make_mesh(MeshConfig(*mesh)) if mesh is not None else None
+    return AutoRegressiveModule(settings, info, device=device, lat_multiple=lat_multiple,
+                                mesh=layout), info
+
+
+def kernel_wrappers() -> dict:
+    """The six kernel wrappers by name, each counting its launches."""
+    from py4cast_tpu_torch.ops import attention, hop_kernel, stencil_kernel
+
+    return {"stencil_message": stencil_kernel.fused_stencil_message,
+            "corner_hop": hop_kernel.fused_corner_hop,
+            "stencil_message_bwd": stencil_kernel.fused_stencil_message_bwd,
+            "corner_hop_bwd": hop_kernel.fused_corner_hop_bwd,
+            "short_kv_attention": attention.fused_short_kv_attention,
+            "short_kv_attention_bwd": attention.fused_short_kv_attention_bwd}
 
 
 def train_report(model_name: str, settings_init_args: dict, grid=(32, 32), batch_size: int = 4,
                  steps: int = 3, seed: int = 0, params_path: Optional[str] = None,
-                 device: str = "cpu") -> dict:
+                 device: str = "cpu", mesh=None, padded_grid=None,
+                 lat_multiple: Optional[int] = None) -> dict:
     """``steps`` AdamW steps of a small ``scaled_ar`` module, alone or on
-    every rank of a group: step k trains on the global batch
-    ``synthetic_batch(info, batch_size, seed=seed + k)``, of which each
-    rank loads its slice through ``DataLoader``. The parameters start
-    from ``params_path`` (a ``torch.save``d dict) or from seed 0. Reports
-    the rank, the world size, the losses and the final parameters."""
-    module, info = _small_module(model_name, settings_init_args, grid, device)
+    every rank of a group laid out as ``mesh`` (data, spatial): step k
+    trains on the global batch ``synthetic_batch(info, batch_size,
+    seed=seed + k)``, of which each data index loads its slice through
+    ``DataLoader``. The parameters start from ``params_path`` (a
+    ``torch.save``d dict) or from seed 0. Reports the rank, the world
+    size, the losses, the final parameters, the kernel launches, halo
+    bytes and host ms of each step, the first step's gradients as AdamW
+    receives them (after ``all_reduce_grads``), the peak device memory
+    (cuda), and ``predict_step`` of the first batch at the final parameters on the
+    whole grid, gathered over the data ranks. With ``padded_grid`` it
+    also predicts that batch's counterpart on a ``padded_grid`` module
+    padded to ``lat_multiple``, from seed-0 parameters."""
+    from py4cast_tpu_torch.parallel.mesh import to_host
+    from py4cast_tpu_torch.parallel.spatial import halo_rows
+
+    module, info = _small_module(model_name, settings_init_args, grid, device,
+                                 lat_multiple=lat_multiple if padded_grid is None else None,
+                                 mesh=mesh)
     params = torch.load(params_path, weights_only=True) if params_path else None
     state = module.init_state(torch.Generator().manual_seed(0), steps, params)
-    losses = []
+    grads = {}
+
+    def keep_first_grads(optimizer, args, kwargs):
+        if not grads:
+            grads.update({k: p.grad.detach().cpu().clone() for k, p in state.params.items()})
+
+    state.optimizer.register_step_pre_hook(keep_first_grads)
+    coords = {"process_index": module.mesh.data_index, "process_count": module.mesh.data}
+    wrappers = kernel_wrappers()
+    losses, launches, halo, host_ms = [], [], [], []
+    batches = []
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     for k in range(steps):
         data = SyntheticDataset(info, batch_size, num_pred_steps=1, seed=seed + k)
-        batch = next(iter(data.loader(batch_size=batch_size, num_workers=1)))
-        losses.append(float(module.train_step(state, batch)))
-    return {"rank": module.mesh.rank, "world_size": module.mesh.world_size, "losses": losses,
-            "params": {k: v.detach().cpu() for k, v in state.params.items()}}
+        batches.append(next(iter(data.loader(batch_size=batch_size, num_workers=1,
+                                             **coords))))
+        for fn in wrappers.values():
+            fn.launches = 0
+        halo_rows.bytes = 0
+        t0 = time.perf_counter()
+        losses.append(float(module.train_step(state, batches[-1])))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({name: fn.launches for name, fn in wrappers.items()})
+        halo.append(halo_rows.bytes)
+    report = {"rank": module.mesh.rank, "world_size": module.mesh.world_size,
+              "losses": losses, "launches": launches, "halo_bytes": halo, "host_ms": host_ms,
+              "params": {k: v.detach().cpu() for k, v in state.params.items()},
+              "grads": grads,
+              "predictions": torch.from_numpy(to_host(
+                  module.predict_step(state, batches[0]).array, module.mesh.data_group))}
+    if device == "cuda":
+        report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if padded_grid is not None:
+        padded, pinfo = _small_module(model_name, settings_init_args, padded_grid, device,
+                                      lat_multiple=lat_multiple, mesh=mesh)
+        pdata = SyntheticDataset(pinfo, batch_size, num_pred_steps=1, seed=seed)
+        pbatch = next(iter(pdata.loader(batch_size=batch_size, num_workers=1, **coords)))
+        pparams = padded.init_params(torch.Generator().manual_seed(0))
+        report["padded_predictions"] = torch.from_numpy(to_host(
+            padded.predict_step(pparams, pbatch).array, padded.mesh.data_group))
+    return report
+
+
+def train_reports(cases: List[dict], **common) -> List[dict]:
+    """``train_report`` of each case (its arguments over ``common``), in
+    turn, in this process: several runs from one launch of the ranks."""
+    return [train_report(**{**common, **case}) for case in cases]
 
 
 def fit_test_report(save_path: str, n_test: int = 11, batch_size: int = 4, grid=(32, 32),
-                    device: str = "cpu") -> dict:
+                    device: str = "cpu", mesh=None) -> dict:
     """A small HalfUNet's ``Trainer.fit`` (2 train batches, a padded
     validation tail), ``Trainer.test`` with logging (figures, scores,
     PSD-K, PSD-Var, ACC) over ``n_test`` samples, the per-sample test
-    rows (``Trainer.eval_rows``) and ``Trainer.predict``, alone or on
-    every rank of a group; rank r saves under ``<save_path>/rank{r}``,
-    so that what each rank wrote can be told apart."""
-    from py4cast_tpu_torch.parallel.mesh import is_main_process, make_mesh
+    rows (``Trainer.eval_rows``), ``Trainer.predict`` and the fitted
+    parameters, alone or on every rank of a group whose module is laid
+    out as ``mesh`` (data, spatial). The ``TrainerConfig`` keeps its
+    default layout: the trainer follows the module's mesh. Rank r saves
+    under ``<save_path>/rank{r}``, so that what each rank wrote can be
+    told apart."""
+    from py4cast_tpu_torch.parallel.mesh import is_main_process
     from py4cast_tpu_torch.training import Trainer, TrainerConfig
 
     module, info = _small_module("HalfUNet", {"num_filters": 8, "depth": 2}, grid, device,
-                                 num_pred_steps_val_test=2)
-    rank = make_mesh().rank
+                                 mesh=mesh, num_pred_steps_val_test=2)
+    rank = module.mesh.rank
     trainer = Trainer(TrainerConfig(max_epochs=1, batch_size=batch_size, num_workers=1,
                                     limit_train_batches=2, save_path=f"{save_path}/rank{rank}",
                                     device=device))
@@ -293,9 +367,11 @@ def fit_test_report(save_path: str, n_test: int = 11, batch_size: int = 4, grid=
     test = SyntheticDataset(info, n_test, num_pred_steps=2, seed=2)
     state = trainer.fit(module, train, val)
     scores = trainer.test(module, test, state)
-    rows = trainer.eval_rows(module, state, test.loader(batch_size=batch_size, num_workers=1,
-                                                        drop_last=False, pad_last=True))
+    rows = trainer.eval_rows(module, state, test.loader(
+        batch_size=batch_size, num_workers=1, drop_last=False, pad_last=True,
+        process_index=module.mesh.data_index, process_count=module.mesh.data))
     preds = trainer.predict(module, test, state)
     return {"rank": rank, "is_main": is_main_process(), "scores": scores,
             "rows": torch.from_numpy(rows), "step": state.step,
+            "params": {k: v.detach().cpu() for k, v in state.params.items()},
             "predictions": torch.from_numpy(np.concatenate([p.array for p in preds]))}

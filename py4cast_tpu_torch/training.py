@@ -13,7 +13,12 @@ stays on the device until the epoch ends.
 Under a ``torch.distributed`` process group (``parallel.mesh``) every
 rank runs the same loop on its slice of each global batch: one gradient
 all-reduce an optimizer step, eval rows and predictions gathered to
-every rank, writes on rank 0.
+every rank, writes on rank 0. Under a spatial axis (``mesh.spatial`` >
+1: HalfUNet, UNet and the lattice-path graph models) each rank also
+holds one lat band of the grid (``parallel.spatial``): its statics,
+masks and batch rows; the bands join inside the model, their loss
+shares are summed, and predictions and eval arrays are gathered back to
+the whole grid before anything on the host sees them.
 
 Parameters travel as a plain ``{name: tensor}`` dict, applied with
 ``torch.func.functional_call`` — the counterpart of the JAX package's
@@ -56,6 +61,7 @@ from py4cast_tpu_torch.models import (
 )
 from py4cast_tpu_torch.named_tensor import NamedArray
 from py4cast_tpu_torch.parallel.mesh import (
+    SPATIAL_NEXT_ITEM,
     Mesh,
     MeshConfig,
     all_gather_rows,
@@ -66,6 +72,7 @@ from py4cast_tpu_torch.parallel.mesh import (
     make_mesh,
     to_host,
 )
+from py4cast_tpu_torch.parallel.spatial import band_all_reduce, gather_lat, on_band
 from py4cast_tpu_torch.plots import (
     NO_FIGURES,
     PredictionEpochPlot,
@@ -277,11 +284,11 @@ def _zero_fill_grads(params: Params) -> None:
             p.grad = torch.zeros_like(p)
 
 
-def _global_rows(t: torch.Tensor, batch: ItemBatch) -> np.ndarray:
-    """A batch's per-sample rows on the host: gathered over the ranks in
-    global order, cut to the global batch's real samples (a padded
-    tail's repeats never count)."""
-    rows = to_host(t)
+def _global_rows(t: torch.Tensor, batch: ItemBatch, mesh: Mesh) -> np.ndarray:
+    """A batch's per-sample rows on the host: gathered over the data
+    ranks in global order, cut to the global batch's real samples (a
+    padded tail's repeats never count)."""
+    rows = to_host(t, mesh.data_group)
     return rows[: batch.num_valid or len(rows)]
 
 
@@ -308,7 +315,15 @@ class AutoRegressiveModule:
     needs: padded rows are excluded from the loss, border-forced in
     rollouts and cut off every prediction and eval array, while
     ``dataset_info``, manifests and everything the host sees keep the
-    original grid."""
+    original grid.
+
+    Under ``mesh.spatial`` S > 1 (the models with ``spatial_shardable``;
+    others raise) the padded lat splits into S bands and this rank keeps
+    its band (``mesh.band``) of the statics, the masks and every batch
+    array; the graph is built on the whole padded grid and cut after.
+    Each band must hold a multiple of the rows the model's pools need
+    (``ModelBase.spatial_lat_multiple``); ``lat_multiple`` (default S)
+    pads to make it so."""
 
     def __init__(self, settings: TrainingSettings, dataset_info: DatasetInfo,
                  device="cuda", mesh: Optional[Mesh] = None,
@@ -343,7 +358,10 @@ class AutoRegressiveModule:
                 "operates on the (lat, lon) grid layout. Set mask_ratio: 0."
             )
 
-        multiple = lat_multiple or self.mesh.spatial
+        sp = self.mesh.spatial
+        if sp > 1:
+            self._refuse_on_bands(kls, settings)
+        multiple = lat_multiple or sp
         self._lat_pad = (-statics.grid_shape[0]) % multiple if multiple > 1 else 0
         self._orig_grid_shape = tuple(statics.grid_shape)
         if self._lat_pad:
@@ -353,9 +371,14 @@ class AutoRegressiveModule:
 
         grid_shape = statics.grid_shape
         input_shape = (grid_shape[0] * grid_shape[1],) if self.is_graph else tuple(grid_shape)
+        if grid_shape[0] % sp:
+            raise ValueError(f"(padded) lat {grid_shape[0]} does not split into {sp} spatial "
+                             f"bands; pass a lat_multiple that {sp} divides")
         extra = {}
         if self.is_graph:
             extra["graph"] = kls.build_graph(model_settings, statics.meshgrid)
+            if sp > 1:
+                extra["band"] = (self.mesh.spatial_index, sp)
         self.model = build_model_from_settings(
             settings.model_name,
             self.num_input_features,
@@ -364,6 +387,12 @@ class AutoRegressiveModule:
             input_shape,
             **extra,
         ).to(self.device).eval()
+        band_rows, need = grid_shape[0] // sp, self.model.spatial_lat_multiple()
+        if sp > 1 and band_rows % need:
+            raise ValueError(
+                f"{settings.model_name} pools a lat band of {band_rows} rows on its own, "
+                f"which needs a multiple of {need} rows: pass lat_multiple={sp * need}")
+        statics = statics.band(self.mesh.spatial_index, sp)
 
         host_statics = dataset_info.statics
         if self.is_graph:
@@ -403,6 +432,22 @@ class AutoRegressiveModule:
         )
         self.loss = CombinedLoss(settings.losses)
         self.loss.prepare(self.interior_mask_np, dataset_info, out_names)
+
+    def _refuse_on_bands(self, kls, settings: TrainingSettings) -> None:
+        """What cannot run on the lat bands of a spatial mesh yet raises,
+        naming the ROADMAP.md item that ports it."""
+        sp = self.mesh.spatial
+        why = None
+        if not kls.spatial_shardable:
+            why = (f"{settings.model_name} reads across lat bands (attention, windows, "
+                   f"strided or resized encoders)")
+        elif settings.mask_ratio > 0:
+            why = f"mask_ratio={settings.mask_ratio} draws its blocks on the whole grid"
+        elif any(conf["class"] == "PerceptualLossPy4Cast" for conf in settings.losses):
+            why = "PerceptualLossPy4Cast convolves and subsamples whole fields"
+        if why is not None:
+            raise ValueError(f"spatial={sp}: {why}; not ported to a spatial mesh yet "
+                             f"({SPATIAL_NEXT_ITEM}); use spatial=1")
 
     # ------------------------------------------------------------------ setup
     def init_params(self, generator: torch.Generator) -> Params:
@@ -508,17 +553,21 @@ class AutoRegressiveModule:
 
     def _pad_lat_np(self, a) -> np.ndarray:
         """Zero-pad the lat axis (2) of a host (B, T, lat, lon, F) batch
-        array up to the padded grid; the pad rows are all border."""
-        if not self._lat_pad:
-            return a
-        widths = [(0, 0)] * np.ndim(a)
-        widths[2] = (0, self._lat_pad)
-        return np.pad(np.asarray(a, np.float32), widths)
+        array up to the padded grid (the pad rows are all border), and
+        keep this rank's lat band of it."""
+        if self._lat_pad:
+            widths = [(0, 0)] * np.ndim(a)
+            widths[2] = (0, self._lat_pad)
+            a = np.pad(np.asarray(a, np.float32), widths)
+        band = self.mesh.band
+        return a if band is None else band.cut(a, 2)
 
     def _unpad(self, t: torch.Tensor) -> torch.Tensor:
-        """Cut the padded lat rows off a (B, T, lat, lon, F) prediction;
-        on a GRAPH model's (B, T, ngrid, F), whose ngrid is lat-major,
-        the first lat·lon nodes are the real ones."""
+        """The whole grid of a band's (B, T, lat, lon, F) prediction
+        (``gather_lat`` over the spatial ranks), with the padded lat rows
+        cut off; on a GRAPH model's (B, T, ngrid, F), whose ngrid is
+        lat-major, the first lat·lon nodes are the real ones."""
+        t = gather_lat(t, 2, self.mesh.band)
         if not self._lat_pad:
             return t
         lat, lon = self._orig_grid_shape
@@ -594,15 +643,16 @@ class AutoRegressiveModule:
         and the micro-batch's index (``TrainState``'s optimizer and micro
         steps, 0 for bare params), so every train step draws new masks and
         a resumed run draws the ones an unbroken run would have. With
-        several ranks the rank is folded in too, so that ranks draw
-        different masks for their different rows: topologies then agree
-        in distribution, not in value."""
+        several data ranks the data index is folded in too, so that they
+        draw different masks for their different rows (topologies then
+        agree in distribution, not in value), while the spatial ranks of
+        one sample draw alike."""
         if not self._dropout_active:
             return None
         index = (state.step * state.accumulate + state.micro_step
                  if isinstance(state, TrainState) else 0)
         seed = fold_seed(self.settings.seed, DROPOUT_STREAM, index)
-        return fold_seed(seed, self.mesh.rank) if self.mesh.world_size > 1 else seed
+        return fold_seed(seed, self.mesh.data_index) if self.mesh.data > 1 else seed
 
     def _rollout(self, params: Params, inputs, forcing, outputs, num_pred_steps: int,
                  generator=None, dropout_seed: Optional[int] = None):
@@ -624,7 +674,9 @@ class AutoRegressiveModule:
     def _batch_loss(self, params: Params, inputs, forcing, outputs, num_pred_steps: int,
                     generator=None, dropout_seed: Optional[int] = None):
         """(mean loss, (preds, per-step loss)). The rollout back-propagates
-        through every AR step, as the JAX package's does."""
+        through every AR step, as the JAX package's does. On a lat band
+        (call inside ``on_band``) the preds are the band's and the losses
+        its shares of the global ones."""
         preds = self._rollout(params, inputs, forcing, outputs, num_pred_steps, generator,
                               dropout_seed)
         mask, target = self._mask_and_target(outputs)
@@ -648,16 +700,17 @@ class AutoRegressiveModule:
         """(loss, {name: grad}) of one batch's training loss at the
         state's parameters, leaving the state untouched; dropout, if a
         rate is active, draws the masks ``train_step`` would at this
-        state."""
+        state. On a lat band: this band's share of each, unreduced."""
         leaves = {k: v.detach().clone().requires_grad_(True)
                   for k, v in self._place(_params_of(state)).items()}
         inputs, forcing, outputs = self._batch_arrays(batch, with_outputs=True)
-        loss, _ = self._batch_loss(leaves, inputs, forcing, outputs, batch.num_pred_steps,
-                                   generator, self._dropout_seed(state))
-        # a parameter the loss does not reach (HiLAMParallel's last layers
-        # above level 0) gets zeros, as jax.grad gives it
-        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
-                                    materialize_grads=True)
+        with on_band(self.mesh.band):
+            loss, _ = self._batch_loss(leaves, inputs, forcing, outputs, batch.num_pred_steps,
+                                       generator, self._dropout_seed(state))
+            # a parameter the loss does not reach (HiLAMParallel's last
+            # layers above level 0) gets zeros, as jax.grad gives it
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), dict(zip(leaves, grads))
 
     @exact_fp32
@@ -670,18 +723,24 @@ class AutoRegressiveModule:
         predict are deterministic.
 
         Under a process group the step's gradients are all-reduced once,
-        after the backward (``parallel.mesh.all_reduce_grads``), so that
-        every rank steps on the global mean; the returned loss is the
-        mean over the ranks, the global batch's loss."""
+        after the backward (``parallel.mesh.all_reduce_grads``: summed over
+        the spatial ranks, averaged over the data ranks), so that every
+        rank steps on the global mean; the returned loss is the global
+        batch's: the sum of the bands' shares, averaged over the data
+        ranks."""
         inputs, forcing, outputs = self._batch_arrays(batch, with_outputs=True)
-        loss, _ = self._batch_loss(state.params, inputs, forcing, outputs,
-                                   batch.num_pred_steps, generator, self._dropout_seed(state))
-        loss.backward()  # sums into each parameter's .grad
+        band = self.mesh.band
+        with on_band(band):
+            loss, _ = self._batch_loss(state.params, inputs, forcing, outputs,
+                                       batch.num_pred_steps, generator,
+                                       self._dropout_seed(state))
+            loss.backward()  # sums into each parameter's .grad
         state.micro_step += 1
         if state.micro_step == state.accumulate:
             _zero_fill_grads(state.params)
             if self.mesh.distributed:
-                all_reduce_grads(state.params, self.mesh.world_size, state.accumulate)
+                all_reduce_grads(state.params, self.mesh.world_size, state.accumulate,
+                                 self.mesh.spatial)
             elif state.accumulate > 1:
                 for p in state.params.values():
                     p.grad.div_(state.accumulate)
@@ -690,22 +749,24 @@ class AutoRegressiveModule:
             state.optimizer.zero_grad(set_to_none=True)
             state.micro_step = 0
             state.step += 1
-        loss = loss.detach()
+        loss = band_all_reduce(loss.detach(), band)
         if self.mesh.distributed:
-            loss = all_gather_rows(loss.reshape(1)).mean()
+            loss = all_gather_rows(loss.reshape(1), self.mesh.data_group).mean()
         return loss
 
     @exact_fp32
     def eval_step(self, state: Union[TrainState, Params], batch: ItemBatch,
                   generator: Optional[torch.Generator] = None):
         """(normalized preds, per-sample per-step loss (B, T)) without
-        gradients."""
+        gradients; on a lat band the band's preds and the whole grid's
+        losses."""
         params = self._place(_params_of(state))
         inputs, forcing, outputs = self._batch_arrays(batch, with_outputs=True)
-        with torch.no_grad():
+        band = self.mesh.band
+        with torch.no_grad(), on_band(band):
             _, (preds, per_step) = self._batch_loss(params, inputs, forcing, outputs,
                                                     batch.num_pred_steps, generator)
-        return preds, per_step
+        return preds, band_all_reduce(per_step, band)
 
     @exact_fp32
     def predict_step(self, state: Union[TrainState, Params], batch: ItemBatch,
@@ -717,7 +778,7 @@ class AutoRegressiveModule:
         params = self._place(_params_of(state))
         inputs, forcing, _ = self._batch_arrays(batch)
         buf = self._buffers
-        with torch.inference_mode():
+        with torch.inference_mode(), on_band(self.mesh.band):
             preds = self._rollout(params, inputs, forcing, None, batch.num_pred_steps,
                                   generator)
             preds = preds * buf["stats_std"] + buf["stats_mean"]
@@ -730,11 +791,13 @@ class AutoRegressiveModule:
         grid, the batch's real rows only (a padded tail's repeated rows
         never reach an observer). Under a process group this is a
         collective: every rank gets the global batch's rows, in global
-        order. Alone, only the real rows' targets are copied."""
+        order, on the whole grid. Alone, only the real rows' targets are
+        copied."""
         preds = self._unpad(preds)
         if self.mesh.distributed:
-            preds = all_gather_rows(preds)
-            outputs = all_gather_rows(self._to_device(batch.outputs.array))
+            preds = all_gather_rows(preds, self.mesh.data_group)
+            outputs = all_gather_rows(self._to_device(batch.outputs.array),
+                                      self.mesh.data_group)
             nv = batch.num_valid or preds.shape[0]
         else:
             nv = batch.valid_count
@@ -836,9 +899,11 @@ def check_manifest_contract(manifest: dict, dataset_info: DatasetInfo):
 @dataclass
 class TrainerConfig:
     """The `trainer:` config section (the JAX package's keys), plus the
-    device the port runs on. ``mesh_data_parallel`` is -1 or the world
-    size of the current process group (1 without one); ``mesh_spatial``
-    > 1 is not ported (ROADMAP.md, queue 1 item 12b)."""
+    device the port runs on. ``mesh_data_parallel`` × ``mesh_spatial``
+    is the world size of the current process group (1 without one);
+    ``mesh_data_parallel`` -1 takes the ranks ``mesh_spatial`` leaves.
+    The CLI builds the module's mesh from them; ``Trainer`` itself
+    follows the mesh of the module it is handed."""
 
     max_epochs: int = 1
     batch_size: int = 1
@@ -904,6 +969,14 @@ class Trainer:
                 f"the module lives on {module.device}, the trainer runs on {self.device}"
             )
 
+    @staticmethod
+    def _loader(module: AutoRegressiveModule, ds, **kwargs):
+        """``ds``'s loader on ``module``'s mesh: each data index loads its
+        slice of every global batch, the spatial ranks of one data index
+        the same samples."""
+        return ds.loader(process_index=module.mesh.data_index,
+                         process_count=module.mesh.data, **kwargs)
+
     def _log(self, tag: str, value: float, step: int):
         for lg in self.loggers:
             lg.log_scalar(tag, value, step)
@@ -954,7 +1027,7 @@ class Trainer:
             if limit and i >= limit:
                 break
             preds, per_step = module.eval_step(state, batch, generator)
-            rows.append(_global_rows(per_step, batch))
+            rows.append(_global_rows(per_step, batch, module.mesh))
             if observe is not None:
                 observe(batch, preds)
         return np.concatenate(rows, axis=0) if rows else np.zeros((0, 0), np.float32)
@@ -1002,13 +1075,15 @@ class Trainer:
             self.save_path.mkdir(parents=True, exist_ok=True)
         generator = self._generator(module.settings.seed)
 
-        train_loader = train_ds.loader(
+        train_loader = self._loader(
+            module, train_ds,
             batch_size=cfg.batch_size, num_workers=cfg.num_workers, shuffle=True,
             prefetch=cfg.prefetch_factor, seed=cfg.seed,
         )
         # score EVERY val sample: pad the tail batch and mask the padded
         # rows (val_mean_loss drives checkpoint selection and early stop)
-        val_loader = val_ds.loader(
+        val_loader = self._loader(
+            module, val_ds,
             batch_size=cfg.batch_size, num_workers=cfg.num_workers,
             drop_last=False, pad_last=True,
         )
@@ -1195,7 +1270,8 @@ class Trainer:
         generator = self._generator(0)
         module._plot_loggers = self.loggers
         module.current_epoch = 0
-        loader = test_ds.loader(
+        loader = self._loader(
+            module, test_ds,
             batch_size=cfg.batch_size, num_workers=cfg.num_workers,
             drop_last=False, pad_last=True,
         )
@@ -1235,12 +1311,14 @@ class Trainer:
         self._check_module(module)
         cfg = self.config
         generator = self._generator(cfg.seed)
-        loader = infer_ds.loader(
+        loader = self._loader(
+            module, infer_ds,
             batch_size=cfg.batch_size, num_workers=cfg.num_workers,
             drop_last=False, pad_last=True,
         )
         preds = []
         for batch in loader:
             p = module.predict_step(state, batch, generator)
-            preds.append(NamedArray(_global_rows(p.array, batch), p.names, p.feature_names))
+            preds.append(NamedArray(_global_rows(p.array, batch, module.mesh), p.names,
+                                    p.feature_names))
         return preds

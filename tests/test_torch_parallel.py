@@ -1,6 +1,8 @@
 """The scale-out layer's data axis and lat padding, on the CPU.
 
-In this process: the mesh and its refusals, the process-group entry
+In this process: the mesh and its refusals (a layout the world size
+does not hold, the models and paths that do not run on a spatial mesh
+yet, spatial > 1 on one card), the process-group entry
 (``maybe_init_distributed``) for torchrun and SLURM, a gloo group of one
 rank bit for bit against no group, the loader's rank slices, the
 dropout seed of each rank, ``Statics.pad_lat`` and a padded module
@@ -110,17 +112,18 @@ def test_mesh_without_a_process_group_is_one_rank():
 
 
 @pytest.mark.parametrize("config,match", [
-    (MeshConfig(spatial=2), "queue 1 item 12b"),
-    (MeshConfig(data_parallel=2, spatial=2), "queue 1 item 12b"),
+    (MeshConfig(spatial=2), "mesh 1x2 does not match 1 processes"),
+    (MeshConfig(data_parallel=2, spatial=2), "mesh 2x2 does not match 1 processes"),
     (MeshConfig(data_parallel=2), "mesh 2x1 does not match 1 processes"),
 ])
 def test_make_mesh_refuses(config, match):
+    """A layout whose data x spatial is not the world size."""
     with pytest.raises(ValueError, match=match):
         make_mesh(config)
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh_spatial": 2}, "queue 1 item 12b"),
+    ({"mesh_spatial": 2}, "mesh_spatial=2: mesh 1x2 does not match 1 processes"),
     ({"mesh_data_parallel": 2}, "does not match 1 processes"),
 ])
 def test_trainer_config_refuses_a_mesh_the_group_cannot_hold(kw, match):
@@ -134,10 +137,37 @@ def test_trainer_config_takes_the_world_size():
             MeshConfig(dp, 1)
 
 
-def test_module_refuses_a_spatial_mesh():
-    with pytest.raises(ValueError, match="item 12b"):
-        AutoRegressiveModule(_settings(), _info(), device="cpu",
+@pytest.mark.parametrize("model,args,match", [
+    ("Segformer", {"dims": (16, 32), "heads": (1, 2)}, "Segformer reads across lat bands"),
+    ("SwinUNetR", {"feature_size": 8, "depths": (1, 1), "num_heads": (2, 2),
+                   "window_size": 4}, "SwinUNetR reads across lat bands"),
+    ("HiLAM", {"hidden_dims": 8, "mesh_levels": 2, "use_lattice": False},
+     "HiLAM runs the gather-table path"),
+])
+def test_module_refuses_a_spatial_mesh(model, args, match):
+    """The models and the path the spatial axis does not reach yet raise,
+    naming the ROADMAP.md item that ports them (the table path is refused
+    by the JAX package too)."""
+    settings = TrainingSettings(model_name=model, settings_init_args=args,
+                                training_strategy="scaled_ar", num_input_steps=2)
+    with pytest.raises(ValueError, match=f"(?s){match}.*spatial.*queue 1 item 12c"):
+        AutoRegressiveModule(settings, _info(), device="cpu",
                              mesh=Mesh(world_size=2, data=1, spatial=2))
+
+
+def test_spatial_ranks_on_one_card_raise_and_nothing_falls_back(launcher_env, monkeypatch):
+    """Two ranks (data 1 x spatial 2) on a host of one card: the second
+    rank has no card of its own, and NCCL runs one rank a card; the
+    group is not joined on gloo instead."""
+    monkeypatch.setattr(port_mesh, "resolve_device", lambda device: torch.device(device))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for key, value in {"RANK": "1", "WORLD_SIZE": "2", "LOCAL_RANK": "1",
+                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "29500"}.items():
+        launcher_env.setenv(key, value)
+    with pytest.raises(RuntimeError, match=r"local rank 1 has no card of its own.*1 card\(s\)"
+                                           r".*spatial > 1 needs spatial cards a data group"):
+        port_mesh.maybe_init_distributed("cuda")
+    assert not port_mesh.distributed()
 
 
 def test_shard_batch_refuses_a_batch_the_data_axis_does_not_divide():

@@ -315,8 +315,10 @@ def test_restore_of_an_orbax_directory_raises(fitted, tmp_path):
 
 #: what each refusal names: the spatial axis waits for item 12b, a data
 #: axis must match the world size (1 without a process group)
-REFUSALS = {"mesh_spatial": "queue 1 item 12b", "mesh_data_parallel": "does not match 1 processes",
-            "profiler": "queue 2"}
+#: one process cannot hold a spatial mesh of two bands any more than a
+#: data mesh of four ranks: each needs that many processes (one card each)
+REFUSALS = {"mesh_spatial": "mesh 1x2 does not match 1 processes",
+            "mesh_data_parallel": "does not match 1 processes", "profiler": "queue 2"}
 
 
 @pytest.mark.parametrize("key,value", [("mesh_spatial", 2), ("mesh_data_parallel", 4),
