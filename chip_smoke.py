@@ -176,7 +176,28 @@ non-zero exit code and no result line:
    step on the 1791x2801 Titan grid (padded to 1792) at S = 1, 2 and 4
    and each rank's peak memory; "not run, N card(s)" otherwise; the
    phase's wall time;
-22. the script's wall time, one JSON line with every kernel's numbers,
+22. the datasets, on trees written from a seed under build/ and deleted
+   after: (a) Titan at its default configuration (37 fields, 21
+   AROME input_output and 16 ARPEGE inputs, on PAAROME_1S40's 512x640
+   subdomain, 12 hours of files, periods narrowed in a dataset conf
+   JSON): the port's dataset CLI's prepare (statistics), describe and
+   speedtest, and titan.yaml's loader (batch 2, 10 workers) ms a batch
+   in its steady state (2 batches skipped, 20 timed) through the C++ npy
+   reader and through per-file numpy reads; (b) the
+   CLI's fit (3 optimizer steps), test and predict on it, fp32, with
+   halfunet.yaml and graphlam.yaml, each counted (GraphLAM's a-fwd,
+   a-bwd, b-fwd and b-bwd at 512x640), predictions written and read
+   back; beside it, the first batch on the card bit for bit the numpy
+   item, the first step's loss within TOL of the CPU's and its gradients
+   held against the CPU's as phase 21 (b) holds them, host ms a train
+   step, loader ms a batch, ``_to_device`` ms and peak memory; (c)
+   Poesy at its real 600x600x45x16 shape (one run, t2m and u10, two
+   1.04 GB memory-mapped files), members 0 and 3, HalfUNet at
+   halfunet.yaml's width: fit 2 steps, test and predict, the members
+   each trained on, scored and exported; (d) Rainfall, a dozen
+   1536x1536 files: one HalfUNet fit step and one predict, their peak
+   memory; the phase's wall time;
+23. the script's wall time, one JSON line with every kernel's numbers,
    then the result line.
 
 Each model path runs with every launch count set to 0 just before it
@@ -185,6 +206,8 @@ kernel of another path that was, fails the run.
 
 ``--kernels NAME ...`` runs phases 1 to 3c for those kernels alone and
 stops without a result line: the short loop for one kernel's work.
+``--datasets`` runs phases 1, 2 and 22 alone and stops without a
+result line: the loop for the data path.
 ``--spatial`` runs phases 1, 2, 20 (d) and 21 alone and stops without a
 result line: the multi-card loop for the data and spatial axes, which
 saves running every one-card phase again on four cards.
@@ -2805,6 +2828,543 @@ def spatial_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 22
+#: phase 22's trees, written afresh under build/ and deleted after
+SMOKE_TREES = BUILD / "smoke_data" / "trees"
+#: the Titan, Poesy and Rainfall model configs phase 22 runs: the yamls'
+#: widths (halfunet.yaml, graphlam.yaml)
+TITAN_MODELS = ("halfunet", "graphlam")
+#: the Titan loader's steady window: batches skipped (the prefetch's
+#: start-up), then batches timed
+LOADER_WINDOW = (2, 20)
+
+
+def _titan_smoke_conf() -> dict:
+    """TitanAccessor.default_config() with its periods narrowed to 12
+    hours of files: the train day's hours 0-7 (7 samples of titan.yaml's
+    1 + 1 steps) and hours 0, 1, 3 and 4 of the next day for valid and
+    test (a t0 every 3 hours: 2 samples each). Grid, subdomain and the
+    37 fields stay as they are."""
+    from py4cast_tpu_torch.datasets.titan import TitanAccessor
+
+    conf = TitanAccessor.default_config()
+    day2 = {"start": 20230102, "end": 20230102, "obs_step": 3600, "obs_step_btw_t0": 10800}
+    conf["periods"] = {"train": {"start": 20230101, "end": 20230101, "obs_step": 3600},
+                       "valid": day2, "test": dict(day2)}
+    return conf
+
+
+def _titan_dates():
+    import datetime as dt
+
+    return ([dt.datetime(2023, 1, 1, h) for h in range(8)]
+            + [dt.datetime(2023, 1, 2, h) for h in (0, 1, 3, 4)])
+
+
+def _numpy_titan():
+    """TitanAccessor reading each file with np.load, one param at a time
+    (no fused read, no C++ reader): the plain version of the reader."""
+    from py4cast_tpu_torch.datasets.titan import TitanAccessor
+
+    class NumpyTitan(TitanAccessor):
+        @classmethod
+        def file_paths_for(cls, *args, **kwargs):
+            return None
+
+        @classmethod
+        def load_data_from_disk(cls, dataset_name, param, timestamps, member=0,
+                                file_format="npy"):
+            paths = TitanAccessor.file_paths_for(dataset_name, param, timestamps, member, "npy")
+            return np.stack([np.load(p) for p in paths])[..., None]
+
+    return NumpyTitan()
+
+
+def _with_accessor(ds, accessor):
+    """A shallow copy of dataset ``ds`` whose samples read through
+    ``accessor``."""
+    import copy
+
+    out = copy.copy(ds)
+    out.accessor = accessor
+    out.__dict__.pop("sample_list", None)
+    return out
+
+
+def _repeated(ds, times: int):
+    """A shallow copy of dataset ``ds`` whose samples are its own
+    ``times`` over, in order: a window long enough for a steady rate."""
+    import copy
+
+    out = copy.copy(ds)
+    out.__dict__["sample_list"] = list(ds.sample_list) * times
+    return out
+
+
+def _loader_ms(ds, batch_size: int, num_workers: int, skip: int, n: int) -> float:
+    """ms a batch of ``ds``'s unshuffled loader in its steady state: the
+    time from the ``skip``-th batch to the ``skip + n``-th, over ``n`` (the
+    prefetch's start-up, in the first batches, left out)."""
+    it = iter(ds.loader(batch_size=batch_size, num_workers=num_workers))
+    for _ in range(skip):
+        next(it)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(it)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _dataset_cli(*args) -> str:
+    """The port's dataset CLI in-process; its standard output, echoed."""
+    import contextlib
+    import io
+
+    from py4cast_tpu_torch.datasets import dataset_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = dataset_cli.main(list(args))
+    if rc != 0:
+        raise AssertionError(f"dataset_cli {' '.join(args)}: exit {rc}")
+    text = buf.getvalue()
+    for line in text.splitlines()[-4:]:
+        log(f"  dataset_cli {args[1]}: {line}")
+    return text
+
+
+def titan_data(conf_path: Path) -> dict:
+    """Phase 22 (a): the Titan tree at the default configuration, the
+    port's dataset CLI on it (prepare with the statistics, describe,
+    speedtest), and the steady ms a batch of titan.yaml's loader (batch
+    2, 10 workers; ``LOADER_WINDOW``, over the train samples repeated)
+    through the C++ reader and through per-file numpy reads, in the
+    order C++, numpy, numpy, C++ (warm page cache: the files were just
+    written)."""
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.datasets.synthetic_trees import titan_fields, write_titan_tree
+
+    conf = _titan_smoke_conf()
+    conf_path.write_text(json.dumps(conf))
+    fields = titan_fields(conf)
+    t0 = time.perf_counter()
+    sub = conf["grid"]["subdomain"]
+    files = write_titan_tree(SMOKE_TREES / "titan",
+                             f"titan_aro_arp_{conf['grid']['name']}_{'-'.join(map(str, sub))}",
+                             fields, _titan_dates(), (sub[1] - sub[0], sub[3] - sub[2]), seed=22)
+    write_s = time.perf_counter() - t0
+    n_bytes = sum(p.stat().st_size for p in files)
+    common = ["--dataset-conf", str(conf_path), "--num-input-steps", "1"]
+    t0 = time.perf_counter()
+    _dataset_cli("titan_aro_arp", "prepare", *common)
+    prepare_s = time.perf_counter() - t0
+    described = _dataset_cli("titan_aro_arp", "describe", *common)
+    if "Summarizing titan_aro_arp_PAAROME_1S40" not in described:
+        raise AssertionError("dataset_cli describe printed no summary")
+    speed = _dataset_cli("titan_aro_arp", "speedtest", *common, "--batch-size", "2",
+                         "--num-workers", "10", "--n-iter", "3")
+    speed_ms = float(re.search(r"ms a batch: ([0-9.]+)", speed).group(1))
+
+    train = get_datasets("titan_aro_arp", 1, 1, 1, dataset_conf=str(conf_path))[0]
+    plain = _with_accessor(train, _numpy_titan())
+    skip, n = LOADER_WINDOW
+    times = -(-2 * (skip + n) // len(train))
+    loaders = {"cpp": _repeated(train, times), "numpy": _repeated(plain, times)}
+    reads = {"cpp": [], "numpy": []}
+    for which in ("cpp", "numpy", "numpy", "cpp"):
+        reads[which].append(_loader_ms(loaders[which], 2, 10, skip, n))
+    item, want = train[0], plain[0]
+    for attr in ("inputs", "outputs", "forcing"):
+        if not np.array_equal(getattr(item, attr).array, getattr(want, attr).array):
+            raise AssertionError(f"Titan item {attr}: the fused C++ read differs from numpy's")
+    return {**titan_sample_breakdown(train.sample_list[0]), "fields": len(fields),
+            "grid": list(train.grid_shape), "hours": len(_titan_dates()),
+            "files": len(files), "bytes": n_bytes, "write_s": write_s,
+            "prepare_s": prepare_s, "train_samples": len(train),
+            "speedtest_ms_a_batch": speed_ms, "batches_skipped": skip, "batches_timed": n,
+            "loader_ms_a_batch_cpp": reads["cpp"], "loader_ms_a_batch_numpy": reads["numpy"],
+            "batch": 2, "workers": 10, "page_cache": "warm"}
+
+
+def titan_sample_breakdown(sample, reps: int = 3) -> dict:
+    """Where one Titan sample's load goes, host ms (medians of ``reps``):
+    the C++ reader alone on the sample's files, the fused read with the
+    standardization (``_batched_param_arrays``), the whole ``load`` (the
+    features concatenated, the forcings generated), and numpy's np.load
+    of the same files."""
+    from py4cast_tpu_torch.native import read_npy_float32_batch
+
+    paths = [q for prm in sample.params for q in sample.accessor.file_paths_for(
+        sample.settings.dataset_name, prm, sample._param_stamps(prm), sample.member, "npy")]
+    shape = np.load(paths[0], mmap_mode="r").shape
+    calls = {"read_ms": lambda: read_npy_float32_batch(paths, shape),
+             "numpy_read_ms": lambda: [np.load(q) for q in paths],
+             "read_and_standardize_ms": lambda: sample._batched_param_arrays(True),
+             "load_ms": sample.load}
+    out = {"sample_files": len(paths)}
+    for key, fn in calls.items():
+        out[key] = float(np.median(_timed(fn, reps)))
+    return out
+
+
+def titan_step_checks(model_yaml: str, conf_path: Path) -> dict:
+    """Phase 22 (b), in-process beside the CLI: the first train batch on
+    the card equals the numpy item bit for bit; the first step's loss on
+    the card within TOL of the CPU's for the same params and batch, and
+    its gradients held against the CPU's (``titan_grads_vs_cpu``); host
+    ms a train step, loader ms a batch, ``_to_device`` ms of a batch and
+    peak memory (3 AdamW steps on that batch after one warm-up)."""
+    import yaml
+
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.training import AutoRegressiveModule, TrainingSettings
+
+    model = yaml.safe_load((ROOT / f"config/CLI/model/{model_yaml}.yaml").read_text())["model"]
+    model["betas"] = tuple(model["betas"])
+    train = get_datasets("titan_aro_arp", 1, 1, 1, dataset_conf=str(conf_path))[0]
+    settings = TrainingSettings(**model, num_input_steps=1, num_pred_steps_train=1,
+                                num_pred_steps_val_test=1)
+    t0 = time.perf_counter()
+    loader = iter(train.loader(batch_size=2, num_workers=10))
+    batch = next(loader)
+    loader_ms = [(time.perf_counter() - t0) * 1e3]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        next(loader)
+        loader_ms.append((time.perf_counter() - t0) * 1e3)
+    del loader
+    plain = _with_accessor(train, _numpy_titan())
+    module = AutoRegressiveModule(settings, train.dataset_info, device="cuda")
+    torch.cuda.synchronize()
+    copy_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        on_card = {a: module._to_device(getattr(batch, a).array)
+                   for a in ("inputs", "forcing", "outputs")}
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    for a, t in on_card.items():
+        want = np.stack([getattr(plain[i], a).array for i in range(2)])
+        got = t.cpu().numpy().reshape(want.shape)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{model_yaml}: the batch's {a} on the card is not the numpy item")
+    del on_card
+
+    state = module.init_state(torch.Generator().manual_seed(0), num_training_steps=4)
+    params = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+    loss_card, grads = module.loss_and_grads(params, batch)
+    cpu = AutoRegressiveModule(settings, train.dataset_info, device="cpu")
+    loss_cpu, grads_cpu = cpu.loss_and_grads(params, batch)
+    rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    if not rel <= TOL or not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+        raise AssertionError(f"{model_yaml} Titan step 1: loss card {float(loss_card)} vs "
+                             f"cpu {float(loss_cpu)} (rel {rel:.2e}) or non-finite gradients")
+    grad = titan_grads_vs_cpu(model_yaml, grads, grads_cpu)
+    del grads, grads_cpu, cpu
+    module.train_step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss = module.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"{model_yaml} Titan train step: loss {float(loss)}")
+    return {"batch_equals_numpy_item": True, "loss_card": float(loss_card),
+            "loss_cpu": float(loss_cpu), "loss_rel_diff": rel, **grad, "host_ms_a_step": step_ms,
+            "loader_ms_a_batch": loader_ms, "to_device_ms_a_batch": copy_ms,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def titan_grads_vs_cpu(model_yaml: str, card: dict, cpu: dict) -> dict:
+    """The first Titan step's gradients on the card against the CPU's
+    (where the kernel wrappers run their plain versions), as phase 21 (b)
+    holds its gradients: GraphLAM's (a-bwd and b-bwd at 512x640) each
+    leaf within GRAD_TOL of the largest CPU gradient; HalfUNet's, for
+    cuDNN's per-shape algorithms and the ReLU kinks, by the ratio of the
+    norms within GRAD_TOL of 1. The worst leaf, the relative L2 and the
+    norm ratio are printed beside, whichever is held."""
+    largest = max(float(g.abs().max()) for g in cpu.values())
+    errs = {k: float((card[k].cpu().double() - g.double()).abs().max()) for k, g in cpu.items()}
+    worst = max(errs, key=errs.get)
+    flat_card = torch.cat([card[k].cpu().double().reshape(-1) for k in cpu])
+    flat_cpu = torch.cat([g.double().reshape(-1) for g in cpu.values()])
+    out = {"grad_worst_leaf": worst, "grad_max_err_over_largest": errs[worst] / largest,
+           "grad_rel_l2": float((flat_card - flat_cpu).norm() / flat_cpu.norm()),
+           "grad_norm_ratio_off_1": abs(float(flat_card.norm() / flat_cpu.norm()) - 1.0),
+           "grad_held_by": ("norm ratio" if model_yaml == "halfunet" else "max over largest")}
+    held = out["grad_norm_ratio_off_1" if model_yaml == "halfunet" else
+               "grad_max_err_over_largest"]
+    if not held <= GRAD_TOL:
+        raise AssertionError(f"{model_yaml} Titan step 1 gradients, card vs CPU: {out}")
+    return out
+
+
+def titan_cli(model_yaml: str, conf_path: Path) -> dict:
+    """Phase 22 (b): the port's CLI on the Titan tree, fp32, with
+    trainer.yaml, titan.yaml (``data.dataset_conf`` the conf's JSON) and
+    the model's yaml: fit (3 optimizer steps, 1 validation batch), then
+    test and predict from its checkpoint (the manifest's contract checked
+    against the dataset), each counted; the predictions written and
+    read back."""
+    import shutil
+    from types import SimpleNamespace
+
+    import yaml
+
+    from py4cast_tpu_torch import cli
+    from py4cast_tpu_torch.models import get_model_kls_and_settings
+
+    save = BUILD / f"smoke_titan_{model_yaml}"
+    shutil.rmtree(save, ignore_errors=True)
+    configs = ["--config", str(ROOT / "config/CLI/trainer.yaml"),
+               "--config", str(ROOT / "config/CLI/dataset/titan.yaml"),
+               "--config", str(ROOT / f"config/CLI/model/{model_yaml}.yaml"),
+               "--data.dataset_conf", str(conf_path), "--trainer.save_path", str(save)]
+    extra = {"fit": ["--trainer.max_epochs", "1", "--trainer.limit_train_batches", "3",
+                     "--trainer.limit_val_batches", "1"],
+             "test": ["--trainer.ckpt_path", "last"], "predict": ["--trainer.ckpt_path", "last"]}
+    model = yaml.safe_load((ROOT / f"config/CLI/model/{model_yaml}.yaml").read_text())["model"]
+    _, ms = get_model_kls_and_settings(model["model_name"], dict(model["settings_init_args"]))
+    counted = SimpleNamespace(settings=SimpleNamespace(model_name=model["model_name"]),
+                              model_settings=ms)
+    # 1 + 1 steps, batch 2: 3 train steps and 1 validation batch; the 2
+    # test samples are 1 batch for test and for predict
+    calls = {"fit": (3 + 1, 3), "test": (1, 0), "predict": (1, 0)}
+    out = {"launches": {}, "seconds": {}}
+    for sub in ("fit", "test", "predict"):
+        reset_counts()
+        t0 = time.perf_counter()
+        if cli.main([sub, *configs, *extra[sub]]) != 0:
+            raise AssertionError(f"cli {sub} on Titan with {model_yaml}.yaml failed")
+        torch.cuda.synchronize()
+        out["seconds"][sub] = time.perf_counter() - t0
+        out["launches"][sub] = read_counts()
+        want = expected_launches(counted, *calls[sub])
+        if out["launches"][sub] != want:
+            raise AssertionError(f"cli {sub} Titan {model_yaml}: launches "
+                                 f"{out['launches'][sub]}, expected {want}")
+    manifest = json.loads((save / "checkpoints" / "manifest.json").read_text())
+    scores = json.loads((save / "test_scores.json").read_text())
+    preds = [np.load(p) for p in sorted((save / "predictions").glob("batch_*.npy"))]
+    grid = tuple(manifest["grid_shape"])
+    spatial = (grid[0] * grid[1],) if model["model_name"] == "GraphLAM" else grid
+    if (len(preds) != 1 or preds[0].shape != (2, 1, *spatial, 21)
+            or not np.isfinite(preds[0]).all() or not np.isfinite(scores["test_mean_loss"])):
+        raise AssertionError(f"Titan {model_yaml} outputs: {[p.shape for p in preds]}, "
+                             f"scores {scores}")
+    out.update(model=model["model_name"], test_mean_loss=scores["test_mean_loss"],
+               prediction_files=len(preds), prediction_shape=list(preds[0].shape),
+               manifest_grid=manifest["grid_shape"],
+               manifest_features=len(manifest["output_feature_names"]))
+    return out
+
+
+def _recording_loads(into: list):
+    """A Sample.load that records each sample's (t0, member) in ``into``."""
+    from py4cast_tpu_torch.datasets.base import Sample
+
+    load = Sample.load
+
+    def recording(self, *args, **kwargs):
+        into.append((self.timestamps.datetime.isoformat(), int(self.member)))
+        return load(self, *args, **kwargs)
+
+    return load, recording
+
+
+def poesy_members(conf_path: Path) -> dict:
+    """Phase 22 (c): Poesy at its real DATA_SHAPE (600 x 600 x 45
+    leadtimes x 16 members; one run, t2m and u10: two 1.04 GB files
+    written through open_memmap in slabs), members 0 and 3; HalfUNet at
+    halfunet.yaml's width: prepare, fit (2 steps of batch 2), test and
+    predict; the members each loaded, scored and exported."""
+    import datetime as dt
+
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.datasets.base import Sample
+    from py4cast_tpu_torch.datasets.poesy import DATA_SHAPE, PoesyAccessor
+    from py4cast_tpu_torch.datasets.synthetic_trees import write_poesy_tree
+    from py4cast_tpu_torch.training import AutoRegressiveModule, Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    files = write_poesy_tree(SMOKE_TREES / "poesy", DATA_SHAPE, [dt.datetime(2021, 6, 1)],
+                             variables=("t2m", "u10"), seed=22)
+    write_s = time.perf_counter() - t0
+    conf = PoesyAccessor.default_config()
+
+    def leadtimes(first, last):
+        return {"start": 20210601, "end": 20210601, "refcst_daily_runs": [0],
+                "refcst_leadtime_start_in_sec": 3600 * first,
+                "refcst_leadtime_end_in_sec": 3600 * (last + 1),
+                "refcst_leadtime_step_in_sec": 3600}
+
+    conf["periods"] = {"train": leadtimes(1, 2), "valid": leadtimes(3, 3),
+                       "test": leadtimes(4, 4)}
+    conf["members"] = [0, 3]
+    conf["params"] = {k: v for k, v in conf["params"].items() if k in ("t2m", "u10")}
+    conf_path.write_text(json.dumps(conf))
+    t0 = time.perf_counter()
+    _dataset_cli("poesy", "prepare", "--dataset-conf", str(conf_path))
+    prepare_s = time.perf_counter() - t0
+    train_ds, val_ds, test_ds = get_datasets("poesy", 1, 1, 1, dataset_conf=str(conf_path))
+    t0 = time.perf_counter()
+    train_ds[0]
+    load_ms = (time.perf_counter() - t0) * 1e3
+    settings = model_settings("HalfUNet", num_warmup_steps=2, num_pred_steps_train=1,
+                              num_pred_steps_val_test=1, num_input_steps=1)
+    module = AutoRegressiveModule(settings, train_ds.dataset_info, device="cuda")
+    trainer = Trainer(TrainerConfig(max_epochs=1, check_val_every_n_epoch=2, batch_size=2,
+                                    num_workers=2, logging_enabled=False, device="cuda",
+                                    save_path=str(BUILD / "smoke_poesy")))
+    seen = {"fit": [], "test": [], "predict": []}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for what in seen:
+        load, recording = _recording_loads(seen[what])
+        Sample.load = recording
+        try:
+            if what == "fit":
+                state = trainer.fit(module, train_ds, val_ds)
+            elif what == "test":
+                scores = trainer.test(module, test_ds, state)
+            else:
+                preds = trainer.predict(module, test_ds, state)
+        finally:
+            Sample.load = load
+    counts = read_counts()
+    if counts != expected_launches(module, 0, 0):
+        raise AssertionError(f"Poesy HalfUNet launched {counts}")
+
+    def keys(ds):
+        return {(s.timestamps.datetime.isoformat(), int(s.member)) for s in ds.sample_list}
+
+    members = {what: sorted({m for _, m in seen[what]}) for what in seen}
+    rows = sum(p.array.shape[0] for p in preds)
+    if (state.step != 2 or set(seen["fit"]) != keys(train_ds) or set(seen["test"]) != keys(test_ds)
+            or set(seen["predict"]) != keys(test_ds) or rows != len(test_ds)
+            or any(m != [0, 3] for m in members.values())
+            or not np.isfinite(scores["test_mean_loss"])
+            or not all(np.isfinite(p.array).all() for p in preds)):
+        raise AssertionError(f"Poesy members: steps {state.step}, seen {seen}, rows {rows}, "
+                             f"scores {scores}")
+    return {"data_shape": list(DATA_SHAPE), "files": len(files),
+            "bytes": sum(p.stat().st_size for p in files), "write_s": write_s,
+            "prepare_s": prepare_s, "sample_load_ms": load_ms, "grid": list(train_ds.grid_shape),
+            "members_trained": members["fit"], "members_scored": members["test"],
+            "members_exported": members["predict"], "optimizer_steps": state.step,
+            "test_mean_loss": scores["test_mean_loss"], "prediction_rows": rows,
+            "prediction_shape": list(preds[0].array.shape),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def rainfall_run(conf_path: Path) -> dict:
+    """Phase 22 (d): a dozen 1536 x 1536 radar files (5 minutes apart,
+    npz stored without compression: zlib would take most of the phase),
+    Rainfall's default configuration narrowed to their hour and
+    rainfall.yaml's steps (2 inputs, 1 AR step to train, 3 to predict):
+    prepare, one HalfUNet fit step at halfunet.yaml's width and one
+    sample's predict, the peak memory of each."""
+    import datetime as dt
+
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.datasets.rainfall import RainfallAccessor
+    from py4cast_tpu_torch.datasets.synthetic_trees import write_rainfall_tree
+    from py4cast_tpu_torch.training import AutoRegressiveModule, Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    write_rainfall_tree(SMOKE_TREES / "rainfall", dt.datetime(2023, 6, 1), 12, (1536, 1536),
+                        seed=22, compressed=False)
+    write_s = time.perf_counter() - t0
+    conf = RainfallAccessor.default_config()
+    day = {"start": 20230601, "end": 20230601, "obs_step": 300}
+    conf["periods"] = {"train": day, "valid": dict(day), "test": dict(day)}
+    conf_path.write_text(json.dumps(conf))
+    steps = ["--num-input-steps", "2", "--num-pred-steps-val-test", "3"]
+    t0 = time.perf_counter()
+    _dataset_cli("rainfall", "prepare", "--dataset-conf", str(conf_path), *steps)
+    prepare_s = time.perf_counter() - t0
+    train_ds, val_ds, test_ds = get_datasets("rainfall", 2, 1, 3, dataset_conf=str(conf_path))
+    settings = model_settings("HalfUNet", num_warmup_steps=2, num_pred_steps_train=1,
+                              num_pred_steps_val_test=3, num_input_steps=2)
+    module = AutoRegressiveModule(settings, train_ds.dataset_info, device="cuda")
+    trainer = Trainer(TrainerConfig(max_epochs=1, check_val_every_n_epoch=2, batch_size=1,
+                                    limit_train_batches=1, num_workers=2, logging_enabled=False,
+                                    device="cuda", save_path=str(BUILD / "smoke_rainfall")))
+    first = test_ds.sample_list[0]
+    one = test_ds.filter_samples(lambda s: s is first)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.fit(module, train_ds, val_ds)
+    torch.cuda.synchronize()
+    fit_s, fit_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (pred,) = trainer.predict(module, one, state)
+    torch.cuda.synchronize()
+    predict_s, predict_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    if read_counts() != expected_launches(module, 0, 0):
+        raise AssertionError(f"Rainfall HalfUNet launched {read_counts()}")
+    if (state.step != 1 or pred.array.shape != (1, 3, *train_ds.grid_shape, 1)
+            or not np.isfinite(pred.array).all()):
+        raise AssertionError(f"Rainfall: step {state.step}, prediction {pred.array.shape}")
+    return {"grid": list(train_ds.grid_shape), "files": 12, "write_s": write_s,
+            "prepare_s": prepare_s, "train_samples": len(train_ds), "fit_s": fit_s,
+            "fit_peak_bytes": fit_peak, "predict_s": predict_s, "predict_peak_bytes": predict_peak,
+            "prediction_shape": list(pred.array.shape)}
+
+
+def datasets_phase() -> dict:
+    """Phase 22, the datasets: (a) Titan at its default configuration
+    (``titan_data``); (b) the CLI's fit, test and predict on it with
+    halfunet.yaml and graphlam.yaml, and the in-process checks of
+    ``titan_step_checks``; (c) Poesy's members (``poesy_members``); (d)
+    Rainfall (``rainfall_run``). The accessors read trees under
+    ``SMOKE_TREES``, whatever the environment names, and the trees are
+    deleted after."""
+    import shutil
+
+    import py4cast_tpu_torch.datasets.poesy as poesy
+    import py4cast_tpu_torch.datasets.rainfall as rainfall
+    import py4cast_tpu_torch.datasets.titan as titan
+
+    t22 = time.perf_counter()
+    shutil.rmtree(SMOKE_TREES, ignore_errors=True)
+    SMOKE_TREES.mkdir(parents=True)
+    roots = [(titan, "TITAN_PATH", SMOKE_TREES / "titan"),
+             (poesy, "POESY_PATH", SMOKE_TREES / "poesy"),
+             (poesy, "CACHE_DIR", SMOKE_TREES / "cache"),
+             (rainfall, "RAINFALL_PATH", SMOKE_TREES / "rainfall")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in roots]
+    for mod, attr, path in roots:
+        setattr(mod, attr, path)
+    try:
+        titan_conf = SMOKE_TREES / "titan_aro_arp.json"
+        out = {"card": card_line(), "titan": titan_data(titan_conf)}
+        log(f"phase 22 (a) Titan data: {json.dumps(out['titan'])}")
+        for model_yaml in TITAN_MODELS:
+            row = titan_cli(model_yaml, titan_conf)
+            row["steps"] = titan_step_checks(model_yaml, titan_conf)
+            out[f"titan_{model_yaml}"] = row
+            log(f"phase 22 (b) Titan {model_yaml}: {json.dumps(row)}")
+            torch.cuda.empty_cache()
+        out["poesy"] = poesy_members(SMOKE_TREES / "poesy.json")
+        log(f"phase 22 (c) Poesy: {json.dumps(out['poesy'])}")
+        torch.cuda.empty_cache()
+        out["rainfall"] = rainfall_run(SMOKE_TREES / "rainfall.json")
+        log(f"phase 22 (d) Rainfall: {json.dumps(out['rainfall'])}")
+        torch.cuda.empty_cache()
+    finally:
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
+        shutil.rmtree(SMOKE_TREES, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t22
+    log(f"phase 22 wall: {out['wall_s']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------- main
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2812,6 +3372,10 @@ def main(argv=None) -> int:
         "--kernels", nargs="+", choices=sorted(KERNEL_SOURCES), metavar="NAME",
         help="only build, check and time these kernels (phases 1 to 3c), print their "
              "numbers and stop, with no result line; names: " + ", ".join(sorted(KERNEL_SOURCES)))
+    parser.add_argument(
+        "--datasets", action="store_true",
+        help="only build the kernels and run phase 22 (the Titan, Poesy and Rainfall "
+             "datasets), with no result line")
     parser.add_argument(
         "--spatial", action="store_true",
         help="only build the kernels and run phases 20 (d) and 21 (the data and spatial "
@@ -2866,7 +3430,7 @@ def main(argv=None) -> int:
               "corner_hop_bwd": lambda: [check_hop_bwd(rng)],
               # phase 3c: the attention kernels at the Segformer cell's shapes
               "short_kv_attention": lambda: check_attention(rng)}
-    kernels = [] if parsed.spatial else [
+    kernels = [] if parsed.spatial or parsed.datasets else [
         k for name, check in checks.items() if only is None or name in only for k in check()]
     for k in kernels:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e} ms {k['ms']:.4f} "
@@ -2900,6 +3464,12 @@ def main(argv=None) -> int:
     if only is not None:
         log(card)
         log(json.dumps({"kernels": kernels}))
+        return 0
+    if parsed.datasets:
+        out = datasets_phase()
+        (OUT_DIR / "smoke_datasets_report.json").write_text(json.dumps(out, indent=1))
+        log(f"wall: {time.perf_counter() - t_start:.1f} s")
+        log(card)
         return 0
     if parsed.spatial:
         out = {"card": card, "cards": torch.cuda.device_count()}
@@ -3083,6 +3653,10 @@ def main(argv=None) -> int:
     # ranks on bands against one when the machine has the cards
     spatial = spatial_phase()
 
+    # phase 22: the Titan, Poesy and Rainfall datasets, Titan's default
+    # configuration through the CLI with HalfUNet and GraphLAM
+    datasets = datasets_phase()
+
     # each model path ran with every count set to 0 just before it and
     # checked just after (a kernel of another path launched fails); a
     # kernel's launches are the sum over the paths that run it
@@ -3113,6 +3687,9 @@ def main(argv=None) -> int:
                                     for row in spatial["graph_bands"]["rows"]) + sum(
             cell["launches_a_step"][k["name"]] for row in spatial["ranks"]
             for cell in row["cells"])
+        # phase 22: the CLI's fit, test and predict on Titan (GraphLAM's)
+        k["launches_titan"] = sum(counts[k["name"]] for m in TITAN_MODELS
+                                  for counts in datasets[f"titan_{m}"]["launches"].values())
         top = by_kernel[k["name"]]
         k["bf16"] = {"shape": top["shape"], "ms": top["ms"], "fp32_ms": top["fp32_ms"],
                      "cast_ms": top["cast_ms"],
@@ -3132,7 +3709,7 @@ def main(argv=None) -> int:
          "unet_full_size": plain_full, "unetrpp_predict_dummy": rpp_dummy,
          "unetrpp_fit_dummy": rpp_fit, "unetrpp_full_size": rpp_full, "bf16": bf16,
          "resnet": resnet, "swin_table": swin_table, "data_axis": data_axis,
-         "spatial": spatial,
+         "spatial": spatial, "datasets": datasets,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(card)

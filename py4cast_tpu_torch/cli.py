@@ -25,8 +25,12 @@ and HiLAMParallel; one card a rank, so S cards a data group):
     torchrun --nproc-per-node 4 -m py4cast_tpu_torch fit --config ... \\
         --trainer.mesh_spatial 2
 
-Cross-section links: ``data.num_input_steps``, ``data.num_pred_steps_*``
-and ``data.batch_size`` flow into the training settings and trainer.
+Cross-section links: ``data.num_input_steps``, ``data.num_pred_steps_*``,
+``data.batch_size``, ``data.num_workers`` and ``data.prefetch_factor``
+flow into the training settings and trainer (a ``trainer:`` key of the
+same name wins). ``data.dataset_conf`` is a dataset's JSON config (the
+file's stem names the dataset's directories, as ``titan_aro_arp.json``);
+null takes the accessor's ``default_config()``.
 ``test`` and ``predict`` rebuild the model from the checkpoint's
 manifest and check the dataset against its contract.
 """
@@ -217,6 +221,7 @@ def build_all(conf: dict, manifest: Optional[dict] = None):
     ckpt_path = trainer_conf.pop("ckpt_path", None)
     trainer_conf.setdefault("batch_size", data_cfg.batch_size)
     trainer_conf.setdefault("num_workers", data_cfg.num_workers)
+    trainer_conf.setdefault("prefetch_factor", data_cfg.prefetch_factor)
     tcfg = TrainerConfig(**_filter_fields(TrainerConfig, trainer_conf))
 
     module = AutoRegressiveModule(settings, dm.train_dataset_info, device=tcfg.device,

@@ -1,20 +1,23 @@
-"""Dataset registry and entry point.
-
-Only the Dummy dataset is ported so far; the other accessors of the
-JAX package are named here so that asking for one says where it stands.
-"""
+"""Dataset registry and entry point: Dummy, Titan, Poesy and Rainfall,
+looked up by a registered key that is a substring of the dataset's name
+(``titan_aro_arp`` finds Titan)."""
 
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 from py4cast_tpu_torch.datasets.base import WeatherDataset
 from py4cast_tpu_torch.datasets.dummy import DummyAccessor
+from py4cast_tpu_torch.datasets.poesy import PoesyAccessor
+from py4cast_tpu_torch.datasets.rainfall import RainfallAccessor
+from py4cast_tpu_torch.datasets.titan import TitanAccessor
 from py4cast_tpu_torch.utils import merge_dicts
 
-registry: Dict[str, type] = {"dummy": DummyAccessor}
-
-#: accessors of the JAX package the port does not have yet
-NOT_YET_PORTED = ("titan", "poesy", "rainfall")
+registry: Dict[str, type] = {
+    "dummy": DummyAccessor,
+    "titan": TitanAccessor,
+    "poesy": PoesyAccessor,
+    "rainfall": RainfallAccessor,
+}
 
 
 def get_accessor(name: str) -> type:
@@ -22,13 +25,6 @@ def get_accessor(name: str) -> type:
     for key, kls in registry.items():
         if key in name.lower():
             return kls
-    for key in NOT_YET_PORTED:
-        if key in name.lower():
-            raise NotImplementedError(
-                f"The {key} accessor is not ported to py4cast_tpu_torch yet "
-                "(ROADMAP.md, queue 1: the remaining datasets); only "
-                f"{list(registry)} is available"
-            )
     raise ValueError(f"Dataset {name} not found in registry, available: {list(registry)}")
 
 

@@ -431,6 +431,33 @@ class DataAccessor(ABC):
         file_format: str = "npy",
     ) -> np.ndarray: ...
 
+    @classmethod
+    def file_paths_for(
+        cls,
+        dataset_name: str,
+        param: WeatherParam,
+        timestamps: Timestamps,
+        member: int = 0,
+        file_format: str = "npy",
+    ) -> Optional[List[Path]]:
+        """Optional hook: the one-file-per-validity-time paths behind
+        ``load_data_from_disk``, or None when the accessor's storage is
+        not file-per-timestep. When every param of a sample provides
+        paths, Sample.load fuses ALL of them into ONE parallel batch read
+        (``native.read_npy_float32_batch`` on ``csrc/p4t_io.cpp``)
+        instead of one small call per param: the reader's thread pool
+        only saturates with a whole sample's worth of files.
+
+        CONTRACT: the returned files must be consumable RAW: the fused
+        path copies float32 payloads straight into the batch buffer, so
+        any postprocessing ``load_data_from_disk`` applies (unit
+        conversion, latitude flips, regridding, ...) must either be baked
+        into the files or the accessor must return None here. An
+        accessor implementing this hook should ship an equivalence test
+        against its per-param path (see
+        tests/test_torch_datasets.py::test_fused_read_equals_per_param_read)."""
+        return None
+
     @abstractmethod
     def exists(
         self,

@@ -2,8 +2,9 @@
 
 Everything here is host-side numpy; the module moves batches to its
 device (``training.AutoRegressiveModule``). A copy of the JAX package's
-``py4cast_tpu/datasets/base.py``, minus the native batch reader and the
-plotting hooks.
+``py4cast_tpu/datasets/base.py``: a sample whose accessor names its
+files (``DataAccessor.file_paths_for``) is read in one call of the
+parallel npy batch reader (``native.py``).
 """
 
 from __future__ import annotations
@@ -202,6 +203,32 @@ class DatasetInfo:
     forcing_feature_names: Tuple[str, ...] = ()
     units_by_feature: Optional[Dict[str, str]] = None
 
+    def summary(self):
+        """Print the dataset's step, statics, and each feature's unit,
+        statistics and state weight."""
+        print(f"\n Summarizing {self.name}\n")
+        print(f"Step duration: {self.pred_step}")
+        print(f"Static features: {self.statics.grid_statics.feature_names}")
+        print(f"Shortnames: {self.shortnames}")
+        for kind in ["input", "input_output", "output"]:
+            names = self.shortnames.get(kind, []) if self.shortnames else []
+            if not names:
+                continue
+            print(kind.upper())
+            for n in names:
+                s = self.stats[n]
+                row = (
+                    f"  {n} [{self.units.get(n, '?')}] mean={s['mean']:.4g} "
+                    f"std={s['std']:.4g} min={s['min']:.4g} max={s['max']:.4g}"
+                )
+                if kind != "input" and n in self.diff_stats:
+                    d = self.diff_stats[n]
+                    row += (
+                        f" diff_mean={d['mean']:.4g} diff_std={d['std']:.4g} "
+                        f"weight={self.state_weights.get(n, 1.0)}"
+                    )
+                print(row)
+
 
 def get_param_list(
     conf: dict, grid: Grid, accessor: Type[DataAccessor]
@@ -278,17 +305,57 @@ class Sample:
             arr = (arr - self.stats[name]["mean"]) / self.stats[name]["std"]
         return np.asarray(arr, dtype=np.float32)
 
+    def _param_stamps(self, param: WeatherParam) -> Timestamps:
+        return self.timestamps if param.kind == "input_output" else self.output_timestamps
+
+    def _batched_param_arrays(self, standardize: bool) -> Optional[dict]:
+        """Whole-sample fused read: ONE parallel batch over every (param ×
+        validity time) file, since a sample's worth of files is what it
+        takes to saturate the reader's thread pool (a per-param call
+        covers only num_steps files). Returns {param_name: (T,H,W,1)}, or
+        None when the accessor's storage is not file-per-timestep npy or
+        its files differ in shape."""
+        if self.settings.file_format != "npy":
+            return None
+        per_param = []
+        for p in self.params:
+            paths = self.accessor.file_paths_for(
+                self.settings.dataset_name, p, self._param_stamps(p), self.member, "npy",
+            )
+            if paths is None:
+                return None
+            per_param.append(paths)
+        from py4cast_tpu_torch.native import read_npy_float32_batch
+
+        # one batch buffer needs one shape: read the headers alone (mmap)
+        shapes = {np.load(paths[0], mmap_mode="r").shape for paths in per_param}
+        if len(shapes) != 1:
+            return None
+        flat = [q for paths in per_param for q in paths]
+        block = read_npy_float32_batch(flat, shapes.pop())
+        out, i = {}, 0
+        for p, paths in zip(self.params, per_param):
+            arr = block[i : i + len(paths)][..., None]
+            i += len(paths)
+            if standardize:
+                name = self.accessor.parameter_namer(p)
+                arr = (arr - self.stats[name]["mean"]) / self.stats[name]["std"]
+            out[self.accessor.parameter_namer(p)] = np.asarray(arr, dtype=np.float32)
+        return out
+
     def load(self, no_standardize: bool = False) -> Item:
         linputs, loutputs, lforcings = [], [], []
         names4 = ("timestep", "lat", "lon", "features")
         standardize = self.settings.standardize and not no_standardize
+        batched = self._batched_param_arrays(standardize)
 
         for param in self.params:
             fname = self.accessor.parameter_namer(param)
-            stamps = (
-                self.timestamps if param.kind == "input_output" else self.output_timestamps
+            arr = (
+                batched[fname]
+                if batched is not None
+                else self.get_param_array(param, self._param_stamps(param), standardize)
             )
-            arr = self.get_param_array(param, stamps, standardize)
             nt = NamedArray(arr, names4, (fname,))
             if param.kind == "input":
                 lforcings.append(nt)
@@ -320,6 +387,19 @@ class Sample:
             forcing=NamedArray.concat(lforcings) if lforcings else None,
             validity_times=self.output_timestamps.validity_times,
         )
+
+    # ------------------------------------------------------------- plotting
+    def plot(self, item: Item, step: int, save_path: Optional[Path] = None):
+        """Every feature of one timestep of ``item`` (needs matplotlib)."""
+        from py4cast_tpu_torch.plots import plot_sample_step
+
+        plot_sample_step(self, item, step, save_path)
+
+    def plot_gif(self, save_path: Path):
+        """An animated GIF over the sample's steps (needs matplotlib)."""
+        from py4cast_tpu_torch.plots import sample_gif
+
+        sample_gif(self, save_path)
 
 
 class WeatherDataset:

@@ -1,4 +1,4 @@
-"""Build the CUDA sources under ``csrc/`` and load them with ctypes.
+"""Build the sources under ``csrc/`` into shared libraries loaded with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own
 shared library, compiled by ``nvcc`` for ``sm_90a`` at first use into
@@ -6,9 +6,11 @@ shared library, compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``.gitignore``). The file name carries a hash of the source and the
 flags, so an edited source is rebuilt and a stale library is never
 loaded. ``build_all`` starts one ``nvcc`` per source, all at once.
+``build`` is the step both compilers go through: ``nvcc`` here, the
+host C++ compiler for the npy batch reader (``native.py``).
 
 Nothing here runs when the package is imported, and nothing falls back:
-a missing ``nvcc`` or a failed build raises.
+a missing compiler or a failed build raises.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -68,36 +70,48 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def _nvcc_cmd(name: str, out: Path) -> List[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+def build(jobs: Sequence[Tuple[str, Sequence[str], Path, Path]], what: str) -> None:
+    """Compile each ``(label, compiler_and_flags, source, library)`` job
+    whose library is missing, all started together, as
+    ``compiler_and_flags -o <tmp> source``. Each writes under a private
+    name, renamed to ``library`` when it succeeds, so that a concurrent
+    build or reader never sees half a file. Raises ``RuntimeError``
+    naming ``what`` and each failed job, with its compiler's output."""
+    procs, failures = [], []
+    for label, cmd, source, lib in jobs:
+        if lib.exists():
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".tmp{os.getpid()}_{threading.get_ident()}.so")
+        full = [*cmd, "-o", str(tmp), str(source)]
+        try:
+            proc = subprocess.Popen(full, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        except OSError as e:
+            failures.append((f"{label} ({' '.join(full)}: {e})", ""))
+            continue
+        procs.append((label, full, lib, tmp, proc))
+    for label, full, lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append((f"{label} ({' '.join(full)}: exit {proc.returncode})",
+                             log.decode(errors="replace")))
+        else:
+            os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError(f"{what} failed to build: "
+                           + "; ".join(head for head, _ in failures) + "\n"
+                           + "\n".join(f"--- {head}\n{log}" for head, log in failures if log))
 
 
 def build_all(names=SOURCES) -> List[Path]:
     """Compile every source whose library is missing, one ``nvcc`` per
     source, all started together. Returns the library paths."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name in names:
-        lib = library_path(name)
-        if lib.exists():
-            continue
-        # write under a private name, then rename: a concurrent build or
-        # reader never sees a half-written library
-        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-        procs.append((name, lib, tmp, subprocess.Popen(
-            _nvcc_cmd(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        )))
-    failures = []
-    for name, lib, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"--- {name}.cu (nvcc exit {proc.returncode}):\n"
-                            f"{log.decode(errors='replace')}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, lib)
-    if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    missing = [n for n in names if not library_path(n).exists()]
+    if missing:
+        nvcc = [nvcc_path(), *NVCC_FLAGS]
+        build([(f"{n}.cu", nvcc, CSRC / f"{n}.cu", library_path(n)) for n in missing],
+              "the CUDA kernels")
     return [library_path(n) for n in names]
 
 

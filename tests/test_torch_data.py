@@ -203,8 +203,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(both_test_sets):
 
 
 def test_unported_names_raise(both_test_sets):
-    """SwinUNetR, the zoo's last model, builds now; the datasets not yet
-    ported still raise; precision "64" runs in fp32 with a warning."""
+    """SwinUNetR, the zoo's last model, builds now; so do the Titan,
+    Poesy and Rainfall datasets (Titan's default config on its 512 x 640
+    subdomain), while an unknown dataset name raises; precision "64" runs
+    in fp32 with a warning."""
     module = AutoRegressiveModule(
         TrainingSettings(model_name="SwinUNetR",
                          settings_init_args={"feature_size": 6, "depths": [2],
@@ -215,8 +217,11 @@ def test_unported_names_raise(both_test_sets):
                     generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         assert module.model(x).shape == (1, 64, 64, module.num_output_features)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        port_get_datasets("titan", 2, 1, 1)
+    splits = port_get_datasets("titan", 2, 1, 1)
+    assert [ds.period.name for ds in splits] == ["train", "valid", "test"]
+    assert splits[0].grid_shape == (512, 640)
+    with pytest.raises(ValueError, match="not found in registry"):
+        port_get_datasets("era5", 2, 1, 1)
     with pytest.warns(UserWarning, match="fp32"):
         module = AutoRegressiveModule(
             TrainingSettings(model_name="GraphLAM", precision="64",

@@ -1,7 +1,8 @@
 """The port stands alone: every module of py4cast_tpu_torch, its example
 plugin (py4cast_tpu_torch_plugin_example.py) and chip_smoke.py import
-with JAX and the JAX package blocked, and no source imports from
-py4cast_tpu."""
+with JAX and the JAX package blocked, and with xarray, cfgrib, zarr and
+cartopy blocked too (imported only inside the functions that need
+them), and no source imports from py4cast_tpu."""
 
 import re
 import subprocess
@@ -13,7 +14,10 @@ PORT = ROOT / "py4cast_tpu_torch"
 
 _BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "py4cast_tpu"):
+# the JAX side, and the optional packages that only the functions needing
+# them import (grib reading, zarr conversion, map projections)
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "py4cast_tpu",
+             "xarray", "cfgrib", "zarr", "cartopy"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import py4cast_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(py4cast_tpu_torch.__path__, "py4cast_tpu_torch.")]
@@ -79,11 +83,15 @@ def test_no_source_imports_the_jax_package():
 
 def test_importing_the_port_builds_nothing():
     """Import must not build or load a CUDA library: the kernels build at
-    their first launch on a CUDA tensor (or by chip_smoke.py)."""
+    their first launch on a CUDA tensor (or by chip_smoke.py); nor the
+    npy batch reader, which builds at its first read."""
     code = (
         "import py4cast_tpu_torch.models, py4cast_tpu_torch.training\n"
+        "import py4cast_tpu_torch.datasets, py4cast_tpu_torch.datasets.dataset_cli\n"
+        "from py4cast_tpu_torch import native\n"
         "from py4cast_tpu_torch.ops import _build\n"
         "assert _build._LIBS == {}, _build._LIBS\n"
+        "assert native._LIB is None\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
