@@ -197,7 +197,25 @@ non-zero exit code and no result line:
    each trained on, scored and exported; (d) Rainfall, a dozen
    1536x1536 files: one HalfUNet fit step and one predict, their peak
    memory; the phase's wall time;
-23. the script's wall time, one JSON line with every kernel's numbers,
+23. the user tools: (a) ``export.export_forward`` (as
+   ``Trainer._log_model`` calls it; every Dummy fit of phases 6 to 19
+   also checks that a grid model's fit wrote model/forward.pt2 and a
+   graph model's did not) of HalfUNet, Segformer and UNetRPP
+   (``attention_code: pallas``) at their yamls' width at 512x640, batch
+   1, fp32; each program reloaded by ``load_and_infer`` and run against
+   the eager model within 1e-5 of its scale, its launches counted (8 and
+   15 c-fwd for Segformer and UNetRPP, none else), the file deleted
+   after; (b) the FLOPs (``ops/flops.py``, under fake tensors) of one
+   predict call and one train step of all eleven models at their yamls'
+   width, grid models at 512x640 and graph models at 500x500, each
+   kernel's share, HalfUNet and GraphLAM counted again by a real call on
+   the card, which must count the same; (c) a Dummy GraphLAM fit of one
+   batch with ``trainer.profiler: jax``: its torch.profiler trace under
+   build/ names the a and b kernels, forward and backward, and is
+   deleted; (d) the host microseconds of 1,000 c-fwd calls at a tiny
+   shape through the custom op and through its bare CUDA
+   implementation; the phase's wall time;
+24. the script's wall time, one JSON line with every kernel's numbers,
    then the result line.
 
 Each model path runs with every launch count set to 0 just before it
@@ -208,6 +226,11 @@ kernel of another path that was, fails the run.
 stops without a result line: the short loop for one kernel's work.
 ``--datasets`` runs phases 1, 2 and 22 alone and stops without a
 result line: the loop for the data path.
+``--tools`` runs phases 1, 2 and 23 alone and stops without a result
+line: the loop for the user tools.
+``--steps`` runs phases 1, 2, 5 and 7 alone (GraphLAM's 500x500 predict
+and train step, their host ms) and stops without a result line: the
+same-call comparison of two trees' host cost a step.
 ``--spatial`` runs phases 1, 2, 20 (d) and 21 alone and stops without a
 result line: the multi-card loop for the data and spatial axes, which
 saves running every one-card phase again on four cards.
@@ -1212,6 +1235,11 @@ def train_dummy(name: str, overrides=None, precision: str = "32", losses=None) -
     ckpt = save / "checkpoints"
     if not ((ckpt / "last" / "state.pt").is_file() and (ckpt / "manifest.json").is_file()):
         raise AssertionError(f"fit wrote no last checkpoint or manifest under {ckpt}")
+    # _log_model: a torch.export program for a grid model, none for a graph model
+    program = save / "model" / "forward.pt2"
+    if program.is_file() == module.is_graph:
+        raise AssertionError(f"fit of {name}: model/forward.pt2 "
+                             f"{'written' if module.is_graph else 'missing'}")
     if state.step != train_steps:
         raise AssertionError(f"fit took {state.step} optimizer steps, expected {train_steps}")
 
@@ -3365,6 +3393,214 @@ def datasets_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 23
+#: the grid models phase 23 counts at 512x640 (UNetRPP with
+#: attention_code pallas, which runs kernels c-fwd and c-bwd as the main
+#: path's flash_attn does), and the graph models it counts at 500x500
+FLOP_GRID_MODELS = {"HalfUNet": None, "Segformer": None,
+                    "UNetRPP": {"attention_code": "pallas"}, "UNet": None, "CustomUNet": None,
+                    "DeepLabV3": None, "DeepLabV3Plus": None, "SwinUNetR": None}
+FLOP_GRAPH_MODELS = ("GraphLAM", "HiLAM", "HiLAMParallel")
+#: the grid models phase 23 (a) exports at 512x640 and reloads: the
+#: script's time limit leaves room for these three (the Dummy fits of
+#: phases 6 to 19 check that every grid model's fit wrote its program)
+EXPORT_MODELS = ("HalfUNet", "Segformer", "UNetRPP")
+#: the models whose FLOPs phase 23 (b) also counts by a real call on the
+#: card, which must equal the count under fake tensors
+REAL_COUNT_MODELS = ("HalfUNet", "GraphLAM")
+#: the reloaded program against the eager model, relative to its scale
+EXPORT_RTOL = 1e-5
+SMOKE_EXPORT = BUILD / "smoke_export"
+
+
+def _flop_row(module, params, real: bool) -> dict:
+    """FLOPs of one predict call (1 AR step) and one train step of
+    ``module`` at its grid under fake tensors, each kernel's share, and
+    with ``real`` the same counts from a real call on the card."""
+    from py4cast_tpu_torch.ops import flops
+
+    row = {}
+    for kind, count in (("predict", flops.predict_flops), ("train_step", flops.train_step_flops)):
+        t0 = time.perf_counter()
+        by_op = count(module, params)
+        row[kind] = {"flops": sum(by_op.values()), "by_op": by_op,
+                     "kernel_shares": flops.kernel_shares(by_op),
+                     "count_s": time.perf_counter() - t0}
+        if real:
+            t0 = time.perf_counter()
+            on_card = count(module, params, fake=False)
+            torch.cuda.synchronize()
+            row[kind]["real_count_s"] = time.perf_counter() - t0
+            if on_card != by_op:
+                raise AssertionError(f"{module.settings.model_name} {kind} FLOPs: fake {by_op}, "
+                                     f"a real call on the card {on_card}")
+            row[kind]["real_call_equal"] = True
+    return row
+
+
+def export_and_reload(module, params, name: str) -> dict:
+    """Phase 23 (a): ``export_forward`` (as ``Trainer._log_model`` calls
+    it) of ``module``'s model at 512x640, batch 1, fp32; the program
+    reloaded by ``load_and_infer`` and run against the eager model within
+    EXPORT_RTOL of its scale, its kernel launches counted (one forward's);
+    the file deleted after."""
+    from py4cast_tpu_torch.export import export_forward, load_and_infer
+
+    dest = SMOKE_EXPORT / f"{name}.pt2"
+    t0 = time.perf_counter()
+    export_forward(module.model, params, module.model.input_shape, dest)
+    export_s = time.perf_counter() - t0
+    size = dest.stat().st_size
+    x = _rand(np.random.default_rng(23), 1, *module.model.input_shape,
+              module.num_input_features)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = load_and_infer(dest, x)
+    torch.cuda.synchronize()
+    load_run_s = time.perf_counter() - t0
+    counts = read_counts()
+    dest.unlink()
+    want = expected_launches(module, 1, 0)
+    if counts != want:
+        raise AssertionError(f"{name}: the reloaded program launched {counts}, expected {want}")
+    from torch.func import functional_call
+
+    with torch.no_grad():
+        eager = functional_call(module.model, params, (x,))
+    err = float((got.double() - eager.double()).abs().max())
+    scale = float(eager.abs().max())
+    if not (np.isfinite(err) and err <= EXPORT_RTOL * scale):
+        raise AssertionError(f"{name}: reloaded program vs eager {err:.3e} > "
+                             f"{EXPORT_RTOL:g} x {scale:.3g}")
+    return {"export_s": export_s, "file_bytes": size, "load_and_run_s": load_run_s,
+            "launches": counts, "max_abs_err_vs_eager": err, "scale": scale}
+
+
+def profiled_fit() -> dict:
+    """Phase 23 (c): a Dummy GraphLAM fit of one batch with
+    ``trainer.profiler: jax``: its trace under build/ names the a and b
+    kernels (forward and backward); deleted after."""
+    import shutil
+
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.training import AutoRegressiveModule, Trainer, TrainerConfig
+
+    train_ds, val_ds, _ = get_datasets("dummy", 2, 1, 3)
+    settings = model_settings("GraphLAM", num_warmup_steps=2, num_pred_steps_val_test=3)
+    module = AutoRegressiveModule(settings, train_ds.dataset_info, device="cuda")
+    save = BUILD / "smoke_profiled_fit"
+    shutil.rmtree(save, ignore_errors=True)
+    cfg = TrainerConfig(max_epochs=1, batch_size=8, limit_train_batches=1, limit_val_batches=1,
+                        save_path=str(save), logging_enabled=False, device="cuda",
+                        profiler="jax")
+    reset_counts()
+    t0 = time.perf_counter()
+    Trainer(cfg).fit(module, train_ds, val_ds)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    want = expected_launches(module, 1 + settings.num_pred_steps_val_test, 1)
+    try:
+        if counts != want:
+            raise AssertionError(f"profiled fit launched {counts}, expected {want}")
+        traces = sorted((save / "profile").glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"profiled fit: {len(traces)} trace files under {save}/profile")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+        named = {kernel: [k for k in kernels if kernel in k] for kernel in
+                 ("stencil_message_fwd", "stencil_message_bwd", "corner_hop_fwd",
+                  "corner_hop_bwd")}
+        missing = [kernel for kernel, found in named.items() if not found]
+        if missing:
+            raise AssertionError(f"the fit's trace names no {missing} kernel among "
+                                 f"{len(kernels)} kernels")
+        return {"seconds": seconds, "launches": counts, "trace_bytes": traces[0].stat().st_size,
+                "device_kernels": len(kernels),
+                "kernel_names": {k: v[:2] for k, v in named.items()}}
+    finally:
+        shutil.rmtree(save, ignore_errors=True)
+
+
+def dispatch_cost(calls: int = 1000) -> dict:
+    """Phase 23 (d): host microseconds a c-fwd call at a tiny shape
+    (BH 1, Lq 64, Lk 4, D 16), through the custom op and through its
+    bare CUDA implementation, ``calls`` calls each ending in a
+    synchronize, in turns (op, bare, bare, op)."""
+    from py4cast_tpu_torch.ops import attention
+
+    rng = np.random.default_rng(230)
+    q, k, v = (_rand(rng, 1, n, 16) for n in (64, 4, 4))
+    fns = {"op": attention.short_kv_attention_fwd,
+           "bare": attention._short_kv_attention_fwd_cuda}
+    for fn in fns.values():
+        for _ in range(20):
+            fn(q, k, v, 0.25)
+    runs = {name: [] for name in fns}
+    for name in ("op", "bare", "bare", "op"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fns[name](q, k, v, 0.25)
+        torch.cuda.synchronize()
+        runs[name].append((time.perf_counter() - t0) / calls * 1e6)
+    return {"calls": calls, "us_per_call": runs,
+            "op_minus_bare_us": float(np.mean(runs["op"]) - np.mean(runs["bare"]))}
+
+
+def tools_phase() -> dict:
+    """Phase 23, the user tools: (a) ``export_forward`` of HalfUNet,
+    Segformer and UNetRPP at their yamls' width at 512x640, reloaded and
+    run against the eager model, Segformer's and UNetRPP's programs
+    counted on c-fwd; (b)
+    the FLOPs of one predict call and one train step of all eleven models
+    (``ops/flops.py``, under fake tensors; HalfUNet and GraphLAM also by a
+    real call on the card, which must count the same), each kernel's
+    share; (c) a profiled Dummy GraphLAM fit; (d) the custom op's
+    dispatch cost; the phase's wall time."""
+    from py4cast_tpu_torch.testing import synthetic_dataset_info
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+
+    t23 = time.perf_counter()
+    out = {"card": card_line(), "export": {}, "flops": {}}
+    SMOKE_EXPORT.mkdir(parents=True, exist_ok=True)
+    grid_info = synthetic_dataset_info(grid_shape=(512, 640), weather_features=21,
+                                       forcing_features=21)
+    graph_info = synthetic_dataset_info(grid_shape=(500, 500), weather_features=21,
+                                        forcing_features=21)
+    try:
+        for name, overrides in FLOP_GRID_MODELS.items():
+            module = AutoRegressiveModule(model_settings(name, overrides), grid_info,
+                                          device="cuda")
+            params = module.init_params(torch.Generator().manual_seed(0))
+            if name in EXPORT_MODELS:
+                out["export"][name] = export_and_reload(module, params, name)
+                log(f"phase 23 (a) {name} 512x640 export: {json.dumps(out['export'][name])}")
+            out["flops"][name] = _flop_row(module, params, name in REAL_COUNT_MODELS)
+            log(f"phase 23 (b) {name} 512x640 FLOPs: {json.dumps(out['flops'][name])}")
+            del module, params
+            torch.cuda.empty_cache()
+    finally:
+        import shutil
+
+        shutil.rmtree(SMOKE_EXPORT, ignore_errors=True)
+    for name in FLOP_GRAPH_MODELS:
+        module = AutoRegressiveModule(model_settings(name), graph_info, device="cuda")
+        params = module.init_params(torch.Generator().manual_seed(0))
+        out["flops"][name] = _flop_row(module, params, name in REAL_COUNT_MODELS)
+        log(f"phase 23 (b) {name} 500x500 FLOPs: {json.dumps(out['flops'][name])}")
+        del module, params
+        torch.cuda.empty_cache()
+    out["profiled_fit"] = profiled_fit()
+    log(f"phase 23 (c) profiled GraphLAM fit: {json.dumps(out['profiled_fit'])}")
+    out["dispatch"] = dispatch_cost()
+    log(f"phase 23 (d) c-fwd dispatch: {json.dumps(out['dispatch'])}")
+    out["wall_s"] = time.perf_counter() - t23
+    log(f"phase 23 wall: {out['wall_s']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------- main
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3376,6 +3612,14 @@ def main(argv=None) -> int:
         "--datasets", action="store_true",
         help="only build the kernels and run phase 22 (the Titan, Poesy and Rainfall "
              "datasets), with no result line")
+    parser.add_argument(
+        "--tools", action="store_true",
+        help="only build the kernels and run phase 23 (export, FLOP counts, the profiled "
+             "fit, the custom ops' dispatch cost), with no result line")
+    parser.add_argument(
+        "--steps", action="store_true",
+        help="only build the kernels and run phases 5 and 7 (GraphLAM's 500x500 predict and "
+             "train step: host ms), with no result line")
     parser.add_argument(
         "--spatial", action="store_true",
         help="only build the kernels and run phases 20 (d) and 21 (the data and spatial "
@@ -3430,7 +3674,7 @@ def main(argv=None) -> int:
               "corner_hop_bwd": lambda: [check_hop_bwd(rng)],
               # phase 3c: the attention kernels at the Segformer cell's shapes
               "short_kv_attention": lambda: check_attention(rng)}
-    kernels = [] if parsed.spatial or parsed.datasets else [
+    kernels = [] if parsed.spatial or parsed.datasets or parsed.tools or parsed.steps else [
         k for name, check in checks.items() if only is None or name in only for k in check()]
     for k in kernels:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e} ms {k['ms']:.4f} "
@@ -3468,6 +3712,19 @@ def main(argv=None) -> int:
     if parsed.datasets:
         out = datasets_phase()
         (OUT_DIR / "smoke_datasets_report.json").write_text(json.dumps(out, indent=1))
+        log(f"wall: {time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
+    if parsed.steps:
+        full, train_full = full_size_rollout("GraphLAM"), full_size_train_step("GraphLAM")
+        log(f"phase 5 GraphLAM 500x500 predict, ms a step: {json.dumps(full['ms_per_step_runs'])}")
+        log("phase 7 GraphLAM 500x500 train step, ms: "
+            + json.dumps(train_full["ms_per_train_step_runs"]))
+        log(card)
+        return 0
+    if parsed.tools:
+        out = tools_phase()
+        (OUT_DIR / "smoke_tools_report.json").write_text(json.dumps(out, indent=1))
         log(f"wall: {time.perf_counter() - t_start:.1f} s")
         log(card)
         return 0
@@ -3657,6 +3914,10 @@ def main(argv=None) -> int:
     # configuration through the CLI with HalfUNet and GraphLAM
     datasets = datasets_phase()
 
+    # phase 23: the user tools: export and reload, the FLOP counts, a
+    # profiled fit, the custom ops' dispatch cost
+    tools = tools_phase()
+
     # each model path ran with every count set to 0 just before it and
     # checked just after (a kernel of another path launched fails); a
     # kernel's launches are the sum over the paths that run it
@@ -3709,7 +3970,7 @@ def main(argv=None) -> int:
          "unet_full_size": plain_full, "unetrpp_predict_dummy": rpp_dummy,
          "unetrpp_fit_dummy": rpp_fit, "unetrpp_full_size": rpp_full, "bf16": bf16,
          "resnet": resnet, "swin_table": swin_table, "data_axis": data_axis,
-         "spatial": spatial, "datasets": datasets,
+         "spatial": spatial, "datasets": datasets, "tools": tools,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -118,6 +118,10 @@ class CheckpointManager:
         with open(self.directory / "manifest.json", "w") as f:
             json.dump(_jsonable(manifest), f, indent=1, default=str)
 
+    def read_manifest(self) -> dict:
+        with open(self.directory / "manifest.json") as f:
+            return json.load(f)
+
     def _save(self, name: str, state):
         """Crash-safe replace: write to a temp sibling, then swap via
         renames — a valid copy of the previous checkpoint stays on disk

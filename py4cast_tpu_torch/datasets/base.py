@@ -14,7 +14,7 @@ import json
 from dataclasses import dataclass, field, fields
 from functools import cached_property
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple, Type
+from typing import Dict, List, Optional, Tuple, Type, Union
 
 import numpy as np
 
@@ -59,6 +59,25 @@ class Item:
                     f"Inputs and outputs must have the same feature names, got "
                     f"{self.inputs.feature_names} and {self.outputs.feature_names}"
                 )
+
+    def unsqueeze(self, dim_name: str, dim_index: int) -> "Item":
+        """A size-1 dim named ``dim_name`` inserted at ``dim_index`` in
+        every array."""
+        return Item(
+            inputs=self.inputs.unsqueeze(dim_name, dim_index) if self.inputs else None,
+            forcing=self.forcing.unsqueeze(dim_name, dim_index) if self.forcing else None,
+            outputs=self.outputs.unsqueeze(dim_name, dim_index),
+            validity_times=self.validity_times,
+        )
+
+    def squeeze(self, dim_name: Union[str, List[str]]) -> "Item":
+        """The size-1 dim(s) named ``dim_name`` dropped from every array."""
+        return Item(
+            inputs=self.inputs.squeeze(dim_name) if self.inputs else None,
+            forcing=self.forcing.squeeze(dim_name) if self.forcing else None,
+            outputs=self.outputs.squeeze(dim_name),
+            validity_times=self.validity_times,
+        )
 
     def __str__(self) -> str:
         lines = []

@@ -4,19 +4,21 @@ The same frozen container as the JAX package's ``NamedArray``, over
 numpy arrays (the host-side data pipeline) or torch tensors (device
 compute). Every transform returns a new ``NamedArray``.
 
-The last dim is always ``features`` and ``feature_names`` labels it.
-It carries what the data layer, ``predict`` and the product export use.
+The last dim is always ``features`` and ``feature_names`` labels it;
+the spatial dims are every dim not in ``NON_SPATIAL``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Sequence, Tuple, Union
+from typing import Iterator, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 Array = Union[np.ndarray, torch.Tensor]
+
+NON_SPATIAL = ("batch", "timestep", "features", "members")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,10 +68,34 @@ class NamedArray:
     def dim_size(self, name: str) -> int:
         return self.array.shape[self.dim_index(name)]
 
+    @property
+    def spatial_dim_idx(self) -> List[int]:
+        """Indices of the spatial dims (every dim not in ``NON_SPATIAL``)."""
+        return [i for i, n in enumerate(self.names) if n not in NON_SPATIAL]
+
+    @property
+    def spatial_dim_names(self) -> List[str]:
+        return [n for n in self.names if n not in NON_SPATIAL]
+
+    @property
+    def num_spatial_dims(self) -> int:
+        return len(self.spatial_dim_idx)
+
     def feature_index(self, feature_name: str) -> int:
         return self.feature_names.index(feature_name)
 
     # ----------------------------------------------------------- transforms
+    def replace(self, array) -> "NamedArray":
+        """Same names, new data."""
+        return NamedArray(array, self.names, self.feature_names)
+
+    def astype(self, dtype) -> "NamedArray":
+        """The data cast to ``dtype`` (a numpy dtype for numpy data, a
+        torch dtype for a tensor)."""
+        if isinstance(self.array, torch.Tensor):
+            return self.replace(self.array.to(dtype))
+        return self.replace(self.array.astype(dtype))
+
     def select(self, dim_name: str, index: int) -> "NamedArray":
         """Select one index along a named dim, dropping it (not `features`)."""
         if dim_name == "features":
@@ -77,6 +103,40 @@ class NamedArray:
         axis = self.dim_index(dim_name)
         new_names = self.names[:axis] + self.names[axis + 1 :]
         return NamedArray(_take(self.array, index, axis), new_names, self.feature_names)
+
+    def select_array(self, dim_name: str, index: int) -> Array:
+        """Select one index along a named dim; return the raw array."""
+        return _take(self.array, index, self.dim_index(dim_name))
+
+    def index_select(self, dim_name: str, indices: Sequence[int]) -> "NamedArray":
+        """Gather several indices along a named dim (the dim is kept)."""
+        return self.replace(_take_many(self.array, indices, self.dim_index(dim_name)))
+
+    def slice_dim(self, dim_name: str, start: int, stop: int) -> "NamedArray":
+        axis = self.dim_index(dim_name)
+        sl = [slice(None)] * self.ndim
+        sl[axis] = slice(start, stop)
+        return self.replace(self.array[tuple(sl)])
+
+    def unsqueeze(self, dim_name: str, dim_index: int) -> "NamedArray":
+        """A size-1 dim named ``dim_name`` inserted at ``dim_index``."""
+        arr = (self.array.unsqueeze(dim_index) if isinstance(self.array, torch.Tensor)
+               else np.expand_dims(self.array, dim_index))
+        names = self.names[:dim_index] + (dim_name,) + self.names[dim_index:]
+        return NamedArray(arr, names, self.feature_names)
+
+    def squeeze(self, dim_names: Union[str, Sequence[str]]) -> "NamedArray":
+        """The named size-1 dim(s) dropped; raises on a dim of another size."""
+        if isinstance(dim_names, str):
+            dim_names = [dim_names]
+        arr, names = self.array, list(self.names)
+        for dn in dim_names:
+            axis = names.index(dn)
+            if arr.shape[axis] != 1:
+                raise ValueError(f"cannot squeeze dim {dn} of size {arr.shape[axis]}")
+            arr = arr.squeeze(axis)
+            names.pop(axis)
+        return NamedArray(arr, tuple(names), self.feature_names)
 
     def flatten(self, new_name: str, start: int, stop: int) -> "NamedArray":
         """Flatten contiguous dims [start, stop] into one named dim."""
@@ -127,6 +187,12 @@ class NamedArray:
         sl[axis] = slice(idx, idx + 1)
         return self.array[tuple(sl)]
 
+    def select_features(self, feature_names: Sequence[str]) -> "NamedArray":
+        """The named features, in that order."""
+        idxs = [self.feature_index(f) for f in feature_names]
+        return NamedArray(_take_many(self.array, idxs, self.dim_index("features")),
+                          self.names, tuple(feature_names))
+
     def iter_dim(self, dim_name: str) -> Iterator["NamedArray"]:
         """Each index along a named dim, dropping it."""
         for i in range(self.dim_size(dim_name)):
@@ -158,6 +224,24 @@ class NamedArray:
         return NamedArray(joined, first.names, feature_names)
 
     @staticmethod
+    def stack(arrays: Sequence["NamedArray"], dim_name: str, axis: int) -> "NamedArray":
+        """Stack along a new dim named ``dim_name`` at ``axis``; the
+        first array's names."""
+        first = arrays[0]
+        parts = [a.array for a in arrays]
+        if isinstance(first.array, torch.Tensor):
+            joined = torch.stack(parts, dim=axis)
+        else:
+            joined = np.stack(parts, axis=axis)
+        names = first.names[:axis] + (dim_name,) + first.names[axis:]
+        return NamedArray(joined, names, first.feature_names)
+
+    @staticmethod
+    def new_like(array, other: "NamedArray") -> "NamedArray":
+        """``array`` with other's names."""
+        return NamedArray(array, other.names, other.feature_names)
+
+    @staticmethod
     def expand_to_batch_like(array, other: "NamedArray") -> "NamedArray":
         """Wrap a batched array with other's names prefixed by `batch`."""
         return NamedArray(array, ("batch",) + tuple(other.names), other.feature_names)
@@ -173,3 +257,9 @@ def _take(arr, index: int, axis: int):
     sl = [slice(None)] * arr.ndim
     sl[axis] = index
     return arr[tuple(sl)]
+
+
+def _take_many(arr, indices: Sequence[int], axis: int):
+    if isinstance(arr, torch.Tensor):
+        return arr.index_select(axis, torch.as_tensor(list(indices), device=arr.device))
+    return np.take(arr, np.asarray(list(indices)), axis=axis)

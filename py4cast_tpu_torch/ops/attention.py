@@ -15,6 +15,13 @@ launch their kernel or raise; on a CPU tensor they run the plain
 versions, which are also what the kernels are held against on the card.
 Models call ``dot_product_attention_short_kv`` (the JAX package's
 ``(B, L, H, D)`` entry), which goes through ``ShortKVAttentionFn``.
+Each wrapper checks its arguments, casts them to fp32 and calls a
+``torch.library`` custom op (``p4t::short_kv_attention_fwd``,
+``p4t::short_kv_attention_bwd``): its CPU implementation is the plain
+version, its CUDA implementation the kernel's launch, and its fake
+implementation gives the outputs' shapes alone, so that
+``torch.export`` and ``torch.utils.flop_counter`` see the op
+(``ops/flops.py`` gives its FLOP formula).
 
 The JAX package gates its kernel on the TPU, on a K/V length that fits
 VMEM and on spatial sharding; the port has none of that: on the card it
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -184,8 +192,7 @@ def bwd_kernel_attributes(d, rows, splits) -> dict:
 
 
 def _validate(what, q, k, v, extra=None):
-    """The checks the forward and the backward wrapper share; returns
-    (device, bh, lq, lk, d)."""
+    """The checks the forward and the backward wrapper share."""
     if q.dim() != 3 or k.dim() != 3:
         raise ValueError(f"{what}: q and k must be (BH, L, D), got {tuple(q.shape)} "
                          f"and {tuple(k.shape)}")
@@ -193,7 +200,7 @@ def _validate(what, q, k, v, extra=None):
     lk = k.shape[1]
     shapes = {"q": (q, (bh, lq, d)), "k": (k, (bh, lk, d)), "v": (v, (bh, lk, d))}
     shapes.update(extra(bh, lq, lk, d) if extra else {})
-    device = _build.validate(what, shapes)
+    _build.validate(what, shapes)
     if min(bh, lq, lk, d) < 1:
         raise ValueError(f"{what}: empty input (BH, Lq, Lk, D) = {(bh, lq, lk, d)}")
     if d > MAX_HEAD_DIM:
@@ -201,7 +208,6 @@ def _validate(what, q, k, v, extra=None):
     if bh > _MAX_GRID_Y:
         raise ValueError(f"{what} supports BH up to {_MAX_GRID_Y} (one grid row each), "
                          f"got {bh}")
-    return device, bh, lq, lk, d
 
 
 def fused_short_kv_attention(q, k, v, scale):
@@ -218,12 +224,31 @@ def fused_short_kv_attention(q, k, v, scale):
 
 def _short_kv_attention_fp32(q, k, v, scale):
     """``fused_short_kv_attention`` before o is rounded: o in fp32."""
-    device, bh, lq, lk, d = _validate("fused_short_kv_attention", q, k, v)
-    q, k, v = q.float(), k.float(), v.float()
-    if device.type == "cpu":
-        s = torch.einsum("bqd,bkd->bqk", q, k) * scale
-        return short_kv_attention_plain(q, k, v, scale), torch.logsumexp(s, dim=-1)
+    _validate("fused_short_kv_attention", q, k, v)
+    return short_kv_attention_fwd(q.float(), k.float(), v.float(), float(scale))
 
+
+#: kernel launches since the last reset (a CPU call runs the plain
+#: version and does not count)
+fused_short_kv_attention.launches = 0
+
+
+@torch.library.custom_op("p4t::short_kv_attention_fwd", mutates_args=(), device_types="cpu")
+def short_kv_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``p4t::short_kv_attention_fwd``: (o, lse) in fp32 for the fp32
+    q, k, v ``fused_short_kv_attention`` has checked. Its CPU
+    implementation is ``short_kv_attention_plain`` and the logsumexp of
+    the logits; on the card it launches the forward kernel."""
+    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+    return short_kv_attention_plain(q, k, v, scale), torch.logsumexp(s, dim=-1)
+
+
+@short_kv_attention_fwd.register_kernel("cuda")
+def _short_kv_attention_fwd_cuda(q, k, v, scale):
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    device = q.device
     rows, splits = fwd_launch_shape(bh, lq, lk, d)
     o = torch.empty_like(q)
     lse = torch.empty((bh, lq), device=device, dtype=torch.float32)
@@ -239,9 +264,9 @@ def _short_kv_attention_fp32(q, k, v, scale):
     return o, lse
 
 
-#: kernel launches since the last reset (a CPU call runs the plain
-#: version and does not count)
-fused_short_kv_attention.launches = 0
+@short_kv_attention_fwd.register_fake
+def _short_kv_attention_fwd_fake(q, k, v, scale):
+    return torch.empty_like(q), q.new_empty(q.shape[:2])
 
 
 def fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale):
@@ -255,17 +280,41 @@ def fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale):
     of ``bwd_launch_shape``, whose query splits' partials (if more than
     one) a third kernel adds in split order: a call repeats bit for
     bit."""
-    device, bh, lq, lk, d = _validate(
+    _validate(
         "fused_short_kv_attention_bwd", q, k, v,
         lambda bh, lq, lk, d: {"o": (o, (bh, lq, d)), "lse": (lse, (bh, lq)),
                                "do": (do, (bh, lq, d))},
     )
     dtypes = q.dtype, k.dtype, v.dtype
-    q, k, v, o, lse, do = (t.float() for t in (q, k, v, o, lse, do))
-    if device.type == "cpu":
-        grads = short_kv_attention_bwd_plain(q, k, v, do, scale)
-        return tuple(g.to(dt) for g, dt in zip(grads, dtypes))
+    dq, dkv = short_kv_attention_bwd(*(t.float() for t in (q, k, v, o, lse, do)),
+                                     float(scale))
+    return tuple(g.to(dt) for g, dt in zip((dq, dkv[0], dkv[1]), dtypes))
 
+
+#: kernel launches since the last reset (a CPU call runs the plain
+#: version and does not count)
+fused_short_kv_attention_bwd.launches = 0
+
+
+@torch.library.custom_op("p4t::short_kv_attention_bwd", mutates_args=(), device_types="cpu")
+def short_kv_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                           scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``p4t::short_kv_attention_bwd``: (dq, dkv) in fp32 for the fp32
+    arguments ``fused_short_kv_attention_bwd`` has checked, dkv (2, BH,
+    Lk, D) holding dk then dv (one buffer: an op's outputs may not alias
+    one another). Its CPU implementation is
+    ``short_kv_attention_bwd_plain``; on the card it launches the
+    backward kernels."""
+    dq, dk, dv = short_kv_attention_bwd_plain(q, k, v, do, scale)
+    return dq, torch.stack([dk, dv])
+
+
+@short_kv_attention_bwd.register_kernel("cuda")
+def _short_kv_attention_bwd_cuda(q, k, v, o, lse, do, scale):
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    device = q.device
     rows, splits, key_tile, query_splits = bwd_launch_shape(bh, lq, lk, d)
     dq = torch.empty_like(q)
     dkv = torch.empty((2, bh, lk, d), device=device, dtype=torch.float32)
@@ -284,20 +333,22 @@ def fused_short_kv_attention_bwd(q, k, v, o, lse, do, scale):
         )
     _build.check(lib, status, "short_kv_attention_bwd kernel")
     fused_short_kv_attention_bwd.launches += 1
-    return tuple(g.to(dt) for g, dt in zip((dq, dkv[0], dkv[1]), dtypes))
+    return dq, dkv
 
 
-#: kernel launches since the last reset (a CPU call runs the plain
-#: version and does not count)
-fused_short_kv_attention_bwd.launches = 0
+@short_kv_attention_bwd.register_fake
+def _short_kv_attention_bwd_fake(q, k, v, o, lse, do, scale):
+    return torch.empty_like(q), k.new_empty((2, *k.shape))
 
 
 class ShortKVAttentionFn(torch.autograd.Function):
     """``fused_short_kv_attention`` with its backward kernel as the
     gradient: ``ShortKVAttentionFn.apply(q, k, v, scale)`` returns o.
     It saves the fp32 o (for bf16 inputs, o before rounding), so that
-    the backward's delta is the TPU kernel's. On CPU tensors both
-    directions run the plain versions."""
+    the backward's delta is the TPU kernel's. Both directions go
+    through the wrappers' custom ops (``p4t::short_kv_attention_fwd``,
+    ``p4t::short_kv_attention_bwd``): the kernels on CUDA tensors, the
+    plain versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):

@@ -26,11 +26,20 @@ built before the call. On a CUDA tensor ``fused_corner_hop`` and
 they run ``corner_hop_plain`` and ``corner_hop_bwd_plain``, which are
 also what the kernels are held against on the card. Models call
 ``CornerHopFn``, whose backward is the backward kernel.
+
+Each wrapper checks its arguments, casts them to fp32 and calls a
+``torch.library`` custom op (``p4t::corner_hop_fwd``,
+``p4t::corner_hop_bwd``): its CPU implementation is the plain version,
+its CUDA implementation the kernel's launch, and its fake
+implementation gives the outputs' shapes alone, so that
+``torch.export`` and ``torch.utils.flop_counter`` see the op
+(``ops/flops.py`` gives its FLOP formula).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -280,14 +289,41 @@ def fused_corner_hop(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
                        nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, MAX_WIDTH,
                        {"ps": (ps, (b, hc, wc, h))})
     _validate_maps("fused_corner_hop", rows, cols, hr, w, device)
-    dtype = vd.dtype
-    ps, vd, feats, wf, bf, wd, wo, bo, lns, lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb = (
-        t.float() for t in (ps, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
-                            nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb))
-    if device.type == "cpu":
-        return corner_hop_plain(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
-                                nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, mean).to(dtype)
+    return corner_hop_fwd(
+        ps.float(), rows, cols,
+        *(t.float() for t in (vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+                              nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb)),
+        bool(mean)).to(vd.dtype)
 
+
+#: kernel launches since the last reset (a CPU call runs the plain
+#: version and does not count)
+fused_corner_hop.launches = 0
+
+
+@torch.library.custom_op("p4t::corner_hop_fwd", mutates_args=(), device_types="cpu")
+def corner_hop_fwd(ps: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+                   vd: torch.Tensor, feats: torch.Tensor, wf: torch.Tensor,
+                   bf: torch.Tensor, wd: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                   lns: torch.Tensor, lnb: torch.Tensor, nd0a: torch.Tensor,
+                   nd0b: torch.Tensor, nb0: torch.Tensor, nd1: torch.Tensor,
+                   nb1: torch.Tensor, nlns: torch.Tensor, nlnb: torch.Tensor,
+                   mean: bool) -> torch.Tensor:
+    """``p4t::corner_hop_fwd``: v_out in fp32 for the fp32 arguments
+    (and int32 maps) ``fused_corner_hop`` has checked. Its CPU
+    implementation is ``corner_hop_plain``; on the card it launches the
+    forward kernel."""
+    return corner_hop_plain(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+                            nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, mean)
+
+
+@corner_hop_fwd.register_kernel("cuda")
+def _corner_hop_fwd_cuda(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+                         nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, mean):
+    b, hr, w, h = vd.shape
+    hc, wc = ps.shape[1:3]
+    ff = feats.shape[-1]
+    device = vd.device
     out = torch.empty((b, hr, w, h), device=device, dtype=torch.float32)
     lib = _lib()
     with torch.cuda.device(device):
@@ -302,12 +338,12 @@ def fused_corner_hop(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
         )
     _build.check(lib, status, "corner_hop kernel")
     fused_corner_hop.launches += 1
-    return out.to(dtype)
+    return out
 
 
-#: kernel launches since the last reset (a CPU call runs the plain
-#: version and does not count)
-fused_corner_hop.launches = 0
+@corner_hop_fwd.register_fake
+def _corner_hop_fwd_fake(ps, rows, cols, vd, *rest):
+    return torch.empty_like(vd)
 
 
 def fused_corner_hop_bwd(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
@@ -328,24 +364,64 @@ def fused_corner_hop_bwd(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
         raise ValueError(f"fused_corner_hop_bwd takes 4 corner arrays, got {len(psg)}")
     extra = {f"psg{k}": (p, (b, hr, w, h)) for k, p in enumerate(psg)}
     extra["g"] = (g, (b, hr, w, h))
-    device = _validate("fused_corner_hop_bwd", vd, feats, wf, bf, wd, wo, bo, lns,
-                       lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, MAX_BWD_WIDTH, extra)
+    _validate("fused_corner_hop_bwd", vd, feats, wf, bf, wd, wo, bo, lns,
+              lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, MAX_BWD_WIDTH, extra)
     dtypes = (*(p.dtype for p in psg), vd.dtype)
-    psg = [p.float() for p in psg]
-    vd, feats, wf, bf, wd, wo, bo, lns, lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g = (
-        t.float() for t in (vd, feats, wf, bf, wd, wo, bo, lns, lnb,
-                            nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g))
-    if device.type == "cpu":
-        grads = corner_hop_bwd_plain(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
-                                     nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g, mean)
-        return (*(d.to(dt) for d, dt in zip(grads[:5], dtypes)), *grads[5:])
+    *grads, dw = corner_hop_bwd(
+        *(t.float() for t in (*psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+                              nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g)),
+        bool(mean))
+    parts = list(torch.split(dw, _dw_sizes(ff, h)))
+    for i, shape in ((0, (ff, h)), (2, (h, h)), (3, (h, h)), (7, (h, h)), (8, (h, h)),
+                     (10, (h, h))):
+        parts[i] = parts[i].view(shape)
+    return (*(d.to(dt) for d, dt in zip(grads, dtypes)), *parts)
 
+
+#: kernel launches since the last reset (a CPU call runs the plain
+#: version and does not count)
+fused_corner_hop_bwd.launches = 0
+
+
+def _dw_sizes(ff, h) -> tuple:
+    """The weight gradients' sizes in the backward op's flat ``dw``:
+    dwf, dbf, dwd, dwo, dbo, dlns, dlnb, dnd0a, dnd0b, dnb0, dnd1, dnb1,
+    dnlns, dnlnb."""
+    return (ff * h, h, h * h, h * h, h, h, h, h * h, h * h, h, h * h, h, h, h)
+
+
+@torch.library.custom_op("p4t::corner_hop_bwd", mutates_args=(), device_types="cpu")
+def corner_hop_bwd(psg0: torch.Tensor, psg1: torch.Tensor, psg2: torch.Tensor,
+                   psg3: torch.Tensor, vd: torch.Tensor, feats: torch.Tensor,
+                   wf: torch.Tensor, bf: torch.Tensor, wd: torch.Tensor, wo: torch.Tensor,
+                   bo: torch.Tensor, lns: torch.Tensor, lnb: torch.Tensor,
+                   nd0a: torch.Tensor, nd0b: torch.Tensor, nb0: torch.Tensor,
+                   nd1: torch.Tensor, nb1: torch.Tensor, nlns: torch.Tensor,
+                   nlnb: torch.Tensor, g: torch.Tensor, mean: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor, torch.Tensor]:
+    """``p4t::corner_hop_bwd``: (dpsg0, dpsg1, dpsg2, dpsg3, dvd, dw) in
+    fp32 for the fp32 arguments ``fused_corner_hop_bwd`` has checked, dw
+    the fourteen weight gradients flat in ``_dw_sizes`` order (one
+    buffer: an op's outputs may not alias one another). Its CPU
+    implementation is ``corner_hop_bwd_plain``; on the card it launches
+    the backward kernels."""
+    grads = corner_hop_bwd_plain([psg0, psg1, psg2, psg3], vd, feats, wf, bf, wd, wo, bo,
+                                 lns, lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g, mean)
+    return (*grads[:5], torch.cat([d.reshape(-1) for d in grads[5:]]))
+
+
+@corner_hop_bwd.register_kernel("cuda")
+def _corner_hop_bwd_cuda(psg0, psg1, psg2, psg3, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
+                         nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g, mean):
+    b, hr, w, h = vd.shape
+    ff = feats.shape[-1]
+    device = vd.device
+    psg = (psg0, psg1, psg2, psg3)
     dpsg = [torch.empty_like(vd) for _ in range(4)]
     dvd = torch.empty_like(vd)
     dagg = torch.empty_like(vd)  # scratch: the node pass's dagg for the corner pass
-    # dwf, dbf, dwd, dwo, dbo, dlns, dlnb, dnd0a, dnd0b, dnb0, dnd1, dnb1, dnlns, dnlnb
-    sizes = (ff * h, h, h * h, h * h, h, h, h, h * h, h * h, h, h * h, h, h, h)
-    dw = torch.empty(sum(sizes), device=device, dtype=torch.float32)
+    dw = torch.empty(sum(_dw_sizes(ff, h)), device=device, dtype=torch.float32)
     lib = _bwd_lib()
     with torch.cuda.device(device):
         blocks = ctypes.c_int(0)
@@ -366,16 +442,13 @@ def fused_corner_hop_bwd(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
         )
     _build.check(lib, status, "corner_hop_bwd kernel")
     fused_corner_hop_bwd.launches += 1
-    parts = list(torch.split(dw, sizes))
-    for i, shape in ((0, (ff, h)), (2, (h, h)), (3, (h, h)), (7, (h, h)), (8, (h, h)),
-                     (10, (h, h))):
-        parts[i] = parts[i].view(shape)
-    return (*(d.to(dt) for d, dt in zip((*dpsg, dvd), dtypes)), *parts)
+    return (*dpsg, dvd, dw)
 
 
-#: kernel launches since the last reset (a CPU call runs the plain
-#: version and does not count)
-fused_corner_hop_bwd.launches = 0
+@corner_hop_bwd.register_fake
+def _corner_hop_bwd_fake(psg0, psg1, psg2, psg3, vd, feats, *rest):
+    return (*(torch.empty_like(vd) for _ in range(5)),
+            vd.new_empty((sum(_dw_sizes(feats.shape[-1], vd.shape[-1])),)))
 
 
 class CornerHopFn(torch.autograd.Function):
@@ -391,7 +464,9 @@ class CornerHopFn(torch.autograd.Function):
     second call repeats bit for bit. The weight gradients, summed
     in fp32, are cast to each weight's dtype, as the JAX package's VJP
     casts them. The maps, ar, ac, feats and the mean flag get no
-    gradient. On CPU tensors both directions run the plain versions."""
+    gradient. Both directions go through the wrappers' custom ops
+    (``p4t::corner_hop_fwd``, ``p4t::corner_hop_bwd``): the kernels on
+    CUDA tensors, the plain versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, ps, rows, cols, ar, ac, vd, feats, *weights_and_mean):

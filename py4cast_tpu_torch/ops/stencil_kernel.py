@@ -21,11 +21,20 @@ launch their kernel or raise; on a CPU tensor they run
 ``stencil_message_plain`` and ``stencil_message_bwd_plain``, which are
 also what the kernels are held against on the card. Models call
 ``StencilMessageFn``, whose backward is the backward kernel.
+
+Each wrapper checks its arguments, casts them to fp32 and calls a
+``torch.library`` custom op (``p4t::stencil_message_fwd``,
+``p4t::stencil_message_bwd``): its CPU implementation is the plain
+version, its CUDA implementation the kernel's launch, and its fake
+implementation gives the outputs' shapes alone, so that
+``torch.export`` and ``torch.utils.flop_counter`` see the op
+(``ops/flops.py`` gives its FLOP formula).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -144,7 +153,7 @@ def bwd_kernel_attributes(f_in, h) -> dict:
 
 def _validate(what, e, pd, mask, we, be, wo, bo, lns, lnb, residual, max_width, extra):
     """The checks the forward and the backward wrapper share, and theirs
-    (``extra``: name -> (tensor, expected shape)); returns the device."""
+    (``extra``: name -> (tensor, expected shape))."""
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
     shapes = {
@@ -153,7 +162,7 @@ def _validate(what, e, pd, mask, we, be, wo, bo, lns, lnb, residual, max_width, 
         "we": (we, (f_in, h)), "be": (be, (h,)), "wo": (wo, (h, h)),
         "bo": (bo, (h,)), "lns": (lns, (h,)), "lnb": (lnb, (h,)),
     }
-    device = _build.validate(what, shapes)
+    _build.validate(what, shapes)
     if f_in > max_width or h > max_width:
         raise ValueError(
             f"{what} supports widths up to {max_width}, got "
@@ -164,7 +173,6 @@ def _validate(what, e, pd, mask, we, be, wo, bo, lns, lnb, residual, max_width, 
             "residual fold requires edge features == hidden width, got "
             f"{f_in} vs {h}"
         )
-    return device
 
 
 def fused_stencil_message(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual=False):
@@ -184,15 +192,36 @@ def fused_stencil_message(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual=Fa
     """
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
-    device = _validate("fused_stencil_message", e, pd, mask, we, be, wo, bo, lns, lnb,
-                       residual, MAX_WIDTH, {"ps": (ps, (b, hr, w, h))})
+    _validate("fused_stencil_message", e, pd, mask, we, be, wo, bo, lns, lnb,
+              residual, MAX_WIDTH, {"ps": (ps, (b, hr, w, h))})
     dtype = e.dtype
-    e, ps, pd, mask, we, be, wo, bo, lns, lnb = (
-        t.float() for t in (e, ps, pd, mask, we, be, wo, bo, lns, lnb))
-    if device.type == "cpu":
-        out, agg = stencil_message_plain(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual)
-        return out.to(dtype), agg.to(dtype)
+    out, agg = stencil_message_fwd(
+        *(t.float() for t in (e, ps, pd, mask, we, be, wo, bo, lns, lnb)), bool(residual))
+    return out.to(dtype), agg.to(dtype)
 
+
+#: kernel launches since the last reset (a CPU call runs the plain
+#: version and does not count)
+fused_stencil_message.launches = 0
+
+
+@torch.library.custom_op("p4t::stencil_message_fwd", mutates_args=(), device_types="cpu")
+def stencil_message_fwd(e: torch.Tensor, ps: torch.Tensor, pd: torch.Tensor,
+                        mask: torch.Tensor, we: torch.Tensor, be: torch.Tensor,
+                        wo: torch.Tensor, bo: torch.Tensor, lns: torch.Tensor,
+                        lnb: torch.Tensor, residual: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``p4t::stencil_message_fwd``: (out, agg) in fp32 for the fp32
+    arguments ``fused_stencil_message`` has checked. Its CPU
+    implementation is ``stencil_message_plain``; on the card it launches
+    the forward kernel."""
+    return stencil_message_plain(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual)
+
+
+@stencil_message_fwd.register_kernel("cuda")
+def _stencil_message_fwd_cuda(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual):
+    b, _, hr, w, f_in = e.shape
+    h = we.shape[-1]
+    device = e.device
     out = torch.empty((b, 8, hr, w, h), device=device, dtype=torch.float32)
     agg = torch.empty((b, hr, w, h), device=device, dtype=torch.float32)
     lib = _lib()
@@ -206,12 +235,14 @@ def fused_stencil_message(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual=Fa
         )
     _build.check(lib, status, "stencil_message kernel")
     fused_stencil_message.launches += 1
-    return out.to(dtype), agg.to(dtype)
+    return out, agg
 
 
-#: kernel launches since the last reset (a CPU call runs the plain
-#: version and does not count)
-fused_stencil_message.launches = 0
+@stencil_message_fwd.register_fake
+def _stencil_message_fwd_fake(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual):
+    b, _, hr, w, _ = e.shape
+    h = we.shape[-1]
+    return e.new_empty((b, 8, hr, w, h)), e.new_empty((b, hr, w, h))
 
 
 def fused_stencil_message_bwd(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
@@ -227,25 +258,60 @@ def fused_stencil_message_bwd(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
     summed in a fixed order, so a call repeats bit for bit."""
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
-    device = _validate(
+    _validate(
         "fused_stencil_message_bwd", e, pd, mask, we, be, wo, bo, lns, lnb,
         residual, MAX_BWD_WIDTH,
         {"vs": (vs, (b, 8, hr, w, h)), "g_out": (g_out, (b, 8, hr, w, h)),
          "g_agg": (g_agg, (b, hr, w, h))},
     )
     dtypes = e.dtype, vs.dtype, pd.dtype
-    e, vs, pd, mask, we, be, wo, bo, lns, lnb, g_out, g_agg = (
-        t.float() for t in (e, vs, pd, mask, we, be, wo, bo, lns, lnb, g_out, g_agg))
-    if device.type == "cpu":
-        de, dvs, dpd, *dw = stencil_message_bwd_plain(e, vs, pd, mask, we, be, wo, bo, lns,
-                                                      lnb, g_out, g_agg, residual)
-        return (*(g.to(dt) for g, dt in zip((de, dvs, dpd), dtypes)), *dw)
+    de, dvs, dpd, dw = stencil_message_bwd(
+        *(t.float() for t in (e, vs, pd, mask, we, be, wo, bo, lns, lnb, g_out, g_agg)),
+        bool(residual))
+    dwe, dbe, dwo, dbo, dlns, dlnb = torch.split(dw, _dw_sizes(f_in, h))
+    return (*(g.to(dt) for g, dt in zip((de, dvs, dpd), dtypes)),
+            dwe.view(f_in, h), dbe, dwo.view(h, h), dbo, dlns, dlnb)
 
+
+#: kernel launches since the last reset (a CPU call runs the plain
+#: version and does not count)
+fused_stencil_message_bwd.launches = 0
+
+
+def _dw_sizes(f_in, h) -> tuple:
+    """The weight gradients' sizes in the backward op's flat ``dw``:
+    dwe, dbe, dwo, dbo, dlns, dlnb."""
+    return (f_in * h, h, h * h, h, h, h)
+
+
+@torch.library.custom_op("p4t::stencil_message_bwd", mutates_args=(), device_types="cpu")
+def stencil_message_bwd(e: torch.Tensor, vs: torch.Tensor, pd: torch.Tensor,
+                        mask: torch.Tensor, we: torch.Tensor, be: torch.Tensor,
+                        wo: torch.Tensor, bo: torch.Tensor, lns: torch.Tensor,
+                        lnb: torch.Tensor, g_out: torch.Tensor, g_agg: torch.Tensor,
+                        residual: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``p4t::stencil_message_bwd``: (de, dvs, dpd, dw) in fp32 for the
+    fp32 arguments ``fused_stencil_message_bwd`` has checked, dw the six
+    weight gradients flat in ``_dw_sizes`` order (one buffer: an op's
+    outputs may not alias one another). Its CPU implementation is
+    ``stencil_message_bwd_plain``; on the card it launches the backward
+    kernel."""
+    de, dvs, dpd, *dw = stencil_message_bwd_plain(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
+                                                  g_out, g_agg, residual)
+    return de, dvs, dpd, torch.cat([g.reshape(-1) for g in dw])
+
+
+@stencil_message_bwd.register_kernel("cuda")
+def _stencil_message_bwd_cuda(e, vs, pd, mask, we, be, wo, bo, lns, lnb, g_out, g_agg,
+                              residual):
+    b, _, hr, w, f_in = e.shape
+    h = we.shape[-1]
+    device = e.device
     de = torch.empty_like(e)
     dvs = torch.empty((b, 8, hr, w, h), device=device, dtype=torch.float32)
     dpd = torch.empty((b, hr, w, h), device=device, dtype=torch.float32)
-    sizes = (f_in * h, h, h * h, h, h, h)  # dwe, dbe, dwo, dbo, dlns, dlnb
-    dw = torch.empty(sum(sizes), device=device, dtype=torch.float32)
+    dw = torch.empty(sum(_dw_sizes(f_in, h)), device=device, dtype=torch.float32)
     lib = _bwd_lib()
     with torch.cuda.device(device):
         blocks = ctypes.c_int(0)
@@ -264,14 +330,14 @@ def fused_stencil_message_bwd(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
         )
     _build.check(lib, status, "stencil_message_bwd kernel")
     fused_stencil_message_bwd.launches += 1
-    dwe, dbe, dwo, dbo, dlns, dlnb = torch.split(dw, sizes)
-    return (*(g.to(dt) for g, dt in zip((de, dvs, dpd), dtypes)),
-            dwe.view(f_in, h), dbe, dwo.view(h, h), dbo, dlns, dlnb)
+    return de, dvs, dpd, dw
 
 
-#: kernel launches since the last reset (a CPU call runs the plain
-#: version and does not count)
-fused_stencil_message_bwd.launches = 0
+@stencil_message_bwd.register_fake
+def _stencil_message_bwd_fake(e, vs, pd, mask, we, be, wo, bo, lns, lnb, g_out, g_agg,
+                              residual):
+    return (torch.empty_like(e), torch.empty_like(vs), torch.empty_like(pd),
+            e.new_empty((sum(_dw_sizes(e.shape[-1], we.shape[-1])),)))
 
 
 class StencilMessageFn(torch.autograd.Function):
@@ -282,8 +348,9 @@ class StencilMessageFn(torch.autograd.Function):
     backward shifts it again for the backward kernel and moves dvs back
     onto ps (``unshift_sum``, in dvs's dtype). The weight gradients,
     summed in fp32, are cast to each weight's dtype, as the JAX
-    package's VJP casts them. On CPU tensors both directions run the
-    plain versions."""
+    package's VJP casts them. Both directions go through the wrappers'
+    custom ops (``p4t::stencil_message_fwd``, ``p4t::stencil_message_bwd``):
+    the kernels on CUDA tensors, the plain versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual):

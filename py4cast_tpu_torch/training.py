@@ -52,6 +52,7 @@ from py4cast_tpu_torch.checkpoint import (
     state_file,
 )
 from py4cast_tpu_torch.datasets.base import DatasetInfo, ItemBatch
+from py4cast_tpu_torch.export import export_forward
 from py4cast_tpu_torch.losses import CombinedLoss, ScaledLoss
 from py4cast_tpu_torch.metrics import MetricACC, MetricPSDK, MetricPSDVar
 from py4cast_tpu_torch.models import (
@@ -922,7 +923,9 @@ class TrainerConfig:
     early_stopping_patience: int = 50
     save_path: str = "runs/default"
     log_every_n_steps: int = 10
-    profiler: Optional[str] = None  # None | "simple"
+    #: None | "simple" | "jax": "jax" (the shared configs' spelling)
+    #: traces the whole fit into <save_path>/profile with torch.profiler
+    profiler: Optional[str] = None
     fast_dev_run: bool = False
     seed: int = 42
     device: str = "cuda"
@@ -933,12 +936,6 @@ class TrainerConfig:
         except ValueError as e:
             raise ValueError(f"trainer.mesh_data_parallel={self.mesh_data_parallel}, "
                              f"trainer.mesh_spatial={self.mesh_spatial}: {e}") from None
-        if self.profiler == "jax":
-            raise ValueError(
-                "trainer.profiler='jax' traces with jax.profiler, which the port "
-                "does not use (ROADMAP.md, queue 2: tracing comes with the "
-                "benchmark); use torch.profiler around the Trainer instead"
-            )
 
     def mesh_config(self) -> MeshConfig:
         """The mesh layout, checked against the current process group."""
@@ -1118,6 +1115,8 @@ class Trainer:
             print(module.summarize(state))
             self._dump_run_info(module)
 
+        profiler = self._start_profiler() if cfg.profiler == "jax" and self.is_main else None
+
         global_step = 0
         epochs_no_improve = 0
         for epoch in range(max_epochs):
@@ -1194,14 +1193,35 @@ class Trainer:
                         if self.is_main:
                             print(f"Early stopping at epoch {epoch + 1}")
                         break
+        if profiler is not None:
+            profiler.stop()
+            print(f"Profiler trace written to {self.save_path / 'profile'}")
         if not cfg.fast_dev_run and self.is_main:
             self._log_model(module, state)
         return state
 
+    def _start_profiler(self) -> torch.profiler.profile:
+        """A started ``torch.profiler`` trace of the fit (CPU activity,
+        and the card's when the trainer runs on one), which writes a
+        TensorBoard trace into <save_path>/profile when stopped: the
+        counterpart of the JAX package's ``jax.profiler.start_trace``."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                str(self.save_path / "profile")))
+        profiler.start()
+        return profiler
+
     def _log_model(self, module: AutoRegressiveModule, state: TrainState):
         """Write the trained model's input/output signature to
-        <save_path>/model/signature.json and hand the directory to any
-        logger with ``log_artifacts`` (MLflow)."""
+        <save_path>/model/signature.json and, for a grid model, its
+        forward as a ``torch.export`` program to model/forward.pt2
+        (``export.export_forward``; best-effort, as the JAX package's
+        StableHLO export: a failure is printed), and hand the directory
+        to any logger with ``log_artifacts`` (MLflow)."""
         out_dir = self.save_path / "model"
         out_dir.mkdir(parents=True, exist_ok=True)
         steps = module.settings.num_pred_steps_val_test
@@ -1236,6 +1256,12 @@ class Trainer:
         }
         with open(out_dir / "signature.json", "w") as f:
             json.dump(signature, f, indent=1)
+        if not module.is_graph:
+            try:
+                export_forward(module.model, module._place(state.params),
+                               module.model.input_shape, out_dir / "forward.pt2")
+            except Exception as e:  # noqa: BLE001 — export is best-effort
+                print(f"torch.export export skipped: {e}")
         for lg in self.loggers:
             if hasattr(lg, "log_artifacts"):
                 lg.log_artifacts(out_dir)

@@ -43,6 +43,33 @@ def test_port_imports_without_jax():
     assert int(out.stdout.strip().splitlines()[-1]) >= 15
 
 
+_TOOLS_IMPORT = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "py4cast_tpu"):
+    sys.modules[name] = None
+import py4cast_tpu_torch
+mods = {m.name for m in pkgutil.walk_packages(py4cast_tpu_torch.__path__, "py4cast_tpu_torch.")}
+tools = {"py4cast_tpu_torch.export", "py4cast_tpu_torch.ops.flops", "py4cast_tpu_torch.tools",
+         "py4cast_tpu_torch.tools.scores_comparison", "py4cast_tpu_torch.tools.gif_comparison"}
+assert tools <= mods, sorted(tools - mods)
+for m in sorted(tools):
+    importlib.import_module(m)
+loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                                              "py4cast_tpu")
+                and sys.modules[k] is not None)
+assert not loaded, loaded
+"""
+
+
+def test_user_tools_are_walked_and_import_without_jax():
+    """export.py, ops/flops.py and the tools package are among the
+    modules the walk reaches, and import with JAX, flax, optax, orbax and
+    the JAX package blocked."""
+    out = subprocess.run([sys.executable, "-c", _TOOLS_IMPORT], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 _OBSERVERS_IMPORT = """
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "py4cast_tpu", "matplotlib"):

@@ -316,14 +316,19 @@ def test_restore_of_an_orbax_directory_raises(fitted, tmp_path):
 #: what each refusal names: the spatial axis waits for item 12b, a data
 #: axis must match the world size (1 without a process group)
 #: one process cannot hold a spatial mesh of two bands any more than a
-#: data mesh of four ranks: each needs that many processes (one card each)
+#: data mesh of four ranks: each needs that many processes (one card each);
+#: None: no longer refused (trainer.profiler "jax" traces the fit with
+#: torch.profiler, tests/test_torch_export.py)
 REFUSALS = {"mesh_spatial": "mesh 1x2 does not match 1 processes",
-            "mesh_data_parallel": "does not match 1 processes", "profiler": "queue 2"}
+            "mesh_data_parallel": "does not match 1 processes", "profiler": None}
 
 
 @pytest.mark.parametrize("key,value", [("mesh_spatial", 2), ("mesh_data_parallel", 4),
                                        ("profiler", "jax")])
 def test_trainer_config_refuses_what_one_card_cannot_do(key, value):
+    if REFUSALS[key] is None:
+        assert getattr(port_training.TrainerConfig(device="cpu", **{key: value}), key) == value
+        return
     with pytest.raises(ValueError, match=REFUSALS[key]):
         port_training.TrainerConfig(device="cpu", **{key: value})
 
