@@ -19,8 +19,11 @@ its slice), ``trainer.mesh_data_parallel`` × ``trainer.mesh_spatial``
 is the world size (``mesh_data_parallel`` -1 takes what ``mesh_spatial``
 leaves), and rank 0 alone writes checkpoints, logs, scores and
 predictions. ``--trainer.mesh_spatial S`` cuts the grid's lat into S
-bands, one a rank (HalfUNet, UNet and the lattice-path GraphLAM, HiLAM
-and HiLAMParallel; one card a rank, so S cards a data group):
+bands, one a rank (HalfUNet, UNet, Segformer, UNetRPP, SwinUNetR and
+the lattice-path GraphLAM, HiLAM and HiLAMParallel; one card a rank, so
+S cards a data group); the lat is padded to whole bands of the rows
+the model's pools, strides and windows need (SwinUNetR's windows of 7:
+512 rows to 672 at S = 2):
 
     torchrun --nproc-per-node 4 -m py4cast_tpu_torch fit --config ... \\
         --trainer.mesh_spatial 2

@@ -226,7 +226,7 @@ class PerceptualLossPy4Cast(Py4CastLoss):
     def __call__(self, prediction, target, mask, interior_mask=None):
         # the features see the whole field; interior_mask is accepted for
         # CombinedLoss's sake (the module refuses this loss on a lat band:
-        # ROADMAP.md, queue 1 item 12c)
+        # ROADMAP.md, queue 1 item 12c-ii)
         self._on(prediction.array)
         pred = self._normalize(prediction.array) * mask
         tgt = self._normalize(target.array) * mask

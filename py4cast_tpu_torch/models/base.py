@@ -74,9 +74,11 @@ class ModelBase(nn.Module):
     #: the model runs on a lat band of a spatial mesh (``parallel.spatial``)
     spatial_shardable: bool = False
 
-    def spatial_lat_multiple(self) -> int:
-        """The rows a lat band must be a multiple of to run alone (its
-        pools' windows): 1 unless the model pools."""
+    @classmethod
+    def spatial_lat_multiple(cls, settings) -> int:
+        """The rows a lat band of a model built from ``settings`` must be
+        a multiple of to run alone (its pools, strides and windows): 1
+        unless the model pools."""
         return 1
 
     def __init__(self, num_input_features: int, num_output_features: int,
@@ -91,9 +93,18 @@ class ModelBase(nn.Module):
 def pad_to_multiple(x: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
     """Zero-pad the two spatial dims of NHWC ``x`` at their ends up to a
     multiple. Returns the padded tensor and the original (H, W) for
-    ``crop_to``."""
+    ``crop_to``. On a lat band only the columns pad: the whole lat (the
+    band's rows times the bands) must be a multiple already, so that one
+    process would pad no rows either."""
     h, w = x.shape[1], x.shape[2]
     ph, pw = (-h) % multiple, (-w) % multiple
+    band = current_band()
+    if band is not None:
+        if (h * band.count) % multiple:
+            raise ValueError(
+                f"a lat of {h * band.count} rows on {band.count} bands is not a multiple of "
+                f"{multiple}, which the model pads its lat to: pass a lat_multiple that is")
+        ph = 0
     if ph or pw:
         x = F.pad(x, (0, 0, 0, pw, 0, ph))
     return x, (h, w)
@@ -125,11 +136,14 @@ class FlaxConv2d(nn.Conv2d):
     torch's OIHW; ``convert.params_from_jax`` maps Flax's HWIO kernel
     onto it.
 
-    On a lat band (``parallel.spatial.current_band``) a SAME conv takes
-    (k − 1)·d / 2 halo rows a side from its neighbour bands in place of
-    zero rows (zeros only at the global top and bottom) and pads its
-    columns as it does off a band; a stride > 1 or an asymmetric row pad
-    raises there (the sharded models use neither)."""
+    On a lat band (``parallel.spatial.current_band``) whose rows are a
+    multiple of the stride, a SAME conv takes the rows Flax's SAME pad
+    of the whole lat would add (``band_halo``: (k − 1)·d / 2 a side at
+    stride 1, (0, 1) at k 5 / stride 4 and k 3 / stride 2, none where
+    the kernel equals the stride) from its neighbour bands, zeros only at
+    the global top and bottom, and pads its columns as it does off a
+    band. An explicit ``padding`` raises there (the ResNet encoder's
+    convs: ROADMAP.md, queue 1 item 12c-ii)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1,
                  groups: int = 1, bias: bool = True, dilation: int = 1,
@@ -145,27 +159,32 @@ class FlaxConv2d(nn.Conv2d):
         return (flax_same_pad(h, (kh - 1) * dh + 1, sh),
                 flax_same_pad(w, (kw - 1) * dw + 1, sw))
 
-    def band_halo(self) -> int:
-        """The halo rows a side this conv reads on a lat band."""
-        (top, bottom), _ = self._rows_and_cols(1, 1)
-        if self.stride[0] != 1 or top != bottom:
-            raise ValueError(
-                f"a {self.kernel_size} conv at stride {self.stride} pads its rows "
-                f"({top}, {bottom}): only stride-1 symmetric SAME convs run on a lat band")
-        return top
+    def band_halo(self) -> Tuple[int, int]:
+        """The halo rows (top, bottom) this conv reads on a lat band whose
+        rows are a multiple of the stride: Flax's SAME pad of any such
+        lat, (k_dilated − stride) rows split as ``flax_same_pad`` splits
+        them."""
+        return self._rows_and_cols(self.stride[0], 1)[0]
 
     def forward_halo(self, x: torch.Tensor) -> torch.Tensor:
-        """The conv of a band grown by its halo rows (``band_halo`` a
-        side, NHWC): no row padding, the columns padded as off a band."""
-        top = self.band_halo()
-        _, (left, right) = self._rows_and_cols(x.shape[1] - 2 * top, x.shape[2])
+        """The conv of a band grown by its halo rows (``band_halo``,
+        NHWC): no row padding, the columns padded as off a band."""
+        top, bottom = self.band_halo()
+        _, (left, right) = self._rows_and_cols(x.shape[1] - top - bottom, x.shape[2])
         y = F.pad(x.permute(0, 3, 1, 2), (left, right))
         return super().forward(y).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.same and current_band() is not None:
-            top = self.band_halo()
-            return self.forward_halo(halo_rows(x, top, top))
+        if current_band() is not None:
+            if not self.same:
+                raise ValueError(
+                    f"a {self.kernel_size} conv with explicit padding {self.padding} cannot run "
+                    f"on a lat band yet (ROADMAP.md, queue 1 item 12c-ii)")
+            if x.shape[1] % self.stride[0]:
+                raise ValueError(
+                    f"a lat band of {x.shape[1]} rows does not split into the stride "
+                    f"{self.stride[0]} of a {self.kernel_size} conv")
+            return self.forward_halo(halo_rows(x, *self.band_halo()))
         y = x.permute(0, 3, 1, 2)
         if self.same:
             (top, bottom), (left, right) = self._rows_and_cols(x.shape[1], x.shape[2])
@@ -201,10 +220,17 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     when a generator is given (JAX's ``deterministic=False`` with a
     ``dropout`` rng), which must live on ``x``'s device; the keep mask is
     drawn from it, never from the global RNG. ``F.dropout`` takes no
-    generator."""
+    generator. On a lat band the mask is the whole grid's, cut to the
+    band's run of axis 1 (NHWC rows, row-major tokens or windows)."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    band = current_band()
+    shape = list(x.shape)
+    if band is not None:  # the whole grid's draw keeps every band's generator in step
+        shape[1] *= band.count
+    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    if band is not None:
+        keep = band.cut(keep, 1)
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -212,7 +238,7 @@ def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
     """Stochastic depth, the JAX package's ``DropPath``: ``dropout`` with
     one keep draw a sample, broadcast over every other axis (Flax's
     ``broadcast_dims``), survivors scaled by 1 / (1 − rate). Active only
-    with a generator, drawn from it alone."""
+    with a generator, drawn from it alone: the same draw on every band."""
     if generator is None or rate == 0.0:
         return x
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)

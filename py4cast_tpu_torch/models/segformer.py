@@ -8,10 +8,18 @@ pads as Flax does (``FlaxConv2d``), LayerNorms use Flax's eps 1e-6 and
 GELU is the tanh form (``flax.linen.gelu``'s default). The efficient
 self-attention runs on kernels c-fwd and c-bwd
 (``ops/attention.py``).
+
+On a lat band (``parallel.spatial``) the convs take halo rows (the
+strided patch embeddings their SAME pad's rows), the reduced K/V of
+each attention is gathered from every band (``gather_rows``) while the
+queries stay the band's own tokens, and the decoder's bilinear growths
+take one clamped halo row a side. A band's rows must be a multiple of
+every stride a stage takes (``spatial_lat_multiple``).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -28,6 +36,7 @@ from py4cast_tpu_torch.models.base import (
 )
 from py4cast_tpu_torch.models.unet import _bilinear_resize
 from py4cast_tpu_torch.ops.attention import dot_product_attention_short_kv
+from py4cast_tpu_torch.parallel.spatial import gather_rows
 
 
 @dataclass(frozen=True)
@@ -43,7 +52,10 @@ class SegformerSettings:
 
 class EfficientSelfAttention(nn.Module):
     """Attention with spatially reduced K/V (the SegFormer trick): K and V
-    come from the input after a stride-``reduction`` conv."""
+    come from the input after a stride-``reduction`` conv. On a lat band
+    the queries are the band's tokens and K/V every band's, gathered
+    after the conv and the projections; the gather's backward sums each
+    band's dK/dV share."""
 
     def __init__(self, dim: int, heads: int, reduction: int):
         super().__init__()
@@ -59,9 +71,9 @@ class EfficientSelfAttention(nn.Module):
         b, h, w, c = x.shape
         q = self.Dense_0(x).reshape(b, h * w, self.heads, -1)
         kv_in = self.Conv_0(x) if hasattr(self, "Conv_0") else x
-        n_kv = kv_in.shape[1] * kv_in.shape[2]
-        k = self.Dense_1(kv_in).reshape(b, n_kv, self.heads, -1)
-        v = self.Dense_2(kv_in).reshape(b, n_kv, self.heads, -1)
+        kv = gather_rows(torch.cat([self.Dense_1(kv_in), self.Dense_2(kv_in)], dim=-1), 1)
+        n_kv = kv.shape[1] * kv.shape[2]
+        k, v = (t.reshape(b, n_kv, self.heads, -1) for t in kv.chunk(2, dim=-1))
         out = dot_product_attention_short_kv(q, k, v).reshape(b, h, w, c)
         return self.Dense_3(out)
 
@@ -110,6 +122,15 @@ class MiTStage(nn.Module):
 class Segformer(ModelBase):
     settings_kls = SegformerSettings
     model_type = ModelType.VISION_TRANSFORMER
+    spatial_shardable = True
+
+    @classmethod
+    def spatial_lat_multiple(cls, settings) -> int:
+        """The total stride, and each stage's patch stride times its K/V
+        reduction: stage i reduces a band's rows by 4·2^i·r_i."""
+        n = len(settings.dims)
+        return math.lcm(4 * 2 ** (n - 1),
+                        *(4 * 2 ** i * r for i, r in enumerate(settings.reduction_ratio[:n])))
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape: Tuple[int, ...], settings: SegformerSettings = SegformerSettings()):

@@ -20,7 +20,17 @@ WindowAttention_0/rel_pos_bias``, ``ConvBlockRes_2``, ``UpBlock_0/
 ConvTranspose_0``, ``v2_block0``), so ``convert.params_from_jax`` maps
 the JAX variables one to one. Dropout (``drop_rate``,
 ``attn_drop_rate``) and stochastic depth (``dropout_path_rate``) draw
-from the ``generator`` the trainer passes in train steps only."""
+from the ``generator`` the trainer passes in train steps only.
+
+On a lat band (``parallel.spatial``) the windows stay inside the band:
+its rows at every stage are a multiple of the window (a band of a
+multiple of ws·2^stages rows, ``spatial_lat_multiple``). The shifted
+blocks roll the lat dim across the bands (``roll_rows``) and the lon dim
+locally, and take the band's windows of the whole grid's shift mask;
+the convs take halo rows, the instance norms band statistics, and the
+patch embedding, the merges and the transposed convs are each band's
+own. Dropout draws the whole grid's masks and cuts the band's
+(``base.dropout``)."""
 
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ from py4cast_tpu_torch.models.base import (
     norm_layer,
     pad_to_multiple,
 )
+from py4cast_tpu_torch.parallel.spatial import current_band, roll_rows
 
 
 @dataclass(frozen=True)
@@ -147,9 +158,18 @@ class WindowAttention(nn.Module):
         flax_trunc_normal_(self.rel_pos_bias, generator)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                windows: Optional[int] = None) -> torch.Tensor:
+        """``x`` (B·nW, ws·ws, dim), the nW = ``windows`` windows of each
+        sample in row-major order (on a lat band, the band's: its dropout
+        masks are cut from the whole grid's windows)."""
         nb, t, _ = x.shape
         heads, hd = self.heads, self.dim // self.heads
+        per_sample = windows or nb
+
+        def drop(a, rate):
+            return dropout(a.reshape(nb // per_sample, per_sample, *a.shape[1:]), rate,
+                           generator).reshape(a.shape)
 
         def heads_first(a):
             return a.reshape(nb, t, heads, hd).transpose(1, 2)
@@ -166,9 +186,9 @@ class WindowAttention(nn.Module):
             nw = mask.shape[0]
             attn = (attn.reshape(nb // nw, nw, heads, t, t) + mask[None, :, None]).reshape(
                 nb, heads, t, t)
-        attn = dropout(attn.softmax(dim=-1).to(v.dtype), self.attn_drop, generator)
+        attn = drop(attn.softmax(dim=-1).to(v.dtype), self.attn_drop)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(nb, t, self.dim)
-        return dropout(self.Dense_1(out), self.proj_drop, generator)
+        return drop(self.Dense_1(out), self.proj_drop)
 
 
 class SwinBlock(nn.Module):
@@ -192,12 +212,13 @@ class SwinBlock(nn.Module):
         _, h, w, _ = x.shape
         s, ws = self.shift, self.ws
         y = self.LayerNorm_0(x)
+        if s > 0:  # the lat roll crosses the bands (torch.roll off a band)
+            y = roll_rows(torch.roll(y, -s, dims=2), -s)
+        windows = (h // ws) * (w // ws)
+        y = _window_reverse(self.WindowAttention_0(_window_partition(y, ws), mask, generator,
+                                                   windows), ws, h, w)
         if s > 0:
-            y = torch.roll(y, (-s, -s), dims=(1, 2))
-        y = _window_reverse(self.WindowAttention_0(_window_partition(y, ws), mask, generator),
-                            ws, h, w)
-        if s > 0:
-            y = torch.roll(y, (s, s), dims=(1, 2))
+            y = roll_rows(torch.roll(y, s, dims=2), s)
         x = x + drop_path(y, self.drop_path_rate, generator)
         z = F.gelu(self.Dense_0(self.LayerNorm_1(x)), approximate="tanh")  # flax nn.gelu
         z = dropout(self.Dense_1(dropout(z, self.drop, generator)), self.drop, generator)
@@ -223,12 +244,21 @@ class SwinStage(nn.Module):
         self.register_buffer("shift_mask", torch.from_numpy(mask), persistent=False)
 
     def _mask(self, h: int, w: int) -> torch.Tensor:
-        if (h, w) == self.padded:
-            return self.shift_mask
-        return torch.from_numpy(_shift_mask(h, w, self.ws, self.ws // 2)).to(
-            self.shift_mask.device)
+        """The shift mask of an (h, w) input (a band's: the band's windows
+        of the whole grid's mask, which depends on global position)."""
+        band = current_band()
+        whole = h * (band.count if band is not None else 1)
+        if (whole, w) == self.padded:
+            mask = self.shift_mask
+        else:
+            mask = torch.from_numpy(_shift_mask(whole, w, self.ws, self.ws // 2)).to(
+                self.shift_mask.device)
+        return mask if band is None else band.cut(mask, 0)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        if current_band() is not None and x.shape[1] % self.ws:
+            raise ValueError(f"a lat band of {x.shape[1]} rows does not hold whole windows "
+                             f"of {self.ws} rows")
         x, hw = pad_to_multiple(x, self.ws)
         mask = self._mask(x.shape[1], x.shape[2]) if self.depth > 1 else None
         for i in range(self.depth):
@@ -303,6 +333,12 @@ class SwinUNetR(ModelBase):
     settings_kls = SwinUNetRSettings
     model_type = ModelType.VISION_TRANSFORMER
     register = True
+    spatial_shardable = True
+
+    @classmethod
+    def spatial_lat_multiple(cls, settings) -> int:
+        """Stage i holds a band's rows / 2^(i+1), whole windows each."""
+        return settings.window_size * 2 ** len(settings.depths)
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape: Tuple[int, ...], settings: SwinUNetRSettings = SwinUNetRSettings()):

@@ -35,7 +35,7 @@ from py4cast_tpu_torch.models.base import (
     pad_to_multiple,
 )
 from py4cast_tpu_torch.ops.pool import max_pool_2x2
-from py4cast_tpu_torch.parallel.spatial import current_band
+from py4cast_tpu_torch.parallel.spatial import current_band, halo_rows
 
 
 class ConvBlock(nn.Module):
@@ -138,10 +138,31 @@ def _bilinear_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     XLA sums the resize's weights: the card's bilinear backward adds a
     bf16 input's gradient up in bf16, which at DeepLab's x32 resize
     loses it. A growth runs through ``_GrowBilinear``, so that its
-    backward repeats bit for bit."""
+    backward repeats bit for bit.
+
+    On a lat band (``h`` the band's rows of the grown lat) the lat grows
+    by a whole factor f: the band's rows and one row of each neighbour
+    band (the edge row itself at the global top and bottom, which is the
+    clamp) grow to f·(rows + 2), and the band keeps its own f·rows of
+    them, which read no row beyond those. A shrink raises there
+    (ROADMAP.md, queue 1 item 12c-ii)."""
     if (h, w) == tuple(x.shape[1:3]):
         return x
     shrinks = h < x.shape[1] or w < x.shape[2]
+    band = current_band()
+    if band is not None and h != x.shape[1]:
+        if shrinks or h % x.shape[1]:
+            raise ValueError(
+                f"a resize of a lat band from {x.shape[1]} to {h} rows is no whole-factor "
+                f"growth: it cannot run on a lat band yet (ROADMAP.md, queue 1 item 12c-ii)")
+        f = h // x.shape[1]
+        grown = _resize(halo_rows(x, 1, 1, band, clamp=True), h + 2 * f, w, shrinks)
+        return grown[:, f:f + h]
+    return _resize(x, h, w, shrinks)
+
+
+def _resize(x: torch.Tensor, h: int, w: int, shrinks: bool) -> torch.Tensor:
+    """``_bilinear_resize`` of the whole of ``x``."""
     xc = x.permute(0, 3, 1, 2).float()
     if shrinks:
         y = F.interpolate(xc, size=(h, w), mode="bilinear", align_corners=False,
@@ -172,8 +193,9 @@ class UNet(ModelBase):
     model_type = ModelType.CONVOLUTIONAL
     spatial_shardable = True
 
-    def spatial_lat_multiple(self) -> int:
-        return 2 ** self.settings.depth
+    @classmethod
+    def spatial_lat_multiple(cls, settings) -> int:
+        return 2 ** settings.depth
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape: Tuple[int, ...], settings: UNetSettings = UNetSettings()):
@@ -237,8 +259,9 @@ class HalfUNet(ModelBase):
     model_type = ModelType.CONVOLUTIONAL
     spatial_shardable = True
 
-    def spatial_lat_multiple(self) -> int:
-        return 2 ** (self.settings.depth - 1)
+    @classmethod
+    def spatial_lat_multiple(cls, settings) -> int:
+        return 2 ** (settings.depth - 1)
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape: Tuple[int, ...], settings: HalfUNetSettings = HalfUNetSettings()):

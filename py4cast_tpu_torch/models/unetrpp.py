@@ -22,7 +22,18 @@ compile and memory device and changes no number (the trainer's
 
 Dropout (``dropout_rate``) follows Flax's ``nn.Dropout`` and draws from
 the ``generator`` the trainer passes in train steps only
-(``base.dropout``)."""
+(``base.dropout``).
+
+On a lat band (``parallel.spatial``) a band's tokens are one run of the
+row-major N: EPA's token norms, its channel logits and its projected
+K/V are sums over every band (``band_all_reduce``, in fp32, rounded
+once where one process's product rounds), ``proj_k`` and ``proj_v`` are cut to
+the band's token rows, and the spatial branch attends the band's
+queries to the whole projected K/V (kernels c-fwd and c-bwd under
+``flash_attn`` and ``pallas``). The convs take halo rows, the instance
+norms band statistics, the linear upsamplings a clamped halo row a
+side; the patch embedding, the 2x2 down convs and the transposed convs
+are each band's own. A band's rows must be a multiple of dr·2^(n−1)."""
 
 from __future__ import annotations
 
@@ -48,6 +59,7 @@ from py4cast_tpu_torch.models.base import (
 )
 from py4cast_tpu_torch.models.unet import _bilinear_resize
 from py4cast_tpu_torch.ops.attention import short_kv_attention
+from py4cast_tpu_torch.parallel.spatial import band_all_reduce, current_band
 
 #: the channel branch's norm guard (``unetrpp.py`` adds it to the norm)
 NORM_EPS = 1e-6
@@ -136,9 +148,12 @@ class EPA(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         b, n, _ = x.shape
-        if n != self.tokens:
+        band = current_band()
+        count = 1 if band is None else band.count
+        if n * count != self.tokens:
             raise ValueError(f"EPA was built for {self.tokens} tokens (its proj_k, proj_v), "
-                             f"got {n}: build the model for this grid")
+                             f"got {n}{f' on each of {count} bands' if count > 1 else ''}: "
+                             f"build the model for this grid")
         heads, hd = self.heads, self.dim // self.heads
 
         def split_heads(a):  # (B, heads, N, hd)
@@ -146,18 +161,34 @@ class EPA(nn.Module):
 
         q, k, v_sp, v_ch = map(split_heads, self.Dense_0(x).chunk(4, dim=-1))
 
-        # channel branch: (hd x hd) a head, q and k normalised over the tokens
-        qn = q / (torch.linalg.vector_norm(q, dim=-2, keepdim=True) + NORM_EPS)
-        kn = k / (torch.linalg.vector_norm(k, dim=-2, keepdim=True) + NORM_EPS)
+        # channel branch: (hd x hd) a head, q and k normalised over the
+        # tokens (on a band, fp32 sums of squares over every band's)
+        if band is None:
+            norms = [torch.linalg.vector_norm(a, dim=-2, keepdim=True) for a in (q, k)]
+        else:
+            norms = band_all_reduce(torch.stack(
+                [a.float().square().sum(dim=-2, keepdim=True) for a in (q, k)]), band).sqrt()
+        qn = q / (norms[0].to(q.dtype) + NORM_EPS)
+        kn = k / (norms[1].to(k.dtype) + NORM_EPS)
         # the logits and their softmax in fp32 (exact products of bf16
         # values, as the JAX package's preferred_element_type), the
         # weights back in the activation dtype for the value product
-        attn_ch = torch.einsum("bhnd,bhne->bhde", qn.float(), kn.float()) * self.temperature
+        attn_ch = band_all_reduce(torch.einsum("bhnd,bhne->bhde", qn.float(), kn.float()), band)
+        attn_ch = attn_ch * self.temperature
         out_ch = torch.einsum("bhde,bhne->bhnd", attn_ch.softmax(dim=-1).to(v_ch.dtype), v_ch)
 
-        # spatial branch: K/V projected onto p tokens
-        k_p = torch.einsum("bhnd,np->bhpd", k, self.proj_k)
-        v_p = torch.einsum("bhnd,np->bhpd", v_sp, self.proj_v)
+        # spatial branch: K/V projected onto p tokens by proj_k and proj_v;
+        # on a band, the band's token rows of them, the partial products
+        # summed over the bands in fp32 and rounded once, as one process's
+        # product rounds its fp32 sum once
+        if band is None:
+            k_p = torch.einsum("bhnd,np->bhpd", k, self.proj_k)
+            v_p = torch.einsum("bhnd,np->bhpd", v_sp, self.proj_v)
+        else:
+            rows = band.rows(self.tokens)
+            k_p, v_p = band_all_reduce(torch.stack(
+                [torch.einsum("bhnd,np->bhpd", a.float(), proj[rows].float())
+                 for a, proj in ((k, self.proj_k), (v_sp, self.proj_v))]), band).to(q.dtype)
         if self.kernel:
             p = k_p.shape[2]
             out_sp = short_kv_attention(
@@ -227,6 +258,11 @@ class UNetRPP(ModelBase):
 
     settings_kls = UNetRPPSettings
     model_type = ModelType.VISION_TRANSFORMER
+    spatial_shardable = True
+
+    @classmethod
+    def spatial_lat_multiple(cls, settings) -> int:
+        return settings.downsampling_rate * 2 ** (len(settings.depths) - 1)
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape: Tuple[int, ...], settings: UNetRPPSettings = UNetRPPSettings()):

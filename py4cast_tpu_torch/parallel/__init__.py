@@ -21,12 +21,15 @@ from py4cast_tpu_torch.parallel.spatial import (
     band_all_reduce,
     current_band,
     gather_lat,
+    gather_rows,
     halo_rows,
     on_band,
+    roll_rows,
 )
 
 __all__ = [
-    "Band", "band_all_reduce", "current_band", "gather_lat", "halo_rows", "on_band",
+    "Band", "band_all_reduce", "current_band", "gather_lat", "gather_rows", "halo_rows",
+    "on_band", "roll_rows",
     "Mesh", "MeshConfig", "all_gather_rows", "all_reduce_grads",
     "barrier", "broadcast_object", "distributed", "is_main_process", "main_process_first",
     "make_mesh", "maybe_init_distributed", "shard_batch", "to_host",

@@ -22,7 +22,9 @@ into S bands of H / S rows; spatial rank s holds rows
 ``[s·H/S, (s+1)·H/S)`` of every grid tensor, of the statics and of the
 grid-side lattice metadata. Convolutions take halo rows from their
 neighbours, GroupNorm and the g2m hop all-reduce band sums, the graph
-models' mesh levels run replicated on every band.
+models' mesh levels run replicated on every band; Segformer gathers
+its reduced K/V from every band, UNetRPP's EPA all-reduces its token
+sums, SwinUNetR rolls its shifted windows across the bands.
 
 **The gradient semantics.**
 - Each rank's loss is its band's share of the global loss: the band's
@@ -63,7 +65,7 @@ from py4cast_tpu_torch.utils import resolve_device
 
 #: the ROADMAP.md item that ports the spatial axis to the remaining
 #: models (cited by every refusal under spatial > 1)
-SPATIAL_NEXT_ITEM = "ROADMAP.md, queue 1 item 12c"
+SPATIAL_NEXT_ITEM = "ROADMAP.md, queue 1 item 12c-ii"
 
 
 @dataclass(frozen=True)

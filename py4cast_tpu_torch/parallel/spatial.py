@@ -6,18 +6,26 @@ tensor. Graph models flatten the grid row-major, so a band of the flat
 ``ngrid`` axis is a band of lat rows. A ``Band`` names this rank's band
 and the process group of the S ranks that share one data index.
 
-Three collectives join the bands, each an autograd ``Function``
+Five collectives join the bands, each an autograd ``Function``
 (``gather_lat`` takes no gradient):
 
 - ``halo_rows(x, top, bottom)``: ``x`` (B, H/S, W, C) with the last
   ``top`` rows of the band above and the first ``bottom`` rows of the
-  band below around it, zeros at the global top and bottom. Its
-  backward sends each halo row's gradient back to its owner, which adds
-  it to its edge rows in a fixed order;
+  band below around it, zeros at the global top and bottom (or, with
+  ``clamp``, the global edge row repeated: a bilinear growth's edges).
+  Its backward sends each halo row's gradient back to its owner, which
+  adds it to its edge rows in a fixed order;
 - ``band_all_reduce(x)``: the sum of every band's partial ``x`` (a
-  GroupNorm's band statistics, the g2m hop's partial aggregate). Its
-  backward all-reduces the cotangent: every band's partial reaches the
-  sum that every rank goes on from;
+  GroupNorm's band statistics, the g2m hop's partial aggregate, EPA's
+  token sums). Its backward all-reduces the cotangent: every band's
+  partial reaches the sum that every rank goes on from;
+- ``gather_rows(x, dim)``: the bands concatenated on ``dim``, with a
+  gradient: its backward sums every band's cotangent of the whole in
+  band order and keeps this band's rows (Segformer's reduced K/V);
+- ``roll_rows(x, shift)``: ``torch.roll`` of the whole lat dim by
+  ``shift``, each band trading ``|shift|`` edge rows with its neighbour
+  across the wrap (Swin's shifted windows); its backward is the
+  opposite roll;
 - ``gather_lat(x, dim)``: the bands concatenated on ``dim``, for eval,
   predict, the observers and the writers.
 
@@ -29,7 +37,9 @@ band at build only to cut its grid-side metadata. With no band (S = 1)
 every primitive is the identity and the code path is the unsharded
 one. The collectives run on the band's group (gloo on the CPU, NCCL on
 cards); every rank of a group must call them in the same order, which
-the same model on the same shapes does.
+the same model on the same shapes does. Every exchange goes through
+``_gather`` and ``_all_reduce``, which ``testing.run_on_bands`` stands
+in for to run every band of a grid in one process.
 """
 
 from __future__ import annotations
@@ -96,24 +106,45 @@ def _gather(t: torch.Tensor, band: Band):
     return parts
 
 
+def _all_reduce(t: torch.Tensor, band: Band) -> torch.Tensor:
+    """The sum of every band's ``t`` (the same shape on each), on every
+    band."""
+    out = t.clone(memory_format=torch.contiguous_format)  # NCCL reduces dense rows
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=band.group)
+    return out
+
+
+def _edge_rows(x: torch.Tensor, row: int, n: int) -> torch.Tensor:
+    """``n`` copies of ``x``'s lat row ``row`` (0 or -1)."""
+    edge = x[:, row:row + 1] if row >= 0 else x[:, row:]
+    return edge.expand((x.shape[0], n) + tuple(x.shape[2:]))
+
+
 class _HaloRows(torch.autograd.Function):
     """``halo_rows``: each band sends its last ``top`` and first
     ``bottom`` rows in one all-gather of the band group and keeps its
     neighbours'; the backward gathers the halo rows' gradients the same
-    way and adds them to the edge rows they came from."""
+    way and adds them to the edge rows they came from (with ``clamp``,
+    the repeated global edge rows' gradients to the edge row itself)."""
 
     @staticmethod
-    def forward(ctx, x, top: int, bottom: int, band: Band):
-        ctx.top, ctx.bottom, ctx.band = top, bottom, band
+    def forward(ctx, x, top: int, bottom: int, band: Band, clamp: bool):
+        ctx.top, ctx.bottom, ctx.band, ctx.clamp = top, bottom, band, clamp
         h = x.shape[1]
         if h < max(top, bottom):
             raise ValueError(f"a lat band of {h} rows cannot send a halo of {max(top, bottom)}")
         edges = torch.cat([x[:, h - top:], x[:, :bottom]], dim=1)
         parts = _gather(edges, band)
         s, n = band.index, band.count
-        zeros = x.new_zeros
-        above = parts[s - 1][:, :top] if s > 0 else zeros((x.shape[0], top) + x.shape[2:])
-        below = parts[s + 1][:, top:] if s < n - 1 else zeros((x.shape[0], bottom) + x.shape[2:])
+        if s > 0:
+            above = parts[s - 1][:, :top]
+        else:
+            above = _edge_rows(x, 0, top) if clamp else x.new_zeros((x.shape[0], top) + x.shape[2:])
+        if s < n - 1:
+            below = parts[s + 1][:, top:]
+        else:
+            below = (_edge_rows(x, -1, bottom) if clamp
+                     else x.new_zeros((x.shape[0], bottom) + x.shape[2:]))
         halo_rows.bytes += (n - 1) * edges.numel() * edges.element_size()
         return torch.cat([above, x, below], dim=1)
 
@@ -131,22 +162,29 @@ class _HaloRows(torch.autograd.Function):
         # below's top halo its last rows: added in that order
         if s > 0:
             dx[:, :bottom] += parts[s - 1][:, top:]
+        elif ctx.clamp and top:
+            dx[:, :1] += g[:, :top].sum(dim=1, keepdim=True)
         if s < n - 1:
             dx[:, h - top:] += parts[s + 1][:, :top]
-        return dx, None, None, None
+        elif ctx.clamp and bottom:
+            dx[:, h - 1:] += g[:, top + h:].sum(dim=1, keepdim=True)
+        return dx, None, None, None, None
 
 
 def halo_rows(x: torch.Tensor, top: int, bottom: int,
-              band: Optional[Band] = None) -> torch.Tensor:
+              band: Optional[Band] = None, clamp: bool = False) -> torch.Tensor:
     """NHWC ``x`` (a band's rows) grown by ``top`` rows of the band above
-    and ``bottom`` rows of the band below, zeros at the global edges;
-    off a band, ``x`` padded with zero rows."""
+    and ``bottom`` rows of the band below, zeros at the global edges (the
+    edge row repeated with ``clamp``); off a band, ``x`` padded with zero
+    rows (with the edge rows repeated under ``clamp``)."""
     band = band or current_band()
     if band is None or band.count == 1:
+        if clamp:
+            return torch.cat([_edge_rows(x, 0, top), x, _edge_rows(x, -1, bottom)], dim=1)
         return F.pad(x, (0, 0, 0, 0, top, bottom))
     if top == bottom == 0:
         return x
-    return _HaloRows.apply(x, top, bottom, band)
+    return _HaloRows.apply(x, top, bottom, band, clamp)
 
 
 #: bytes this process received from the other bands in halo exchanges,
@@ -160,16 +198,12 @@ class _BandAllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, band: Band):
         ctx.band = band
-        out = x.clone(memory_format=torch.contiguous_format)  # NCCL reduces dense rows
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=band.group)
-        return out
+        return _all_reduce(x, band)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        out = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.band.group)
-        return out, None
+        return _all_reduce(g, ctx.band), None
 
 
 def band_all_reduce(x: torch.Tensor, band: Optional[Band] = None) -> torch.Tensor:
@@ -180,6 +214,93 @@ def band_all_reduce(x: torch.Tensor, band: Optional[Band] = None) -> torch.Tenso
     if band is None or band.count == 1:
         return x
     return _BandAllReduce.apply(x, band)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``gather_rows``: an all-gather of the bands' ``x``; the backward
+    all-gathers every band's cotangent of the whole and sums the slices
+    of this band's rows in band order (a reduce-scatter whose sums
+    repeat bit for bit)."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, band: Band):
+        ctx.dim, ctx.band, ctx.size = dim, band, x.shape[dim]
+        parts = _gather(x, band)
+        gather_rows.bytes += (band.count - 1) * x.numel() * x.element_size()
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        band, dim, size = ctx.band, ctx.dim, ctx.size
+        parts = _gather(g, band)
+        gather_rows.bytes += (band.count - 1) * g.numel() * g.element_size()
+        dx = parts[0].narrow(dim, band.index * size, size).clone()
+        for part in parts[1:]:
+            dx += part.narrow(dim, band.index * size, size)
+        return dx, None, None
+
+
+def gather_rows(x: torch.Tensor, dim: int, band: Optional[Band] = None) -> torch.Tensor:
+    """Every band's ``x`` concatenated on ``dim`` in band order, on every
+    band, with a gradient: each band's rows get the sum over the bands of
+    their cotangents. ``x`` itself off a band."""
+    band = band or current_band()
+    if band is None or band.count == 1:
+        return x
+    return _GatherRows.apply(x, dim, band)
+
+
+#: bytes this process received from the other bands in ``gather_rows``,
+#: forward and backward, since the last reset
+gather_rows.bytes = 0
+
+
+def _roll(x: torch.Tensor, shift: int, band: Band) -> torch.Tensor:
+    """This band's rows of the whole lat dim rolled by ``shift``: the
+    |shift| rows that leave one end of a band enter the next band's other
+    end (band S − 1's wrap to band 0 and back)."""
+    k, h = abs(shift), x.shape[1]
+    if k > h:
+        raise ValueError(f"a lat band of {h} rows cannot roll {k} rows across bands")
+    s, n = band.index, band.count
+    sent = x[:, h - k:] if shift > 0 else x[:, :k]
+    parts = _gather(sent, band)
+    roll_rows.bytes += (n - 1) * sent.numel() * sent.element_size()
+    if shift > 0:
+        return torch.cat([parts[(s - 1) % n], x[:, :h - k]], dim=1)
+    return torch.cat([x[:, k:], parts[(s + 1) % n]], dim=1)
+
+
+class _RollRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shift: int, band: Band):
+        ctx.shift, ctx.band = shift, band
+        return _roll(x, shift, band)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _roll(g, -ctx.shift, ctx.band), None, None
+
+
+def roll_rows(x: torch.Tensor, shift: int, band: Optional[Band] = None) -> torch.Tensor:
+    """``torch.roll(x, shift, dims=1)`` of the whole lat dim, on a band's
+    rows: at ``shift`` < 0 each band sends its first |shift| rows to the
+    band before it (band 0 to band S − 1), at ``shift`` > 0 its last ones
+    to the band after it. The backward is the opposite roll. Off a band,
+    ``torch.roll``."""
+    band = band or current_band()
+    if band is None or band.count == 1:
+        return torch.roll(x, shift, dims=1)
+    if shift == 0:
+        return x
+    return _RollRows.apply(x, shift, band)
+
+
+#: bytes this process received from the other bands in ``roll_rows``,
+#: forward and backward, since the last reset
+roll_rows.bytes = 0
 
 
 def gather_lat(x: torch.Tensor, dim: int, band: Optional[Band] = None) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Synthetic in-memory fixtures for smoke runs and tests: a full
 DatasetInfo (grid statics, stats, diff stats), batches and datasets
-drawn from a numpy seed, without touching disk; and ``run_ranks``, which
+drawn from a numpy seed, without touching disk; ``run_ranks``, which
 runs a function on several local ranks joined in a process group, with
-two such functions (``train_report``, ``fit_test_report``)."""
+two such functions (``train_report``, ``fit_test_report``); and
+``run_on_bands``, which runs every lat band of a grid in one process."""
 
 from __future__ import annotations
 
@@ -238,6 +239,60 @@ def run_ranks(target: str, world_size: int, kwargs: Optional[dict] = None,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def run_on_bands(fn: Callable, count: int, before_last: Optional[Callable] = None) -> list:
+    """``fn(band)`` on each of ``count`` lat bands in turn, in this
+    process, under ``on_band(band)``, as if the bands ran together: each
+    exchange of ``parallel.spatial`` (its ``_gather`` and
+    ``_all_reduce``) is answered with what every band sent to that
+    exchange, recorded as the bands run. A band's k-th send depends only
+    on the answers to its exchanges before it, so the answers are all
+    right from the (n + 1)-th pass on, n the exchanges a band makes
+    (where a send is not known yet, the band's own stands in for it):
+    ``fn`` runs n + 1 times a band, and its results of the last pass are
+    returned in band order. ``fn`` runs everything that exchanges (the
+    forward and its backward) and returns what it keeps.
+    ``before_last()`` runs before the last pass (a reset of the kernel
+    launch counts: the last pass's launches are one run's)."""
+    from py4cast_tpu_torch.parallel import spatial
+
+    sent: dict = {}
+    made = [0] * count
+    bands = [spatial.Band(s, count) for s in range(count)]
+
+    def gather(t, band):
+        key = made[band.index]
+        made[band.index] += 1
+        sent[band.index, key] = t.detach().clone()
+        return [sent.get((b, key), sent[band.index, key]) for b in range(count)]
+
+    def all_reduce(t, band):
+        parts = gather(t, band)
+        out = parts[0].clone()
+        for part in parts[1:]:
+            out += part
+        return out
+
+    saved = spatial._gather, spatial._all_reduce
+    spatial._gather, spatial._all_reduce = gather, all_reduce
+    try:
+        passes, done, results = 1, 0, []
+        while done < passes:
+            if done == passes - 1 and before_last is not None:
+                before_last()
+            made = [0] * count
+            results = []
+            for band in bands:
+                with spatial.on_band(band):
+                    results.append(fn(band))
+            if len(set(made)) != 1:
+                raise RuntimeError(f"the bands made different numbers of exchanges: {made}")
+            passes = made[0] + 1
+            done += 1
+        return results
+    finally:
+        spatial._gather, spatial._all_reduce = saved
+
+
 def _small_module(model_name: str, settings_init_args: dict, grid, device: str,
                   lat_multiple: Optional[int] = None, mesh=None, **settings):
     """A small ``scaled_ar`` module; ``mesh`` (data, spatial) lays out the
@@ -267,10 +322,23 @@ def kernel_wrappers() -> dict:
             "short_kv_attention_bwd": attention.fused_short_kv_attention_bwd}
 
 
+def held_params(grads: dict, params: dict, bar: float) -> dict:
+    """``params`` flattened, without the elements whose gradient in
+    ``grads`` (one process's first step) is within ``bar`` of the largest
+    gradient of zero: there a gradient comparison held to ``bar`` cannot
+    fix the sign, and AdamW, which moves an element by about the learning
+    rate whatever its gradient's size, moves it apart by up to twice the
+    rate a step (a conv's bias before an instance norm, the key third of
+    a window attention's bias: zero in exact arithmetic)."""
+    largest = max(float(g.abs().max()) for g in grads.values() if g.numel())
+    return {k: p.reshape(-1)[grads[k].reshape(-1).abs() > bar * largest]
+            for k, p in params.items()}
+
+
 def train_report(model_name: str, settings_init_args: dict, grid=(32, 32), batch_size: int = 4,
                  steps: int = 3, seed: int = 0, params_path: Optional[str] = None,
                  device: str = "cpu", mesh=None, padded_grid=None,
-                 lat_multiple: Optional[int] = None) -> dict:
+                 lat_multiple: Optional[int] = None, precision: str = "32") -> dict:
     """``steps`` AdamW steps of a small ``scaled_ar`` module, alone or on
     every rank of a group laid out as ``mesh`` (data, spatial): step k
     trains on the global batch ``synthetic_batch(info, batch_size,
@@ -279,17 +347,20 @@ def train_report(model_name: str, settings_init_args: dict, grid=(32, 32), batch
     ``torch.save``d dict) or from seed 0. Reports the rank, the world
     size, the losses, the final parameters, the kernel launches, halo
     bytes and host ms of each step, the first step's gradients as AdamW
-    receives them (after ``all_reduce_grads``), the peak device memory
-    (cuda), and ``predict_step`` of the first batch at the final parameters on the
-    whole grid, gathered over the data ranks. With ``padded_grid`` it
+    receives them (after ``all_reduce_grads``), the bytes the spatial
+    exchanges received a step (``halo_rows``, ``gather_rows``,
+    ``roll_rows``), the peak device memory (cuda), and ``predict_step``
+    of the first batch at the final parameters on the whole grid,
+    gathered over the data ranks; ``precision`` is the module's. With
+    ``padded_grid`` it
     also predicts that batch's counterpart on a ``padded_grid`` module
     padded to ``lat_multiple``, from seed-0 parameters."""
     from py4cast_tpu_torch.parallel.mesh import to_host
-    from py4cast_tpu_torch.parallel.spatial import halo_rows
+    from py4cast_tpu_torch.parallel.spatial import gather_rows, halo_rows, roll_rows
 
     module, info = _small_module(model_name, settings_init_args, grid, device,
                                  lat_multiple=lat_multiple if padded_grid is None else None,
-                                 mesh=mesh)
+                                 mesh=mesh, precision=precision)
     params = torch.load(params_path, weights_only=True) if params_path else None
     state = module.init_state(torch.Generator().manual_seed(0), steps, params)
     grads = {}
@@ -301,7 +372,9 @@ def train_report(model_name: str, settings_init_args: dict, grid=(32, 32), batch
     state.optimizer.register_step_pre_hook(keep_first_grads)
     coords = {"process_index": module.mesh.data_index, "process_count": module.mesh.data}
     wrappers = kernel_wrappers()
-    losses, launches, halo, host_ms = [], [], [], []
+    losses, launches, host_ms = [], [], []
+    exchanges = {"halo_bytes": (halo_rows, []), "gather_bytes": (gather_rows, []),
+                 "roll_bytes": (roll_rows, [])}
     batches = []
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -311,14 +384,17 @@ def train_report(model_name: str, settings_init_args: dict, grid=(32, 32), batch
                                              **coords))))
         for fn in wrappers.values():
             fn.launches = 0
-        halo_rows.bytes = 0
+        for counter, _ in exchanges.values():
+            counter.bytes = 0
         t0 = time.perf_counter()
         losses.append(float(module.train_step(state, batches[-1])))
         host_ms.append((time.perf_counter() - t0) * 1e3)
         launches.append({name: fn.launches for name, fn in wrappers.items()})
-        halo.append(halo_rows.bytes)
+        for counter, per_step in exchanges.values():
+            per_step.append(counter.bytes)
     report = {"rank": module.mesh.rank, "world_size": module.mesh.world_size,
-              "losses": losses, "launches": launches, "halo_bytes": halo, "host_ms": host_ms,
+              "losses": losses, "launches": launches, "host_ms": host_ms,
+              **{key: per_step for key, (_, per_step) in exchanges.items()},
               "params": {k: v.detach().cpu() for k, v in state.params.items()},
               "grads": grads,
               "predictions": torch.from_numpy(to_host(
@@ -327,7 +403,7 @@ def train_report(model_name: str, settings_init_args: dict, grid=(32, 32), batch
         report["peak_bytes"] = torch.cuda.max_memory_allocated()
     if padded_grid is not None:
         padded, pinfo = _small_module(model_name, settings_init_args, padded_grid, device,
-                                      lat_multiple=lat_multiple, mesh=mesh)
+                                      lat_multiple=lat_multiple, mesh=mesh, precision=precision)
         pdata = SyntheticDataset(pinfo, batch_size, num_pred_steps=1, seed=seed)
         pbatch = next(iter(pdata.loader(batch_size=batch_size, num_workers=1, **coords)))
         pparams = padded.init_params(torch.Generator().manual_seed(0))
@@ -343,8 +419,9 @@ def train_reports(cases: List[dict], **common) -> List[dict]:
 
 
 def fit_test_report(save_path: str, n_test: int = 11, batch_size: int = 4, grid=(32, 32),
-                    device: str = "cpu", mesh=None) -> dict:
-    """A small HalfUNet's ``Trainer.fit`` (2 train batches, a padded
+                    device: str = "cpu", mesh=None, model_name: str = "HalfUNet",
+                    settings_init_args: Optional[dict] = None) -> dict:
+    """A small model's (HalfUNet's by default) ``Trainer.fit`` (2 train batches, a padded
     validation tail), ``Trainer.test`` with logging (figures, scores,
     PSD-K, PSD-Var, ACC) over ``n_test`` samples, the per-sample test
     rows (``Trainer.eval_rows``), ``Trainer.predict`` and the fitted
@@ -356,8 +433,9 @@ def fit_test_report(save_path: str, n_test: int = 11, batch_size: int = 4, grid=
     from py4cast_tpu_torch.parallel.mesh import is_main_process
     from py4cast_tpu_torch.training import Trainer, TrainerConfig
 
-    module, info = _small_module("HalfUNet", {"num_filters": 8, "depth": 2}, grid, device,
-                                 mesh=mesh, num_pred_steps_val_test=2)
+    args = {"num_filters": 8, "depth": 2} if settings_init_args is None else settings_init_args
+    module, info = _small_module(model_name, args, grid, device, mesh=mesh,
+                                 num_pred_steps_val_test=2)
     rank = module.mesh.rank
     trainer = Trainer(TrainerConfig(max_epochs=1, batch_size=batch_size, num_workers=1,
                                     limit_train_batches=2, save_path=f"{save_path}/rank{rank}",

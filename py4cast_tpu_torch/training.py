@@ -14,7 +14,8 @@ Under a ``torch.distributed`` process group (``parallel.mesh``) every
 rank runs the same loop on its slice of each global batch: one gradient
 all-reduce an optimizer step, eval rows and predictions gathered to
 every rank, writes on rank 0. Under a spatial axis (``mesh.spatial`` >
-1: HalfUNet, UNet and the lattice-path graph models) each rank also
+1: HalfUNet, UNet, Segformer, UNetRPP, SwinUNetR and the lattice-path
+graph models) each rank also
 holds one lat band of the grid (``parallel.spatial``): its statics,
 masks and batch rows; the bands join inside the model, their loss
 shares are summed, and predictions and eval arrays are gathered back to
@@ -322,9 +323,10 @@ class AutoRegressiveModule:
     others raise) the padded lat splits into S bands and this rank keeps
     its band (``mesh.band``) of the statics, the masks and every batch
     array; the graph is built on the whole padded grid and cut after.
-    Each band must hold a multiple of the rows the model's pools need
-    (``ModelBase.spatial_lat_multiple``); ``lat_multiple`` (default S)
-    pads to make it so."""
+    Each band must hold a multiple of the rows the model's pools,
+    strides and windows need (``ModelBase.spatial_lat_multiple``, m):
+    ``lat_multiple`` defaults to S·m under a spatial axis (1 without one),
+    and one that leaves a band short of a multiple of m raises."""
 
     def __init__(self, settings: TrainingSettings, dataset_info: DatasetInfo,
                  device="cuda", mesh: Optional[Mesh] = None,
@@ -360,9 +362,10 @@ class AutoRegressiveModule:
             )
 
         sp = self.mesh.spatial
+        need = kls.spatial_lat_multiple(model_settings)
         if sp > 1:
             self._refuse_on_bands(kls, settings)
-        multiple = lat_multiple or sp
+        multiple = lat_multiple or (sp * need if sp > 1 else 1)
         self._lat_pad = (-statics.grid_shape[0]) % multiple if multiple > 1 else 0
         self._orig_grid_shape = tuple(statics.grid_shape)
         if self._lat_pad:
@@ -375,6 +378,12 @@ class AutoRegressiveModule:
         if grid_shape[0] % sp:
             raise ValueError(f"(padded) lat {grid_shape[0]} does not split into {sp} spatial "
                              f"bands; pass a lat_multiple that {sp} divides")
+        band_rows = grid_shape[0] // sp
+        if sp > 1 and band_rows % need:
+            raise ValueError(
+                f"{settings.model_name} pools, strides or windows a lat band of {band_rows} rows "
+                f"on its own, which needs a multiple of {need} rows: pass "
+                f"lat_multiple={sp * need}")
         extra = {}
         if self.is_graph:
             extra["graph"] = kls.build_graph(model_settings, statics.meshgrid)
@@ -388,11 +397,6 @@ class AutoRegressiveModule:
             input_shape,
             **extra,
         ).to(self.device).eval()
-        band_rows, need = grid_shape[0] // sp, self.model.spatial_lat_multiple()
-        if sp > 1 and band_rows % need:
-            raise ValueError(
-                f"{settings.model_name} pools a lat band of {band_rows} rows on its own, "
-                f"which needs a multiple of {need} rows: pass lat_multiple={sp * need}")
         statics = statics.band(self.mesh.spatial_index, sp)
 
         host_statics = dataset_info.statics
@@ -440,8 +444,8 @@ class AutoRegressiveModule:
         sp = self.mesh.spatial
         why = None
         if not kls.spatial_shardable:
-            why = (f"{settings.model_name} reads across lat bands (attention, windows, "
-                   f"strided or resized encoders)")
+            why = (f"{settings.model_name} reads across lat bands (strided, explicitly "
+                   f"padded or resized encoders)")
         elif settings.mask_ratio > 0:
             why = f"mask_ratio={settings.mask_ratio} draws its blocks on the whole grid"
         elif any(conf["class"] == "PerceptualLossPy4Cast" for conf in settings.losses):

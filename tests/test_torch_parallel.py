@@ -138,9 +138,9 @@ def test_trainer_config_takes_the_world_size():
 
 
 @pytest.mark.parametrize("model,args,match", [
-    ("Segformer", {"dims": (16, 32), "heads": (1, 2)}, "Segformer reads across lat bands"),
-    ("SwinUNetR", {"feature_size": 8, "depths": (1, 1), "num_heads": (2, 2),
-                   "window_size": 4}, "SwinUNetR reads across lat bands"),
+    ("CustomUNet", {"encoder_depth": 2, "decoder_channels": (8, 4)},
+     "CustomUNet reads across lat bands"),
+    ("DeepLabV3", {"encoder_depth": 2}, "DeepLabV3 reads across lat bands"),
     ("HiLAM", {"hidden_dims": 8, "mesh_levels": 2, "use_lattice": False},
      "HiLAM runs the gather-table path"),
 ])
@@ -150,7 +150,7 @@ def test_module_refuses_a_spatial_mesh(model, args, match):
     by the JAX package too)."""
     settings = TrainingSettings(model_name=model, settings_init_args=args,
                                 training_strategy="scaled_ar", num_input_steps=2)
-    with pytest.raises(ValueError, match=f"(?s){match}.*spatial.*queue 1 item 12c"):
+    with pytest.raises(ValueError, match=f"(?s){match}.*spatial.*queue 1 item 12c-ii"):
         AutoRegressiveModule(settings, _info(), device="cpu",
                              mesh=Mesh(world_size=2, data=1, spatial=2))
 

@@ -115,8 +115,8 @@ def test_conv_on_fed_halos_matches_the_whole(kernel, dilation, count):
     g = _randn(2, 16, 12, 5, seed=1)
     want = conv(x)
     want_grads = torch.autograd.grad((want * g).sum(), [x, conv.weight, conv.bias])
-    halo = conv.band_halo()
-    assert halo == (kernel - 1) * dilation // 2
+    halo, bottom = conv.band_halo()
+    assert halo == bottom == (kernel - 1) * dilation // 2
     got = torch.cat([conv.forward_halo(_fed_halo(x, b, halo)) for b in _bands(count)], dim=1)
     _close(got, want, "forward")
     got_grads = torch.autograd.grad((got * g).sum(), [x, conv.weight, conv.bias])
@@ -240,30 +240,37 @@ INFO = synthetic_dataset_info(grid_shape=(32, 32), weather_features=3, forcing_f
      "PerceptualLossPy4Cast convolves"),
 ])
 def test_module_refuses_what_reads_the_whole_grid(kw, match):
-    with pytest.raises(ValueError, match=f"spatial=2: {match}.*queue 1 item 12c"):
+    with pytest.raises(ValueError, match=f"spatial=2: {match}.*queue 1 item 12c-ii"):
         AutoRegressiveModule(_settings("HalfUNet", {"num_filters": 8, "depth": 2}, **kw),
                              INFO, device="cpu", mesh=SPATIAL_TWO)
 
 
 def test_module_refuses_bands_its_pools_cannot_split():
-    """HalfUNet of depth 3 pools twice: a band of 18 rows (lat 36 at
-    spatial 2) raises, naming the lat_multiple that fixes it."""
+    """HalfUNet of depth 3 pools twice: a ``lat_multiple`` of 2 leaves
+    bands of 18 rows (lat 36 at spatial 2) and raises, naming the
+    lat_multiple that fixes it, which is the default."""
     info = synthetic_dataset_info(grid_shape=(36, 32), weather_features=3, forcing_features=6,
                                   border_size=2)
     with pytest.raises(ValueError, match="band of 18 rows.*multiple of 4.*lat_multiple=8"):
         AutoRegressiveModule(_settings("HalfUNet", {"num_filters": 8, "depth": 3}), info,
-                             device="cpu", mesh=SPATIAL_TWO)
-    module = AutoRegressiveModule(_settings("HalfUNet", {"num_filters": 8, "depth": 3}), info,
-                                  device="cpu", mesh=SPATIAL_TWO, lat_multiple=8)
-    assert module._lat_pad == 4
-    assert module._buffers["grid_statics"].shape[:2] == (20, 32)
+                             device="cpu", mesh=SPATIAL_TWO, lat_multiple=2)
+    for multiple in (8, None):
+        module = AutoRegressiveModule(_settings("HalfUNet", {"num_filters": 8, "depth": 3}),
+                                      info, device="cpu", mesh=SPATIAL_TWO,
+                                      lat_multiple=multiple)
+        assert module._lat_pad == 4
+        assert module._buffers["grid_statics"].shape[:2] == (20, 32)
 
 
 def test_strided_or_asymmetric_convs_refuse_a_band():
-    with pytest.raises(ValueError, match="only stride-1 symmetric SAME convs"):
-        FlaxConv2d(2, 2, 3, stride=2).band_halo()
-    with pytest.raises(ValueError, match="only stride-1 symmetric SAME convs"):
-        FlaxConv2d(2, 2, 2).band_halo()
+    """A strided conv refuses a band whose rows its stride does not
+    split; an explicitly padded one (the ResNet encoder's) any band."""
+    x = _randn(1, 5, 4, 2)
+    with on_band(Band(0, 2)):
+        with pytest.raises(ValueError, match="band of 5 rows does not split into the stride 2"):
+            FlaxConv2d(2, 2, 3, stride=2)(x)
+        with pytest.raises(ValueError, match="explicit padding.*queue 1 item 12c-ii"):
+            FlaxConv2d(2, 2, 3, stride=2, padding=1)(x[:, :4])
 
 
 def test_band_modules_keep_their_band_of_the_statics():
