@@ -172,17 +172,22 @@ non-zero exit code and no result line:
    gathered), UNetRPP's stage-0 EPA block (flash_attn) and a shifted
    SwinBlock (the roll across bands), kernels c-fwd and c-bwd launched
    at each band's shape, counted and each launch held against its plain
-   version; where (b) runs, and with ``--spatial``, the noise floor of
-   (b)'s bars: three AdamW steps of each of
+   version; where (b) runs, and with ``--spatial``, in fp64 on 2 and 4
+   bands, the ResNet encoder's stem (the 7x7 stride-2 conv padded 3, on
+   a (3, 2) halo) and its -inf-padded max pool, ASPP 12/24/36 on the
+   16x20 map (halos deeper than a band), the perceptual loss's band
+   shares, fwd and bwd, and ``mask_blocks`` bit for bit, and the noise
+   floor of (b)'s bars: three AdamW steps of each of
    (b)'s cells in one process against the same with cuDNN off (other
-   conv algorithms) and with a planted band fault (every 3x3 conv run
-   on the two halves of its rows apart, as bands without their halo
-   exchange), which must break the parameters' bar wherever it moves
-   the losses; (b) with two
+   conv algorithms) and with a planted band fault (every stride-1 SAME
+   and every explicitly padded conv run on the two halves of its rows
+   apart, as bands without their halo exchange), which must break the
+   parameters' bar wherever it moves the losses; (b) with two
    cards or more, S = 2 NCCL ranks against one, with four 2 x 2 too:
-   three AdamW steps of HalfUNet, Segformer, UNetRPP (flash_attn) and
-   SwinUNetR (lat padded to 672) 512x640, GraphLAM and HiLAM 500x500
-   at their yamls' widths, losses and parameters (max-abs over scale,
+   three AdamW steps of HalfUNet, Segformer, UNetRPP (flash_attn),
+   SwinUNetR (lat padded to 672), CustomUNet (under the perceptual loss
+   0.1 and ``mask_ratio`` 0.25) and DeepLabV3Plus 512x640, GraphLAM and
+   HiLAM 500x500 at their yamls' widths, losses and parameters (max-abs over scale,
    relative L2) within TOL, the first step's reduced gradients within
    GRAD_TOL, each bar widened to NOISE_FACTOR times the cell's noise
    floor where that is more, a-fwd, a-bwd and b
@@ -230,8 +235,8 @@ non-zero exit code and no result line:
    deleted; (d) the host microseconds of 1,000 c-fwd calls at a tiny
    shape through the custom op and through its bare CUDA
    implementation; the phase's wall time;
-24. the script's wall time, one JSON line with every kernel's numbers,
-   then the result line.
+24. the script's wall time, each phase's wall seconds, one JSON line
+   with every kernel's numbers, the card's line, then the result line.
 
 Each model path runs with every launch count set to 0 just before it
 and read just after; a kernel of the path that was not launched, or a
@@ -266,6 +271,7 @@ import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -2886,6 +2892,124 @@ def attention_band_pieces(rng, grid=(512, 640)) -> dict:
     return out
 
 
+def _shares_on_bands(name: str, fn, leaves, count: int) -> dict:
+    """``fn(band)`` (a loss share of the band's rows, or None off a band:
+    the whole grid's loss) on ``count`` bands run together in this
+    process (``testing.run_on_bands``), against the whole grid: the
+    shares summed within TOL of scale of the whole loss, the gradients
+    of ``leaves`` summed over the bands within GRAD_TOL."""
+    from py4cast_tpu_torch.parallel.spatial import halo_rows
+    from py4cast_tpu_torch.testing import run_on_bands
+
+    want = fn(None)
+    want_grads = torch.autograd.grad(want.sum(), leaves)
+
+    def band_step(band):
+        share = fn(band)
+        return share.detach(), torch.autograd.grad(share.sum(), leaves)
+
+    def before_last():
+        halo_rows.bytes = 0
+
+    t0 = time.perf_counter()
+    results = run_on_bands(band_step, count, before_last)
+    torch.cuda.synchronize()
+    return {"bands": count, "wall_s": time.perf_counter() - t0,
+            "halo_bytes_a_band": halo_rows.bytes // count,
+            "forward_max_abs_err": compare(f"{name} on {count} bands",
+                                           sum(r[0] for r in results), want.detach()),
+            "grad_max_abs_err": max(
+                compare(f"{name} on {count} bands: grad {i}", sum(r[1][i] for r in results), w,
+                        GRAD_TOL) for i, w in enumerate(want_grads))}
+
+
+def resnet_band_pieces(rng, grid=(512, 640)) -> dict:
+    """Phase 21 (a), the ResNet-encoder models, the perceptual loss and
+    ``mask_ratio``, where (b) runs and with ``--spatial``: at ``grid`` and
+    the yamls' widths, on 2 and on 4 bands run together in this process
+    (``testing.run_on_bands``), forward and backward against the whole
+    grid, in fp64 (a ReLU input within fp32 rounding of zero, or a near
+    tie at the pool, would pass its gradient on one side alone; fp64
+    holds the bands' arithmetic itself): the encoder's stem (67 inputs,
+    the 7x7 stride-2 conv padded 3 on a (3, 2) halo, GroupNorm on band
+    statistics, ReLU) and its -inf-padded 3x3 stride-2 max pool on a
+    (1, 0) halo; ASPP at deeplabv3plus.yaml's width (512 -> 256, rates
+    12/24/36) on the 16x20 deepest map, whose halos span several bands
+    of 8 or 4 rows; ``PerceptualLossPy4Cast`` (its trained three scales)
+    on 21 fields, the bands' shares summed against the whole loss, with
+    the halo bytes a band received (fp64); and ``mask_blocks`` at ratio
+    0.25 on the card's generator, the bands' masks bit for bit the whole
+    grid's."""
+    from py4cast_tpu_torch.losses import PerceptualLossPy4Cast
+    from py4cast_tpu_torch.models.deeplab import ASPP
+    from py4cast_tpu_torch.models.unet import ResNetEncoder, max_pool_3x3
+    from py4cast_tpu_torch.rollout import mask_blocks
+    from py4cast_tpu_torch.testing import run_on_bands, synthetic_dataset_info
+    from py4cast_tpu_torch.training import init_weights
+
+    def drawn(module):
+        module = module.cuda()
+        init_weights(module, torch.Generator(device="cuda").manual_seed(0))
+        return module.double()
+
+    def held(name, op, x, g, params, count):
+        row = _piece_on_bands(name, op, x, g, params, count)
+        if any(row.pop("launches").values()):
+            raise AssertionError(f"{name} launched a hand kernel")
+        for key in ("c_fwd_max_abs_err_vs_plain", "c_bwd_max_abs_err_vs_plain",
+                    "launch_shapes"):
+            row.pop(key)
+        return row
+
+    f64 = torch.float64
+    encoder = drawn(ResNetEncoder(67, CUSTOMUNET_ARGS["encoder_name"], 1))
+
+    def stem(t):
+        return max_pool_3x3(torch.relu(encoder.stem_norm(encoder.stem_conv(t))))
+
+    x_stem = _rand(rng, 1, *grid, 67).to(f64).requires_grad_()
+    g_stem = _rand(rng, 1, grid[0] // 4, grid[1] // 4, 64).to(f64)
+    aspp = drawn(ASPP(512, DEEPLAB_ARGS["decoder_channels"], (12, 24, 36)))
+    deep = (grid[0] // 32, grid[1] // 32)
+    x_aspp = _rand(rng, 1, *deep, 512).to(f64).requires_grad_()
+    g_aspp = _rand(rng, 1, *deep, DEEPLAB_ARGS["decoder_channels"]).to(f64)
+    info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
+    loss = PerceptualLossPy4Cast()
+    loss.prepare(np.ones((*grid, 1), np.float32), info, info.output_feature_names)
+    loss.kernels = [k.cuda().double() for k in loss.kernels]
+    loss.biases = [b.cuda().double() for b in loss.biases]
+    loss.stats = {k: v.cuda().double() for k, v in loss.stats.items()}
+    pred = _rand(rng, 1, 1, *grid, 21).to(f64).requires_grad_()
+    tgt = _rand(rng, 1, 1, *grid, 21).to(f64)
+
+    def perceptual(band):
+        p, t = (pred, tgt) if band is None else (band.cut(pred, 2), band.cut(tgt, 2))
+        return loss(SimpleNamespace(array=p), SimpleNamespace(array=t), torch.ones_like(t))
+
+    x_mask = _rand(rng, 1, *grid, 67) + 5.0
+    out = {"grid": list(grid), "stem_and_pool": [], "aspp": [], "perceptual_loss": [],
+           "mask_blocks": []}
+    for count in BAND_COUNTS:
+        out["stem_and_pool"].append(held("ResNet stem and max pool (fp64)", stem, x_stem, g_stem,
+                                         list(encoder.stem_conv.parameters())
+                                         + list(encoder.stem_norm.parameters()), count))
+        out["aspp"].append(held("ASPP 12/24/36 on the 16x20 map (fp64)", aspp, x_aspp, g_aspp,
+                                list(aspp.parameters()), count))
+        out["aspp"][-1]["band_rows"] = deep[0] // count
+        out["perceptual_loss"].append(_shares_on_bands(
+            "PerceptualLossPy4Cast (fp64)", perceptual, [pred], count))
+        want = mask_blocks(x_mask, torch.Generator(device="cuda").manual_seed(0), 0.25)
+        got = torch.cat(run_on_bands(lambda band: mask_blocks(
+            band.cut(x_mask, 1), torch.Generator(device="cuda").manual_seed(0), 0.25), count),
+            dim=1)
+        if not torch.equal(got, want):
+            raise AssertionError(f"mask_blocks on {count} bands differs from the whole grid's")
+        out["mask_blocks"].append({"bands": count, "bit_for_bit": True,
+                                   "masked_share": float((want == 0).all(dim=-1).double().mean())})
+    del encoder, aspp, x_stem, x_aspp, pred, tgt, x_mask
+    return out
+
+
 #: phase 21 (b)'s cells: model -> (grid, settings_init_args); the module
 #: pads the lat to whole bands of what the model needs (SwinUNetR's
 #: windows of 7: bands of a multiple of 7·2^4 rows, 512 rows to 672)
@@ -2894,7 +3018,16 @@ SPATIAL_CELLS = {"HalfUNet": ((512, 640), HALFUNET_ARGS),
                  "HiLAM": ((500, 500), GRAPHLAM_ARGS),
                  "Segformer": ((512, 640), SEGFORMER_ARGS),
                  "UNetRPP": ((512, 640), {**UNETRPP_ARGS, **FLASH_ATTN}),
-                 "SwinUNetR": ((512, 640), SWINUNETR_ARGS)}
+                 "SwinUNetR": ((512, 640), SWINUNETR_ARGS),
+                 "CustomUNet": ((512, 640), CUSTOMUNET_ARGS),
+                 "DeepLabV3Plus": ((512, 640), DEEPLAB_ARGS)}
+#: the cells' training settings beside the yamls' (CustomUNet trains
+#: under the perceptual loss and block masks). SwinUNetR's one process
+#: pads its lat to 672 rows as its S = 2 bands do (a multiple of 2 x 112):
+#: its windows, norms and attention read the pad rows, so the bands give
+#: one process's numbers on that padded grid, not on 512 rows
+SPATIAL_CELL_SETTINGS = {"CustomUNet": {"losses": PERCEPTUAL_LOSSES, "mask_ratio": 0.25},
+                         "SwinUNetR": {"lat_multiple": 224}}
 #: the bars of phase 21's comparisons (losses relative, parameters over
 #: each leaf's scale and in relative L2, gradients over the largest)
 BARS = {"loss_rel_err": TOL, "param_max_err_over_scale": TOL, "param_rel_l2": TOL,
@@ -2940,16 +3073,18 @@ def broken(read: dict, floor: dict) -> list:
 
 @contextlib.contextmanager
 def halves_without_halo():
-    """A planted band fault in one process: every stride-1 SAME conv that
-    reads neighbour rows runs on the two halves of its input's rows
-    apart, each zero-padded, as two bands whose halo exchange sent
+    """A planted band fault in one process: every stride-1 SAME conv and
+    every explicitly padded conv (the ResNet encoder's) that reads
+    neighbour rows runs on the two halves of its input's rows apart,
+    each padded as a whole grid, as two bands whose halo exchange sent
     zeros."""
     from py4cast_tpu_torch.models.base import FlaxConv2d
 
     forward = FlaxConv2d.forward
 
     def cut(self, x):
-        if self.same and self.stride[0] == 1 and any(self.band_halo()) and x.shape[1] % 2 == 0:
+        if ((not self.same or self.stride[0] == 1) and any(self.band_halo())
+                and x.shape[1] % (2 * self.stride[0]) == 0):
             h = x.shape[1] // 2
             return torch.cat([forward(self, x[:, :h]), forward(self, x[:, h:])], dim=1)
         return forward(self, x)
@@ -2987,7 +3122,7 @@ def one_and_its_floor(case: dict):
 def spatial_case(name: str, batch_size: int) -> dict:
     grid, args = SPATIAL_CELLS[name]
     return {"model_name": name, "settings_init_args": args, "grid": list(grid),
-            "batch_size": batch_size, "device": "cuda"}
+            "batch_size": batch_size, "device": "cuda", **SPATIAL_CELL_SETTINGS.get(name, {})}
 
 
 def noise_floor() -> dict:
@@ -3102,8 +3237,10 @@ def spatial_phase(floor: bool = False) -> dict:
     pieces at full width fed by hand (``halfunet_band_block``,
     ``graph_band_hops``: b-fwd and b-bwd counted;
     ``attention_band_pieces``: c-fwd and c-bwd counted), and, where (b)
-    runs or ``floor`` asks (``--spatial``), the noise floor of (b)'s bars
-    (``noise_floor``, ~50 s); (b) with two cards or
+    runs or ``floor`` asks (``--spatial``), the ResNet encoder's stem and
+    pool, ASPP, the perceptual loss and the block masks on bands
+    (``resnet_band_pieces``) and the noise floor of (b)'s bars
+    (``noise_floor``); (b) with two cards or
     more, S = 2 NCCL ranks against one, and with four, 2 x 2 against one
     (``spatial_ranks_vs_one``) and the Titan-size HalfUNet step
     (``titan_halfunet``); "not run, N card(s)" otherwise."""
@@ -3121,9 +3258,14 @@ def spatial_phase(floor: bool = False) -> dict:
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
     if floor or cards >= 2:
+        out["resnet_bands"] = resnet_band_pieces(rng)
+        log(f"phase 21 (a) ResNet stem and pool, ASPP, perceptual loss and mask_blocks bands: "
+            f"{json.dumps(out['resnet_bands'])}")
+        torch.cuda.empty_cache()
         out["noise_floor"] = noise_floor()
     else:
-        log("phase 21 (a) noise floor: not run, 1 card (--spatial runs it)")
+        log("phase 21 (a) ResNet, perceptual loss and mask_blocks bands, noise floor: not run, "
+            "1 card (--spatial runs them)")
     out["ranks"] = []
     for layout in ((1, 2), (2, 2)):
         if cards >= layout[0] * layout[1]:
@@ -3915,6 +4057,13 @@ def main(argv=None) -> int:
     parsed = parser.parse_args(argv)
     only = parsed.kernels
     t_start = time.perf_counter()
+    walls, since = {}, [t_start]
+
+    def lap(phase: str) -> None:
+        """Each phase's wall seconds, for the line before the result."""
+        now = time.perf_counter()
+        walls[phase] = round(now - since[0], 1)
+        since[0] = now
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing to run", file=sys.stderr)
         return 1
@@ -3952,6 +4101,7 @@ def main(argv=None) -> int:
             for inst, regs, spills in ptxas_summary(ptxas_text[src], kernel):
                 log(f"ptxas {kernel}<{inst}>: {regs} registers, "
                     f"spill stores/loads {spills[0]}/{spills[1]} bytes")
+    lap("1-2")
 
     # phase 3 and 3b: each kernel against its plain version at the main
     # path's shapes
@@ -4024,20 +4174,25 @@ def main(argv=None) -> int:
         else:
             log("phase 20 (d): not run, 1 card")
         out["spatial"] = spatial_phase(floor=True)
+        lap("20d-21")
         (OUT_DIR / "smoke_spatial_report.json").write_text(json.dumps(out, indent=1))
         log(f"wall: {time.perf_counter() - t_start:.1f} s")
+        log(f"phase wall s: {json.dumps(walls)}")
         log(card)
         return 0
 
+    lap("3")
     # phase 4: Trainer.predict on Dummy, counted
     kept32 = {name: {} for name in MODEL_ARGS}  # the fp32 Dummy predictions, for phase 17
     dummy = predict_dummy(model_settings("GraphLAM"), keep=kept32["GraphLAM"])
     log(f"predict dummy: {json.dumps(dummy)}")
+    lap("4")
 
     # phase 5: the full-size rollout
     graph_kept = {}
     full = full_size_rollout("GraphLAM", keep=graph_kept)
     log(f"full size: {json.dumps(full)}")
+    lap("5")
 
     # phase 6: Trainer.fit on Dummy, counted; resume, test, gradients
     # against the CPU; the CLI
@@ -4045,14 +4200,17 @@ def main(argv=None) -> int:
     log(f"fit dummy: {json.dumps(fit)}")
     fit["cli"] = cli_dummy("graphlam")
     log(f"cli dummy: {json.dumps(fit['cli'])}")
+    lap("6")
 
     # phase 7: one full-size train step
     train_full = full_size_train_step("GraphLAM")
     log(f"full-size train step: {json.dumps(train_full)}")
+    lap("7")
 
     # phase 8: Trainer.predict on Dummy with Segformer, counted
     seg_dummy = predict_dummy(model_settings("Segformer"), keep=kept32["Segformer"])
     log(f"segformer predict dummy: {json.dumps(seg_dummy)}")
+    lap("8")
 
     # phase 9: Trainer.fit on Dummy with Segformer, counted; resume,
     # test, gradients against the CPU; the CLI with segformer.yaml
@@ -4060,10 +4218,12 @@ def main(argv=None) -> int:
     log(f"segformer fit dummy: {json.dumps(seg_fit)}")
     seg_fit["cli"] = cli_dummy("segformer")
     log(f"segformer cli dummy: {json.dumps(seg_fit['cli'])}")
+    lap("9")
 
     # phase 10: the full-width Segformer at 512x640
     seg_full = grid_model_full_size("Segformer")
     log(f"segformer 512x640: {json.dumps(seg_full)}")
+    lap("10")
 
     # phase 11: HalfUNet (no hand kernel: every count stays 0) on Dummy,
     # predict and fit, the CLI with halfunet.yaml; 512x640 predict and
@@ -4077,6 +4237,7 @@ def main(argv=None) -> int:
     unet_kept = {}
     unet_full = grid_model_full_size("HalfUNet", keep=unet_kept)
     log(f"halfunet 512x640: {json.dumps(unet_full)}")
+    lap("11")
 
     # phase 12: HiLAM on Dummy, predict and fit, the CLI with hilam.yaml;
     # 500x500 predict and train step
@@ -4090,6 +4251,7 @@ def main(argv=None) -> int:
     log(f"hilam 500x500: {json.dumps(hilam_full)}")
     hilam_train = full_size_train_step("HiLAM", profile_name="smoke_profile_hilam_train.txt")
     log(f"hilam 500x500 train step: {json.dumps(hilam_train)}")
+    lap("12")
 
     # phase 13: HiLAMParallel on Dummy, predict and fit, the CLI with
     # hilamparallel.yaml; a 500x500 predict
@@ -4102,6 +4264,7 @@ def main(argv=None) -> int:
     par_full = full_size_rollout("HiLAMParallel",
                                  profile_name="smoke_profile_hilamparallel.txt")
     log(f"hilamparallel 500x500: {json.dumps(par_full)}")
+    lap("13")
 
     # phase 14: the observers. (a) PSD-K, PSD-Var and ACC on the card over
     # phase 11's HalfUNet 512x640 and phase 5's GraphLAM 500x500 (graph
@@ -4118,6 +4281,7 @@ def main(argv=None) -> int:
         log(f"test with logging {row['model']}: {json.dumps(row)}")
     observers["cli_gribs"] = cli_predict_gribs()
     log(f"cli predict gribs: {json.dumps(observers['cli_gribs'])}")
+    lap("14")
 
     # phase 15: UNet (no hand kernel: every count stays 0) on Dummy,
     # predict and fit, the CLI with unet.yaml; 512x640 predict and train
@@ -4130,6 +4294,7 @@ def main(argv=None) -> int:
     log(f"unet cli dummy: {json.dumps(plain_fit['cli'])}")
     plain_full = grid_model_full_size("UNet")
     log(f"unet 512x640: {json.dumps(plain_full)}")
+    lap("15")
 
     # phase 16: UNetRPP on kernels c-fwd and c-bwd (flash_attn) on Dummy,
     # predict and fit; the CLI with unetrpp.yaml as shipped (torch, every
@@ -4150,6 +4315,7 @@ def main(argv=None) -> int:
                 for code in ("flash_attn", "torch")}
     for code, row in rpp_full.items():
         log(f"unetrpp 512x640 {code}: {json.dumps(row)}")
+    lap("16")
 
     # phase 17: bf16. (a) the six kernels at a bf16 boundary; (b) every
     # model's Dummy predict and fit in bf16, counted as in fp32; (c) the
@@ -4180,12 +4346,15 @@ def main(argv=None) -> int:
     for cell, row in bf16["full_size"].items():
         log(f"bf16 {cell}: {json.dumps(row)}")
         log(f"  {cell} fp32 -> bf16: " + json.dumps(bf16_vs_fp32(fp32_full[cell], row)))
+    lap("17")
 
     # phase 18: the ResNet-encoder models and the perceptual loss
     resnet = resnet_phase()
+    lap("18")
 
     # phase 19: SwinUNetR, the Identity plugin, the gather-table path
     swin_table = swin_table_phase()
+    lap("19")
     phase19_runs = [(swin_table["swinunetr"]["fit"], swin_table["swinunetr"]["predict"]),
                     (swin_table["table"]["HiLAMParallel"]["fit"],
                      swin_table["table"]["HiLAMParallel"]["predict"])]
@@ -4193,18 +4362,22 @@ def main(argv=None) -> int:
     # phase 20: the data axis: an NCCL group of one rank bit for bit,
     # torchrun, lat padding at 1791 rows
     data_axis = data_axis_phase(train_full)
+    lap("20")
 
     # phase 21: the spatial axis: the band pieces fed by hand, and NCCL
     # ranks on bands against one when the machine has the cards
     spatial = spatial_phase()
+    lap("21")
 
     # phase 22: the Titan, Poesy and Rainfall datasets, Titan's default
     # configuration through the CLI with HalfUNet and GraphLAM
     datasets = datasets_phase()
+    lap("22")
 
     # phase 23: the user tools: export and reload, the FLOP counts, a
     # profiled fit, the custom ops' dispatch cost
     tools = tools_phase()
+    lap("23")
 
     # each model path ran with every count set to 0 just before it and
     # checked just after (a kernel of another path launched fails); a
@@ -4261,8 +4434,9 @@ def main(argv=None) -> int:
          "unetrpp_fit_dummy": rpp_fit, "unetrpp_full_size": rpp_full, "bf16": bf16,
          "resnet": resnet, "swin_table": swin_table, "data_axis": data_axis,
          "spatial": spatial, "datasets": datasets, "tools": tools,
-         "wall_s": time.perf_counter() - t_start}, indent=1))
+         "wall_s": time.perf_counter() - t_start, "phase_wall_s": walls}, indent=1))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
+    log(f"phase wall s: {json.dumps(walls)}")
     log(card)
     log(json.dumps({"kernels": [{k: v for k, v in row.items()
                                  if k not in ("shapes", "launches_by_model")}

@@ -13,11 +13,15 @@ On a lat band of a spatial mesh (called inside ``parallel.spatial.on_band``,
 as model code is) a loss returns the band's share of the global loss, so that the bands' values
 sum to it: ``WeightedLoss`` divides the band's sums by the global
 denominators; ``ScaledLoss`` all-reduces its band sums before the square
-root and returns a 1/S share of the result.
+root and returns a 1/S share of the result; ``PerceptualLossPy4Cast``
+convolves each band on halo rows and divides its band's sums by the
+whole grid's counts. ``spatial_lat_multiple`` is the rows a band must be
+a multiple of for the loss (1 but for the perceptual loss's subsamples).
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from py4cast_tpu_torch.parallel.spatial import band_all_reduce, current_band
+from py4cast_tpu_torch.parallel.spatial import band_all_reduce, current_band, halo_rows
 
 
 def _huber(a, b):
@@ -54,6 +58,9 @@ class Py4CastLoss:
     #: shape of __call__'s return — "bt" for (B, T), "btf" for (B, T, F).
     #: CombinedLoss can only sum members with the SAME output shape.
     output_shape: str = "bt"
+    #: whether ``__call__`` takes ``reduce_spatial_dim=False`` and returns
+    #: a map over the grid points (the spatial error plot's)
+    pointwise: bool = False
 
     def __init__(self, loss: str = "MSELoss", reduction: str = "none", **_):
         if loss not in ELEMENTWISE:
@@ -69,6 +76,10 @@ class Py4CastLoss:
 
     def __call__(self, prediction, target, mask) -> torch.Tensor:
         raise NotImplementedError
+
+    def spatial_lat_multiple(self) -> int:
+        """The rows a lat band must be a multiple of for this loss."""
+        return 1
 
     def _union_denominator(self, mask: torch.Tensor) -> torch.Tensor:
         """num_interior corrected by the spatial points that are invalid
@@ -89,6 +100,8 @@ class WeightedLoss(Py4CastLoss):
 
     weight[f] = state_weight[f] / diff_std[f]^p, p = 2 for MSE else 1.
     """
+
+    pointwise = True
 
     def prepare(self, interior_mask, dataset_info, feature_names: Sequence[str]):
         p = 2.0 if self.loss_name == "MSELoss" else 1.0
@@ -164,7 +177,15 @@ class PerceptualLossPy4Cast(Py4CastLoss):
     drawn from ``np.random.default_rng(0)`` in the JAX package's order
     (32 channels a scale, std 1/sqrt(9 c), zero biases) stands in, with
     a warning when the file was asked for. The convolutions run inside
-    the steps' ``utils.exact_reductions``: TF32 off."""
+    the steps' ``utils.exact_reductions``: TF32 off.
+
+    Each scale's mean covers every row the loss is given, a padded lat's
+    border rows included, as in the JAX package. On a lat band each 3x3
+    conv takes one halo row a side (zeros at the global edges), the
+    subsample keeps the global even rows (bands of a multiple of
+    2^(layers − 1) rows start on one at every scale), and each scale's
+    mean is the band's sum over the whole grid's count: the loss is the
+    band's share of the global one."""
 
     def __init__(self, in_channels: int = 1, num_scales: int = 3,
                  trained: bool = True, **_):
@@ -193,6 +214,19 @@ class PerceptualLossPy4Cast(Py4CastLoss):
         ]
         return kernels, [np.zeros(k.shape[-1], np.float32) for k in kernels]
 
+    def _num_layers(self) -> int:
+        """The scales ``_pyramid`` gives: the trained file's layers, or
+        ``num_scales`` drawn."""
+        if self.trained and PERCEPTUAL_FEATS.exists():
+            with np.load(PERCEPTUAL_FEATS) as z:
+                return sum(k.startswith("k") for k in z.files)
+        return self.num_scales
+
+    def spatial_lat_multiple(self) -> int:
+        """Each scale but the last subsamples every other row: a band
+        holds a multiple of 2^(layers − 1) rows."""
+        return 2 ** (self._num_layers() - 1)
+
     def prepare(self, interior_mask, dataset_info, feature_names: Sequence[str]):
         kernels, biases = self._pyramid()
         self.kernels = [torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
@@ -214,19 +248,25 @@ class PerceptualLossPy4Cast(Py4CastLoss):
         return ((raw - st["min"]) / (st["max"] - st["min"] + 1e-8)).clamp(0.0, 1.0)
 
     def _features(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """x: (N, 1, H, W) → the feature map of each scale, NCHW."""
+        """x: (N, 1, H, W) → the feature map of each scale, NCHW; on a lat
+        band each conv reads one halo row a side."""
         feats = []
         h = x
+        band = current_band()
         for w, b in zip(self.kernels, self.biases):
-            h = F.relu(F.conv2d(h, w, b, padding=1))
+            if band is None:
+                h = F.conv2d(h, w, b, padding=1)
+            else:
+                rows = halo_rows(h.permute(0, 2, 3, 1), 1, 1, band).permute(0, 3, 1, 2)
+                h = F.conv2d(rows, w, b, padding=(0, 1))
+            h = F.relu(h)
             feats.append(h)
             h = h[:, :, ::2, ::2]  # stride-2 subsample between scales
         return feats
 
     def __call__(self, prediction, target, mask, interior_mask=None):
         # the features see the whole field; interior_mask is accepted for
-        # CombinedLoss's sake (the module refuses this loss on a lat band:
-        # ROADMAP.md, queue 1 item 12c-ii)
+        # CombinedLoss's sake
         self._on(prediction.array)
         pred = self._normalize(prediction.array) * mask
         tgt = self._normalize(target.array) * mask
@@ -235,6 +275,12 @@ class PerceptualLossPy4Cast(Py4CastLoss):
                 f"PerceptualLossPy4Cast needs (batch, timestep, lat, lon, features) "
                 f"fields, got shape {tuple(pred.shape)}")
         b, t, hh, ww, f = pred.shape
+        band = current_band()
+        need = 2 ** (len(self.kernels) - 1)
+        if band is not None and hh % need:
+            raise ValueError(
+                f"PerceptualLossPy4Cast subsamples a lat band of {hh} rows "
+                f"{len(self.kernels) - 1} times, which needs a multiple of {need} rows")
 
         def fold(a):  # (B, T, H, W, F) -> (B·T·F, 1, H, W)
             return a.permute(0, 1, 4, 2, 3).reshape(b * t * f, 1, hh, ww)
@@ -242,6 +288,8 @@ class PerceptualLossPy4Cast(Py4CastLoss):
         loss = 0.0
         for fp, ft in zip(self._features(fold(pred)), self._features(fold(tgt))):
             per_img = ((fp - ft) ** 2).mean(dim=(1, 2, 3))
+            if band is not None:  # the band's sum over the whole grid's count
+                per_img = per_img / band.count
             loss = loss + per_img.reshape(b, t, f).mean(dim=-1)
         return loss
 
@@ -279,9 +327,21 @@ class CombinedLoss(Py4CastLoss):
         for loss, _ in self.losses:
             loss.prepare(interior_mask, dataset_info, feature_names)
 
+    def spatial_lat_multiple(self) -> int:
+        return math.lcm(1, *(loss.spatial_lat_multiple() for loss, _ in self.losses))
+
     def __call__(self, prediction, target, mask, **kwargs):
+        """The weighted sum of the members. With ``reduce_spatial_dim``
+        False (the spatial error plot's map) only the ``pointwise``
+        members are summed: a perceptual loss has no value a grid point
+        (the JAX package raises a TypeError there)."""
+        members = self.losses
+        if kwargs.get("reduce_spatial_dim", True) is False:
+            members = [(loss, w) for loss, w in self.losses if loss.pointwise]
+            if not members:
+                raise ValueError("no member of this CombinedLoss maps its loss over the grid")
         total = None
-        for loss, weight in self.losses:
+        for loss, weight in members:
             val = weight * loss(prediction, target, mask, **kwargs)
             total = val if total is None else total + val
         return total

@@ -137,13 +137,14 @@ class FlaxConv2d(nn.Conv2d):
     onto it.
 
     On a lat band (``parallel.spatial.current_band``) whose rows are a
-    multiple of the stride, a SAME conv takes the rows Flax's SAME pad
-    of the whole lat would add (``band_halo``: (k − 1)·d / 2 a side at
-    stride 1, (0, 1) at k 5 / stride 4 and k 3 / stride 2, none where
-    the kernel equals the stride) from its neighbour bands, zeros only at
-    the global top and bottom, and pads its columns as it does off a
-    band. An explicit ``padding`` raises there (the ResNet encoder's
-    convs: ROADMAP.md, queue 1 item 12c-ii)."""
+    multiple of the stride, a conv takes the rows its padding of the
+    whole lat would read (``band_halo``) from its neighbour bands, zeros
+    only at the global top and bottom, and pads its columns as it does
+    off a band: for SAME, what Flax's SAME pad of the whole lat adds
+    ((k − 1)·d / 2 a side at stride 1, (0, 1) at k 5 / stride 4 and k 3 /
+    stride 2, none where the kernel equals the stride); for an explicit
+    ``padding`` p, p rows above and k − s − p below ((3, 2) for the 7x7
+    stride-2 stem, (1, 0) for the 3x3 stride-2 ``conv1``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1,
                  groups: int = 1, bias: bool = True, dilation: int = 1,
@@ -153,8 +154,12 @@ class FlaxConv2d(nn.Conv2d):
         self.same = padding is None
 
     def _rows_and_cols(self, h: int, w: int):
-        """Flax's SAME pads (top, bottom), (left, right) for an h x w input:
-        for the dilated extent (k - 1) * d + 1."""
+        """The pads (top, bottom), (left, right) for an h x w input:
+        Flax's SAME for the dilated extent (k - 1) * d + 1, or the
+        explicit padding on every side."""
+        if not self.same:
+            (ph, pw) = self.padding
+            return (ph, ph), (pw, pw)
         (kh, kw), (sh, sw), (dh, dw) = self.kernel_size, self.stride, self.dilation
         return (flax_same_pad(h, (kh - 1) * dh + 1, sh),
                 flax_same_pad(w, (kw - 1) * dw + 1, sw))
@@ -163,8 +168,13 @@ class FlaxConv2d(nn.Conv2d):
         """The halo rows (top, bottom) this conv reads on a lat band whose
         rows are a multiple of the stride: Flax's SAME pad of any such
         lat, (k_dilated − stride) rows split as ``flax_same_pad`` splits
-        them."""
-        return self._rows_and_cols(self.stride[0], 1)[0]
+        them; with an explicit padding p, p above and the k_dilated −
+        stride − p rows below that the band's last window reads."""
+        if self.same:
+            return self._rows_and_cols(self.stride[0], 1)[0]
+        extent = (self.kernel_size[0] - 1) * self.dilation[0] + 1
+        p = self.padding[0]
+        return p, max(extent - self.stride[0] - p, 0)
 
     def forward_halo(self, x: torch.Tensor) -> torch.Tensor:
         """The conv of a band grown by its halo rows (``band_halo``,
@@ -172,14 +182,11 @@ class FlaxConv2d(nn.Conv2d):
         top, bottom = self.band_halo()
         _, (left, right) = self._rows_and_cols(x.shape[1] - top - bottom, x.shape[2])
         y = F.pad(x.permute(0, 3, 1, 2), (left, right))
-        return super().forward(y).permute(0, 2, 3, 1)
+        return F.conv2d(y, self.weight, self.bias, self.stride, 0, self.dilation,
+                        self.groups).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if current_band() is not None:
-            if not self.same:
-                raise ValueError(
-                    f"a {self.kernel_size} conv with explicit padding {self.padding} cannot run "
-                    f"on a lat band yet (ROADMAP.md, queue 1 item 12c-ii)")
             if x.shape[1] % self.stride[0]:
                 raise ValueError(
                     f"a lat band of {x.shape[1]} rows does not split into the stride "

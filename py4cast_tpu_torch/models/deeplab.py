@@ -8,7 +8,11 @@ DeepLabV3Plus's low-level ``Conv_0``/``GroupNorm_0``, fused
 ``Conv_1``/``GroupNorm_1`` and head ``Conv_2``. No hand kernel runs here:
 cuDNN runs the convolutions, the atrous ones through ``FlaxConv2d``'s
 SAME padding of the dilated extent, which at rates 12/24/36 is larger
-than the deepest map (16x20 at 512x640)."""
+than the deepest map (16x20 at 512x640). On a lat band those branches
+take halos deeper than a band from every band they span
+(``parallel.spatial.halo_rows``), the image-level mean is the bands'
+summed sums, and the bilinear growths are whole-factor growths on a
+clamped halo row a side."""
 
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from py4cast_tpu_torch.models.base import (
     pad_to_multiple,
 )
 from py4cast_tpu_torch.models.unet import ResNetEncoder, _bilinear_resize
+from py4cast_tpu_torch.parallel.spatial import band_all_reduce, current_band
 
 
 @dataclass(frozen=True)
@@ -58,7 +63,8 @@ class ASPP(nn.Module):
     """Atrous spatial pyramid pooling: a 1x1 branch, a dilated 3x3 branch
     a rate, and an image-level branch (the mean over the map, a 1x1 conv,
     broadcast back), concatenated, projected 1x1, GroupNorm, ReLU. No
-    conv has a bias."""
+    conv has a bias. On a lat band the image-level mean is every band's
+    fp32 sum, all-reduced, over the whole map's count (``_map_mean``)."""
 
     def __init__(self, in_channels: int, features: int, rates: Tuple[int, ...]):
         super().__init__()
@@ -76,15 +82,33 @@ class ASPP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = self.num_rates + 1
         branches = [getattr(self, f"Conv_{i}")(x) for i in range(n)]
-        pooled = getattr(self, f"Conv_{n}")(x.mean(dim=(1, 2), keepdim=True))
+        pooled = getattr(self, f"Conv_{n}")(_map_mean(x))
         branches.append(pooled.expand(-1, x.shape[1], x.shape[2], -1))
         y = getattr(self, f"Conv_{n + 1}")(torch.cat(branches, dim=-1))
         return F.relu(self.GroupNorm_0(y))
 
 
+def _map_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of NHWC ``x`` over (lat, lon), keeping both dims. On a lat
+    band: the band's sum in fp32 or wider (as one process sums a bf16 map),
+    all-reduced over the bands, over the whole map's count, rounded once
+    to ``x``'s dtype."""
+    band = current_band()
+    if band is None:
+        return x.mean(dim=(1, 2), keepdim=True)
+    wide = x.to(torch.promote_types(x.dtype, torch.float32))
+    total = band_all_reduce(wide.sum(dim=(1, 2), keepdim=True), band)
+    return (total / (x.shape[1] * band.count * x.shape[2])).to(x.dtype)
+
+
 class _DeepLabBase(ModelBase):
     settings_kls = DeepLabSettings
     model_type = ModelType.CONVOLUTIONAL
+    spatial_shardable = True
+
+    @classmethod
+    def spatial_lat_multiple(cls, settings) -> int:
+        return 2 ** settings.encoder_depth
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape: Tuple[int, ...], settings: DeepLabSettings = DeepLabSettings()):

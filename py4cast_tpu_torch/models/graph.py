@@ -882,10 +882,10 @@ class _GraphModelBase(ModelBase):
         count = band[1] if band is not None else 1
         if count > 1 and self.table_path:
             raise ValueError(
-                f"{type(self).__name__} runs the gather-table path (use_lattice: false, "
-                f"or a multimesh union that repeats edges): it cannot run on a lat band "
-                f"of a spatial mesh (spatial={count}), as in the JAX package "
-                f"(ROADMAP.md, queue 1 item 12c-ii); use use_lattice: true or spatial=1")
+                f"Spatial mesh sharding (spatial={count}) requires a model whose forward "
+                f"tolerates a sharded lat dim; {type(self).__name__} runs the gather-table "
+                f"path (use_lattice: false, or a multimesh union that repeats edges): use "
+                f"use_lattice: true or spatial=1")
         #: the (band's) grid the model reads and writes
         self.grid_hw = (graph.grid_hw[0] // count, graph.grid_hw[1])
         h, hl, aggr = settings.hidden_dims, settings.hidden_layers, settings.mesh_aggr

@@ -144,17 +144,19 @@ def _bilinear_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     by a whole factor f: the band's rows and one row of each neighbour
     band (the edge row itself at the global top and bottom, which is the
     clamp) grow to f·(rows + 2), and the band keeps its own f·rows of
-    them, which read no row beyond those. A shrink raises there
-    (ROADMAP.md, queue 1 item 12c-ii)."""
+    them, which read no row beyond those. A resize in lon alone is each
+    band's own. A lat shrink or a fractional lat growth raises there; no
+    model reaches one on a band, whose rows are a whole multiple of what
+    the model pools."""
     if (h, w) == tuple(x.shape[1:3]):
         return x
     shrinks = h < x.shape[1] or w < x.shape[2]
     band = current_band()
     if band is not None and h != x.shape[1]:
-        if shrinks or h % x.shape[1]:
+        if h < x.shape[1] or h % x.shape[1]:
             raise ValueError(
                 f"a resize of a lat band from {x.shape[1]} to {h} rows is no whole-factor "
-                f"growth: it cannot run on a lat band yet (ROADMAP.md, queue 1 item 12c-ii)")
+                f"growth: its filter does not split into lat bands")
         f = h // x.shape[1]
         grown = _resize(halo_rows(x, 1, 1, band, clamp=True), h + 2 * f, w, shrinks)
         return grown[:, f:f + h]
@@ -377,7 +379,16 @@ def max_pool_3x3(x: torch.Tensor) -> torch.Tensor:
     """The stem's 3x3 stride-2 max pool of NHWC ``x``, padded 1 on every
     side with -inf (Flax's ``nn.max_pool`` with ``padding=((1, 1), (1,
     1))``); its backward routes a window's cotangent to its first
-    maximum, as XLA's select-and-scatter does."""
+    maximum, as XLA's select-and-scatter does. On a lat band of even rows
+    a window reads one row of the band above (-inf above the global top),
+    in global order, so that a tie (zeros after a ReLU are common) goes
+    to the row one process would pick, and only its columns pad."""
+    if current_band() is not None:
+        if x.shape[1] % 2:
+            raise ValueError(f"a lat band of {x.shape[1]} rows does not split into the "
+                             f"stride 2 of the 3x3 max pool")
+        y = halo_rows(x, 1, 0, fill=float("-inf")).permute(0, 3, 1, 2)
+        return F.max_pool2d(y, 3, stride=2, padding=(0, 1)).permute(0, 2, 3, 1)
     return F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
 
 
@@ -385,7 +396,10 @@ class ResNetEncoder(nn.Module):
     """ResNet-18/34 encoder returning one feature map per depth level: the
     stem (7x7 stride 2, padded 3 on every side, norm, ReLU) at /2, then,
     after a 3x3 stride-2 max pool padded 1 with -inf, one map per stage.
-    ``channels`` lists the maps' widths."""
+    ``channels`` lists the maps' widths. On a lat band its convs and the
+    pool take halo rows, its GroupNorms band statistics (``AffineNorm``
+    is each band's own), and its 1x1 stride-2 ``proj`` reads no halo:
+    bands of a multiple of 2^depth rows."""
 
     def __init__(self, in_channels: int, encoder_name: str = "resnet18", depth: int = 5,
                  norm: str = "group"):
@@ -425,10 +439,19 @@ class CustomUNet(ModelBase):
     a nearest x2 upsampling (resized bilinearly to the skip when autopad
     is off and the sides differ), the skip concatenated and a ConvBlock
     per decoder width; a last x2 upsampling, ConvBlock and 1x1 conv.
-    ``load_pretrained`` loads the encoder per ``encoder_weights``."""
+    ``load_pretrained`` loads the encoder per ``encoder_weights``. On a
+    lat band the encoder and the ConvBlocks take halo rows and band
+    statistics, the nearest upsamples are each band's own, and a resize
+    to a skip (autopad off) differs in lon only: bands of a multiple of
+    2^encoder_depth rows."""
 
     settings_kls = CustomUNetSettings
     model_type = ModelType.CONVOLUTIONAL
+    spatial_shardable = True
+
+    @classmethod
+    def spatial_lat_multiple(cls, settings) -> int:
+        return 2 ** settings.encoder_depth
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape: Tuple[int, ...],

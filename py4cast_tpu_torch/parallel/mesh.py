@@ -63,11 +63,6 @@ import torch.distributed as dist
 from py4cast_tpu_torch.parallel.spatial import Band
 from py4cast_tpu_torch.utils import resolve_device
 
-#: the ROADMAP.md item that ports the spatial axis to the remaining
-#: models (cited by every refusal under spatial > 1)
-SPATIAL_NEXT_ITEM = "ROADMAP.md, queue 1 item 12c-ii"
-
-
 @dataclass(frozen=True)
 class MeshConfig:
     """How to lay the ranks out. data_parallel × spatial must equal the

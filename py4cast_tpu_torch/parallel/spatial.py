@@ -9,12 +9,14 @@ and the process group of the S ranks that share one data index.
 Five collectives join the bands, each an autograd ``Function``
 (``gather_lat`` takes no gradient):
 
-- ``halo_rows(x, top, bottom)``: ``x`` (B, H/S, W, C) with the last
-  ``top`` rows of the band above and the first ``bottom`` rows of the
-  band below around it, zeros at the global top and bottom (or, with
-  ``clamp``, the global edge row repeated: a bilinear growth's edges).
-  Its backward sends each halo row's gradient back to its owner, which
-  adds it to its edge rows in a fixed order;
+- ``halo_rows(x, top, bottom)``: ``x`` (B, H/S, W, C) with the
+  ``top`` lat rows above it and the ``bottom`` rows below it around it,
+  from the band above and the band below (or from every band a halo
+  deeper than a band spans: ASPP's dilations on the deepest map), a
+  ``fill`` (zeros; ``-inf`` for a max pool) beyond the global top and
+  bottom (or, with ``clamp``, the global edge row repeated: a bilinear
+  growth's edges). Its backward sends each halo row's gradient back to
+  its owner, which adds it to its rows in a fixed order;
 - ``band_all_reduce(x)``: the sum of every band's partial ``x`` (a
   GroupNorm's band statistics, the g2m hop's partial aggregate, EPA's
   token sums). Its backward all-reduces the cotangent: every band's
@@ -122,75 +124,108 @@ def _edge_rows(x: torch.Tensor, row: int, n: int) -> torch.Tensor:
 
 class _HaloRows(torch.autograd.Function):
     """``halo_rows``: each band sends its last ``top`` and first
-    ``bottom`` rows in one all-gather of the band group and keeps its
-    neighbours'; the backward gathers the halo rows' gradients the same
-    way and adds them to the edge rows they came from (with ``clamp``,
-    the repeated global edge rows' gradients to the edge row itself)."""
+    ``bottom`` rows (the whole band where those cover it) in one
+    all-gather of the band group and keeps what its halo spans: the
+    nearest band's edge rows, or whole bands and the edge rows of the
+    farthest where the halo is deeper than a band; ``fill`` beyond the
+    global edges. The backward gathers the halo rows' gradients the same
+    way (a halo row beyond every band left out) and adds them to the rows
+    they came from, in band order (with ``clamp``, the repeated global
+    edge rows' gradients to the edge row itself)."""
 
     @staticmethod
-    def forward(ctx, x, top: int, bottom: int, band: Band, clamp: bool):
+    def forward(ctx, x, top: int, bottom: int, band: Band, clamp: bool, fill: float):
         ctx.top, ctx.bottom, ctx.band, ctx.clamp = top, bottom, band, clamp
         h = x.shape[1]
-        if h < max(top, bottom):
-            raise ValueError(f"a lat band of {h} rows cannot send a halo of {max(top, bottom)}")
-        edges = torch.cat([x[:, h - top:], x[:, :bottom]], dim=1)
-        parts = _gather(edges, band)
+        if clamp and h < max(top, bottom):
+            raise ValueError(f"a lat band of {h} rows cannot send a clamped halo of "
+                             f"{max(top, bottom)}")
+        t, b = min(top, h), min(bottom, h)
+        whole = t + b >= h
+        sent = x if whole else torch.cat([x[:, h - t:], x[:, :b]], dim=1)
+        parts = _gather(sent, band)
         s, n = band.index, band.count
-        if s > 0:
-            above = parts[s - 1][:, :top]
-        else:
-            above = _edge_rows(x, 0, top) if clamp else x.new_zeros((x.shape[0], top) + x.shape[2:])
-        if s < n - 1:
-            below = parts[s + 1][:, top:]
-        else:
-            below = (_edge_rows(x, -1, bottom) if clamp
-                     else x.new_zeros((x.shape[0], bottom) + x.shape[2:]))
-        halo_rows.bytes += (n - 1) * edges.numel() * edges.element_size()
-        return torch.cat([above, x, below], dim=1)
+        halo_rows.bytes += (n - 1) * sent.numel() * sent.element_size()
+
+        def beyond(rows, edge):
+            if clamp:
+                return _edge_rows(x, edge, rows)
+            return x.new_full((x.shape[0], rows) + x.shape[2:], fill)
+
+        # the bands above, farthest first, each as its last t rows; then
+        # the bands below, nearest first, each as its first b rows
+        above = [(parts[s - j][:, h - t:] if whole else parts[s - j][:, :t])
+                 if s - j >= 0 else beyond(t, 0) for j in range(-(-top // h), 0, -1)]
+        below = [(parts[s + j][:, :b] if whole else parts[s + j][:, t:])
+                 if s + j < n else beyond(b, -1) for j in range(1, -(-bottom // h) + 1)]
+        grown = [x]
+        if top:
+            above = torch.cat(above, dim=1)
+            grown.insert(0, above[:, above.shape[1] - top:])
+        if bottom:
+            grown.append(torch.cat(below, dim=1)[:, :bottom])
+        return torch.cat(grown, dim=1)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         top, bottom, band = ctx.top, ctx.bottom, ctx.band
-        h = g.shape[1] - top - bottom
-        edges = torch.cat([g[:, :top], g[:, top + h:]], dim=1)
-        parts = _gather(edges, band)
         s, n = band.index, band.count
+        h = g.shape[1] - top - bottom
+        # a halo row farther than (S - 1) bands from its band lies beyond
+        # the grid for every band: its gradient goes nowhere
+        kt, kb = min(top, (n - 1) * h), min(bottom, (n - 1) * h)
+        edges = torch.cat([g[:, top - kt:top], g[:, top + h:top + h + kb]], dim=1)
+        parts = _gather(edges, band)
         halo_rows.bytes += (n - 1) * edges.numel() * edges.element_size()
         dx = g[:, top:top + h].clone()
-        # the band above's bottom halo is this band's first rows, the band
-        # below's top halo its last rows: added in that order
-        if s > 0:
-            dx[:, :bottom] += parts[s - 1][:, top:]
-        elif ctx.clamp and top:
+        if ctx.clamp and s == 0 and top:
             dx[:, :1] += g[:, :top].sum(dim=1, keepdim=True)
-        if s < n - 1:
-            dx[:, h - top:] += parts[s + 1][:, :top]
-        elif ctx.clamp and bottom:
+        lo = s * h
+        for other in range(n):
+            # the rows of this band that band ``other``'s halo holds, in
+            # global rows: its bottom halo for a band above, its top halo
+            # for a band below; added in band order
+            if other < s:
+                first = (other + 1) * h
+                start, end = lo, min(lo + h, first + kb)
+                halo = parts[other][:, kt:]
+            elif other > s:
+                first = other * h - kt
+                start, end = max(lo, first), lo + h
+                halo = parts[other][:, :kt]
+            else:
+                continue
+            if end > start:
+                dx[:, start - lo:end - lo] += halo[:, start - first:end - first]
+        if ctx.clamp and s == n - 1 and bottom:
             dx[:, h - 1:] += g[:, top + h:].sum(dim=1, keepdim=True)
-        return dx, None, None, None, None
+        return dx, None, None, None, None, None
 
 
-def halo_rows(x: torch.Tensor, top: int, bottom: int,
-              band: Optional[Band] = None, clamp: bool = False) -> torch.Tensor:
-    """NHWC ``x`` (a band's rows) grown by ``top`` rows of the band above
-    and ``bottom`` rows of the band below, zeros at the global edges (the
-    edge row repeated with ``clamp``); off a band, ``x`` padded with zero
-    rows (with the edge rows repeated under ``clamp``)."""
+def halo_rows(x: torch.Tensor, top: int, bottom: int, band: Optional[Band] = None,
+              clamp: bool = False, fill: float = 0.0) -> torch.Tensor:
+    """NHWC ``x`` (a band's rows) grown by the ``top`` lat rows above the
+    band and the ``bottom`` rows below it, from the bands that hold them
+    (several, where a halo is deeper than a band), ``fill`` beyond the
+    global edges (the edge row repeated with ``clamp``, which takes a
+    halo of at most a band); off a band, ``x`` padded with ``fill`` rows
+    (with the edge rows repeated under ``clamp``)."""
     band = band or current_band()
     if band is None or band.count == 1:
         if clamp:
             return torch.cat([_edge_rows(x, 0, top), x, _edge_rows(x, -1, bottom)], dim=1)
-        return F.pad(x, (0, 0, 0, 0, top, bottom))
+        return F.pad(x, (0, 0, 0, 0, top, bottom), value=fill)
     if top == bottom == 0:
         return x
-    return _HaloRows.apply(x, top, bottom, band, clamp)
+    return _HaloRows.apply(x, top, bottom, band, clamp, fill)
 
 
 #: bytes this process received from the other bands in halo exchanges,
 #: forward and backward, since the last reset: each exchange is an
-#: all-gather of every band's edge rows, (S − 1)·(top + bottom) rows a
-#: call on every band, of which a band keeps its neighbours' alone
+#: all-gather of every band's edge rows, (S − 1)·min(top + bottom, H/S)
+#: rows a call forward and (S − 1)·(top + bottom) rows (each side at
+#: most (S − 1)·H/S) backward, of which a band keeps what its halo spans
 halo_rows.bytes = 0
 
 

@@ -18,6 +18,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from py4cast_tpu_torch.parallel.spatial import current_band
+
 TRAINING_STRATEGIES = ("scaled_ar", "diff_ar", "downscaling_only")
 #: the dropout seeds' own offset, so they stay apart from any other
 #: stream folded from the same keys (the JAX package's fold_in(step_rng,
@@ -42,6 +44,9 @@ class RolloutConfig:
     num_input_steps: int = 2
     mask_on_nan: bool = False
     mask_ratio: float = 0.0
+    # (this process's data index, the data ranks): the block masks are
+    # drawn for the global batch and each data rank keeps its rows
+    data_ranks: Tuple[int, int] = (0, 1)
     # indices of forcing features matching each output feature, used by
     # downscaling_only to rebuild the state from the predicted residual
     common_features_idx: Tuple[int, ...] = ()
@@ -94,17 +99,31 @@ def common_features_index(
     return tuple(idx)
 
 
-def mask_blocks(x: torch.Tensor, generator: torch.Generator, mask_ratio: float) -> torch.Tensor:
+def mask_blocks(x: torch.Tensor, generator: torch.Generator, mask_ratio: float,
+                data_ranks: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Masked-autoencoder-style random block masking: zeroes
     ``mask_ratio`` of the (B, H, W, F) image in square-ish blocks, one
-    uniform draw per block from ``generator`` (drawn on its device)."""
+    uniform draw per block from ``generator`` (drawn on its device).
+
+    The draw is always the whole global batch's on the whole grid, so
+    that every layout draws one process's masks from one generator: with
+    ``data_ranks`` (index d, count D) the batch is D·B rows of which this
+    process keeps rows d·B..(d + 1)·B, and on a lat band
+    (``parallel.spatial.current_band``) the grid has S·H rows, of which
+    the band keeps its own; the blocks' height comes from the whole lat."""
     b, h, w, _ = x.shape
+    band = current_band()
+    if band is not None:
+        h *= band.count
+    index, count = data_ranks
     bh = max(1, h // max(1, int(h**0.5)))
     bw = max(1, w // max(1, int(w**0.5)))
     gh, gw = -(-h // bh), -(-w // bw)
-    draw = torch.rand((b, gh, gw, 1), generator=generator, device=generator.device)
-    keep = (draw >= mask_ratio).to(x.device)
+    draw = torch.rand((b * count, gh, gw, 1), generator=generator, device=generator.device)
+    keep = (draw[index * b:(index + 1) * b] >= mask_ratio).to(x.device)
     keep = keep.repeat_interleave(bh, dim=1).repeat_interleave(bw, dim=2)[:, :h, :w, :]
+    if band is not None:
+        keep = band.cut(keep, 1)
     return x * keep
 
 
@@ -203,7 +222,7 @@ def rollout(
         for k in range(cfg.num_inter_steps):
             x = build_x(prev_states, forcing_t, cfg)
             if cfg.mask_ratio != 0.0:
-                x = mask_blocks(x, generator, cfg.mask_ratio)
+                x = mask_blocks(x, generator, cfg.mask_ratio, cfg.data_ranks)
             if dropout_seed is not None:
                 y = model_apply(x, fold_seed(dropout_seed, t, DROPOUT_STREAM + k))
             else:

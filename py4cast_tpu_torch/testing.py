@@ -24,6 +24,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed
+from torch.optim.optimizer import register_optimizer_step_pre_hook
 
 from py4cast_tpu_torch.datasets.access import Stats
 from py4cast_tpu_torch.datasets.base import DatasetInfo, Item, ItemBatch, Statics, collate_fn
@@ -294,14 +295,17 @@ def run_on_bands(fn: Callable, count: int, before_last: Optional[Callable] = Non
 
 
 def _small_module(model_name: str, settings_init_args: dict, grid, device: str,
-                  lat_multiple: Optional[int] = None, mesh=None, **settings):
+                  lat_multiple: Optional[int] = None, mesh=None, losses=None, **settings):
     """A small ``scaled_ar`` module; ``mesh`` (data, spatial) lays out the
-    process group (``MeshConfig``; default every rank on the data axis)."""
+    process group (``MeshConfig``; default every rank on the data axis);
+    ``losses`` replaces ``TrainingSettings``' default loss list."""
     from py4cast_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from py4cast_tpu_torch.training import AutoRegressiveModule, TrainingSettings
 
     info = synthetic_dataset_info(grid_shape=tuple(grid), weather_features=3,
                                   forcing_features=6, border_size=2)
+    if losses is not None:
+        settings["losses"] = [dict(conf) for conf in losses]
     settings = TrainingSettings(model_name=model_name, settings_init_args=dict(settings_init_args),
                                 training_strategy="scaled_ar", num_input_steps=2,
                                 num_warmup_steps=2, **settings)
@@ -338,7 +342,8 @@ def held_params(grads: dict, params: dict, bar: float) -> dict:
 def train_report(model_name: str, settings_init_args: dict, grid=(32, 32), batch_size: int = 4,
                  steps: int = 3, seed: int = 0, params_path: Optional[str] = None,
                  device: str = "cpu", mesh=None, padded_grid=None,
-                 lat_multiple: Optional[int] = None, precision: str = "32") -> dict:
+                 lat_multiple: Optional[int] = None, precision: str = "32",
+                 losses: Optional[list] = None, mask_ratio: float = 0.0) -> dict:
     """``steps`` AdamW steps of a small ``scaled_ar`` module, alone or on
     every rank of a group laid out as ``mesh`` (data, spatial): step k
     trains on the global batch ``synthetic_batch(info, batch_size,
@@ -351,7 +356,10 @@ def train_report(model_name: str, settings_init_args: dict, grid=(32, 32), batch
     exchanges received a step (``halo_rows``, ``gather_rows``,
     ``roll_rows``), the peak device memory (cuda), and ``predict_step``
     of the first batch at the final parameters on the whole grid,
-    gathered over the data ranks; ``precision`` is the module's. With
+    gathered over the data ranks; ``precision``, ``losses`` and
+    ``mask_ratio`` are the module's (the block masks drawn from a
+    generator seeded with ``seed``, the same on every rank, and the
+    prediction's from one seeded with ``seed`` + 1). With
     ``padded_grid`` it
     also predicts that batch's counterpart on a ``padded_grid`` module
     padded to ``lat_multiple``, from seed-0 parameters."""
@@ -360,7 +368,8 @@ def train_report(model_name: str, settings_init_args: dict, grid=(32, 32), batch
 
     module, info = _small_module(model_name, settings_init_args, grid, device,
                                  lat_multiple=lat_multiple if padded_grid is None else None,
-                                 mesh=mesh, precision=precision)
+                                 mesh=mesh, precision=precision, losses=losses,
+                                 mask_ratio=mask_ratio)
     params = torch.load(params_path, weights_only=True) if params_path else None
     state = module.init_state(torch.Generator().manual_seed(0), steps, params)
     grads = {}
@@ -372,7 +381,8 @@ def train_report(model_name: str, settings_init_args: dict, grid=(32, 32), batch
     state.optimizer.register_step_pre_hook(keep_first_grads)
     coords = {"process_index": module.mesh.data_index, "process_count": module.mesh.data}
     wrappers = kernel_wrappers()
-    losses, launches, host_ms = [], [], []
+    masks = torch.Generator(device=device).manual_seed(seed) if mask_ratio else None
+    step_losses, launches, host_ms = [], [], []
     exchanges = {"halo_bytes": (halo_rows, []), "gather_bytes": (gather_rows, []),
                  "roll_bytes": (roll_rows, [])}
     batches = []
@@ -387,18 +397,20 @@ def train_report(model_name: str, settings_init_args: dict, grid=(32, 32), batch
         for counter, _ in exchanges.values():
             counter.bytes = 0
         t0 = time.perf_counter()
-        losses.append(float(module.train_step(state, batches[-1])))
+        step_losses.append(float(module.train_step(state, batches[-1], masks)))
         host_ms.append((time.perf_counter() - t0) * 1e3)
         launches.append({name: fn.launches for name, fn in wrappers.items()})
         for counter, per_step in exchanges.values():
             per_step.append(counter.bytes)
+    predict_masks = torch.Generator(device=device).manual_seed(seed + 1) if mask_ratio else None
     report = {"rank": module.mesh.rank, "world_size": module.mesh.world_size,
-              "losses": losses, "launches": launches, "host_ms": host_ms,
+              "losses": step_losses, "launches": launches, "host_ms": host_ms,
               **{key: per_step for key, (_, per_step) in exchanges.items()},
               "params": {k: v.detach().cpu() for k, v in state.params.items()},
               "grads": grads,
               "predictions": torch.from_numpy(to_host(
-                  module.predict_step(state, batches[0]).array, module.mesh.data_group))}
+                  module.predict_step(state, batches[0], predict_masks).array,
+                  module.mesh.data_group))}
     if device == "cuda":
         report["peak_bytes"] = torch.cuda.max_memory_allocated()
     if padded_grid is not None:
@@ -420,12 +432,15 @@ def train_reports(cases: List[dict], **common) -> List[dict]:
 
 def fit_test_report(save_path: str, n_test: int = 11, batch_size: int = 4, grid=(32, 32),
                     device: str = "cpu", mesh=None, model_name: str = "HalfUNet",
-                    settings_init_args: Optional[dict] = None) -> dict:
-    """A small model's (HalfUNet's by default) ``Trainer.fit`` (2 train batches, a padded
+                    settings_init_args: Optional[dict] = None,
+                    losses: Optional[list] = None) -> dict:
+    """A small model's (HalfUNet's by default; ``losses`` its loss list)
+    ``Trainer.fit`` (2 train batches, a padded
     validation tail), ``Trainer.test`` with logging (figures, scores,
     PSD-K, PSD-Var, ACC) over ``n_test`` samples, the per-sample test
-    rows (``Trainer.eval_rows``), ``Trainer.predict`` and the fitted
-    parameters, alone or on every rank of a group whose module is laid
+    rows (``Trainer.eval_rows``), ``Trainer.predict``, the fitted
+    parameters and the first step's gradients as AdamW receives them,
+    alone or on every rank of a group whose module is laid
     out as ``mesh`` (data, spatial). The ``TrainerConfig`` keeps its
     default layout: the trainer follows the module's mesh. Rank r saves
     under ``<save_path>/rank{r}``, so that what each rank wrote can be
@@ -434,7 +449,7 @@ def fit_test_report(save_path: str, n_test: int = 11, batch_size: int = 4, grid=
     from py4cast_tpu_torch.training import Trainer, TrainerConfig
 
     args = {"num_filters": 8, "depth": 2} if settings_init_args is None else settings_init_args
-    module, info = _small_module(model_name, args, grid, device, mesh=mesh,
+    module, info = _small_module(model_name, args, grid, device, mesh=mesh, losses=losses,
                                  num_pred_steps_val_test=2)
     rank = module.mesh.rank
     trainer = Trainer(TrainerConfig(max_epochs=1, batch_size=batch_size, num_workers=1,
@@ -443,7 +458,18 @@ def fit_test_report(save_path: str, n_test: int = 11, batch_size: int = 4, grid=
     train = SyntheticDataset(info, 2 * batch_size, num_pred_steps=1, seed=0)
     val = SyntheticDataset(info, batch_size + 1, num_pred_steps=2, seed=1)
     test = SyntheticDataset(info, n_test, num_pred_steps=2, seed=2)
-    state = trainer.fit(module, train, val)
+    first = {}
+
+    def keep_first_grads(optimizer, args, kwargs):
+        if not first:
+            first.update({id(p): p.grad.detach().cpu().clone()
+                          for group in optimizer.param_groups for p in group["params"]})
+
+    hook = register_optimizer_step_pre_hook(keep_first_grads)
+    try:
+        state = trainer.fit(module, train, val)
+    finally:
+        hook.remove()
     scores = trainer.test(module, test, state)
     rows = trainer.eval_rows(module, state, test.loader(
         batch_size=batch_size, num_workers=1, drop_last=False, pad_last=True,
@@ -452,4 +478,5 @@ def fit_test_report(save_path: str, n_test: int = 11, batch_size: int = 4, grid=
     return {"rank": rank, "is_main": is_main_process(), "scores": scores,
             "rows": torch.from_numpy(rows), "step": state.step,
             "params": {k: v.detach().cpu() for k, v in state.params.items()},
+            "grads": {k: first[id(v)] for k, v in state.params.items()},
             "predictions": torch.from_numpy(np.concatenate([p.array for p in preds]))}

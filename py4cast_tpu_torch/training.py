@@ -14,8 +14,7 @@ Under a ``torch.distributed`` process group (``parallel.mesh``) every
 rank runs the same loop on its slice of each global batch: one gradient
 all-reduce an optimizer step, eval rows and predictions gathered to
 every rank, writes on rank 0. Under a spatial axis (``mesh.spatial`` >
-1: HalfUNet, UNet, Segformer, UNetRPP, SwinUNetR and the lattice-path
-graph models) each rank also
+1: every grid model and the lattice-path graph models) each rank also
 holds one lat band of the grid (``parallel.spatial``): its statics,
 masks and batch rows; the bands join inside the model, their loss
 shares are summed, and predictions and eval arrays are gathered back to
@@ -63,7 +62,6 @@ from py4cast_tpu_torch.models import (
 )
 from py4cast_tpu_torch.named_tensor import NamedArray
 from py4cast_tpu_torch.parallel.mesh import (
-    SPATIAL_NEXT_ITEM,
     Mesh,
     MeshConfig,
     all_gather_rows,
@@ -319,14 +317,17 @@ class AutoRegressiveModule:
     ``dataset_info``, manifests and everything the host sees keep the
     original grid.
 
-    Under ``mesh.spatial`` S > 1 (the models with ``spatial_shardable``;
-    others raise) the padded lat splits into S bands and this rank keeps
-    its band (``mesh.band``) of the statics, the masks and every batch
-    array; the graph is built on the whole padded grid and cut after.
-    Each band must hold a multiple of the rows the model's pools,
-    strides and windows need (``ModelBase.spatial_lat_multiple``, m):
-    ``lat_multiple`` defaults to S·m under a spatial axis (1 without one),
-    and one that leaves a band short of a multiple of m raises."""
+    Under ``mesh.spatial`` S > 1 (the models with ``spatial_shardable``:
+    every model of the zoo but the graph models' gather-table path, which
+    raises at build as in the JAX package) the padded lat splits into S
+    bands and this rank keeps its band (``mesh.band``) of the statics, the
+    masks and every batch array; the graph is built on the whole padded
+    grid and cut after. Each band must hold a multiple of the rows the
+    model's pools, strides and windows and the loss's subsamples need
+    (``ModelBase.spatial_lat_multiple`` and the losses'
+    ``spatial_lat_multiple``, m their lcm): ``lat_multiple`` defaults to
+    S·m under a spatial axis (1 without one), and one that leaves a band
+    short of a multiple of m raises."""
 
     def __init__(self, settings: TrainingSettings, dataset_info: DatasetInfo,
                  device="cuda", mesh: Optional[Mesh] = None,
@@ -362,9 +363,13 @@ class AutoRegressiveModule:
             )
 
         sp = self.mesh.spatial
-        need = kls.spatial_lat_multiple(model_settings)
-        if sp > 1:
-            self._refuse_on_bands(kls, settings)
+        self.loss = CombinedLoss(settings.losses)
+        need = math.lcm(kls.spatial_lat_multiple(model_settings),
+                        self.loss.spatial_lat_multiple())
+        if sp > 1 and not kls.spatial_shardable:
+            raise ValueError(f"spatial={sp}: {settings.model_name} does not declare "
+                             f"spatial_shardable (its forward is not written for a lat "
+                             f"band); use spatial=1")
         multiple = lat_multiple or (sp * need if sp > 1 else 1)
         self._lat_pad = (-statics.grid_shape[0]) % multiple if multiple > 1 else 0
         self._orig_grid_shape = tuple(statics.grid_shape)
@@ -381,7 +386,8 @@ class AutoRegressiveModule:
         band_rows = grid_shape[0] // sp
         if sp > 1 and band_rows % need:
             raise ValueError(
-                f"{settings.model_name} pools, strides or windows a lat band of {band_rows} rows "
+                f"{settings.model_name} and its losses pool, stride, window or subsample a "
+                f"lat band of {band_rows} rows "
                 f"on its own, which needs a multiple of {need} rows: pass "
                 f"lat_multiple={sp * need}")
         extra = {}
@@ -430,29 +436,13 @@ class AutoRegressiveModule:
             num_input_steps=settings.num_input_steps,
             mask_on_nan=settings.mask_on_nan,
             mask_ratio=settings.mask_ratio,
+            data_ranks=(self.mesh.data_index, self.mesh.data),
             common_features_idx=common_features_index(
                 out_names, forcing_names,
                 strict=settings.training_strategy == "downscaling_only",
             ),
         )
-        self.loss = CombinedLoss(settings.losses)
         self.loss.prepare(self.interior_mask_np, dataset_info, out_names)
-
-    def _refuse_on_bands(self, kls, settings: TrainingSettings) -> None:
-        """What cannot run on the lat bands of a spatial mesh yet raises,
-        naming the ROADMAP.md item that ports it."""
-        sp = self.mesh.spatial
-        why = None
-        if not kls.spatial_shardable:
-            why = (f"{settings.model_name} reads across lat bands (strided, explicitly "
-                   f"padded or resized encoders)")
-        elif settings.mask_ratio > 0:
-            why = f"mask_ratio={settings.mask_ratio} draws its blocks on the whole grid"
-        elif any(conf["class"] == "PerceptualLossPy4Cast" for conf in settings.losses):
-            why = "PerceptualLossPy4Cast convolves and subsamples whole fields"
-        if why is not None:
-            raise ValueError(f"spatial={sp}: {why}; not ported to a spatial mesh yet "
-                             f"({SPATIAL_NEXT_ITEM}); use spatial=1")
 
     # ------------------------------------------------------------------ setup
     def init_params(self, generator: torch.Generator) -> Params:

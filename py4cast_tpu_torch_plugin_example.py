@@ -34,6 +34,8 @@ class Identity(ModelBase):
     settings_kls = IdentitySettings
     model_type = ModelType.CONVOLUTIONAL
     register = True
+    #: a Dense a grid point: each lat band's own
+    spatial_shardable = True
 
     def __init__(self, num_input_features: int, num_output_features: int,
                  input_shape, settings: IdentitySettings = IdentitySettings()):

@@ -138,21 +138,24 @@ def test_trainer_config_takes_the_world_size():
 
 
 @pytest.mark.parametrize("model,args,match", [
-    ("CustomUNet", {"encoder_depth": 2, "decoder_channels": (8, 4)},
-     "CustomUNet reads across lat bands"),
-    ("DeepLabV3", {"encoder_depth": 2}, "DeepLabV3 reads across lat bands"),
+    ("CustomUNet", {"encoder_depth": 2, "decoder_channels": (8, 4)}, None),
+    ("DeepLabV3", {"encoder_depth": 2}, None),
     ("HiLAM", {"hidden_dims": 8, "mesh_levels": 2, "use_lattice": False},
      "HiLAM runs the gather-table path"),
 ])
 def test_module_refuses_a_spatial_mesh(model, args, match):
-    """The models and the path the spatial axis does not reach yet raise,
-    naming the ROADMAP.md item that ports them (the table path is refused
-    by the JAX package too)."""
+    """The ResNet-encoder models build on a spatial mesh, with bands of
+    whole multiples of their encoder's stride; the gather-table path
+    raises, as the JAX package refuses it (``tests/test_parallel.py``)."""
     settings = TrainingSettings(model_name=model, settings_init_args=args,
                                 training_strategy="scaled_ar", num_input_steps=2)
-    with pytest.raises(ValueError, match=f"(?s){match}.*spatial.*queue 1 item 12c-ii"):
-        AutoRegressiveModule(settings, _info(), device="cpu",
-                             mesh=Mesh(world_size=2, data=1, spatial=2))
+    mesh = Mesh(world_size=2, data=1, spatial=2)
+    if match is None:
+        module = AutoRegressiveModule(settings, _info(), device="cpu", mesh=mesh)
+        assert module._buffers["grid_statics"].shape[0] == 16  # its band of 32 rows
+        return
+    with pytest.raises(ValueError, match=f"(?s)Spatial mesh sharding.*{match}.*spatial=1"):
+        AutoRegressiveModule(settings, _info(), device="cpu", mesh=mesh)
 
 
 def test_spatial_ranks_on_one_card_raise_and_nothing_falls_back(launcher_env, monkeypatch):

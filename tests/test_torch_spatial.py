@@ -25,8 +25,8 @@ from py4cast_tpu_torch.models.unet import _upsample
 from py4cast_tpu_torch.ops.pool import max_pool_2x2
 from py4cast_tpu_torch.parallel.mesh import Mesh
 from py4cast_tpu_torch.parallel.spatial import Band, gather_lat, halo_rows, on_band
-from py4cast_tpu_torch.testing import synthetic_dataset_info, synthetic_statics
-from py4cast_tpu_torch.training import AutoRegressiveModule, TrainingSettings
+from py4cast_tpu_torch.testing import run_on_bands, synthetic_dataset_info, synthetic_statics
+from py4cast_tpu_torch.training import AutoRegressiveModule, TrainingSettings, init_weights
 
 #: a band's piece against the whole op, relative to scale (fp32: only
 #: the order of the sums over the bands changes)
@@ -235,14 +235,17 @@ INFO = synthetic_dataset_info(grid_shape=(32, 32), weather_features=3, forcing_f
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mask_ratio": 0.5}, "mask_ratio=0.5 draws its blocks on the whole grid"),
-    ({"losses": [{"class": "PerceptualLossPy4Cast", "weight": 1.0, "params": {}}]},
-     "PerceptualLossPy4Cast convolves"),
+    ({"mask_ratio": 0.5}, 16),
+    ({"losses": [{"class": "PerceptualLossPy4Cast", "weight": 1.0, "params": {}}]}, 16),
 ])
 def test_module_refuses_what_reads_the_whole_grid(kw, match):
-    with pytest.raises(ValueError, match=f"spatial=2: {match}.*queue 1 item 12c-ii"):
-        AutoRegressiveModule(_settings("HalfUNet", {"num_filters": 8, "depth": 2}, **kw),
-                             INFO, device="cpu", mesh=SPATIAL_TWO)
+    """``mask_ratio`` and the perceptual loss build on a spatial mesh:
+    each band keeps 16 of the 32 rows, a multiple of what the model's
+    pool and the loss's subsamples need."""
+    module = AutoRegressiveModule(_settings("HalfUNet", {"num_filters": 8, "depth": 2}, **kw),
+                                  INFO, device="cpu", mesh=SPATIAL_TWO)
+    assert module._buffers["grid_statics"].shape[0] == match
+    assert module._lat_pad == 0
 
 
 def test_module_refuses_bands_its_pools_cannot_split():
@@ -264,13 +267,29 @@ def test_module_refuses_bands_its_pools_cannot_split():
 
 def test_strided_or_asymmetric_convs_refuse_a_band():
     """A strided conv refuses a band whose rows its stride does not
-    split; an explicitly padded one (the ResNet encoder's) any band."""
+    split; an explicitly padded one (the ResNet encoder's) runs on bands
+    that it splits, as on the whole grid."""
     x = _randn(1, 5, 4, 2)
     with on_band(Band(0, 2)):
         with pytest.raises(ValueError, match="band of 5 rows does not split into the stride 2"):
             FlaxConv2d(2, 2, 3, stride=2)(x)
-        with pytest.raises(ValueError, match="explicit padding.*queue 1 item 12c-ii"):
-            FlaxConv2d(2, 2, 3, stride=2, padding=1)(x[:, :4])
+        with pytest.raises(ValueError, match="band of 5 rows does not split into the stride 2"):
+            FlaxConv2d(2, 2, 3, stride=2, padding=1)(x)
+    conv = FlaxConv2d(2, 3, 3, stride=2, padding=1)
+    init_weights(conv, torch.Generator().manual_seed(0))
+    whole, g = _randn(1, 8, 4, 2).requires_grad_(), _randn(1, 4, 2, 3, seed=1)
+    leaves = [whole, conv.weight, conv.bias]
+    want = conv(whole)
+    want_grads = torch.autograd.grad((want * g).sum(), leaves)
+
+    def band_step(band):
+        out = conv(band.cut(whole, 1))
+        return out.detach(), torch.autograd.grad((out * band.cut(g, 1)).sum(), leaves)
+
+    got = run_on_bands(band_step, 2)
+    _close(torch.cat([r[0] for r in got], dim=1), want, "explicitly padded conv on 2 bands")
+    for i, w in enumerate(want_grads):
+        _close(got[0][1][i] + got[1][1][i], w, f"explicitly padded conv on 2 bands: grad {i}")
 
 
 def test_band_modules_keep_their_band_of_the_statics():

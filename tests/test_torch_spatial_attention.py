@@ -195,8 +195,13 @@ def test_band_growth_matches_the_whole_growth(factor, count):
 
 
 def test_band_shrink_refuses():
-    with on_band(Band(0, 2)), pytest.raises(ValueError, match="queue 1 item 12c-ii"):
-        _bilinear_resize(_randn(1, 8, 8, 2), 4, 4)
+    """A lat shrink (or a fractional lat growth) raises on a band; no
+    model reaches one, as bands hold whole multiples of what it pools."""
+    with on_band(Band(0, 2)):
+        with pytest.raises(ValueError, match="from 8 to 4 rows is no whole-factor growth"):
+            _bilinear_resize(_randn(1, 8, 8, 2), 4, 4)
+        with pytest.raises(ValueError, match="from 8 to 12 rows is no whole-factor growth"):
+            _bilinear_resize(_randn(1, 8, 8, 2), 12, 8)
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 6, 3), (2, 48, 5)])
