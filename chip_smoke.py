@@ -44,7 +44,8 @@ non-zero exit code and no result line:
    one train step's backward, beside it, for Segformer and for UNetRPP;
 4. ``Trainer.predict`` on the Dummy dataset with GraphLAM at the width of
    config/CLI/model/graphlam.yaml: launch counts of both forward
-   kernels, finite outputs, agreement with the same module on the CPU;
+   kernels, finite outputs, the first batch against the same module on
+   the CPU;
 5. the full-size GraphLAM rollout (500x500 grid, batch 1, 3 AR steps)
    through the same predict path: ms per step, peak memory, a profile of
    where the device time goes and of how many device activities a call
@@ -112,10 +113,11 @@ non-zero exit code and no result line:
    (weight gradients, fp32, against fp64), a second call bit for bit,
    and the wrapper's time on bf16 and on fp32 inputs beside the
    boundary casts' alone; (b) ``Trainer.predict`` and ``Trainer.fit``
-   (resume, test) on Dummy for each of the seven models in bf16: the
-   launch counts of their fp32 phases, fp32 masters and AdamW moments,
-   the card's bf16 predictions within twice the CPU's bf16-vs-fp32 gap
-   of the card's fp32 ones, and one step's gradients within twice the
+   (test; the fp32 fits cover resume) on Dummy for each of the seven
+   models in bf16: the launch counts of their fp32 phases, fp32 masters
+   and AdamW moments, the card's bf16 predictions of the first batch
+   within twice the CPU's bf16-vs-fp32 gap of the card's fp32 ones, and
+   one step's gradients within twice the
    CPU's own bf16 error of the CPU's; (c) the full-size GraphLAM
    500x500 predict and train step, HalfUNet and UNetRPP (flash_attn)
    512x640, in bf16 beside their fp32 numbers of phases 5, 7, 11 and
@@ -202,7 +204,7 @@ non-zero exit code and no result line:
    subdomain, 12 hours of files, periods narrowed in a dataset conf
    JSON): the port's dataset CLI's prepare (statistics), describe and
    speedtest, and titan.yaml's loader (batch 2, 10 workers) ms a batch
-   in its steady state (2 batches skipped, 20 timed) through the C++ npy
+   in its steady state (2 batches skipped, 10 timed) through the C++ npy
    reader and through per-file numpy reads; (b) the
    CLI's fit (3 optimizer steps), test and predict on it, fp32, with
    halfunet.yaml and graphlam.yaml, each counted (GraphLAM's a-fwd,
@@ -235,7 +237,24 @@ non-zero exit code and no result line:
    deleted; (d) the host microseconds of 1,000 c-fwd calls at a tiny
    shape through the custom op and through its bare CUDA
    implementation; the phase's wall time;
-24. the script's wall time, each phase's wall seconds, one JSON line
+24. the weight-making tools and the ResNet34 path (no hand kernel:
+   every count 0), everything written under build/smoke_tools and
+   deleted after: (a) ``tools/pretrain_encoder`` with ``--encoder
+   resnet34`` at its defaults (500 steps, batch 16, 64x64), its first
+   and last denoise MSE, steps a second, its first three losses against
+   the same steps on the CPU; (b) DeepLabV3Plus at deeplabv3plus.yaml's
+   width on that ResNet34 npz at 512x640, batch 1: the loaded encoder
+   the npz's bit for bit through ``convert.encoder_to_flax``, a predict
+   call and two train steps, counted, the first loss against the CPU's,
+   peak memory and host ms a step; (c) ``tools/train_perceptual_features``
+   at its defaults (800 steps, batch 32): the committed file's keys and
+   shapes, three steps' parameters against the CPU's, steps a second;
+   (d) a seeded torchvision resnet34 checkpoint through
+   ``tools/convert_torchvision_encoder``, a Dummy fit of CustomUNet with
+   ``encoder_norm: affine`` on it; (e) ``tools/make_grib_template
+   --dataset dummy --margin 4`` read back with ``io/grib2.read_grib2``;
+   the phase's wall time beside its 60 s budget;
+25. the script's wall time, each phase's wall seconds, one JSON line
    with every kernel's numbers, the card's line, then the result line.
 
 Each model path runs with every launch count set to 0 just before it
@@ -246,8 +265,8 @@ kernel of another path that was, fails the run.
 stops without a result line: the short loop for one kernel's work.
 ``--datasets`` runs phases 1, 2 and 22 alone and stops without a
 result line: the loop for the data path.
-``--tools`` runs phases 1, 2 and 23 alone and stops without a result
-line: the loop for the user tools.
+``--tools`` runs phases 1, 2, 23 and 24 alone and stops without a
+result line: the loop for the user tools.
 ``--steps`` runs phases 1, 2, 5 and 7 alone (GraphLAM's 500x500 predict
 and train step, their host ms) and stops without a result line: the
 same-call comparison of two trees' host cost a step.
@@ -410,7 +429,7 @@ def card_line() -> str:
     return out[torch.cuda.current_device()] if len(out) > 1 else out[0]
 
 
-def time_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> float:
+def time_ms(fn, reps: int = 15, warmup: int = 3, inner: int = 10) -> float:
     """Median device milliseconds of one ``fn()`` call over ``reps``
     windows, each ``inner`` back-to-back calls between two CUDA events on
     the current stream. Each window starts behind a sleep kernel that
@@ -1004,9 +1023,10 @@ def expected_launches(module, forwards: int, backwards: int) -> dict:
 
 
 def predict_dummy(settings, keep=None) -> dict:
-    """Trainer.predict on Dummy, counted, against the same module on the
-    CPU (fp32: within TOL; under bf16 phase 17 holds them to its own
-    bar). ``keep`` (a dict) receives both predictions as host arrays."""
+    """Trainer.predict on Dummy, counted, its first batch against the
+    same module on the CPU (fp32: within TOL; under bf16 phase 17 holds
+    them to its own bar). ``keep`` (a dict) receives both first-batch
+    predictions as host arrays."""
     from py4cast_tpu_torch.datasets import get_datasets
     from py4cast_tpu_torch.training import AutoRegressiveModule, Trainer, TrainerConfig
 
@@ -1033,23 +1053,26 @@ def predict_dummy(settings, keep=None) -> dict:
         if p.shape[1:] != (steps, *spatial, 1) or not finite:
             raise AssertionError(f"bad predictions: shape {p.shape}, finite={finite}")
 
+    # the CPU predicts the first batch of 8 alone (the card's counts cover all)
+    first = {id(s) for s in test_ds.sample_list[:8]}
     cpu_module = AutoRegressiveModule(settings, test_ds.dataset_info, device="cpu")
     cpu_preds = Trainer(TrainerConfig(batch_size=8, device="cpu")).predict(
-        cpu_module, test_ds, {k: v.cpu() for k, v in state.items()}
+        cpu_module, test_ds.filter_samples(lambda s: id(s) in first),
+        {k: v.cpu() for k, v in state.items()}
     )
+    held = [p.array for p in preds[:len(cpu_preds)]]
     if keep is not None:
-        keep.update(card=[p.array for p in preds], cpu=[c.array for c in cpu_preds])
+        keep.update(card=held, cpu=[c.array for c in cpu_preds])
     if module.compute_dtype != torch.float32:
-        err = max_abs_diff([p.array for p in preds], [c.array for c in cpu_preds])
+        err = max_abs_diff(held, [c.array for c in cpu_preds])
     else:
         err = max(
-            compare("predict (cuda vs cpu)", torch.from_numpy(g.array),
-                    torch.from_numpy(c.array))
-            for g, c in zip(preds, cpu_preds)
+            compare("predict (cuda vs cpu)", torch.from_numpy(g), torch.from_numpy(c.array))
+            for g, c in zip(held, cpu_preds)
         )
     return {"model": settings.model_name, "precision": settings.precision, "launches": counts,
-            "forwards": forwards, "batches": len(preds), "seconds": seconds,
-            "max_abs_err_vs_cpu": err}
+            "forwards": forwards, "batches": len(preds), "batches_vs_cpu": len(cpu_preds),
+            "seconds": seconds, "max_abs_err_vs_cpu": err}
 
 
 # ------------------------------------------------------------------- phase 5
@@ -1210,10 +1233,12 @@ class _ListLogger:
         self.figures.append((tag, step))
 
 
-def train_dummy(name: str, overrides=None, precision: str = "32", losses=None) -> dict:
+def train_dummy(name: str, overrides=None, precision: str = "32", losses=None,
+                resume: bool = True) -> dict:
     """Trainer.fit on Dummy (3 train batches, 1 val batch) with model
     ``name`` (``overrides`` of its settings_init_args; ``losses`` in place
-    of the default WeightedLoss), counted; resume;
+    of the default WeightedLoss), counted; resume (unless ``resume`` is
+    False: phase 17's bf16 fits, whose resume the fp32 fits cover);
     Trainer.test; one step's gradients against the CPU. Under bf16 the
     masters and AdamW's moments must stay fp32, and the card's gradients
     are held over the whole vector to twice the CPU's own bf16 error:
@@ -1265,9 +1290,12 @@ def train_dummy(name: str, overrides=None, precision: str = "32", losses=None) -
     if state.step != train_steps:
         raise AssertionError(f"fit took {state.step} optimizer steps, expected {train_steps}")
 
-    resumed = trainer.fit(module, train_ds, val_ds, ckpt_path=str(ckpt / "last"))
-    if resumed.step != 2 * train_steps:
-        raise AssertionError(f"resume ended at step {resumed.step}, expected {2 * train_steps}")
+    resumed = state
+    if resume:
+        resumed = trainer.fit(module, train_ds, val_ds, ckpt_path=str(ckpt / "last"))
+        if resumed.step != 2 * train_steps:
+            raise AssertionError(f"resume ended at step {resumed.step}, "
+                                 f"expected {2 * train_steps}")
     scores = trainer.test(module, test_ds, resumed)
     if not scores or not all(np.isfinite(v) for v in scores.values()):
         raise AssertionError(f"test scores {scores}")
@@ -1933,7 +1961,7 @@ def bf16_dummy(name: str, fp32_predict: dict, fp32_kept: dict, fp32_fit: dict) -
     with model ``name``: the same launch counts as its fp32 phases; the
     card's bf16 predictions within twice the CPU's own bf16 error
     (max |cpu_bf16 - cpu_fp32|) of the card's fp32 predictions; fit's
-    checks under bf16 (``train_dummy``)."""
+    checks under bf16 (``train_dummy``, no resume)."""
     kept = {}
     predict = predict_dummy(model_settings(name, precision="bf16"), keep=kept)
     if predict["launches"] != fp32_predict["launches"]:
@@ -1946,7 +1974,7 @@ def bf16_dummy(name: str, fp32_predict: dict, fp32_kept: dict, fp32_fit: dict) -
                              f"the CPU's {gap_cpu:.3e}")
     predict.update(bf16_vs_fp32_card=gap_card, bf16_vs_fp32_cpu=gap_cpu,
                    scale=max(float(np.abs(a).max()) for a in fp32_kept["card"]))
-    fit = train_dummy(name, precision="bf16")
+    fit = train_dummy(name, precision="bf16", resume=False)
     if fit["launches"] != fp32_fit["launches"]:
         raise AssertionError(f"{name} bf16 fit launches {fit['launches']}, "
                              f"fp32 {fp32_fit['launches']}")
@@ -3294,7 +3322,7 @@ SMOKE_TREES = BUILD / "smoke_data" / "trees"
 TITAN_MODELS = ("halfunet", "graphlam")
 #: the Titan loader's steady window: batches skipped (the prefetch's
 #: start-up), then batches timed
-LOADER_WINDOW = (2, 20)
+LOADER_WINDOW = (2, 10)
 
 
 def _titan_smoke_conf() -> dict:
@@ -4031,6 +4059,283 @@ def tools_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 24
+#: where phase 24 writes its weights, checkpoints and template (deleted after)
+SMOKE_TOOLS = BUILD / "smoke_tools"
+#: deeplabv3plus.yaml's width on the ResNet34 encoder
+RESNET34 = {"encoder_name": "resnet34"}
+#: phase 24's budget of wall seconds
+PHASE24_BUDGET_S = 60.0
+#: the first steps of a weight tool's training, card against CPU: the
+#: pretraining's losses (relative) and the perceptual features (absolute)
+PRETRAIN_LOSS_RTOL = 1e-4
+#: the pretraining's steps held against the CPU: its eager steps and two
+#: replays of its CUDA graph
+PRETRAIN_HELD = 5
+FEATURES_ATOL = 1e-5
+
+
+def _quiet(_msg) -> None:
+    """A tool's log while it runs again for a comparison."""
+
+
+def pretrain_resnet34(out: Path) -> dict:
+    """Phase 24 (a): ``tools/pretrain_encoder`` with ``--encoder resnet34``
+    at its defaults (500 steps, batch 16, 64x64) on the card, the pieces
+    its ``main`` runs (``pretrain``, then ``save_encoder``): the denoise
+    MSE at the first and last step (the last lower), steps a second over
+    the whole call and over steps 100 to 499 (the step is a CUDA graph's
+    replay after its EAGER_STEPS eager steps; the loss syncs the host at
+    every 100th step); its first PRETRAIN_HELD losses, eager and replayed,
+    against the same steps on the CPU (the same initial weights and
+    fields) within PRETRAIN_LOSS_RTOL."""
+    from py4cast_tpu_torch.tools import pretrain_encoder
+
+    marks = []
+
+    def timed_log(msg):
+        marks.append(time.perf_counter())
+        log(msg)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, losses = pretrain_encoder.pretrain("resnet34", device="cuda", log=timed_log)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"pretrain_encoder resnet34 mse {losses[0]} -> {losses[-1]}")
+    t1 = time.perf_counter()
+    path, arrays = pretrain_encoder.save_encoder(model, "resnet34", out)
+    save_s = time.perf_counter() - t1
+    card = losses[:PRETRAIN_HELD]
+    _, cpu = pretrain_encoder.pretrain("resnet34", steps=PRETRAIN_HELD, device="cpu", log=_quiet)
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    if not max(rel) <= PRETRAIN_LOSS_RTOL:
+        raise AssertionError(f"pretrain_encoder resnet34 first {PRETRAIN_HELD} losses card "
+                             f"{card} vs cpu {cpu}")
+    return {"steps": len(losses), "mse_first": losses[0], "mse_last": losses[-1],
+            "steps_per_s": len(losses) / seconds, "train_s": seconds,
+            "steady_steps_per_s": (len(losses) - 1 - 100) / (marks[-1] - marks[1]),
+            "eager_steps": pretrain_encoder.EAGER_STEPS, "held_card": card, "held_cpu": cpu,
+            "held_max_rel_diff": max(rel), "npz": str(path.relative_to(ROOT)),
+            "arrays": arrays, "npz_bytes": path.stat().st_size, "save_s": save_s}
+
+
+def deeplab_resnet34(npz: Path, grid=(512, 640)) -> dict:
+    """Phase 24 (b): DeepLabV3Plus at deeplabv3plus.yaml's width on (a)'s
+    ResNet34 encoder (``encoder_weights: <npz>``) at 512x640, batch 1,
+    21 + 21 features: the loaded encoder through ``encoder_to_flax`` is
+    the npz bit for bit (the stem adapted to the inputs); one predict
+    call and two AdamW train steps, counted (no hand kernel: every count
+    0); the first step's loss within TOL of the CPU's; peak memory and
+    host ms of the second step."""
+    from py4cast_tpu_torch.convert import encoder_to_flax
+    from py4cast_tpu_torch.models.pretrained import adapt_in_channels, load_encoder_npz
+    from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+
+    info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
+    settings = model_settings("DeepLabV3Plus", {**RESNET34, "encoder_weights": str(npz)},
+                              num_warmup_steps=2)
+    module = AutoRegressiveModule(settings, info, device="cuda")
+    params = module.init_params(torch.Generator().manual_seed(0))
+    flat, meta = load_encoder_npz(npz)
+    got = encoder_to_flax(params)
+    n_in = params["encoder.stem_conv.weight"].shape[1]
+    want = {**flat, "stem_conv/kernel": adapt_in_channels(flat["stem_conv/kernel"], n_in)}
+    differ = sorted(k for k in want if k not in got or not np.array_equal(got[k], want[k]))
+    if differ or set(got) != set(want):
+        raise AssertionError(f"DeepLabV3Plus resnet34 encoder vs npz: {differ[:5]}")
+    if any(v.device.type != "cuda" for v in params.values()):
+        raise AssertionError("DeepLabV3Plus resnet34 params not on the card")
+    one = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=0)
+
+    reset_counts()
+    preds = module.predict_step(params, one).array
+    torch.cuda.synchronize()
+    if preds.shape != (1, 1, *grid, 21) or not bool(torch.isfinite(preds).all()):
+        raise AssertionError(f"DeepLabV3Plus resnet34 prediction {tuple(preds.shape)} "
+                             "or non-finite")
+    state = module.init_state(None, num_training_steps=100, params=params)
+    torch.cuda.reset_peak_memory_stats()
+    losses, runs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(module.train_step(state, one)))
+        runs.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    if counts != expected_launches(module, 2, 2):
+        raise AssertionError(f"DeepLabV3Plus resnet34 launches {counts}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"DeepLabV3Plus resnet34 train losses {losses}")
+    cpu_module = AutoRegressiveModule(settings, info, device="cpu")
+    loss_cpu, _ = cpu_module.loss_and_grads({k: v.cpu() for k, v in params.items()}, one)
+    rel = abs(losses[0] - float(loss_cpu)) / abs(float(loss_cpu))
+    if not rel <= TOL:
+        raise AssertionError(f"DeepLabV3Plus resnet34 first loss card {losses[0]} vs cpu "
+                             f"{float(loss_cpu)}")
+    return {"model": "DeepLabV3Plus", "settings": settings.settings_init_args,
+            "grid": list(grid), "batch": 1, "params": module.num_params(params),
+            "npz_meta": meta, "encoder_arrays": len(got), "stem_in_channels": n_in,
+            "launches": counts, "losses": losses, "loss_cpu": float(loss_cpu),
+            "loss_rel_diff": rel, "host_ms_per_train_step": runs, "peak_mem_bytes": peak}
+
+
+def perceptual_features(out: Path) -> dict:
+    """Phase 24 (c): ``tools/train_perceptual_features`` at its defaults
+    (800 steps, batch 32) on the card, the pieces its ``main`` runs: the
+    npz has the committed file's keys and shapes; the first three steps'
+    parameters against the CPU's from the same seed within
+    FEATURES_ATOL; steps a second."""
+    from py4cast_tpu_torch.losses import PERCEPTUAL_FEATS
+    from py4cast_tpu_torch.tools import train_perceptual_features as tpf
+
+    card3, _ = tpf.train(steps=3, device="cuda", log=_quiet)
+    cpu3, _ = tpf.train(steps=3, device="cpu", log=_quiet)
+    err = max(float((card3[k].cpu() - cpu3[k]).abs().max()) for k in cpu3)
+    if not err <= FEATURES_ATOL:
+        raise AssertionError(f"perceptual features after 3 steps card vs cpu: {err:.3e}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, losses = tpf.train(device="cuda", log=log)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    path = tpf.save_features(params, out)
+    with np.load(path) as got, np.load(PERCEPTUAL_FEATS) as shipped:
+        shapes = {k: got[k].shape for k in got.files}
+        if shapes != {k: shipped[k].shape for k in shipped.files}:
+            raise AssertionError(f"perceptual features {shapes} are not the committed file's")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"perceptual features mse {losses[0]} -> {losses[-1]}")
+    return {"steps": len(losses), "mse_first": losses[0], "mse_last": losses[-1],
+            "steps_per_s": len(losses) / seconds, "train_s": seconds,
+            "first3_max_abs_diff_vs_cpu": err, "npz": str(path.relative_to(ROOT))}
+
+
+def converted_customunet() -> dict:
+    """Phase 24 (d): a seeded torchvision resnet34 checkpoint
+    (``torch.save``) through ``tools/convert_torchvision_encoder``'s
+    ``main``; CustomUNet at customunet.yaml's width with ``encoder_norm:
+    affine`` on it: the card's encoder is the npz's, and Trainer.fit on
+    Dummy (2 train batches of 8, 1 validation batch), counted."""
+    from py4cast_tpu_torch.convert import encoder_to_flax
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.models.pretrained import load_encoder_npz
+    from py4cast_tpu_torch.testing import torchvision_resnet_state_dict
+    from py4cast_tpu_torch.tools import convert_torchvision_encoder
+    from py4cast_tpu_torch.training import AutoRegressiveModule, Trainer, TrainerConfig
+
+    ckpt, npz = SMOKE_TOOLS / "resnet34-torchvision.pth", SMOKE_TOOLS / "resnet34_affine.npz"
+    torch.save(torchvision_resnet_state_dict("resnet34"), ckpt)
+    if convert_torchvision_encoder.main([str(ckpt), "--encoder", "resnet34",
+                                         "--out", str(npz)]) != 0:
+        raise AssertionError("convert_torchvision_encoder failed")
+    flat, meta = load_encoder_npz(npz)
+    train_ds, val_ds, _ = get_datasets("dummy", 2, 1, 3)
+    settings = model_settings("CustomUNet", {**RESNET34, "encoder_norm": "affine",
+                                             "encoder_weights": str(npz)},
+                              num_warmup_steps=2, num_pred_steps_train=1,
+                              num_pred_steps_val_test=3)
+    module = AutoRegressiveModule(settings, train_ds.dataset_info, device="cuda")
+    got = encoder_to_flax(module.init_params(torch.Generator().manual_seed(0)))
+    # torchvision's convs carry no bias: the model keeps its own (zeros)
+    differ = sorted(k for k in flat if k != "stem_conv/kernel"
+                    and (k not in got or not np.array_equal(got[k], flat[k])))
+    if differ:
+        raise AssertionError(f"CustomUNet affine encoder vs converted npz: {differ[:5]}")
+    logger = _ListLogger()
+    cfg = TrainerConfig(max_epochs=1, batch_size=8, limit_train_batches=2, limit_val_batches=1,
+                        save_path=str(SMOKE_TOOLS / "fit_customunet_affine"),
+                        log_every_n_steps=1, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    state = Trainer(cfg, loggers=[logger]).fit(module, train_ds, val_ds)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != expected_launches(module, 2 + 3, 2):
+        raise AssertionError(f"CustomUNet affine fit launches {counts}")
+    losses = [v for tag, v, _ in logger.rows if tag == "train/loss"]
+    if state.step != 2 or len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"CustomUNet affine fit: step {state.step}, losses {losses}")
+    if any(v.device.type != "cuda" for v in state.params.values()):
+        raise AssertionError("CustomUNet affine fit's params are not on the card")
+    return {"npz_meta": meta, "arrays": len(flat), "launches": counts, "train_losses": losses,
+            "fit_s": seconds}
+
+
+def grib_template(margin: int = 4) -> dict:
+    """Phase 24 (e): ``tools/make_grib_template --dataset dummy --margin
+    4``, read back with ``io/grib2.read_grib2``: one field a template id
+    of Dummy's outputs, each on Dummy's grid widened by ``margin`` cells
+    a side."""
+    from py4cast_tpu_torch.datasets import get_datasets
+    from py4cast_tpu_torch.io.grib2 import read_grib2
+    from py4cast_tpu_torch.io.outputs import template_fids_for_features
+    from py4cast_tpu_torch.tools import make_grib_template
+
+    out = SMOKE_TOOLS / "dummy_template.grib"
+    if make_grib_template.main(["--dataset", "dummy", "--output", str(out),
+                                "--margin", str(margin)]) != 0:
+        raise AssertionError("make_grib_template failed")
+    ds = get_datasets("dummy", 2, 1, 1)[0]
+    lat = make_grib_template.widen(np.asarray(ds.grid.lat)[:, 0], margin)
+    lon = make_grib_template.widen(np.asarray(ds.grid.lon)[0, :], margin)
+    fids = template_fids_for_features(ds.dataset_info.output_feature_names)
+    fields = read_grib2(out)
+    ids = [(f.discipline, f.parameter_category, f.parameter_number, f.level) for f in fields]
+    want = [(d.get("discipline", 0), d.get("parameterCategory", 0), d.get("parameterNumber", 0),
+             d.get("level", 0)) for d in fids]
+    if ids != want:
+        raise AssertionError(f"GRIB template ids {ids}, asked {want}")
+    for f in fields:
+        if (f.values.shape != (lat.size, lon.size) or not np.allclose(f.lat, lat, atol=1e-5)
+                or not np.allclose(f.lon, lon, atol=1e-5)):
+            raise AssertionError(f"GRIB template grid {f.values.shape}, asked "
+                                 f"{(lat.size, lon.size)}")
+    return {"fields": len(fields), "grid": [int(lat.size), int(lon.size)], "ids": ids,
+            "bytes": out.stat().st_size}
+
+
+def weight_tools_phase() -> dict:
+    """Phase 24, the weight-making tools and the ResNet34 path on the
+    card: (a) the ResNet34 encoder pretrained, (b) DeepLabV3Plus on it at
+    512x640, (c) the perceptual features, (d) converted torchvision
+    weights under CustomUNet, (e) a GRIB template; everything written
+    under build/smoke_tools and deleted after; the phase's wall time
+    beside its budget, PHASE24_BUDGET_S."""
+    import shutil
+
+    t24 = time.perf_counter()
+    out = {"card": card_line()}
+    shutil.rmtree(SMOKE_TOOLS, ignore_errors=True)
+    SMOKE_TOOLS.mkdir(parents=True)
+    parts = (("a", "pretrain", "pretrain_encoder resnet34",
+              lambda: pretrain_resnet34(SMOKE_TOOLS / "resnet34.npz")),
+             ("b", "deeplab", "DeepLabV3Plus resnet34 512x640",
+              lambda: deeplab_resnet34(SMOKE_TOOLS / "resnet34.npz")),
+             ("c", "perceptual", "train_perceptual_features",
+              lambda: perceptual_features(SMOKE_TOOLS / "perceptual_feats.npz")),
+             ("d", "torchvision", "converted torchvision resnet34 under CustomUNet",
+              converted_customunet),
+             ("e", "grib", "make_grib_template", grib_template))
+    try:
+        for tag, key, what, run in parts:
+            t0 = time.perf_counter()
+            out[key] = run()
+            out[key]["wall_s"] = time.perf_counter() - t0
+            log(f"phase 24 ({tag}) {what}: {json.dumps(out[key])}")
+    finally:
+        shutil.rmtree(SMOKE_TOOLS, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t24
+    out["within_budget"] = out["wall_s"] <= PHASE24_BUDGET_S
+    log(f"phase 24 wall: {out['wall_s']:.1f} s (budget {PHASE24_BUDGET_S:.0f} s"
+        f"{'' if out['within_budget'] else ', over it'})")
+    return out
+
+
 # ---------------------------------------------------------------------- main
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4044,8 +4349,9 @@ def main(argv=None) -> int:
              "datasets), with no result line")
     parser.add_argument(
         "--tools", action="store_true",
-        help="only build the kernels and run phase 23 (export, FLOP counts, the profiled "
-             "fit, the custom ops' dispatch cost), with no result line")
+        help="only build the kernels and run phases 23 (export, FLOP counts, the profiled "
+             "fit, the custom ops' dispatch cost) and 24 (the weight-making tools, the "
+             "ResNet34 path), with no result line")
     parser.add_argument(
         "--steps", action="store_true",
         help="only build the kernels and run phases 5 and 7 (GraphLAM's 500x500 predict and "
@@ -4161,7 +4467,7 @@ def main(argv=None) -> int:
         log(card)
         return 0
     if parsed.tools:
-        out = tools_phase()
+        out = {"tools": tools_phase(), "weight_tools": weight_tools_phase()}
         (OUT_DIR / "smoke_tools_report.json").write_text(json.dumps(out, indent=1))
         log(f"wall: {time.perf_counter() - t_start:.1f} s")
         log(card)
@@ -4379,6 +4685,10 @@ def main(argv=None) -> int:
     tools = tools_phase()
     lap("23")
 
+    # phase 24: the weight-making tools, the ResNet34 path on the card
+    weight_tools = weight_tools_phase()
+    lap("24")
+
     # each model path ran with every count set to 0 just before it and
     # checked just after (a kernel of another path launched fails); a
     # kernel's launches are the sum over the paths that run it
@@ -4434,6 +4744,7 @@ def main(argv=None) -> int:
          "unetrpp_fit_dummy": rpp_fit, "unetrpp_full_size": rpp_full, "bf16": bf16,
          "resnet": resnet, "swin_table": swin_table, "data_axis": data_axis,
          "spatial": spatial, "datasets": datasets, "tools": tools,
+         "weight_tools": weight_tools,
          "wall_s": time.perf_counter() - t_start, "phase_wall_s": walls}, indent=1))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(f"phase wall s: {json.dumps(walls)}")

@@ -32,7 +32,12 @@ is a walk over that tree with these rules:
 The fused-kernel param modules of the JAX package (``_DenseParams``,
 ``_LNParams``, ``_NodeMLPParams``) register the same names (``w_e``,
 ``out``, ``ln``, ``node/Dense_0``, ...) as the modules they stand for,
-so one walk covers both.
+so one walk covers both. A key may also hold a whole path joined by
+``/`` (``stage0_block0/conv1/kernel``, Flax's ``flatten_dict(sep="/")``
+and the encoder npz's keys).
+
+``encoder_to_flax`` goes the other way for a ResNet encoder's leaves
+(conv kernels, norm scales, biases), to the encoder npz's flat keys.
 """
 
 from __future__ import annotations
@@ -66,6 +71,19 @@ def _kernel_to_torch(arr: np.ndarray, path) -> torch.Tensor:
     )
 
 
+def _nested(tree: Mapping) -> dict:
+    """``tree`` with every key that joins a path by ``/`` split into
+    nested dicts."""
+    out: dict = {}
+    for key, value in tree.items():
+        *mods, leaf = str(key).split("/")
+        node = out
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = _nested(value) if isinstance(value, Mapping) else value
+    return out
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """The port's parameter state from the JAX package's variables.
 
@@ -76,6 +94,7 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """
     if set(tree) == {"params"}:
         tree = tree["params"]
+    tree = _nested(tree)
     out: Dict[str, torch.Tensor] = {}
 
     def leaf(path, arr):
@@ -118,3 +137,30 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(tree, [], None)
     return out
+
+
+def encoder_to_flax(state: Mapping[str, torch.Tensor],
+                    prefix: str = "encoder.") -> Dict[str, np.ndarray]:
+    """The inverse of ``params_from_jax`` for a ResNet encoder: the
+    entries of ``state`` under ``prefix`` as the encoder npz's flat Flax
+    keys (``stage0_block0/conv1/kernel``), fp32 numpy. A conv weight
+    OIHW becomes the HWIO ``kernel``, a norm's ``weight`` its ``scale``,
+    a ``bias`` stays; ``params_from_jax({"encoder": flat})`` gives
+    ``state`` back bit for bit."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, value in state.items():
+        if not name.startswith(prefix):
+            continue
+        *mods, leaf = name[len(prefix):].split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight" and arr.ndim == 4:
+            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif leaf == "weight" and arr.ndim == 1:
+            leaf = "scale"
+        elif leaf != "bias":
+            raise ValueError(f"encoder parameter {name} of shape {arr.shape} has no Flax "
+                             "counterpart: only conv weights, norm weights and biases convert")
+        flat["/".join(mods + [leaf])] = np.ascontiguousarray(arr)
+    if not flat:
+        raise ValueError(f"no parameter of the state starts with {prefix!r}")
+    return flat

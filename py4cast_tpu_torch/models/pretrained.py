@@ -85,8 +85,9 @@ def maybe_load_encoder(params: Dict[str, torch.Tensor], settings,
     if not path.exists():
         raise FileNotFoundError(
             f"encoder_weights requested but {path} does not exist. Produce it with "
-            "bin/convert_torchvision_encoder.py (torchvision ImageNet checkpoint) or "
-            "bin/pretrain_encoder.py (offline self-supervised).")
+            "python -m py4cast_tpu_torch.tools.convert_torchvision_encoder (torchvision "
+            "ImageNet checkpoint) or python -m py4cast_tpu_torch.tools.pretrain_encoder "
+            "(offline self-supervised).")
     flat, meta = load_encoder_npz(path)
     if meta.get("norm") != settings.encoder_norm:
         raise ValueError(
@@ -99,16 +100,9 @@ def maybe_load_encoder(params: Dict[str, torch.Tensor], settings,
     if "stem_conv/kernel" in flat:
         flat["stem_conv/kernel"] = adapt_in_channels(flat["stem_conv/kernel"],
                                                      num_input_features)
-    tree: dict = {}
-    for key, value in flat.items():
-        *mods, leaf = key.split("/")
-        node = tree.setdefault("encoder", {})
-        for m in mods:
-            node = node.setdefault(m, {})
-        node[leaf] = value
     out = dict(params)
     loaded, missing = 0, []
-    for name, value in params_from_jax(tree).items():
+    for name, value in params_from_jax({"encoder": flat}).items():
         if name not in params:
             missing.append(name)
             continue

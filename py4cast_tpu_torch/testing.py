@@ -2,8 +2,9 @@
 DatasetInfo (grid statics, stats, diff stats), batches and datasets
 drawn from a numpy seed, without touching disk; ``run_ranks``, which
 runs a function on several local ranks joined in a process group, with
-two such functions (``train_report``, ``fit_test_report``); and
-``run_on_bands``, which runs every lat band of a grid in one process."""
+two such functions (``train_report``, ``fit_test_report``);
+``run_on_bands``, which runs every lat band of a grid in one process;
+and a seeded torchvision ResNet checkpoint."""
 
 from __future__ import annotations
 
@@ -145,6 +146,49 @@ class SyntheticDataset:
 
     def loader(self, **kwargs) -> DataLoader:
         return DataLoader(self, **kwargs)
+
+
+#: torchvision's ResNet layout: basic blocks a stage
+TORCHVISION_BLOCKS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
+
+
+def torchvision_resnet_state_dict(encoder: str, seed: int = 0) -> dict:
+    """A state dict in torchvision's ResNet layout (``conv1``, ``bn1``,
+    ``layer{s}.{b}.conv/bn``, ``downsample``, ``fc``), running
+    statistics included, drawn from a torch seed: the input of
+    ``tools/convert_torchvision_encoder`` where no ImageNet checkpoint
+    can be downloaded."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = 1.0 + 0.1 * torch.randn(c, generator=g)
+        sd[f"{prefix}.bias"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"{prefix}.running_mean"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"{prefix}.running_var"] = 0.5 + torch.rand(c, generator=g)
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(100)
+
+    def conv(key, o, i, k):
+        sd[key] = torch.randn(o, i, k, k, generator=g) / (i * k * k) ** 0.5
+
+    conv("conv1.weight", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for s, n in enumerate(TORCHVISION_BLOCKS[encoder]):
+        c = 64 * 2 ** s
+        for b in range(n):
+            t = f"layer{s + 1}.{b}"
+            conv(f"{t}.conv1.weight", c, cin if b == 0 else c, 3)
+            bn(f"{t}.bn1", c)
+            conv(f"{t}.conv2.weight", c, c, 3)
+            bn(f"{t}.bn2", c)
+            if b == 0 and s > 0:
+                conv(f"{t}.downsample.0.weight", c, cin, 1)
+                bn(f"{t}.downsample.1", c)
+        cin = c
+    sd["fc.weight"] = torch.randn(1000, 512, generator=g) / 512 ** 0.5
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
 
 
 # ----------------------------------------------------------- several ranks

@@ -722,17 +722,39 @@ def test_bilinear_growth_backward_repeats_bit_for_bit(cuda):
     """The models' bilinear growth (Segformer's decoder, DeepLab's,
     UNet's and UNetRPP's skips) on the card: two backward passes give
     the same bits (CUDA's own backward adds with atomics), and the CPU's
-    gradient within TOL."""
+    gradient within TOL. Each pass takes a leaf of its own: ``x`` lies on
+    the card already, so ``x.to(cuda)`` is ``x`` itself, whose ``.grad``
+    the second pass would add to."""
     from py4cast_tpu_torch.models.unet import _bilinear_resize
 
     x = _rand(np.random.default_rng(14), 2, 16, 20, 64)
     g = _rand(np.random.default_rng(15), 2, 128, 160, 64)
 
     def grad(device):
-        xd = x.to(device).requires_grad_(True)
+        xd = x.to(device).detach().requires_grad_(True)
         _bilinear_resize(xd, 128, 160).backward(g.to(device))
         return xd.grad.cpu()
 
     first, second = grad(cuda), grad(cuda)
     assert torch.equal(first, second)
     torch.testing.assert_close(first, grad("cpu"), **TOL)
+
+
+def test_pretrain_encoder_graph_replays_match_the_cpu(cuda):
+    """``tools/pretrain_encoder`` on the card: its eager steps and the
+    replays of its captured step give the CPU's losses within 1e-4
+    relative (the same weights and fields; at side 48 a decoder growth
+    from 2 to 3 rows is not a whole factor), and a second run the same
+    bits, losses and weights."""
+    from py4cast_tpu_torch.tools import pretrain_encoder
+
+    def run(device):
+        model, losses = pretrain_encoder.pretrain("resnet18", steps=7, batch=2, size=48,
+                                                  device=device, log=lambda _: None)
+        return losses, {k: v.cpu() for k, v in model.state_dict().items()}
+
+    (first, params), (second, params2) = run(cuda), run(cuda)
+    want, _ = run("cpu")
+    assert pretrain_encoder.EAGER_STEPS < len(first)
+    assert first == second and all(torch.equal(params[k], params2[k]) for k in params)
+    np.testing.assert_allclose(first, want, rtol=1e-4, atol=0)

@@ -50,7 +50,12 @@ for name in ("jax", "jaxlib", "flax", "optax", "orbax", "py4cast_tpu"):
 import py4cast_tpu_torch
 mods = {m.name for m in pkgutil.walk_packages(py4cast_tpu_torch.__path__, "py4cast_tpu_torch.")}
 tools = {"py4cast_tpu_torch.export", "py4cast_tpu_torch.ops.flops", "py4cast_tpu_torch.tools",
-         "py4cast_tpu_torch.tools.scores_comparison", "py4cast_tpu_torch.tools.gif_comparison"}
+         "py4cast_tpu_torch.tools.scores_comparison", "py4cast_tpu_torch.tools.gif_comparison",
+         "py4cast_tpu_torch.tools.pretrain_encoder",
+         "py4cast_tpu_torch.tools.train_perceptual_features",
+         "py4cast_tpu_torch.tools.convert_torchvision_encoder",
+         "py4cast_tpu_torch.tools.make_grib_template",
+         "py4cast_tpu_torch.tools.host_memory_check"}
 assert tools <= mods, sorted(tools - mods)
 for m in sorted(tools):
     importlib.import_module(m)
@@ -62,9 +67,9 @@ assert not loaded, loaded
 
 
 def test_user_tools_are_walked_and_import_without_jax():
-    """export.py, ops/flops.py and the tools package are among the
-    modules the walk reaches, and import with JAX, flax, optax, orbax and
-    the JAX package blocked."""
+    """export.py, ops/flops.py and the tools package with its seven tools
+    are among the modules the walk reaches, and import with JAX, flax,
+    optax, orbax and the JAX package blocked."""
     out = subprocess.run([sys.executable, "-c", _TOOLS_IMPORT], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
