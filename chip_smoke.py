@@ -254,7 +254,29 @@ non-zero exit code and no result line:
    ``encoder_norm: affine`` on it; (e) ``tools/make_grib_template
    --dataset dummy --margin 4`` read back with ``io/grib2.read_grib2``;
    the phase's wall time beside its 60 s budget;
-25. the script's wall time, each phase's wall seconds, one JSON line
+25. the graph models at hidden widths past the row-tile instances of
+   kernels a and b (a-fwd above 128, b-fwd above 96, a-bwd and b-bwd
+   above 64), on their wide instances (``csrc/wide_rows.cuh``): (a) each
+   of the four kernels at h = 128 and 256 at the path's shapes (a at the
+   125x125 level, e (1,8,125,125,h); b at the 500x500 grid, vd
+   (1,500,500,h)) against its plain version (the backward's weight
+   gradients against the plain backward in fp64), a second call bit for
+   bit, timed beside the plain version (CUDA-event medians over 5
+   windows of 3 calls), its bound and its instance's registers, spills,
+   shared memory, resident blocks and rows a tile; (b) at h = 65, 100,
+   130 and 512, each kernel once at small shapes against its plain
+   version and a second call bit for bit; (c) one bf16 shape a kernel at
+   h = 256 within one bf16 ulp of its plain version (as 17 (a));
+   (d) ``Trainer.predict`` (3 AR steps) and ``Trainer.fit`` (2 train
+   steps) at 500x500, batch 1, on synthetic data: GraphLAM at
+   ``hidden_dims`` 128 and 256, HiLAM at 128 (predict and fit),
+   HiLAMParallel at 128 (predict), counted (each wide instance launched
+   whenever the width needs it), host ms a step and peak memory; (e)
+   GraphLAM at 128 and 256 and HiLAM at 128 on a 64x64 grid: one train
+   step's loss and gradients on the card against the CPU (phase 6's
+   bars); the phase's
+   wall time beside its 40 s budget;
+26. the script's wall time, each phase's wall seconds, one JSON line
    with every kernel's numbers, the card's line, then the result line.
 
 Each model path runs with every launch count set to 0 just before it
@@ -273,6 +295,8 @@ same-call comparison of two trees' host cost a step.
 ``--spatial`` runs phases 1, 2, 20 (d) and 21 alone and stops without a
 result line: the multi-card loop for the data and spatial axes, which
 saves running every one-card phase again on four cards.
+``--wide`` runs phases 1, 2 and 25 alone and stops without a result
+line: the loop for the graph models' wide widths.
 
 Exits non-zero without a result when torch sees no CUDA device or the
 package is missing. Build outputs go to ``build/`` and long reports to
@@ -291,7 +315,6 @@ import subprocess
 import sys
 import time
 from types import SimpleNamespace
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -408,11 +431,12 @@ KERNEL_SOURCES = {
 
 #: the kernels whose registers and spills phase 2 reports, by source
 PTXAS_KERNELS = {
-    "stencil_message": ("stencil_message_fwd",),
-    "corner_hop": ("corner_hop_fwd", "corner_hop_fwd_warps"),
+    "stencil_message": ("stencil_message_fwd", "stencil_message_fwd_wide"),
+    "corner_hop": ("corner_hop_fwd", "corner_hop_fwd_warps", "corner_hop_fwd_wide"),
     "short_kv_attention": ("short_kv_attention_fwd",),
-    "stencil_message_bwd": ("stencil_message_bwd",),
-    "corner_hop_bwd": ("corner_hop_bwd_node", "corner_hop_bwd_corner"),
+    "stencil_message_bwd": ("stencil_message_bwd", "stencil_message_bwd_wide"),
+    "corner_hop_bwd": ("corner_hop_bwd_node", "corner_hop_bwd_corner",
+                       "corner_hop_bwd_node_wide", "corner_hop_bwd_corner_wide"),
     "short_kv_attention_bwd": ("short_kv_attention_bwd_dq", "short_kv_attention_bwd_dkdv"),
 }
 
@@ -4336,6 +4360,376 @@ def weight_tools_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 25
+PHASE25_BUDGET_S = 40.0
+#: the graph models' widths past the row-tile instances that phase 25
+#: drives at 500x500 (the yamls' 64 is phases 4-13's)
+WIDE_WIDTHS = (128, 256)
+#: widths the path does not take: each kernel once, correctness only
+WIDE_ODD_WIDTHS = (65, 100, 130, 512)
+#: (model, hidden_dims, train): phase 25's 500x500 rows
+WIDE_MODELS = (("GraphLAM", 128, True), ("GraphLAM", 256, True), ("HiLAM", 128, True),
+               ("HiLAMParallel", 128, False))
+#: (model, hidden_dims): phase 25's 64x64 train steps, card against CPU
+WIDE_VS_CPU = (("GraphLAM", 128), ("GraphLAM", 256), ("HiLAM", 128))
+
+
+#: each kernel's widest row-tile (or warp-row) instance, as its source's
+#: WIDE_ABOVE: above it the wide instance must launch (the C entries say
+#: which instance launched; these are what they must say)
+WIDE_CAPS = {"stencil_message": 128, "stencil_message_bwd": 64, "corner_hop": 96,
+             "corner_hop_bwd": 64}
+
+
+def read_wide_counts() -> dict:
+    return {name: _wrappers()[name].launches_wide for name in WIDE_CAPS}
+
+
+def reset_wide_counts():
+    reset_counts()
+    for name in WIDE_CAPS:
+        _wrappers()[name].launches_wide = 0
+
+
+def check_wide_kernels(rng, h: int) -> list:
+    """Phase 25 (a): the four kernels at width h at the path's shapes,
+    each against its plain version (weight gradients against fp64), a
+    second call bit for bit, timed beside the plain version, with its
+    bound and the launched instance's attributes."""
+    from py4cast_tpu_torch.ops import hop_kernel as hk
+    from py4cast_tpu_torch.ops import stencil_kernel as sk
+
+    caps, rows = WIDE_CAPS, []
+
+    def row(name, shape, err, rel, fn, plain, n_bytes, n_ops, launch):
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        # fewer windows than phase 3's: a call at h = 256 takes up to 60 ms
+        ms, plain_ms = (time_ms(f, reps=5, warmup=1, inner=3) for f in (fn, plain))
+        return {"name": name, "h": h, "instance": "wide" if h > caps[name] else "row tiles",
+                "shape": shape, "max_abs_err": err, "max_err_over_scale": rel, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound": bound_ms / ms, "library_ms": None, "launch": launch}
+
+    hr = GRAPHLAM_LEVELS[0]
+    cells = hr * hr
+    args = stencil_inputs(rng, 1, hr, hr, h)
+    got = sk.fused_stencil_message(*args, residual=True)
+    err, rel = _max_rel(got, sk.stencil_message_plain(*args, residual=True))
+    again = sk.fused_stencil_message(*args, residual=True)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"stencil_message h={h}: a second call differs")
+    del got, again
+    # the bytes and operations as phase 3's and 3b's (check_stencil,
+    # check_stencil_bwd, check_hop, check_hop_bwd) count them
+    rows.append(row(
+        "stencil_message", f"e (1,8,{hr},{hr},{h}) ps (1,{hr},{hr},{h}) residual=True", err, rel,
+        lambda: sk.fused_stencil_message(*args, residual=True),
+        lambda: sk.stencil_message_plain(*args, residual=True),
+        4 * (2 * 8 * cells * h + 3 * cells * h + 8 * cells + 2 * h * h + 4 * h),
+        8 * cells * (4 * h * h + 19 * h), sk.fwd_kernel_attributes(h, h)))
+    args = [*stencil_inputs(rng, 1, hr, hr, h, shifted=True), _rand(rng, 1, 8, hr, hr, h),
+            _rand(rng, 1, hr, hr, h)]
+    got = sk.fused_stencil_message_bwd(*args, residual=True)
+    torch.cuda.synchronize()
+    plain32 = sk.stencil_message_bwd_plain(*args, residual=True)
+    plain64 = sk.stencil_message_bwd_plain(*(a.double() for a in args), residual=True)
+    err, rel = _check_bwd(f"stencil_message_bwd h={h}", got, plain32, plain64, 3)
+    again = sk.fused_stencil_message_bwd(*args, residual=True)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"stencil_message_bwd h={h}: a second call differs")
+    del got, again, plain32, plain64
+    rows.append(row(
+        "stencil_message_bwd", f"e,vs,g_out (1,8,{hr},{hr},{h}) residual=True", err, rel,
+        lambda: sk.fused_stencil_message_bwd(*args, residual=True),
+        lambda: sk.stencil_message_bwd_plain(*args, residual=True),
+        4 * (5 * 8 * cells * h + 3 * cells * h + 8 * cells + 2 * (2 * h * h + 4 * h)),
+        8 * cells * (12 * h * h + 40 * h), sk.bwd_kernel_attributes(h, h)))
+    del args
+
+    gr, ff = 500, 3
+    cells = gr * gr
+    src, rest = hop_inputs(rng, 1, gr, gr, h, ff)
+    out = hk.fused_corner_hop(*src, *rest)
+    err, rel = _max_rel([out], [hk.corner_hop_plain(*src, *rest)])
+    if not torch.equal(out, hk.fused_corner_hop(*src, *rest)):
+        raise AssertionError(f"corner_hop h={h}: a second call differs")
+    del out
+    rows.append(row(
+        "corner_hop", f"ps {tuple(src[0].shape)} vd (1,{gr},{gr},{h}) feats (4,{gr},{gr},{ff})",
+        err, rel, lambda: hk.fused_corner_hop(*src, *rest),
+        lambda: hk.corner_hop_plain(*src, *rest),
+        4 * (2 * cells * h + src[0].numel() + src[1].numel() + src[2].numel()
+             + 4 * cells * ff + 5 * h * h + ff * h + 8 * h),
+        cells * (16 * h * h + 8 * ff * h + 84 * h), hk.fwd_kernel_attributes(h)))
+    psg, g = hk.gather_corners(*src), _rand(rng, 1, gr, gr, h)
+    del src
+    got = hk.fused_corner_hop_bwd(psg, *rest, g)
+    torch.cuda.synchronize()
+    plain32 = hk.corner_hop_bwd_plain(psg, *rest, g)
+    plain64 = hk.corner_hop_bwd_plain([p.double() for p in psg], *(a.double() for a in rest),
+                                      g.double())
+    err, rel = _check_bwd(f"corner_hop_bwd h={h}", got, plain32, plain64, 5)
+    del plain32, plain64
+    again = hk.fused_corner_hop_bwd(psg, *rest, g)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"corner_hop_bwd h={h}: a second call differs")
+    del got, again
+    rows.append(row(
+        "corner_hop_bwd", f"psg,vd,g (1,{gr},{gr},{h}) feats (4,{gr},{gr},{ff})", err, rel,
+        lambda: hk.fused_corner_hop_bwd(psg, *rest, g),
+        lambda: hk.corner_hop_bwd_plain(psg, *rest, g),
+        4 * (11 * cells * h + 4 * cells * ff + 2 * (5 * h * h + ff * h + 8 * h)),
+        cells * (48 * h * h + 16 * ff * h + 200 * h), hk.bwd_kernel_attributes(h)))
+    del psg, rest, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_wide_odd_widths(rng) -> list:
+    """Phase 25 (b): each kernel at widths the path does not take, at
+    small shapes (a 9x7 lattice; a 13x11 grid, batch 2, mean
+    aggregation), once against its plain version and a second call bit
+    for bit; each call counted on its instance."""
+    from py4cast_tpu_torch.ops import hop_kernel as hk
+    from py4cast_tpu_torch.ops import stencil_kernel as sk
+
+    caps, rows = WIDE_CAPS, []
+    for h in WIDE_ODD_WIDTHS:
+        reset_wide_counts()
+        errs = {}
+        args = stencil_inputs(rng, 1, 9, 7, h)
+        got = sk.fused_stencil_message(*args, residual=True)
+        errs["stencil_message"] = _max_rel(got, sk.stencil_message_plain(*args, residual=True))[0]
+        same = all(torch.equal(x, y)
+                   for x, y in zip(got, sk.fused_stencil_message(*args, residual=True)))
+        args = [*stencil_inputs(rng, 1, 9, 7, h, shifted=True), _rand(rng, 1, 8, 9, 7, h),
+                _rand(rng, 1, 9, 7, h)]
+        got = sk.fused_stencil_message_bwd(*args, residual=True)
+        errs["stencil_message_bwd"] = _check_bwd(
+            f"stencil_message_bwd h={h}", got, sk.stencil_message_bwd_plain(*args, residual=True),
+            sk.stencil_message_bwd_plain(*(a.double() for a in args), residual=True), 3)[0]
+        same &= all(torch.equal(x, y)
+                    for x, y in zip(got, sk.fused_stencil_message_bwd(*args, residual=True)))
+        src, rest = hop_inputs(rng, 2, 13, 11, h)
+        out = hk.fused_corner_hop(*src, *rest, mean=True)
+        errs["corner_hop"] = _max_rel([out], [hk.corner_hop_plain(*src, *rest, mean=True)])[0]
+        same &= torch.equal(out, hk.fused_corner_hop(*src, *rest, mean=True))
+        psg, g = hk.gather_corners(*src), _rand(rng, 2, 13, 11, h)
+        got = hk.fused_corner_hop_bwd(psg, *rest, g, mean=True)
+        errs["corner_hop_bwd"] = _check_bwd(
+            f"corner_hop_bwd h={h}", got, hk.corner_hop_bwd_plain(psg, *rest, g, mean=True),
+            hk.corner_hop_bwd_plain([p.double() for p in psg], *(a.double() for a in rest),
+                                    g.double(), mean=True), 5)[0]
+        same &= all(torch.equal(x, y)
+                    for x, y in zip(got, hk.fused_corner_hop_bwd(psg, *rest, g, mean=True)))
+        torch.cuda.synchronize()
+        if not same:
+            raise AssertionError(f"a kernel at h={h}: a second call differs")
+        wide, counts = read_wide_counts(), read_counts()
+        for name, cap in caps.items():
+            if counts[name] != 2 or wide[name] != (2 if h > cap else 0):
+                raise AssertionError(f"h={h} {name}: launches {counts[name]}, "
+                                     f"wide {wide[name]}")
+        rows.append({"h": h, "max_abs_err": errs, "launches_wide": wide})
+    return rows
+
+
+def check_wide_bf16(rng, h: int = 256) -> list:
+    """Phase 25 (c): each kernel's wide instance on bf16 inputs, one
+    shape each, within one bf16 ulp of its plain version (17 (a)'s
+    bar)."""
+    from py4cast_tpu_torch.ops import hop_kernel as hk
+    from py4cast_tpu_torch.ops import stencil_kernel as sk
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    args = _bf16(stencil_inputs(rng, 1, 32, 32, h))
+    rows = [bf16_boundary(
+        "stencil_message", f"e (1,8,32,32,{h}) ps (1,32,32,{h}) residual=True",
+        lambda a: sk.fused_stencil_message(*a, residual=True),
+        lambda a: sk.stencil_message_plain(*a, residual=True), args, 2, (bf16, bf16))]
+    args = _bf16([*stencil_inputs(rng, 1, 32, 32, h, shifted=True), _rand(rng, 1, 8, 32, 32, h),
+                  _rand(rng, 1, 32, 32, h)])
+    rows.append(bf16_boundary(
+        "stencil_message_bwd", f"e,vs,g_out (1,8,32,32,{h}) residual=True",
+        lambda a: sk.fused_stencil_message_bwd(*a, residual=True),
+        lambda a: sk.stencil_message_bwd_plain(*a, residual=True), args, 3,
+        (bf16,) * 3 + (f32,) * 6))
+    src, rest = hop_inputs(rng, 1, 64, 64, h, 3)
+    args = _bf16([*src, *rest])
+    rows.append(bf16_boundary(
+        "corner_hop", f"ps (1,16,16,{h}) vd (1,64,64,{h}) feats (4,64,64,3)",
+        lambda a: (hk.fused_corner_hop(*a),), lambda a: (hk.corner_hop_plain(*a),), args, 1,
+        (bf16,)))
+    args = [*hk.gather_corners(*args[:3]), *args[3:], _rand(rng, 1, 64, 64, h).to(bf16)]
+    rows.append(bf16_boundary(
+        "corner_hop_bwd", f"psg,vd,g (1,64,64,{h}) feats (4,64,64,3)",
+        lambda a: hk.fused_corner_hop_bwd(a[:4], *a[4:-1], a[-1]),
+        lambda a: hk.corner_hop_bwd_plain(a[:4], *a[4:-1], a[-1]), args, 5,
+        (bf16,) * 5 + (f32,) * 14))
+    return rows
+
+
+def _check_wide_launches(what: str, h: int, kernels) -> dict:
+    """The wide launches of a counted run: each kernel in ``kernels``
+    launched, and on its wide instance (every launch) exactly when h is
+    past its cap."""
+    caps, counts, wide = WIDE_CAPS, read_counts(), read_wide_counts()
+    for name in kernels:
+        want = counts[name] if h > caps[name] else 0
+        if counts[name] == 0 or wide[name] != want:
+            raise AssertionError(f"{what}: {name} launches {counts[name]}, wide {wide[name]}, "
+                                 f"expected {want} wide")
+    return wide
+
+
+def wide_model_row(name: str, h: int, train: bool, grid=(500, 500)) -> dict:
+    """Phase 25 (d): Trainer.predict (3 AR steps, batch 1) and, with
+    ``train``, Trainer.fit (2 train steps, batch 1, no validation) of a
+    graph model at hidden width h on synthetic data at 500x500 (21
+    weather and 21 forcing features), each counted; host ms a step (the
+    timed predict after a warm-up one, and one more train step after
+    the fit), peak memory, finite outputs and losses."""
+    import shutil
+
+    from py4cast_tpu_torch.testing import SyntheticDataset, synthetic_batch, synthetic_dataset_info
+    from py4cast_tpu_torch.training import AutoRegressiveModule, Trainer, TrainerConfig
+
+    info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
+    settings = model_settings(name, {"hidden_dims": h}, num_warmup_steps=2,
+                              num_pred_steps_train=1, num_pred_steps_val_test=3)
+    module = AutoRegressiveModule(settings, info, device="cuda")
+    state = module.init_params(torch.Generator().manual_seed(0))
+    data = SyntheticDataset(info, 1, num_pred_steps=3, seed=0)
+    trainer = Trainer(TrainerConfig(batch_size=1, num_workers=1, device="cuda"))
+    trainer.predict(module, data, state)  # warm-up
+    torch.cuda.synchronize()
+    reset_wide_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    preds = trainer.predict(module, data, state)
+    torch.cuda.synchronize()
+    out = {"model": name, "hidden_dims": h, "grid": list(grid), "batch": 1,
+           "predict_ms_a_step": (time.perf_counter() - t0) * 1e3 / 3,
+           "predict_peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    if read_counts() != expected_launches(module, 3, 0):
+        raise AssertionError(f"{name} h={h} predict launches {read_counts()}")
+    out["predict_launches_wide"] = _check_wide_launches(f"{name} h={h} predict", h,
+                                                        ("stencil_message", "corner_hop"))
+    arr = preds[0].array
+    if arr.shape != (1, 3, grid[0] * grid[1], 21) or not np.isfinite(arr).all():
+        raise AssertionError(f"{name} h={h} predictions: shape {arr.shape} or non-finite")
+    del preds, arr
+    if train:
+        save = BUILD / f"smoke_wide_{name.lower()}_{h}"
+        shutil.rmtree(save, ignore_errors=True)
+        log_rows = _ListLogger()
+        fit_trainer = Trainer(TrainerConfig(
+            max_epochs=1, batch_size=1, num_workers=1, limit_train_batches=2,
+            check_val_every_n_epoch=2, log_every_n_steps=1, save_path=str(save),
+            device="cuda"), loggers=[log_rows])
+        train_data = SyntheticDataset(info, 2, num_pred_steps=1, seed=1)
+        reset_wide_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fitted = fit_trainer.fit(module, train_data, train_data)
+        torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        out["fit_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        if read_counts() != expected_launches(module, 2, 2) or fitted.step != 2:
+            raise AssertionError(f"{name} h={h} fit launches {read_counts()}, "
+                                 f"step {fitted.step}")
+        out["fit_launches_wide"] = _check_wide_launches(
+            f"{name} h={h} fit", h, ("stencil_message", "corner_hop", "stencil_message_bwd",
+                                     "corner_hop_bwd"))
+        losses = [v for tag, v, _ in log_rows.rows if tag == "train/loss"]
+        if len(losses) != 2 or not np.isfinite(losses).all():
+            raise AssertionError(f"{name} h={h} train losses {losses}")
+        out["train_losses"] = losses
+        batch = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=1)
+        t0 = time.perf_counter()
+        module.train_step(fitted, batch)
+        torch.cuda.synchronize()
+        out["train_ms_a_step"] = (time.perf_counter() - t0) * 1e3
+        shutil.rmtree(save, ignore_errors=True)
+        del fitted
+    del module, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_vs_cpu(name: str, h: int, grid=(64, 64)) -> dict:
+    """Phase 25 (e): one train step's loss and gradients of a graph model
+    at width h on a grid small enough for the CPU, card against CPU from
+    the same parameters and batch, at phase 6's bars."""
+    from py4cast_tpu_torch.testing import synthetic_batch, synthetic_dataset_info
+    from py4cast_tpu_torch.training import AutoRegressiveModule
+
+    info = synthetic_dataset_info(grid_shape=grid, weather_features=21, forcing_features=21)
+    settings = model_settings(name, {"hidden_dims": h}, num_warmup_steps=2)
+    module = AutoRegressiveModule(settings, info, device="cuda")
+    params = {k: v.detach().cpu()
+              for k, v in module.init_params(torch.Generator().manual_seed(0)).items()}
+    batch = synthetic_batch(info, batch_size=1, num_input_steps=2, num_pred_steps=1, seed=2)
+    reset_wide_counts()
+    loss_gpu, grads_gpu = module.loss_and_grads(params, batch)
+    torch.cuda.synchronize()
+    wide = _check_wide_launches(f"{name} h={h} {grid} step", h,
+                                ("stencil_message", "corner_hop", "stencil_message_bwd",
+                                 "corner_hop_bwd"))
+    loss_cpu, grads_cpu = AutoRegressiveModule(settings, info, device="cpu").loss_and_grads(
+        params, batch)
+    loss_rel = abs(float(loss_gpu) - float(loss_cpu)) / abs(float(loss_cpu))
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{name} h={h} loss card {float(loss_gpu)} vs cpu {float(loss_cpu)}")
+    grad_err = max(compare(f"{name} h={h} grad {k} (cuda vs cpu)", grads_gpu[k].cpu(),
+                           grads_cpu[k], TRAIN_GRAD_TOL) for k in grads_cpu)
+    return {"model": name, "hidden_dims": h, "grid": list(grid), "loss_cuda": float(loss_gpu),
+            "loss_cpu": float(loss_cpu), "loss_rel_diff": loss_rel,
+            "max_abs_grad_err_vs_cpu": grad_err, "launches_wide": wide}
+
+
+def wide_phase() -> dict:
+    """Phase 25: the graph models and kernels a and b at hidden widths
+    past the row-tile instances."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(25)
+    out = {"card": card_line(), "kernels": [], "part_wall_s": {}}
+    since = [t0]
+
+    def part(name):
+        now = time.perf_counter()
+        out["part_wall_s"][name] = round(now - since[0], 1)
+        since[0] = now
+
+    for h in WIDE_WIDTHS:
+        for row in check_wide_kernels(rng, h):
+            log(f"phase 25 (a) {row['name']} h={h} ({row['instance']}): {json.dumps(row)}")
+            out["kernels"].append(row)
+    part("a")
+    out["odd_widths"] = check_wide_odd_widths(rng)
+    for row in out["odd_widths"]:
+        log(f"phase 25 (b) h={row['h']}: {json.dumps(row)}")
+    part("b")
+    out["bf16"] = check_wide_bf16(rng)
+    for row in out["bf16"]:
+        log(f"phase 25 (c) bf16 {row['name']} {row['shape']}: {json.dumps(row)}")
+    part("c")
+    out["models"] = [wide_model_row(*m) for m in WIDE_MODELS]
+    for row in out["models"]:
+        log(f"phase 25 (d) {row['model']} h={row['hidden_dims']} 500x500: {json.dumps(row)}")
+    part("d")
+    out["vs_cpu"] = [wide_vs_cpu(name, h) for name, h in WIDE_VS_CPU]
+    for row in out["vs_cpu"]:
+        log(f"phase 25 (e) {row['model']} h={row['hidden_dims']} 64x64 card vs cpu: "
+            f"{json.dumps(row)}")
+    part("e")
+    reset_wide_counts()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 25 wall: {out['wall_s']:.1f} s (budget {PHASE25_BUDGET_S:.0f} s; parts "
+        f"{json.dumps(out['part_wall_s'])})")
+    return out
+
+
 # ---------------------------------------------------------------------- main
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4356,6 +4750,10 @@ def main(argv=None) -> int:
         "--steps", action="store_true",
         help="only build the kernels and run phases 5 and 7 (GraphLAM's 500x500 predict and "
              "train step: host ms), with no result line")
+    parser.add_argument(
+        "--wide", action="store_true",
+        help="only build the kernels and run phase 25 (the graph models and kernels a and "
+             "b at hidden widths past the row-tile instances), with no result line")
     parser.add_argument(
         "--spatial", action="store_true",
         help="only build the kernels and run phases 20 (d) and 21 (the data and spatial "
@@ -4395,10 +4793,8 @@ def main(argv=None) -> int:
     sources = _build.SOURCES if only is None else tuple(
         src for name in only for src in KERNEL_SOURCES[name])
     reported = {src: names for src, names in PTXAS_KERNELS.items() if src in sources}
-    with ThreadPoolExecutor(max(1, len(reported))) as pool:
-        ptxas = {src: pool.submit(_build.ptxas_report, src) for src in reported}
-        libs = _build.build_all(sources)
-        ptxas_text = {src: f.result() for src, f in ptxas.items()}
+    libs = _build.build_all(sources)  # every compile reports ptxas's registers
+    ptxas_text = {src: _build.ptxas_report(src) for src in reported}
     log(f"build: {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     OUT_DIR.mkdir(exist_ok=True)
     for src, names in reported.items():
@@ -4418,7 +4814,8 @@ def main(argv=None) -> int:
               "corner_hop_bwd": lambda: [check_hop_bwd(rng)],
               # phase 3c: the attention kernels at the Segformer cell's shapes
               "short_kv_attention": lambda: check_attention(rng)}
-    kernels = [] if parsed.spatial or parsed.datasets or parsed.tools or parsed.steps else [
+    kernels = [] if (parsed.spatial or parsed.datasets or parsed.tools or parsed.steps
+                     or parsed.wide) else [
         k for name, check in checks.items() if only is None or name in only for k in check()]
     for k in kernels:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e} ms {k['ms']:.4f} "
@@ -4464,6 +4861,15 @@ def main(argv=None) -> int:
         log(f"phase 5 GraphLAM 500x500 predict, ms a step: {json.dumps(full['ms_per_step_runs'])}")
         log("phase 7 GraphLAM 500x500 train step, ms: "
             + json.dumps(train_full["ms_per_train_step_runs"]))
+        log(card)
+        return 0
+    if parsed.wide:
+        lap("1-2")
+        out = wide_phase()
+        lap("25")
+        (OUT_DIR / "smoke_wide_report.json").write_text(json.dumps(out, indent=1))
+        log(f"wall: {time.perf_counter() - t_start:.1f} s")
+        log(f"phase wall s: {json.dumps(walls)}")
         log(card)
         return 0
     if parsed.tools:
@@ -4689,6 +5095,11 @@ def main(argv=None) -> int:
     weight_tools = weight_tools_phase()
     lap("24")
 
+    # phase 25: the graph models and kernels a and b at hidden widths
+    # past the row-tile instances
+    wide = wide_phase()
+    lap("25")
+
     # each model path ran with every count set to 0 just before it and
     # checked just after (a kernel of another path launched fails); a
     # kernel's launches are the sum over the paths that run it
@@ -4744,7 +5155,7 @@ def main(argv=None) -> int:
          "unetrpp_fit_dummy": rpp_fit, "unetrpp_full_size": rpp_full, "bf16": bf16,
          "resnet": resnet, "swin_table": swin_table, "data_axis": data_axis,
          "spatial": spatial, "datasets": datasets, "tools": tools,
-         "weight_tools": weight_tools,
+         "weight_tools": weight_tools, "wide": wide,
          "wall_s": time.perf_counter() - t_start, "phase_wall_s": walls}, indent=1))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(f"phase wall s: {json.dumps(walls)}")

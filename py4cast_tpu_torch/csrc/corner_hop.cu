@@ -73,10 +73,23 @@
 // the same maps.
 // Widths that are not a multiple of 4 take plain loads in place of the
 // 128-bit ones.
+//
+// Wider (97 to 512): corner_hop_fwd_wide, on wide_rows.cuh (HP = 128,
+// 256 or 512; tiles of 64, 32 or 8 cells), replaces
+// py4cast_tpu/ops/hop_kernel.py::_fwd_kernel (:120) there. What bounds it there: the
+// five h x h weights are 320 KB at h = 128 and 5 MB at 512, so no block
+// holds them; the work, 16 h^2 FMA-pairs a cell, grows 16x from h = 64
+// to 256 while the bytes grow 4x: at 500x500, h = 256, ~262 GFLOP (3.9
+// ms at the fp32 peak) against ~0.5 GB (0.15 ms), bound by operations.
+// What the design does: the same steps on three row tiles (vd; z, then
+// u; agg), every product streaming its weight in chunks (cp.async,
+// double-buffered), pd and agg in registers, the corners gathered from
+// ps through the maps as above.
 
 #include <cstdint>
 
 #include "corner_hop_tiles.cuh"
+#include "wide_rows.cuh"
 
 namespace {
 
@@ -493,18 +506,211 @@ cudaError_t warps_attributes(int h, int* out) {
   return cudaSuccess;
 }
 
+// ------------------------------------------------- wide rows (h > 96)
+template <int HP>
+struct WideShape {
+  using C = wide::Cfg<HP>;
+  // vd, z (then u), agg row tiles; the weight chunks
+  static constexpr size_t smem_bytes = (3 * C::TILE + C::CHUNKS) * sizeof(float);
+  static_assert(smem_bytes <= 232448, "227 KB a block");
+};
+
+template <int HP>
+__global__ void __launch_bounds__(THREADS, 1) corner_hop_fwd_wide(Args a) {
+  using namespace p4t::wide;
+  using C = Cfg<HP>;
+  constexpr int TM = C::TM, CJ = C::CJ, BM = C::BM;
+  const int h = a.h, ff = a.ff, W = a.W, HW = a.H * a.W;
+  const bool vec = a.vec != 0;
+  extern __shared__ __align__(16) float smem[];
+  float* s_vd = smem;  // three [BM][LD] row tiles
+  float* s_z = s_vd + C::TILE;
+  float* s_agg = s_z + C::TILE;
+  float* s_w = s_agg + C::TILE;
+  const Lane<C> t;
+
+  // B * H * W < 2^31 (the host checks): cell numbers are ints
+  const int n_cells = a.B * HW;
+  const int n_tiles = (n_cells + BM - 1) / BM;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    __syncthreads();  // the last tile's readers of every tile are done
+    fill_tile<C>(
+        s_vd,
+        [=](int r) -> const float* {
+          const int cell = tile * BM + r;
+          return cell < n_cells ? a.vd + (long long)cell * h : nullptr;
+        },
+        h, vec, a.vd);
+    int cell[TM], q[TM], b[TM], y[TM], x[TM];
+    bool valid[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      cell[i] = tile * BM + TM * t.ty + i;
+      valid[i] = cell[i] < n_cells;
+      b[i] = valid[i] ? cell[i] / HW : 0;
+      q[i] = valid[i] ? cell[i] - b[i] * HW : 0;
+      y[i] = q[i] / W;
+      x[i] = q[i] - y[i] * W;
+    }
+
+    // ---- pd = vd @ Wd
+    Frag<C> pd, agg, acc, in;
+    zero<C>(pd);
+    mm<C, false>(pd, s_vd, t, a.wd, h, h, vec, s_w);
+    zero<C>(agg);
+
+    // ---- each corner: z_k -> s_z;  agg += LN(z_k @ Wo + bo) * lns + lnb
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+      const float* fe_k = a.feats + (long long)k * HW * ff;
+      zero<C>(in);
+      zero<C>(acc);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        if (valid[i])
+          load_row<C>(in[i], a.ps + source_cell(a, k, b[i], y[i], x[i]) * h, t, h, vec);
+      for (int f = 0; f < ff; ++f) {
+        float w[CJ][4];
+        load_vec<C>(w, a.wf + f * h, t, h);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float xf = valid[i] ? __ldg(fe_k + (long long)q[i] * ff + f) : 0.f;
+#pragma unroll
+          for (int j = 0; j < CJ; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[i][j][c] = fmaf(xf, w[j][c], acc[i][j][c]);
+        }
+      }
+      {
+        float v[CJ][4];
+        load_vec<C>(v, a.bf, t, h);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < CJ; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float p = ((acc[i][j][c] + v[j][c]) + in[i][j][c]) + pd[i][j][c];
+              acc[i][j][c] = p * wide::sigmoid(p);
+            }
+      }
+      put<C>(s_z, t, acc);  // the last product's readers of s_z are done
+      zero<C>(acc);
+      mm<C, false>(acc, s_z, t, a.wo, h, h, vec, s_w);
+      {
+        float v[CJ][4], v2[CJ][4];
+        load_vec<C>(v, a.bo, t, h);
+        add_vec<C>(acc, v);
+        load_vec<C>(v, a.lns, t, h);
+        load_vec<C>(v2, a.lnb, t, h);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          ln_normalize<C>(acc[i], t, h);
+#pragma unroll
+          for (int j = 0; j < CJ; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) agg[i][j][c] += fmaf(acc[i][j][c], v[j][c], v2[j][c]);
+        }
+      }
+    }
+    if (a.mean) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) agg[i][j][c] *= 0.25f;
+    }
+    put<C>(s_agg, t, agg);
+
+    // ---- u = silu(vd @ Nd0a + agg @ Nd0b + nb0) -> s_z
+    zero<C>(acc);
+    mm<C, false>(acc, s_vd, t, a.nd0a, h, h, vec, s_w);
+    mm<C, false>(acc, s_agg, t, a.nd0b, h, h, vec, s_w);
+    {
+      float v[CJ][4];
+      load_vec<C>(v, a.nb0, t, h);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float p = acc[i][j][c] + v[j][c];
+            acc[i][j][c] = p * wide::sigmoid(p);
+          }
+    }
+    put<C>(s_z, t, acc);
+
+    // ---- v_out = vd + LN(u @ Nd1 + nb1) * nlns + nlnb
+    zero<C>(acc);
+    mm<C, false>(acc, s_z, t, a.nd1, h, h, vec, s_w);
+    {
+      float v[CJ][4], v2[CJ][4];
+      load_vec<C>(v, a.nb1, t, h);
+      add_vec<C>(acc, v);
+      load_vec<C>(v, a.nlns, t, h);
+      load_vec<C>(v2, a.nlnb, t, h);
+      get<C>(in, s_vd, t);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        ln_normalize<C>(acc[i], t, h);
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[i][j][c] = in[i][j][c] + fmaf(acc[i][j][c], v[j][c], v2[j][c]);
+        if (valid[i]) store_row<C>(a.out + (long long)cell[i] * h, t, h, vec, acc[i]);
+      }
+    }
+  }
+}
+
+template <int HP>
+cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = WideShape<HP>::smem_bytes;
+  constexpr int BM = wide::Cfg<HP>::BM;
+  int blocks = 0;
+  cudaError_t err = wide::persistent_grid(corner_hop_fwd_wide<HP>, smem,
+                                          ((long long)a.B * a.H * a.W + BM - 1) / BM, &blocks);
+  if (err != cudaSuccess) return err;
+  corner_hop_fwd_wide<HP><<<blocks, THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int HP>
+cudaError_t attributes_wide(int* out) {
+  return wide::kernel_attributes(corner_hop_fwd_wide<HP>, WideShape<HP>::smem_bytes,
+                                 wide::Cfg<HP>::BM, out);
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
+// The row-tile instances take widths up to WIDE_ABOVE; above it the wide
+// instance (wide_rows.cuh) takes them, up to wide::MAX_HP. Every ladder
+// below dispatches on it.
+constexpr int WIDE_ABOVE = 96;
+
+// C entry: 1 when p4t_corner_hop_fwd launches the wide instance for these
+// widths, 0 when a row-tile one does, -1 when no instance takes them.
+extern "C" int p4t_corner_hop_fwd_wide(int h) {
+  return h > wide::MAX_HP ? -1 : h > WIDE_ABOVE ? 1 : 0;
+}
+
 // C entry: out[5] = registers a thread, local (spill) bytes a thread,
-// dynamic shared memory bytes (at 32 corner features for h > 64), resident
-// blocks an SM and cells a tile (cells a block takes at once for h > 64)
-// of the kernel that p4t_corner_hop_fwd launches for width h.
+// dynamic shared memory bytes (at 32 corner features for 64 < h <= 96),
+// resident blocks an SM and cells a tile (cells a block takes at once
+// for 64 < h <= 96) of the kernel that p4t_corner_hop_fwd launches for
+// width h (the wide instance above WIDE_ABOVE).
 extern "C" int p4t_corner_hop_fwd_attributes(int h, int* out) {
   if (h <= 32) return attributes<32>(out);
   if (h <= 64) return attributes<64>(out);
-  if (h <= 96) return warps_attributes<3, 2>(h, out);
+  if (h <= WIDE_ABOVE) return warps_attributes<3, 2>(h, out);
+  if (h <= 128) return attributes_wide<128>(out);
+  if (h <= 256) return attributes_wide<256>(out);
+  if (h <= wide::MAX_HP) return attributes_wide<wide::MAX_HP>(out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -515,8 +721,9 @@ extern "C" int p4t_corner_hop_fwd_attributes(int h, int* out) {
 // the caller guarantees 0 <= rows < Hc and 0 <= cols < Wc); vd, out:
 // (B, H, W, h); feats: (4, H, W, ff); wf: (ff, h); wd, wo, nd0a, nd0b,
 // nd1: (h, h); bf, bo, lns, lnb, nb0, nb1, nlns, nlnb: (h,). All fp32 but
-// the maps, contiguous, on the current device; h <= 96 and ff <= 32 (the
-// caller checks). Returns the cudaError_t of the launch.
+// the maps, contiguous, on the current device; h <= 512 (above WIDE_ABOVE
+// the wide instance) and ff <= 32 (the caller checks). Returns the
+// cudaError_t of the launch.
 extern "C" int p4t_corner_hop_fwd(const float* ps, const int* rows, const int* cols,
                                   const float* vd, const float* feats, const float* wf,
                                   const float* bf, const float* wd, const float* wo,
@@ -535,6 +742,9 @@ extern "C" int p4t_corner_hop_fwd(const float* ps, const int* rows, const int* c
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (h <= 32) return launch<32>(a, s);
   if (h <= 64) return launch<64>(a, s);
-  if (h <= 96) return launch_warps<3, 2>(a, s);
+  if (h <= WIDE_ABOVE) return launch_warps<3, 2>(a, s);
+  if (h <= 128) return launch_wide<128>(a, s);
+  if (h <= 256) return launch_wide<256>(a, s);
+  if (h <= wide::MAX_HP) return launch_wide<wide::MAX_HP>(a, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -83,12 +83,33 @@
 // h x h gradient shared by 4 thread groups, each over a quarter of the
 // rows). Widths that are not a multiple of 4 take plain loads instead
 // of 128-bit ones. At 96, the forward's cap, the node pass's weights
-// and tiles alone would take ~300 KB: the wrapper raises above 64
-// (ops/hop_kernel.py::MAX_BWD_WIDTH).
+// and tiles alone would take ~300 KB, so these instances stop at 64.
+//
+// Wider (65 to 512): corner_hop_bwd_node_wide and corner_hop_bwd_corner_wide,
+// on wide_rows.cuh (HP = 128, 256 or 512; tiles of 64, 32 or 8 cells),
+// replace py4cast_tpu/ops/hop_kernel.py::_bwd_kernel (:267) there, with
+// the same split into a node pass and a corner pass and dagg between
+// them. What bounds it there: at h = 128 the five weights are 320 KB and
+// each pass's h x h gradient patches 192 KB, and the register patches
+// (224 a thread at h = 64) cannot grow; the work, 29 h^2 FMA-pairs a
+// cell, is ~950 GFLOP at 500x500 and h = 256 (14 ms at the fp32 peak)
+// against ~2.3 GB (0.7 ms): bound by operations. What the design does:
+// the row steps run on five row tiles a pass, every product streaming
+// its weight in chunks (cp.async, double-buffered); the rows the weight
+// gradients need and no output holds (agg, u, dy, dupre from the node
+// pass; z_k and dt_k of each corner and dpd from the corner pass; 13 x
+// B H W h floats after the partials in `partial`,
+// p4t_corner_hop_bwd_scratch) go to scratch, and wide::xty_partials sums
+// dWf (feats_k^T dpsg_k), dWd, dWo, dNd0a, dNd0b and dNd1 after both
+// passes, one fp32 partial a block over a slice of the rows; the eight
+// vector gradients are per-tile column sums into one per-block sum (dbf
+// as the column sums of dpd). Every sum runs in a fixed order: a call
+// repeats bit for bit.
 
 #include <cstdint>
 
 #include "corner_hop_tiles.cuh"
+#include "wide_rows.cuh"
 
 namespace {
 
@@ -686,27 +707,511 @@ cudaError_t attributes(int* out) {
   return cudaSuccess;
 }
 
+// ------------------------------------------------- wide rows (h > 64)
+template <int HP>
+struct WideShape {
+  using C = wide::Cfg<HP>;
+  // node pass: vd (then silu'(u_pre)), z (then u, g * xhat), agg, dy, g
+  // (then dupre); corner pass: vd, z (then dagg * xhat, dpd), dt, silu'
+  // (then dpre), dagg. Five row tiles, the weight chunks, four vector sums
+  static constexpr size_t smem_bytes = (5 * C::TILE + C::CHUNKS + 4 * HP) * sizeof(float);
+  static_assert(smem_bytes <= 232448, "227 KB a block");
+};
+
+// The scratch rows, each B*H*W x h, after the partials: the node pass's
+// agg, u, dy, dupre (0..3), the corner pass's z_k (4 + k), dt_k (8 + k)
+// and dpd (12).
+constexpr int SCRATCH_ARRAYS = 13;
+
+inline long long scratch_offset(const Layout& L, int blocks) {
+  return ((long long)blocks * L.total + 3) / 4 * 4;
+}
+
+// pre_k = feats_k @ Wf + bf + psg_k + pd for the thread's rows: acc =
+// silu(pre_k), and dsil = silu'(pre_k) when asked (the order of
+// corner_pre's sums).
+template <class C, bool DSIL>
+__device__ __forceinline__ void wide_corner_pre(wide::Frag<C>& acc, wide::Frag<C>& in,
+                                                const wide::Frag<C>& pd, const float* fe_k,
+                                                const int (&q)[C::TM], const bool (&valid)[C::TM],
+                                                const Args& a, const wide::Lane<C>& t) {
+  using namespace p4t::wide;
+  constexpr int TM = C::TM, CJ = C::CJ;
+  const int h = a.h, ff = a.ff;
+  zero<C>(acc);
+  for (int f = 0; f < ff; ++f) {
+    float w[CJ][4];
+    load_vec<C>(w, a.wf + f * h, t, h);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float xf = valid[i] ? __ldg(fe_k + (long long)q[i] * ff + f) : 0.f;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] = fmaf(xf, w[j][c], acc[i][j][c]);
+    }
+  }
+  float v[CJ][4];
+  load_vec<C>(v, a.bf, t, h);
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = ((acc[i][j][c] + v[j][c]) + in[i][j][c]) + pd[i][j][c];
+        const float sg = wide::sigmoid(p);
+        if (DSIL) in[i][j][c] = sg * (1.f + p * (1.f - sg));
+        acc[i][j][c] = p * sg;
+      }
+}
+
+// The thread's rows of a (B*H*W, h) array, zero past the end.
+template <class C>
+__device__ __forceinline__ void load_cells(wide::Frag<C>& v, const float* base,
+                                           const int (&cell)[C::TM], const bool (&valid)[C::TM],
+                                           const wide::Lane<C>& t, int h, bool vec) {
+  wide::zero<C>(v);
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+    if (valid[i]) wide::load_row<C>(v[i], base + (long long)cell[i] * h, t, h, vec);
+}
+
+template <class C>
+__device__ __forceinline__ void store_cells(float* base, const int (&cell)[C::TM],
+                                            const bool (&valid)[C::TM], const wide::Lane<C>& t,
+                                            int h, bool vec, const wide::Frag<C>& v) {
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+    if (valid[i]) wide::store_row<C>(base + (long long)cell[i] * h, t, h, vec, v[i]);
+}
+
+template <class C>
+__device__ __forceinline__ void scale(wide::Frag<C>& v, float s) {
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::CJ; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[i][j][c] *= s;
+}
+
+template <int HP>
+__global__ void __launch_bounds__(THREADS, 1)
+    corner_hop_bwd_node_wide(Args a, float* scratch, int wvec_flag) {
+  using namespace p4t::wide;
+  using C = Cfg<HP>;
+  constexpr int TM = C::TM, CJ = C::CJ, BM = C::BM;
+  const int h = a.h, ff = a.ff, HW = a.HW;
+  const bool vec = a.vec != 0, wvec = wvec_flag != 0;
+  extern __shared__ __align__(16) float smem[];
+  float* s_vd = smem;  // five [BM][LD] row tiles
+  float* s_z = s_vd + C::TILE;
+  float* s_agg = s_z + C::TILE;
+  float* s_dy = s_agg + C::TILE;
+  float* s_g = s_dy + C::TILE;
+  float* s_w = s_g + C::TILE;      // the weight chunks
+  float* s_sum = s_w + C::CHUNKS;  // [4][HP]: dnb0, dnb1, dnlns, dnlnb
+  for (int i = threadIdx.x; i < 4 * HP; i += THREADS) s_sum[i] = 0.f;
+  const long long rh = (long long)a.B * HW * h;
+  float* agg_rows = scratch;
+  float* u_rows = scratch + rh;
+  float* dy_rows = scratch + 2 * rh;
+  float* dup_rows = scratch + 3 * rh;
+  const Lane<C> t;
+
+  // B * H * W < 2^31 (the host checks): cell numbers are ints
+  const int n_cells = a.B * HW;
+  const int n_tiles = (n_cells + BM - 1) / BM;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    __syncthreads();  // the last tile's readers of every tile are done
+    fill_tile<C>(
+        s_vd,
+        [=](int r) -> const float* {
+          const int cell = tile * BM + r;
+          return cell < n_cells ? a.vd + (long long)cell * h : nullptr;
+        },
+        h, vec, a.vd);
+    int cell[TM], q[TM];
+    bool valid[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      cell[i] = tile * BM + TM * t.ty + i;
+      valid[i] = cell[i] < n_cells;
+      q[i] = valid[i] ? cell[i] % HW : 0;
+    }
+
+    // ---- pd = vd @ Wd; the four corners into agg
+    Frag<C> pd, agg, acc, in;
+    zero<C>(pd);
+    mm<C, false>(pd, s_vd, t, a.wd, h, h, wvec, s_w);
+    zero<C>(agg);
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+      // a select, not an index into the parameters: that would copy
+      // them to local memory
+      const float* psg = k == 0 ? a.psg0 : k == 1 ? a.psg1 : k == 2 ? a.psg2 : a.psg3;
+      load_cells<C>(in, psg, cell, valid, t, h, vec);
+      wide_corner_pre<C, false>(acc, in, pd, a.feats + (long long)k * HW * ff, q, valid, a, t);
+      put<C>(s_z, t, acc);  // the last product's readers of s_z are done
+      zero<C>(acc);
+      mm<C, false>(acc, s_z, t, a.wo, h, h, wvec, s_w);
+      float v[CJ][4], v2[CJ][4];
+      load_vec<C>(v, a.bo, t, h);
+      add_vec<C>(acc, v);
+      load_vec<C>(v, a.lns, t, h);
+      load_vec<C>(v2, a.lnb, t, h);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        ln_normalize<C>(acc[i], t, h);
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) agg[i][j][c] += fmaf(acc[i][j][c], v[j][c], v2[j][c]);
+      }
+    }
+    if (a.mean) scale<C>(agg, 0.25f);
+    put<C>(s_agg, t, agg);
+    store_cells<C>(agg_rows, cell, valid, t, h, vec, agg);
+
+    // ---- u = silu(vd @ Nd0a + agg @ Nd0b + nb0) -> s_z, scratch;
+    // silu'(u_pre) -> s_vd (vd's last reader was the Nd0a product)
+    zero<C>(acc);
+    mm<C, false>(acc, s_vd, t, a.nd0a, h, h, wvec, s_w);
+    mm<C, false>(acc, s_agg, t, a.nd0b, h, h, wvec, s_w);
+    {
+      float v[CJ][4];
+      load_vec<C>(v, a.nb0, t, h);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float p = acc[i][j][c] + v[j][c];
+            const float sg = wide::sigmoid(p);
+            in[i][j][c] = sg * (1.f + p * (1.f - sg));
+            acc[i][j][c] = p * sg;
+          }
+    }
+    put<C>(s_z, t, acc);
+    put<C>(s_vd, t, in);
+    store_cells<C>(u_rows, cell, valid, t, h, vec, acc);
+
+    // ---- y = u @ Nd1 + nb1 -> xhat;  g -> dy through the LayerNorm ->
+    // s_dy, scratch; g -> s_g, g * xhat -> s_z
+    zero<C>(acc);
+    mm<C, false>(acc, s_z, t, a.nd1, h, h, wvec, s_w);
+    {
+      float v[CJ][4], inv[TM];
+      load_vec<C>(v, a.nb1, t, h);
+      add_vec<C>(acc, v);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) inv[i] = ln_normalize<C>(acc[i], t, h);  // acc = xhat
+      load_cells<C>(in, a.g, cell, valid, t, h, vec);
+      put<C>(s_g, t, in);
+      put_product<C>(s_z, t, in, acc);
+      load_vec<C>(v, a.nlns, t, h);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) ln_backward<C>(in[i], acc[i], inv[i], v, t, h);  // in = dy
+    }
+    put<C>(s_dy, t, in);
+    store_cells<C>(dy_rows, cell, valid, t, h, vec, in);
+
+    // ---- dupre = (dy @ Nd1^T) * silu'(u_pre) -> s_g (after the tile's
+    // dnlnb, dnlns and dnb1 shares are taken from s_g, s_z, s_dy), scratch
+    zero<C>(acc);
+    mm<C, true>(acc, s_dy, t, a.nd1, h, h, wvec, s_w);
+    add_colsums<C>(s_sum + HP, s_dy);
+    add_colsums<C>(s_sum + 2 * HP, s_z);
+    add_colsums<C>(s_sum + 3 * HP, s_g);
+    get<C>(in, s_vd, t);  // silu'(u_pre): this thread's own
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] *= in[i][j][c];
+    __syncthreads();  // the column sums' reads of s_g are done
+    put<C>(s_g, t, acc);
+    store_cells<C>(dup_rows, cell, valid, t, h, vec, acc);
+
+    // ---- dvd = g + dupre @ Nd0a^T;  dagg = dupre @ Nd0b^T (/4 if mean)
+    zero<C>(acc);
+    mm<C, true>(acc, s_g, t, a.nd0a, h, h, wvec, s_w);
+    load_cells<C>(in, a.g, cell, valid, t, h, vec);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] = in[i][j][c] + acc[i][j][c];
+    store_cells<C>(a.dvd, cell, valid, t, h, vec, acc);
+    zero<C>(acc);
+    mm<C, true>(acc, s_g, t, a.nd0b, h, h, wvec, s_w);
+    if (a.mean) scale<C>(acc, 0.25f);
+    store_cells<C>(a.dagg, cell, valid, t, h, vec, acc);
+    add_colsums<C>(s_sum, s_g);  // dnb0 (s_g complete: the products' barriers)
+  }
+
+  __syncthreads();
+  const Layout L(h, ff);
+  float* out = a.partial + (long long)blockIdx.x * L.total;
+  for (int i = threadIdx.x; i < 4 * h; i += THREADS) {
+    const int v = i / h, c = i % h;
+    out[(v == 0 ? L.nb0 : v == 1 ? L.nb1 : v == 2 ? L.nlns : L.nlnb) + c] = s_sum[v * HP + c];
+  }
+}
+
+template <int HP>
+__global__ void __launch_bounds__(THREADS, 1)
+    corner_hop_bwd_corner_wide(Args a, float* scratch, int wvec_flag) {
+  using namespace p4t::wide;
+  using C = Cfg<HP>;
+  constexpr int TM = C::TM, CJ = C::CJ, BM = C::BM;
+  const int h = a.h, ff = a.ff, HW = a.HW;
+  const bool vec = a.vec != 0, wvec = wvec_flag != 0;
+  extern __shared__ __align__(16) float smem[];
+  float* s_vd = smem;  // five [BM][LD] row tiles
+  float* s_z = s_vd + C::TILE;
+  float* s_dt = s_z + C::TILE;
+  float* s_dp = s_dt + C::TILE;
+  float* s_dg = s_dp + C::TILE;
+  float* s_w = s_dg + C::TILE;     // the weight chunks
+  float* s_sum = s_w + C::CHUNKS;  // [4][HP]: dbf, dbo, dlns, dlnb
+  for (int i = threadIdx.x; i < 4 * HP; i += THREADS) s_sum[i] = 0.f;
+  const long long rh = (long long)a.B * HW * h;
+  float* dpd_rows = scratch + 12 * rh;
+  const Lane<C> t;
+
+  const int n_cells = a.B * HW;
+  const int n_tiles = (n_cells + BM - 1) / BM;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    __syncthreads();  // the last tile's readers of every tile are done
+    auto rows_of = [=](const float* base) {
+      return [=](int r) -> const float* {
+        const int cell = tile * BM + r;
+        return cell < n_cells ? base + (long long)cell * h : nullptr;
+      };
+    };
+    fill_tile<C>(s_vd, rows_of(a.vd), h, vec, a.vd);
+    fill_tile<C>(s_dg, rows_of(a.dagg), h, vec, a.dagg);
+    int cell[TM], q[TM];
+    bool valid[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      cell[i] = tile * BM + TM * t.ty + i;
+      valid[i] = cell[i] < n_cells;
+      q[i] = valid[i] ? cell[i] % HW : 0;
+    }
+
+    Frag<C> pd, dpd, acc, in;
+    zero<C>(pd);
+    mm<C, false>(pd, s_vd, t, a.wd, h, h, wvec, s_w);
+    zero<C>(dpd);
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+      const float* psg = k == 0 ? a.psg0 : k == 1 ? a.psg1 : k == 2 ? a.psg2 : a.psg3;
+      float* dpsg = k == 0 ? a.dpsg0 : k == 1 ? a.dpsg1 : k == 2 ? a.dpsg2 : a.dpsg3;
+
+      // ---- z = silu(pre) -> s_z, scratch; silu'(pre) -> s_dp
+      load_cells<C>(in, psg, cell, valid, t, h, vec);
+      wide_corner_pre<C, true>(acc, in, pd, a.feats + (long long)k * HW * ff, q, valid, a, t);
+      put<C>(s_z, t, acc);
+      put<C>(s_dp, t, in);
+      store_cells<C>(scratch + (4 + k) * rh, cell, valid, t, h, vec, acc);
+
+      // ---- t = z @ Wo + bo -> xhat;  dagg -> dt through the LayerNorm ->
+      // s_dt, scratch; dagg * xhat -> s_z
+      zero<C>(acc);
+      mm<C, false>(acc, s_z, t, a.wo, h, h, wvec, s_w);
+      {
+        float v[CJ][4], inv[TM];
+        load_vec<C>(v, a.bo, t, h);
+        add_vec<C>(acc, v);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) inv[i] = ln_normalize<C>(acc[i], t, h);  // acc = xhat
+        get<C>(in, s_dg, t);  // dagg: this thread's own rows
+        put_product<C>(s_z, t, in, acc);
+        load_vec<C>(v, a.lns, t, h);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) ln_backward<C>(in[i], acc[i], inv[i], v, t, h);  // in = dt
+      }
+      put<C>(s_dt, t, in);
+      store_cells<C>(scratch + (8 + k) * rh, cell, valid, t, h, vec, in);
+
+      // ---- dpre = (dt @ Wo^T) * silu'(pre) -> dpsg_k; dpd += dpre
+      zero<C>(acc);
+      mm<C, true>(acc, s_dt, t, a.wo, h, h, wvec, s_w);
+      // this corner's shares of dlns, dbo and dlnb (every tile complete:
+      // the product's barriers)
+      add_colsums<C>(s_sum + HP, s_dt);
+      add_colsums<C>(s_sum + 2 * HP, s_z);
+      add_colsums<C>(s_sum + 3 * HP, s_dg);
+      get<C>(in, s_dp, t);  // silu'(pre): this thread's own
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[i][j][c] *= in[i][j][c];
+            dpd[i][j][c] += acc[i][j][c];
+          }
+      store_cells<C>(dpsg, cell, valid, t, h, vec, acc);
+      __syncthreads();  // the column sums' reads are done before the next stores
+    }
+
+    // ---- dvd += dpd @ Wd^T;  dpd -> s_z, scratch (for dWd), and dbf's share
+    put<C>(s_z, t, dpd);
+    store_cells<C>(dpd_rows, cell, valid, t, h, vec, dpd);
+    zero<C>(acc);
+    mm<C, true>(acc, s_z, t, a.wd, h, h, wvec, s_w);
+    load_cells<C>(in, a.dvd, cell, valid, t, h, vec);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] = in[i][j][c] + acc[i][j][c];
+    store_cells<C>(a.dvd, cell, valid, t, h, vec, acc);
+    add_colsums<C>(s_sum, s_z);  // dbf = the column sums of dpd
+  }
+
+  __syncthreads();
+  const Layout L(h, ff);
+  float* out = a.partial + (long long)blockIdx.x * L.total;
+  for (int i = threadIdx.x; i < 4 * h; i += THREADS) {
+    const int v = i / h, c = i % h;
+    out[(v == 0 ? L.bf : v == 1 ? L.bo : v == 2 ? L.lns : L.lnb) + c] = s_sum[v * HP + c];
+  }
+}
+
+template <int HP>
+cudaError_t grid_wide(int B, int HW, int* blocks) {
+  constexpr size_t smem = WideShape<HP>::smem_bytes;
+  const long long tiles = ((long long)B * HW + wide::Cfg<HP>::BM - 1) / wide::Cfg<HP>::BM;
+  int node = 0, corner = 0;
+  cudaError_t err = wide::persistent_grid(corner_hop_bwd_node_wide<HP>, smem, tiles, &node);
+  if (err == cudaSuccess)
+    err = wide::persistent_grid(corner_hop_bwd_corner_wide<HP>, smem, tiles, &corner);
+  *blocks = node < corner ? node : corner;  // both passes take this grid
+  return err;
+}
+
+// One xty_partials launch: sum over nseg (X, Y) pairs of X^T Y into the
+// gradient at `off` of each block's partial.
+inline cudaError_t xty(const float* const (&x)[4], const float* const (&y)[4], int nseg,
+                       long long rows, long long xmod, int K, int N, float* partial,
+                       const Layout& L, int off, int blocks, cudaStream_t stream) {
+  return wide::launch_xty({x[0], x[1], x[2], x[3], y[0], y[1], y[2], y[3], rows, xmod, nseg, K,
+                           N, partial, L.total, off},
+                          blocks, stream);
+}
+
+template <int HP>
+cudaError_t launch_wide(const Args& a, float* dw, int blocks, int wvec, cudaStream_t stream) {
+  constexpr size_t smem = WideShape<HP>::smem_bytes;
+  cudaError_t err = cudaFuncSetAttribute(corner_hop_bwd_node_wide<HP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(corner_hop_bwd_corner_wide<HP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const Layout L(a.h, a.ff);
+  float* scratch = a.partial + scratch_offset(L, blocks);
+  corner_hop_bwd_node_wide<HP><<<blocks, THREADS, smem, stream>>>(a, scratch, wvec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  corner_hop_bwd_corner_wide<HP><<<blocks, THREADS, smem, stream>>>(a, scratch, wvec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int h = a.h, ff = a.ff;
+  const long long rows = (long long)a.B * a.HW, rh = rows * h;
+  const float* s[SCRATCH_ARRAYS];
+  for (int i = 0; i < SCRATCH_ARRAYS; ++i) s[i] = scratch + i * rh;
+  const long long fk = (long long)a.HW * ff;  // one corner's features
+  const float* const fe[4] = {a.feats, a.feats + fk, a.feats + 2 * fk, a.feats + 3 * fk};
+  const float* const dpsg[4] = {a.dpsg0, a.dpsg1, a.dpsg2, a.dpsg3};
+  const float* const vd[4] = {a.vd, a.vd, a.vd, a.vd};
+  const float* const z[4] = {s[4], s[5], s[6], s[7]};
+  const float* const dt[4] = {s[8], s[9], s[10], s[11]};
+  const float* const dpd[4] = {s[12], s[12], s[12], s[12]};
+  const float* const agg[4] = {s[0], s[0], s[0], s[0]};
+  const float* const u[4] = {s[1], s[1], s[1], s[1]};
+  const float* const dy[4] = {s[2], s[2], s[2], s[2]};
+  const float* const dup[4] = {s[3], s[3], s[3], s[3]};
+  // dWf = sum_k feats_k^T dpre_k (feats_k row r % (H W): the batch shares
+  // it), dWd = vd^T dpd, dWo = sum_k z_k^T dt_k, dNd0a = vd^T dupre,
+  // dNd0b = agg^T dupre, dNd1 = u^T dy
+  if (err == cudaSuccess) err = xty(fe, dpsg, 4, rows, a.HW, ff, h, a.partial, L, L.wf, blocks, stream);
+  if (err == cudaSuccess) err = xty(vd, dpd, 1, rows, rows, h, h, a.partial, L, L.wd, blocks, stream);
+  if (err == cudaSuccess) err = xty(z, dt, 4, rows, rows, h, h, a.partial, L, L.wo, blocks, stream);
+  if (err == cudaSuccess) err = xty(vd, dup, 1, rows, rows, h, h, a.partial, L, L.n0a, blocks, stream);
+  if (err == cudaSuccess) err = xty(agg, dup, 1, rows, rows, h, h, a.partial, L, L.n0b, blocks, stream);
+  if (err == cudaSuccess) err = xty(u, dy, 1, rows, rows, h, h, a.partial, L, L.n1, blocks, stream);
+  if (err != cudaSuccess) return err;
+  return launch_sum_partials_by_warps(a.partial, dw, L.total, blocks, stream);
+}
+
+template <int HP>
+cudaError_t attributes_wide(int* out) {
+  constexpr size_t smem = WideShape<HP>::smem_bytes;
+  cudaError_t err = wide::kernel_attributes(corner_hop_bwd_node_wide<HP>, smem,
+                                            wide::Cfg<HP>::BM, out);
+  if (err != cudaSuccess) return err;
+  return wide::kernel_attributes(corner_hop_bwd_corner_wide<HP>, smem, wide::Cfg<HP>::BM,
+                                 out + 5);
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
+// The row-tile instances take widths up to WIDE_ABOVE; above it the wide
+// instance (wide_rows.cuh) takes them, up to wide::MAX_HP. Every ladder
+// below dispatches on it.
+constexpr int WIDE_ABOVE = 64;
+
+// C entry: 1 when p4t_corner_hop_bwd launches the wide instance for these
+// widths, 0 when a row-tile one does, -1 when no instance takes them.
+extern "C" int p4t_corner_hop_bwd_wide(int h) {
+  return h > wide::MAX_HP ? -1 : h > WIDE_ABOVE ? 1 : 0;
+}
+
 // C entry: the number of blocks p4t_corner_hop_bwd launches for these
 // sizes (its partial buffer holds that many (ff*h + 5h*h + 8h)-float
-// partials). h <= 64, ff <= 32. Returns a cudaError_t.
+// partials, and the scratch p4t_corner_hop_bwd_scratch gives). h <= 512,
+// ff <= 32. Returns a cudaError_t.
 extern "C" int p4t_corner_hop_bwd_grid(int B, int H, int W, int h, int ff, int* blocks) {
   if (ff > MAX_FF || (long long)B * H * W >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   if (h <= 32) return grid<32>(B, H * W, blocks);
-  if (h <= 64) return grid<64>(B, H * W, blocks);
+  if (h <= WIDE_ABOVE) return grid<WIDE_ABOVE>(B, H * W, blocks);
+  if (h <= 128) return grid_wide<128>(B, H * W, blocks);
+  if (h <= 256) return grid_wide<256>(B, H * W, blocks);
+  if (h <= wide::MAX_HP) return grid_wide<wide::MAX_HP>(B, H * W, blocks);
   return (int)cudaErrorInvalidValue;
 }
 
+// C entry: *floats = what `partial` holds beyond the blocks' partials for
+// these sizes: 0 up to WIDE_ABOVE; above it the wide instance's scratch
+// rows (13 x B H W h floats) and 4 floats of alignment.
+extern "C" int p4t_corner_hop_bwd_scratch(int B, int H, int W, int h, long long* floats) {
+  *floats = h <= WIDE_ABOVE ? 0 : 4 + (long long)SCRATCH_ARRAYS * B * H * W * h;
+  return h <= wide::MAX_HP ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+}
+
 // C entry: out[10] = for the node pass, then the corner pass, that
-// p4t_corner_hop_bwd launches for width h: registers a thread, local
-// (spill) bytes a thread, dynamic shared memory bytes, resident blocks
-// an SM and cells a tile.
+// p4t_corner_hop_bwd launches for width h (the wide instance above WIDE_ABOVE):
+// registers a thread, local (spill) bytes a thread, dynamic shared
+// memory bytes, resident blocks an SM and cells a tile.
 extern "C" int p4t_corner_hop_bwd_attributes(int h, int* out) {
   if (h <= 32) return attributes<32>(out);
-  if (h <= 64) return attributes<64>(out);
+  if (h <= WIDE_ABOVE) return attributes<WIDE_ABOVE>(out);
+  if (h <= 128) return attributes_wide<128>(out);
+  if (h <= 256) return attributes_wide<256>(out);
+  if (h <= wide::MAX_HP) return attributes_wide<wide::MAX_HP>(out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -716,10 +1221,11 @@ extern "C" int p4t_corner_hop_bwd_attributes(int h, int* out) {
 // the vectors (h,)). Writes dpsg0..3 and dvd (B, H, W, h), and
 // dw = [dWf | dbf | dWd | dWo | dbo | dlns | dlnb | dNd0a | dNd0b | dnb0 |
 // dNd1 | dnb1 | dnlns | dnlnb] through `partial` (blocks x that size,
-// blocks from p4t_corner_hop_bwd_grid). dagg is (B, H, W, h) scratch
-// between the two passes. nlnb takes no part in the gradients. All
-// fp32, contiguous, on the current device; h <= 64 and ff <= 32 (the
-// caller checks). Returns the cudaError_t of the launches.
+// blocks from p4t_corner_hop_bwd_grid, then p4t_corner_hop_bwd_scratch's
+// floats). dagg is (B, H, W, h) scratch between the two passes. nlnb
+// takes no part in the gradients. All fp32, contiguous, on the current
+// device; h <= 512 (above WIDE_ABOVE the wide instance) and ff <= 32 (the caller
+// checks). Returns the cudaError_t of the launches.
 extern "C" int p4t_corner_hop_bwd(const float* psg0, const float* psg1, const float* psg2,
                                   const float* psg3, const float* vd, const float* feats,
                                   const float* wf, const float* bf, const float* wd,
@@ -742,6 +1248,12 @@ extern "C" int p4t_corner_hop_bwd(const float* psg0, const float* psg1, const fl
          mean, vec ? 1 : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (h <= 32) return launch<32>(a, dw, blocks, s);
-  if (h <= 64) return launch<64>(a, dw, blocks, s);
+  if (h <= WIDE_ABOVE) return launch<WIDE_ABOVE>(a, dw, blocks, s);
+  // the wide instance streams the weights by 16-byte copies when aligned
+  const int wvec = vec && aligned16(wd) && aligned16(wo) && aligned16(nd0a) &&
+                   aligned16(nd0b) && aligned16(nd1) ? 1 : 0;
+  if (h <= 128) return launch_wide<128>(a, dw, blocks, wvec, s);
+  if (h <= 256) return launch_wide<256>(a, dw, blocks, wvec, s);
+  if (h <= wide::MAX_HP) return launch_wide<wide::MAX_HP>(a, dw, blocks, wvec, s);
   return (int)cudaErrorInvalidValue;
 }

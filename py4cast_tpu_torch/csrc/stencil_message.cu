@@ -62,10 +62,26 @@
 // SM (launch bounds hold a thread to 128 registers); at HP = 128 one
 // block, 226 KB. Widths that are not multiples of 4 take plain loads in
 // place of the 128-bit ones.
+//
+// Wider (F or h from 129 to 512): stencil_message_fwd_wide, on
+// wide_rows.cuh (HP = 256 or 512; tiles of 32 or 8 rows, 4 cells or 1),
+// replaces py4cast_tpu/ops/stencil_kernel.py::_fwd_kernel (:52) at those
+// widths (at 129-256 the row tiles above would need 2 x 256 KB of weights).
+// What bounds it there: at h = 256 one h x h matrix is 256 KB, above the
+// 227 KB of a block, and the work per cell and direction (4 h^2 FMAs)
+// grows 16x over h = 64 while the bytes grow 4x: at the 125x125 level
+// ~8.4 GFLOP (0.13 ms at the fp32 peak) against ~300 MB (0.09 ms), so
+// operations. What the design does: the same steps (e @ We, pre, silu,
+// z @ Wo, the LayerNorm, out, agg) on row tiles of e and z in shared
+// memory, each product streaming its weight in chunks of 16 or 8 rows
+// (cp.async, double-buffered), never the whole matrix; agg is each
+// cell's 8 masked rows summed in direction order from the z tile once
+// the products are done (one barrier), so a call repeats bit for bit.
 
 #include <cstdint>
 
 #include "row_tiles.cuh"
+#include "wide_rows.cuh"
 
 namespace {
 
@@ -268,18 +284,168 @@ cudaError_t attributes(int* out) {
   return cudaSuccess;
 }
 
+// ------------------------------------------- wide rows (F or h > 128)
+template <int HP>
+struct WideShape {
+  using C = wide::Cfg<HP>;
+  static constexpr int CT = C::BM / 8;  // cells a tile
+  // e and z (then the masked e_new) row tiles; the weight chunks
+  static constexpr size_t smem_bytes = (2 * C::TILE + C::CHUNKS) * sizeof(float);
+  static_assert(smem_bytes <= 232448, "227 KB a block");
+};
+
+template <int HP>
+__global__ void __launch_bounds__(THREADS, 1) stencil_message_fwd_wide(Args a) {
+  using namespace p4t::wide;
+  using C = Cfg<HP>;
+  constexpr int TM = C::TM, CJ = C::CJ, CT = WideShape<HP>::CT;
+  const int F = a.F, h = a.h, H = a.H, W = a.W, HW = H * W;
+  const bool vec = a.vec != 0;
+  extern __shared__ __align__(16) float smem[];
+  float* s_e = smem;
+  float* s_z = s_e + C::TILE;
+  float* s_w = s_z + C::TILE;
+  const Lane<C> t;
+  const int r0 = TM * t.ty, k0 = r0 % 8;  // rows; first direction
+
+  // 8 * B * H * W < 2^31 (the host checks): cell and row numbers are ints
+  const int n_cells = a.B * HW;
+  const int n_tiles = (n_cells + CT - 1) / CT;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    __syncthreads();  // the last tile's readers of s_e and s_z are done
+    fill_tile<C>(
+        s_e,
+        [=](int r) -> const float* {
+          const int cell = tile * CT + r / 8;
+          if (cell >= n_cells) return nullptr;
+          const int b = cell / HW;
+          return a.e + (long long)((b * 8 + r % 8) * HW + (cell - b * HW)) * F;
+        },
+        F, vec, a.e);
+    const int cell = tile * CT + r0 / 8;
+    const bool valid = cell < n_cells;
+    const int b = valid ? cell / HW : 0, q = valid ? cell - b * HW : 0;
+    const int y = q / W, x = q - y * W;
+
+    // ---- pre = e @ We + be + vs + pd;  z = silu(pre) -> s_z
+    Frag<C> acc, in;
+    zero<C>(acc);
+    mm<C, false>(acc, s_e, t, a.we, F, h, vec, s_w);
+    zero<C>(in);
+    {
+      float pd[CJ][4], v[CJ][4];
+      load_vec<C>(v, a.be, t, h);
+      if (valid) {
+        load_row<C>(pd, a.pd + (long long)cell * h, t, h, vec);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int k = k0 + i;
+          const int ys = y - dir_di(k), xs = x - dir_dj(k);
+          if (ys >= 0 && ys < H && xs >= 0 && xs < W)
+            load_row<C>(in[i], a.ps + ((long long)b * HW + ys * W + xs) * h, t, h, vec);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) pd[j][0] = pd[j][1] = pd[j][2] = pd[j][3] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float p = acc[i][j][c] + (in[i][j][c] + (pd[j][c] + v[j][c]));
+            acc[i][j][c] = p * wide::sigmoid(p);
+          }
+    }
+    put<C>(s_z, t, acc);
+
+    // ---- e_new = LN(z @ Wo + bo) * lns + lnb;  out, and the masked e_new
+    zero<C>(acc);
+    mm<C, false>(acc, s_z, t, a.wo, h, h, vec, s_w);
+    {
+      float v[CJ][4], v2[CJ][4];
+      load_vec<C>(v, a.bo, t, h);
+      add_vec<C>(acc, v);
+      load_vec<C>(v, a.lns, t, h);
+      load_vec<C>(v2, a.lnb, t, h);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        ln_normalize<C>(acc[i], t, h);
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][j][c] = fmaf(acc[i][j][c], v[j][c], v2[j][c]);
+      }
+    }
+    if (a.residual) get<C>(in, s_e, t);  // this thread's own rows of e
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float m = valid ? a.mask[(k0 + i) * HW + q] : 0.f;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float en = acc[i][j][c];
+          acc[i][j][c] = a.residual ? en + in[i][j][c] : en;
+          in[i][j][c] = en * m;
+        }
+      if (valid)
+        store_row<C>(a.out + ((long long)(b * 8 + k0 + i) * HW + q) * h, t, h, vec, acc[i]);
+    }
+    // agg: each cell's 8 masked rows in direction order (s_z's readers
+    // passed the product's last barrier)
+    put<C>(s_z, t, in);
+    __syncthreads();
+    sum_directions<C>(a.agg, s_z, tile * CT, n_cells, h);
+  }
+}
+
+template <int HP>
+cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = WideShape<HP>::smem_bytes;
+  constexpr int CT = WideShape<HP>::CT;
+  int blocks = 0;
+  cudaError_t err = wide::persistent_grid(stencil_message_fwd_wide<HP>, smem,
+                                          ((long long)a.B * a.H * a.W + CT - 1) / CT, &blocks);
+  if (err != cudaSuccess) return err;
+  stencil_message_fwd_wide<HP><<<blocks, THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int HP>
+cudaError_t attributes_wide(int* out) {
+  return wide::kernel_attributes(stencil_message_fwd_wide<HP>, WideShape<HP>::smem_bytes,
+                                 wide::Cfg<HP>::BM, out);
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
+// The row-tile instances take widths up to WIDE_ABOVE; above it the wide
+// instance (wide_rows.cuh) takes them, up to wide::MAX_HP. Every ladder
+// below dispatches on it.
+constexpr int WIDE_ABOVE = 128;
+
+// C entry: 1 when p4t_stencil_message_fwd launches the wide instance for these
+// widths, 0 when a row-tile one does, -1 when no instance takes them.
+extern "C" int p4t_stencil_message_fwd_wide(int F, int h) {
+  const int width = F > h ? F : h;
+  return width > wide::MAX_HP ? -1 : width > WIDE_ABOVE ? 1 : 0;
+}
+
 // C entry: out[5] = registers a thread, local (spill) bytes a thread,
 // dynamic shared memory bytes, resident blocks an SM and rows a tile of
-// the kernel that p4t_stencil_message_fwd launches for widths F, h.
+// the kernel that p4t_stencil_message_fwd launches for widths F, h (the
+// wide instance above WIDE_ABOVE).
 extern "C" int p4t_stencil_message_fwd_attributes(int F, int h, int* out) {
   const int width = F > h ? F : h;
   if (width <= 32) return attributes<32>(out);
   if (width <= 64) return attributes<64>(out);
-  if (width <= 128) return attributes<128>(out);
+  if (width <= WIDE_ABOVE) return attributes<WIDE_ABOVE>(out);
+  if (width <= 256) return attributes_wide<256>(out);
+  if (width <= wide::MAX_HP) return attributes_wide<wide::MAX_HP>(out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -288,8 +454,8 @@ extern "C" int p4t_stencil_message_fwd_attributes(int F, int h, int* out) {
 // mask: (8, H, W, 1); we: (F, h); wo: (h, h); be, bo, lns, lnb: (h,).
 // The kernel shifts ps onto each cell itself (lattice_ops.shift2d for
 // each direction of DIRS8). All fp32, contiguous, on the current
-// device; F, h <= 128 (the caller checks). Returns the cudaError_t of
-// the launch.
+// device; F, h <= 512 (the caller checks; above WIDE_ABOVE the wide instance).
+// Returns the cudaError_t of the launch.
 extern "C" int p4t_stencil_message_fwd(const float* e, const float* ps, const float* pd,
                                        const float* mask, const float* we, const float* be,
                                        const float* wo, const float* bo, const float* lns,
@@ -304,6 +470,8 @@ extern "C" int p4t_stencil_message_fwd(const float* e, const float* ps, const fl
   const int width = F > h ? F : h;
   if (width <= 32) return launch<32>(a, s);
   if (width <= 64) return launch<64>(a, s);
-  if (width <= 128) return launch<128>(a, s);
+  if (width <= WIDE_ABOVE) return launch<WIDE_ABOVE>(a, s);
+  if (width <= 256) return launch_wide<256>(a, s);
+  if (width <= wide::MAX_HP) return launch_wide<wide::MAX_HP>(a, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -59,12 +59,32 @@
 // dWo patches (16 KB); its threads take ~170 registers, so one block of
 // 8 warps runs an SM (at 128 registers, for two blocks, ptxas spills).
 // At 128 the matrices and tiles alone would take 192 KB and the dWe
-// patches 64 registers a thread: the wrapper raises above 64
-// (ops/stencil_kernel.py::MAX_BWD_WIDTH).
+// patches 64 registers a thread, so these instances stop at 64.
+//
+// Wider (F or h from 65 to 512): stencil_message_bwd_wide, on
+// wide_rows.cuh (HP = 128, 256 or 512; tiles of 64, 32 or 8 rows),
+// replaces py4cast_tpu/ops/stencil_kernel.py::_bwd_kernel (:245) there. What
+// bounds it there: at h = 128 the two matrices and four tiles would take
+// 192 KB and the h x h gradient patches 64 registers a thread, at h = 256
+// one matrix alone is 256 KB and the patches 256 floats a thread; the
+// work (~12 h^2 FMA-pairs a row) makes it bound by operations (at the
+// 125x125 level, h = 256: ~25 GFLOP, 0.38 ms at the fp32 peak, against
+// ~0.6 GB, 0.18 ms). What the design does: the row steps (e @ We and z @
+// Wo recomputed, the LayerNorm and silu backward, dt @ Wo^T, dpre @ We^T)
+// run on four row tiles (e then g, z then g * xhat, dt, silu' then dpre),
+// each product streaming its weight in chunks; z and dt go to a scratch
+// array, and dWe = e^T dpre (dpre is dvs) and dWo = z^T dt are summed
+// after the walk by wide::xty_partials, one fp32 partial a block over a
+// slice of the rows; dbe, dbo, dlns and dlnb are per-tile column sums of
+// the tiles into one per-block sum. rt::sum_partials_by_warps adds the
+// partials; every sum runs in a fixed order, so a call repeats bit for
+// bit. The scratch (2 x 8 B H W h floats) follows the partials in
+// `partial` (p4t_stencil_message_bwd_scratch).
 
 #include <cstdint>
 
 #include "row_tiles.cuh"
+#include "wide_rows.cuh"
 
 namespace {
 
@@ -382,28 +402,278 @@ cudaError_t attributes(int* out) {
   return cudaSuccess;
 }
 
+// ------------------------------------------- wide rows (F or h > 64)
+template <int HP>
+struct WideShape {
+  using C = wide::Cfg<HP>;
+  static constexpr int CT = C::BM / 8;  // cells a tile
+  // e (then g), z (then g * xhat), dt, silu' (then dpre); the weight
+  // chunks; the block's dbe, dbo, dlns, dlnb
+  static constexpr size_t smem_bytes = (4 * C::TILE + C::CHUNKS + 4 * HP) * sizeof(float);
+  static_assert(smem_bytes <= 232448, "227 KB a block");
+};
+
+// The floats of one block's partial: dWe, dbe, dWo, dbo, dlns, dlnb.
+__host__ __device__ inline long long partial_floats(int F, int h) {
+  return (long long)F * h + (long long)h * h + 4 * h;
+}
+
+// Where the scratch begins in `partial`: after the blocks' partials, on a
+// 16-byte boundary.
+inline long long scratch_offset(int F, int h, int blocks) {
+  return (blocks * partial_floats(F, h) + 3) / 4 * 4;
+}
+
+template <int HP>
+__global__ void __launch_bounds__(THREADS, 1)
+    stencil_message_bwd_wide(Args a, float* z_rows, float* dt_rows, int wvec_flag) {
+  using namespace p4t::wide;
+  using C = Cfg<HP>;
+  constexpr int TM = C::TM, CJ = C::CJ, CT = WideShape<HP>::CT;
+  const int F = a.F, h = a.h, HW = a.HW;
+  const bool vec = a.vec != 0, wvec = wvec_flag != 0;
+  extern __shared__ __align__(16) float smem[];
+  float* s_e = smem;  // four [BM][LD] row tiles
+  float* s_z = s_e + C::TILE;
+  float* s_dt = s_z + C::TILE;
+  float* s_dp = s_dt + C::TILE;
+  float* s_w = s_dp + C::TILE;     // the weight chunks
+  float* s_sum = s_w + C::CHUNKS;  // [4][HP]: dbe, dbo, dlns, dlnb
+  for (int i = threadIdx.x; i < 4 * HP; i += THREADS) s_sum[i] = 0.f;
+  const Lane<C> t;
+  const int r0 = TM * t.ty, k0 = r0 % 8;  // rows; first direction
+
+  // 8 * B * H * W < 2^31 (the host checks): cell and row numbers are ints
+  const int n_cells = a.B * HW;
+  const int n_tiles = (n_cells + CT - 1) / CT;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    __syncthreads();  // the last tile's readers of every tile are done
+    fill_tile<C>(
+        s_e,
+        [=](int r) -> const float* {
+          const int cell = tile * CT + r / 8;
+          if (cell >= n_cells) return nullptr;
+          const int b = cell / HW;
+          return a.e + (long long)((b * 8 + r % 8) * HW + (cell - b * HW)) * F;
+        },
+        F, vec, a.e);
+    const int cell = tile * CT + r0 / 8;
+    const bool valid = cell < n_cells;
+    const int bq = valid ? cell / HW : 0, q = valid ? cell - bq * HW : 0;
+    const long long row0 = (long long)(bq * 8 + k0) * HW + q;  // direction k0; + i*HW
+
+    // ---- pre = e @ We + be + vs + pd;  z = silu(pre) -> s_z, scratch;
+    // silu'(pre) -> s_dp
+    Frag<C> acc, in;
+    zero<C>(acc);
+    mm<C, false>(acc, s_e, t, a.we, F, h, wvec, s_w);
+    zero<C>(in);
+    {
+      float pd[CJ][4], v[CJ][4];
+      load_vec<C>(v, a.be, t, h);
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) pd[j][0] = pd[j][1] = pd[j][2] = pd[j][3] = 0.f;
+      if (valid) {
+        load_row<C>(pd, a.pd + (long long)cell * h, t, h, vec);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) load_row<C>(in[i], a.vs + (row0 + i * HW) * h, t, h, vec);
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float p = acc[i][j][c] + (in[i][j][c] + (pd[j][c] + v[j][c]));
+            const float sg = wide::sigmoid(p);
+            in[i][j][c] = sg * (1.f + p * (1.f - sg));
+            acc[i][j][c] = p * sg;
+          }
+    }
+    put<C>(s_z, t, acc);
+    put<C>(s_dp, t, in);
+    if (valid) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) store_row<C>(z_rows + (row0 + i * HW) * h, t, h, vec, acc[i]);
+    }
+
+    // ---- t = z @ Wo + bo -> xhat;  g = g_out + g_agg * mask;  dt through
+    // the LayerNorm -> s_dt, scratch; g -> s_e, g * xhat -> s_z
+    zero<C>(acc);
+    mm<C, false>(acc, s_z, t, a.wo, h, h, wvec, s_w);
+    float inv[TM];
+    {
+      float v[CJ][4];
+      load_vec<C>(v, a.bo, t, h);
+      add_vec<C>(acc, v);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) inv[i] = ln_normalize<C>(acc[i], t, h);  // acc = xhat
+      zero<C>(in);
+      if (valid) {
+        load_row<C>(v, a.g_agg + (long long)cell * h, t, h, vec);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float m = a.mask[(long long)(k0 + i) * HW + q];
+          load_row<C>(in[i], a.g_out + (row0 + i * HW) * h, t, h, vec);
+#pragma unroll
+          for (int j = 0; j < CJ; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) in[i][j][c] = fmaf(v[j][c], m, in[i][j][c]);
+        }
+      }
+      // the products' last barrier: s_e's and s_z's readers are done
+      put<C>(s_e, t, in);
+      put_product<C>(s_z, t, in, acc);
+      load_vec<C>(v, a.lns, t, h);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) ln_backward<C>(in[i], acc[i], inv[i], v, t, h);  // in = dt
+    }
+    put<C>(s_dt, t, in);
+    if (valid) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) store_row<C>(dt_rows + (row0 + i * HW) * h, t, h, vec, in[i]);
+    }
+
+    // ---- dpre = (dt @ Wo^T) * silu'(pre) -> dvs, s_dp
+    zero<C>(acc);
+    mm<C, true>(acc, s_dt, t, a.wo, h, h, wvec, s_w);
+    get<C>(in, s_dp, t);  // silu'(pre): this thread's own
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] *= in[i][j][c];
+      if (valid) store_row<C>(a.dvs + (row0 + i * HW) * h, t, h, vec, acc[i]);
+    }
+    put<C>(s_dp, t, acc);  // over this thread's own silu'
+
+    // ---- de = dpre @ We^T (+ g_out)
+    zero<C>(acc);
+    mm<C, true>(acc, s_dp, t, a.we, h, F, wvec, s_w);
+    if (valid) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        if (a.residual) {
+          load_row<C>(in[i], a.g_out + (row0 + i * HW) * h, t, h, vec);
+#pragma unroll
+          for (int j = 0; j < CJ; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[i][j][c] += in[i][j][c];
+        }
+        store_row<C>(a.de + (row0 + i * HW) * F, t, F, vec, acc[i]);
+      }
+    }
+
+    // ---- the tile's shares of dbe, dbo, dlns, dlnb; dpd = sum_k dpre
+    // (every tile complete: the last product's barriers)
+    add_colsums<C>(s_sum, s_dp);
+    add_colsums<C>(s_sum + HP, s_dt);
+    add_colsums<C>(s_sum + 2 * HP, s_z);
+    add_colsums<C>(s_sum + 3 * HP, s_e);
+    sum_directions<C>(a.dpd, s_dp, tile * CT, n_cells, h);
+  }
+
+  // this block's vector gradients (dbe sits before dWo, the other three
+  // after it); the matrices come from xty_partials
+  __syncthreads();
+  float* out = a.partial + (long long)blockIdx.x * partial_floats(F, h);
+  for (int i = threadIdx.x; i < 4 * h; i += THREADS) {
+    const int v = i / h, c = i % h;
+    out[v == 0 ? F * h + c : F * h + h + h * h + (v - 1) * h + c] = s_sum[v * HP + c];
+  }
+}
+
+template <int HP>
+cudaError_t grid_wide(int B, int HW, int* blocks) {
+  constexpr int CT = WideShape<HP>::CT;
+  return wide::persistent_grid(stencil_message_bwd_wide<HP>, WideShape<HP>::smem_bytes,
+                               ((long long)B * HW + CT - 1) / CT, blocks);
+}
+
+template <int HP>
+cudaError_t launch_wide(const Args& a, float* dw, int blocks, int wvec, cudaStream_t stream) {
+  constexpr size_t smem = WideShape<HP>::smem_bytes;
+  cudaError_t err = cudaFuncSetAttribute(stencil_message_bwd_wide<HP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int F = a.F, h = a.h;
+  const long long rows = 8ll * a.B * a.HW, total = partial_floats(F, h);
+  float* z_rows = a.partial + scratch_offset(F, h, blocks);
+  float* dt_rows = z_rows + rows * h;
+  stencil_message_bwd_wide<HP><<<blocks, THREADS, smem, stream>>>(a, z_rows, dt_rows, wvec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // dWe = e^T dpre (dpre is dvs), dWo = z^T dt, one partial a block
+  err = wide::launch_xty({a.e, a.e, a.e, a.e, a.dvs, a.dvs, a.dvs, a.dvs, rows, rows, 1, F, h,
+                          a.partial, total, 0},
+                         blocks, stream);
+  if (err != cudaSuccess) return err;
+  err = wide::launch_xty({z_rows, z_rows, z_rows, z_rows, dt_rows, dt_rows, dt_rows, dt_rows,
+                          rows, rows, 1, h, h, a.partial, total, (long long)F * h + h},
+                         blocks, stream);
+  if (err != cudaSuccess) return err;
+  return launch_sum_partials_by_warps(a.partial, dw, (int)total, blocks, stream);
+}
+
+template <int HP>
+cudaError_t attributes_wide(int* out) {
+  return wide::kernel_attributes(stencil_message_bwd_wide<HP>, WideShape<HP>::smem_bytes,
+                                 wide::Cfg<HP>::BM, out);
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
+// The row-tile instances take widths up to WIDE_ABOVE; above it the wide
+// instance (wide_rows.cuh) takes them, up to wide::MAX_HP. Every ladder
+// below dispatches on it.
+constexpr int WIDE_ABOVE = 64;
+
+// C entry: 1 when p4t_stencil_message_bwd launches the wide instance for these
+// widths, 0 when a row-tile one does, -1 when no instance takes them.
+extern "C" int p4t_stencil_message_bwd_wide(int F, int h) {
+  const int width = F > h ? F : h;
+  return width > wide::MAX_HP ? -1 : width > WIDE_ABOVE ? 1 : 0;
+}
+
 // C entry: the number of blocks p4t_stencil_message_bwd launches for
 // these sizes (its partial buffer holds that many (F*h + h*h + 4h)-float
-// partials). F, h <= 64. Returns a cudaError_t.
+// partials, and the scratch p4t_stencil_message_bwd_scratch gives). F,
+// h <= 512. Returns a cudaError_t.
 extern "C" int p4t_stencil_message_bwd_grid(int B, int H, int W, int F, int h, int* blocks) {
   if ((long long)B * H * W * 8 >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   const int width = F > h ? F : h;
   if (width <= 32) return grid<32>(B, H * W, blocks);
-  if (width <= 64) return grid<64>(B, H * W, blocks);
+  if (width <= WIDE_ABOVE) return grid<WIDE_ABOVE>(B, H * W, blocks);
+  if (width <= 128) return grid_wide<128>(B, H * W, blocks);
+  if (width <= 256) return grid_wide<256>(B, H * W, blocks);
+  if (width <= wide::MAX_HP) return grid_wide<wide::MAX_HP>(B, H * W, blocks);
   return (int)cudaErrorInvalidValue;
+}
+
+// C entry: *floats = what `partial` holds beyond the blocks' partials for
+// these sizes: 0 up to WIDE_ABOVE; above it the wide instance's z and dt
+// rows (2 x 8 B H W h floats) and 4 floats of alignment.
+extern "C" int p4t_stencil_message_bwd_scratch(int B, int H, int W, int F, int h,
+                                               long long* floats) {
+  const int width = F > h ? F : h;
+  *floats = width <= WIDE_ABOVE ? 0 : 4 + 2 * 8ll * B * H * W * h;
+  return width <= wide::MAX_HP ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
 // C entry: out[5] = registers a thread, local (spill) bytes a thread,
 // dynamic shared memory bytes, resident blocks an SM and rows a tile of
-// the kernel that p4t_stencil_message_bwd launches for widths F, h.
+// the kernel that p4t_stencil_message_bwd launches for widths F, h (the
+// wide instance above WIDE_ABOVE).
 extern "C" int p4t_stencil_message_bwd_attributes(int F, int h, int* out) {
   const int width = F > h ? F : h;
   if (width <= 32) return attributes<32>(out);
-  if (width <= 64) return attributes<64>(out);
+  if (width <= WIDE_ABOVE) return attributes<WIDE_ABOVE>(out);
+  if (width <= 128) return attributes_wide<128>(out);
+  if (width <= 256) return attributes_wide<256>(out);
+  if (width <= wide::MAX_HP) return attributes_wide<wide::MAX_HP>(out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -413,9 +683,10 @@ extern "C" int p4t_stencil_message_bwd_attributes(int F, int h, int* out) {
 // plus g_out (B, 8, H, W, h) and g_agg (B, H, W, h). Writes de, dvs,
 // dpd, and dw = [dWe | dbe | dWo | dbo | dlns | dlnb] (F*h + h*h + 4h
 // floats) through `partial` (blocks x that size, blocks from
-// p4t_stencil_message_bwd_grid). lnb takes no part in the gradients.
-// All fp32, contiguous, on the current device; F, h <= 64 (the caller
-// checks). Returns the cudaError_t of the launches.
+// p4t_stencil_message_bwd_grid, then p4t_stencil_message_bwd_scratch's
+// floats). lnb takes no part in the gradients. All fp32, contiguous, on
+// the current device; F, h <= 512 (the caller checks; above WIDE_ABOVE the
+// wide instance). Returns the cudaError_t of the launches.
 extern "C" int p4t_stencil_message_bwd(const float* e, const float* vs, const float* pd,
                                        const float* mask, const float* we, const float* be,
                                        const float* wo, const float* bo, const float* lns,
@@ -432,6 +703,11 @@ extern "C" int p4t_stencil_message_bwd(const float* e, const float* vs, const fl
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int width = F > h ? F : h;
   if (width <= 32) return launch<32>(a, dw, blocks, s);
-  if (width <= 64) return launch<64>(a, dw, blocks, s);
+  if (width <= WIDE_ABOVE) return launch<WIDE_ABOVE>(a, dw, blocks, s);
+  // the wide instance streams We and Wo by 16-byte copies when aligned
+  const int wvec = vec && aligned16(we) && aligned16(wo) ? 1 : 0;
+  if (width <= 128) return launch_wide<128>(a, dw, blocks, wvec, s);
+  if (width <= 256) return launch_wide<256>(a, dw, blocks, wvec, s);
+  if (width <= wide::MAX_HP) return launch_wide<wide::MAX_HP>(a, dw, blocks, wvec, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,9 +5,11 @@ shared library, compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``build/torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``). The file name carries a hash of the source and the
 flags, so an edited source is rebuilt and a stale library is never
-loaded. ``build_all`` starts one ``nvcc`` per source, all at once.
-``build`` is the step both compilers go through: ``nvcc`` here, the
-host C++ compiler for the npy batch reader (``native.py``).
+loaded. ``build_all`` starts one ``nvcc`` per source, all at once; each
+compile reports ptxas's registers and spills (``-Xptxas -v``), kept
+beside the library (``ptxas_report``). ``build`` is the step both
+compilers go through: ``nvcc`` here, the host C++ compiler for the npy
+batch reader (``native.py``).
 
 Nothing here runs when the package is imported, and nothing falls back:
 a missing compiler or a failed build raises.
@@ -30,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: the kernels of the model paths; ``load`` also builds any other source
 #: of csrc/ (the card tests' row_tiles_probe)
@@ -74,7 +76,8 @@ def build(jobs: Sequence[Tuple[str, Sequence[str], Path, Path]], what: str) -> N
     """Compile each ``(label, compiler_and_flags, source, library)`` job
     whose library is missing, all started together, as
     ``compiler_and_flags -o <tmp> source``. Each writes under a private
-    name, renamed to ``library`` when it succeeds, so that a concurrent
+    name, renamed to ``library`` when it succeeds (the compiler's output
+    first, to ``library`` with the suffix ``.log``), so that a concurrent
     build or reader never sees half a file. Raises ``RuntimeError``
     naming ``what`` and each failed job, with its compiler's output."""
     procs, failures = [], []
@@ -97,6 +100,9 @@ def build(jobs: Sequence[Tuple[str, Sequence[str], Path, Path]], what: str) -> N
             failures.append((f"{label} ({' '.join(full)}: exit {proc.returncode})",
                              log.decode(errors="replace")))
         else:
+            log_tmp = tmp.with_suffix(".log")
+            log_tmp.write_bytes(log)
+            os.replace(log_tmp, lib.with_suffix(".log"))
             os.replace(tmp, lib)
     if failures:
         raise RuntimeError(f"{what} failed to build: "
@@ -116,19 +122,11 @@ def build_all(names=SOURCES) -> List[Path]:
 
 
 def ptxas_report(name: str) -> str:
-    """What ptxas says of the kernels of ``csrc/<name>.cu`` (``-Xptxas
-    -v``: each kernel's registers, stack, spill stores and loads). Builds
-    the source once more into a scratch library, deleted after."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"ptxas_{name}.tmp{os.getpid()}.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(CSRC / f"{name}.cu")]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    finally:
-        out.unlink(missing_ok=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v {name}.cu failed:\n{proc.stdout}{proc.stderr}")
-    return proc.stdout + proc.stderr
+    """What ptxas said of the kernels of ``csrc/<name>.cu`` when its
+    library was built (``-Xptxas -v``: each kernel's registers, stack,
+    spill stores and loads); builds it first if needed."""
+    (path,) = build_all((name,))
+    return path.with_suffix(".log").read_text(errors="replace")
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -178,3 +176,20 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
     if status != 0:
         msg = lib.p4t_error_string(status).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def wide_instance(lib: ctypes.CDLL, entry: str, what: str, *widths: int) -> bool:
+    """Whether the kernel launches its wide instance (``csrc/wide_rows.cuh``)
+    for these widths, as its C entry ``entry`` (``p4t_<kernel>_wide``)
+    says from the dispatch's own threshold. Raises ValueError when no
+    instance on the card takes them (the plain versions, on the CPU, take
+    any width)."""
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:  # first use: declare the C signature
+        fn.argtypes = [ctypes.c_int] * len(widths)
+        fn.restype = ctypes.c_int
+    wide = fn(*widths)
+    if wide < 0:
+        raise ValueError(f"{what}: no kernel instance on the card takes widths {widths} "
+                         "(past csrc/wide_rows.cuh's MAX_HP; the CPU takes any)")
+    return wide == 1

@@ -27,6 +27,14 @@ they run ``corner_hop_plain`` and ``corner_hop_bwd_plain``, which are
 also what the kernels are held against on the card. Models call
 ``CornerHopFn``, whose backward is the backward kernel.
 
+Any width runs: on the CPU the plain versions take every width, and on
+the card the kernels take widths up to 512, each through its row-tile
+(and, forward, warp-row) instances up to its source's ``WIDE_ABOVE`` (96
+forward, 64 backward) and through the wide instance of
+``csrc/wide_rows.cuh`` above it; the C entry ``p4t_<kernel>_wide`` says
+which one a launch takes, and ``launches_wide`` counts those on the wide
+instance.
+
 Each wrapper checks its arguments, casts them to fp32 and calls a
 ``torch.library`` custom op (``p4t::corner_hop_fwd``,
 ``p4t::corner_hop_bwd``): its CPU implementation is the plain version,
@@ -49,16 +57,7 @@ from py4cast_tpu_torch.ops import _build
 from py4cast_tpu_torch.ops.lattice_ops import sep_aggregate, sep_take_mm_vjp
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
-#: the forward's warp-row instance (65 <= h <= 96) holds the five h x h
-#: weight matrices at their true width in the 227 KB of shared memory a
-#: block may use: 96 is the largest width (a multiple of 32) that fits
-MAX_WIDTH = 96
 MAX_FEATS = 32
-#: the backward's node pass holds the five h x h weight matrices, five
-#: row tiles of its cells and three h x h weight-gradient patch sets in
-#: one block's shared memory (223 KB at h=64); at 96 the weights and
-#: tiles alone would take ~300 KB, so the backward stops at 64
-MAX_BWD_WIDTH = 64
 
 
 def gather_corners(ps, rows, cols):
@@ -192,6 +191,9 @@ def _bwd_lib():
         grid = lib.p4t_corner_hop_bwd_grid
         grid.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         grid.restype = ctypes.c_int
+        scratch = lib.p4t_corner_hop_bwd_scratch
+        scratch.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+        scratch.restype = ctypes.c_int
         attrs = lib.p4t_corner_hop_bwd_attributes
         attrs.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         attrs.restype = ctypes.c_int
@@ -204,9 +206,10 @@ _ATTRIBUTE_KEYS = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "t
 def fwd_kernel_attributes(h) -> dict:
     """The forward kernel that width ``h`` launches, as the card reports
     it: registers a thread, local (spill) bytes a thread, dynamic shared
-    memory, resident blocks an SM, and the cells of a tile (for h > 64,
-    the warp-row instance: its shared memory at 32 corner features, and
-    the cells a block takes at once). Needs the card."""
+    memory, resident blocks an SM, and the cells of a tile (for 64 < h
+    <= 96, the warp-row instance: its shared memory at 32 corner
+    features, and the cells a block takes at once; above 96, the wide
+    instance). Needs the card."""
     lib = _lib()
     out = (ctypes.c_int * 5)()
     _build.check(lib, lib.p4t_corner_hop_fwd_attributes(h, out), "corner_hop attributes")
@@ -215,9 +218,10 @@ def fwd_kernel_attributes(h) -> dict:
 
 def bwd_kernel_attributes(h) -> dict:
     """The two backward kernels that width ``h`` launches, the node pass
-    and the corner pass, as the card reports them: registers a thread,
-    local (spill) bytes a thread, dynamic shared memory, resident blocks
-    an SM, and the cells of a tile. Needs the card."""
+    and the corner pass (above width 64, the wide instance's),
+    as the card reports them: registers a thread, local (spill) bytes a
+    thread, dynamic shared memory, resident blocks an SM, and the cells
+    of a tile. Needs the card."""
     lib = _bwd_lib()
     out = (ctypes.c_int * 10)()
     _build.check(lib, lib.p4t_corner_hop_bwd_attributes(h, out), "corner_hop_bwd attributes")
@@ -226,9 +230,11 @@ def bwd_kernel_attributes(h) -> dict:
 
 
 def _validate(what, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
-              nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, max_width, extra):
+              nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, extra):
     """The checks the forward and the backward wrapper share, and theirs
-    (``extra``: name -> (tensor, expected shape)); returns the device."""
+    (``extra``: name -> (tensor, expected shape)); returns the device.
+    Any hidden width passes: the card's limit is checked where the kernel
+    launches."""
     b, hr, w, h = vd.shape
     ff = feats.shape[-1]
     shapes = {
@@ -241,11 +247,8 @@ def _validate(what, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
         "nlns": (nlns, (h,)), "nlnb": (nlnb, (h,)),
     }
     device = _build.validate(what, shapes)
-    if h > max_width or ff > MAX_FEATS:
-        raise ValueError(
-            f"{what} supports hidden width up to {max_width} and up "
-            f"to {MAX_FEATS} corner features, got {h} and {ff}"
-        )
+    if ff > MAX_FEATS:
+        raise ValueError(f"{what} supports up to {MAX_FEATS} corner features, got {ff}")
     return device
 
 
@@ -276,7 +279,8 @@ def fused_corner_hop(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
     grid states; feats: (4, H, W, ff) static corner features. wf: (ff, h),
     wd/wo/nd0a/nd0b/nd1: (h, h) — Dense kernels in (in, out) layout,
     nd0a/nd0b the node MLP's first kernel split at the [v_dst, agg]
-    concat; the rest (h,). h at most 96, ff at most 32, everything but
+    concat; the rest (h,). Any h (on the card at most 512), ff at most
+    32, everything but
     the maps fp32 or bf16, all contiguous: bf16 is cast to fp32 at the
     boundary and v_out rounded to vd's dtype, as the TPU kernel rounds
     it. The output carries no gradient: differentiate through
@@ -286,7 +290,7 @@ def fused_corner_hop(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
     ff = feats.shape[-1]
     hc, wc = ps.shape[1:3] if ps.dim() == 4 else (-1, -1)
     device = _validate("fused_corner_hop", vd, feats, wf, bf, wd, wo, bo, lns, lnb,
-                       nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, MAX_WIDTH,
+                       nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb,
                        {"ps": (ps, (b, hc, wc, h))})
     _validate_maps("fused_corner_hop", rows, cols, hr, w, device)
     return corner_hop_fwd(
@@ -297,8 +301,9 @@ def fused_corner_hop(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
 
 
 #: kernel launches since the last reset (a CPU call runs the plain
-#: version and does not count)
+#: version and does not count), and those of them on the wide instance
 fused_corner_hop.launches = 0
+fused_corner_hop.launches_wide = 0
 
 
 @torch.library.custom_op("p4t::corner_hop_fwd", mutates_args=(), device_types="cpu")
@@ -323,9 +328,10 @@ def _corner_hop_fwd_cuda(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb
     b, hr, w, h = vd.shape
     hc, wc = ps.shape[1:3]
     ff = feats.shape[-1]
+    lib = _lib()
+    wide = _build.wide_instance(lib, "p4t_corner_hop_fwd_wide", "fused_corner_hop", h)
     device = vd.device
     out = torch.empty((b, hr, w, h), device=device, dtype=torch.float32)
-    lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.p4t_corner_hop_fwd(
@@ -338,6 +344,7 @@ def _corner_hop_fwd_cuda(ps, rows, cols, vd, feats, wf, bf, wd, wo, bo, lns, lnb
         )
     _build.check(lib, status, "corner_hop kernel")
     fused_corner_hop.launches += 1
+    fused_corner_hop.launches_wide += wide
     return out
 
 
@@ -352,9 +359,10 @@ def fused_corner_hop_bwd(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
     v_out: the 19 gradients of ``corner_hop_bwd_plain``, in its order.
     The forward's arguments and checks, with the four gathered corner
     upsamples psg, (B, H, W, h) each (``gather_corners``), in place of
-    ps and the maps; h at most 64 (``MAX_BWD_WIDTH``). bf16 is cast to
-    fp32 at the boundary; the dpsg_k are rounded to the dtype of the
-    psg_k and dvd to vd's, as the TPU kernel rounds them, and the weight
+    ps and the maps; on the card the wide instance above width 64. bf16
+    is cast to fp32 at the boundary; the dpsg_k
+    are rounded to the dtype of the psg_k and dvd to vd's, as the TPU
+    kernel rounds them, and the weight
     gradients stay fp32 (``CornerHopFn`` casts them to each weight's
     dtype). They are summed in a fixed order, so a call repeats bit for
     bit."""
@@ -365,7 +373,7 @@ def fused_corner_hop_bwd(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
     extra = {f"psg{k}": (p, (b, hr, w, h)) for k, p in enumerate(psg)}
     extra["g"] = (g, (b, hr, w, h))
     _validate("fused_corner_hop_bwd", vd, feats, wf, bf, wd, wo, bo, lns,
-              lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, MAX_BWD_WIDTH, extra)
+              lnb, nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, extra)
     dtypes = (*(p.dtype for p in psg), vd.dtype)
     *grads, dw = corner_hop_bwd(
         *(t.float() for t in (*psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
@@ -379,8 +387,9 @@ def fused_corner_hop_bwd(psg, vd, feats, wf, bf, wd, wo, bo, lns, lnb,
 
 
 #: kernel launches since the last reset (a CPU call runs the plain
-#: version and does not count)
+#: version and does not count), and those of them on the wide instance
 fused_corner_hop_bwd.launches = 0
+fused_corner_hop_bwd.launches_wide = 0
 
 
 def _dw_sizes(ff, h) -> tuple:
@@ -416,20 +425,26 @@ def _corner_hop_bwd_cuda(psg0, psg1, psg2, psg3, vd, feats, wf, bf, wd, wo, bo, 
                          nd0a, nd0b, nb0, nd1, nb1, nlns, nlnb, g, mean):
     b, hr, w, h = vd.shape
     ff = feats.shape[-1]
+    lib = _bwd_lib()
+    wide = _build.wide_instance(lib, "p4t_corner_hop_bwd_wide", "fused_corner_hop_bwd", h)
     device = vd.device
     psg = (psg0, psg1, psg2, psg3)
     dpsg = [torch.empty_like(vd) for _ in range(4)]
     dvd = torch.empty_like(vd)
     dagg = torch.empty_like(vd)  # scratch: the node pass's dagg for the corner pass
     dw = torch.empty(sum(_dw_sizes(ff, h)), device=device, dtype=torch.float32)
-    lib = _bwd_lib()
     with torch.cuda.device(device):
         blocks = ctypes.c_int(0)
         _build.check(lib, lib.p4t_corner_hop_bwd_grid(b, hr, w, h, ff, ctypes.byref(blocks)),
                      "corner_hop_bwd grid")
+        scratch = ctypes.c_longlong(0)
+        _build.check(lib, lib.p4t_corner_hop_bwd_scratch(b, hr, w, h, ctypes.byref(scratch)),
+                     "corner_hop_bwd scratch")
         # one fp32 partial of every weight gradient per block, summed by
-        # a second kernel in a fixed order
-        partial = torch.empty(blocks.value * dw.numel(), device=device, dtype=torch.float32)
+        # a second kernel in a fixed order; then the wide instance's
+        # scratch rows (none below it)
+        partial = torch.empty(blocks.value * dw.numel() + scratch.value, device=device,
+                              dtype=torch.float32)
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.p4t_corner_hop_bwd(
             *(p.data_ptr() for p in psg), vd.data_ptr(), feats.data_ptr(),
@@ -442,6 +457,7 @@ def _corner_hop_bwd_cuda(psg0, psg1, psg2, psg3, vd, feats, wf, bf, wd, wo, bo, 
         )
     _build.check(lib, status, "corner_hop_bwd kernel")
     fused_corner_hop_bwd.launches += 1
+    fused_corner_hop_bwd.launches_wide += wide
     return (*dpsg, dvd, dw)
 
 

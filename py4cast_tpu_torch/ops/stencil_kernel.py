@@ -22,6 +22,13 @@ launch their kernel or raise; on a CPU tensor they run
 also what the kernels are held against on the card. Models call
 ``StencilMessageFn``, whose backward is the backward kernel.
 
+Any width runs: on the CPU the plain versions take every width, and on
+the card the kernels take widths up to 512, each through row-tile
+instances up to its source's ``WIDE_ABOVE`` (128 forward, 64 backward)
+and through the wide instance of ``csrc/wide_rows.cuh`` above it; the C
+entry ``p4t_<kernel>_wide`` says which one a launch takes, and
+``launches_wide`` counts those on the wide instance.
+
 Each wrapper checks its arguments, casts them to fp32 and calls a
 ``torch.library`` custom op (``p4t::stencil_message_fwd``,
 ``p4t::stencil_message_bwd``): its CPU implementation is the plain
@@ -44,11 +51,6 @@ from py4cast_tpu_torch.ops import _build
 from py4cast_tpu_torch.ops.lattice_ops import stack_shifts, unshift_sum
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
-MAX_WIDTH = 128
-#: the backward kernel keeps both weight matrices, four row tiles and the
-#: dWo patches in one block's shared memory, and the dWe patches in
-#: registers: 64 is the widest it takes
-MAX_BWD_WIDTH = 64
 
 
 def stencil_message_plain(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual=False):
@@ -125,6 +127,9 @@ def _bwd_lib():
         grid = lib.p4t_stencil_message_bwd_grid
         grid.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         grid.restype = ctypes.c_int
+        scratch = lib.p4t_stencil_message_bwd_scratch
+        scratch.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        scratch.restype = ctypes.c_int
         attrs = lib.p4t_stencil_message_bwd_attributes
         attrs.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
         attrs.restype = ctypes.c_int
@@ -139,21 +144,23 @@ def _attributes(lib, entry, f_in, h) -> dict:
 
 
 def fwd_kernel_attributes(f_in, h) -> dict:
-    """The forward kernel that widths ``(f_in, h)`` launch, as the card
-    reports it: registers a thread, local (spill) bytes a thread, dynamic
-    shared memory, resident blocks an SM, and the rows of its tile.
-    Needs the card."""
+    """The forward kernel that widths ``(f_in, h)`` launch (the wide
+    instance above 128), as the card reports it: registers
+    a thread, local (spill) bytes a thread, dynamic shared memory,
+    resident blocks an SM, and the rows of its tile. Needs the card."""
     return _attributes(_lib(), "p4t_stencil_message_fwd_attributes", f_in, h)
 
 
 def bwd_kernel_attributes(f_in, h) -> dict:
-    """The backward kernel's, as ``fwd_kernel_attributes``."""
+    """The backward kernel's, as ``fwd_kernel_attributes`` (the wide
+    instance above 64: its fused pass)."""
     return _attributes(_bwd_lib(), "p4t_stencil_message_bwd_attributes", f_in, h)
 
 
-def _validate(what, e, pd, mask, we, be, wo, bo, lns, lnb, residual, max_width, extra):
+def _validate(what, e, pd, mask, we, be, wo, bo, lns, lnb, residual, extra):
     """The checks the forward and the backward wrapper share, and theirs
-    (``extra``: name -> (tensor, expected shape))."""
+    (``extra``: name -> (tensor, expected shape)). Any width passes: the
+    card's limit is checked where the kernel launches."""
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
     shapes = {
@@ -163,11 +170,6 @@ def _validate(what, e, pd, mask, we, be, wo, bo, lns, lnb, residual, max_width, 
         "bo": (bo, (h,)), "lns": (lns, (h,)), "lnb": (lnb, (h,)),
     }
     _build.validate(what, shapes)
-    if f_in > max_width or h > max_width:
-        raise ValueError(
-            f"{what} supports widths up to {max_width}, got "
-            f"edge features {f_in} and hidden {h}"
-        )
     if residual and f_in != h:
         raise ValueError(
             "residual fold requires edge features == hidden width, got "
@@ -183,7 +185,8 @@ def fused_stencil_message(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual=Fa
     cell for each direction (``lattice_ops.stack_shifts``, 0 off the
     lattice); pd: (B, H, W, h) destination projection; mask: (8, H, W, 1) edge
     existence. we: (F, h), wo: (h, h) — Dense kernels in (in, out)
-    layout; be, bo, lns, lnb: (h,). F and h at most 128, everything
+    layout; be, bo, lns, lnb: (h,). Any F and h (on the card at most
+    512), everything
     fp32 or bf16 and contiguous: bf16 is cast to fp32 at the boundary,
     and both outputs are rounded to e's dtype, as the TPU kernel rounds
     them. ``residual`` returns ``e + e_new`` as the first output (needs
@@ -193,7 +196,7 @@ def fused_stencil_message(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual=Fa
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
     _validate("fused_stencil_message", e, pd, mask, we, be, wo, bo, lns, lnb,
-              residual, MAX_WIDTH, {"ps": (ps, (b, hr, w, h))})
+              residual, {"ps": (ps, (b, hr, w, h))})
     dtype = e.dtype
     out, agg = stencil_message_fwd(
         *(t.float() for t in (e, ps, pd, mask, we, be, wo, bo, lns, lnb)), bool(residual))
@@ -201,8 +204,9 @@ def fused_stencil_message(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual=Fa
 
 
 #: kernel launches since the last reset (a CPU call runs the plain
-#: version and does not count)
+#: version and does not count), and those of them on the wide instance
 fused_stencil_message.launches = 0
+fused_stencil_message.launches_wide = 0
 
 
 @torch.library.custom_op("p4t::stencil_message_fwd", mutates_args=(), device_types="cpu")
@@ -221,10 +225,12 @@ def stencil_message_fwd(e: torch.Tensor, ps: torch.Tensor, pd: torch.Tensor,
 def _stencil_message_fwd_cuda(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residual):
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
+    lib = _lib()
+    wide = _build.wide_instance(lib, "p4t_stencil_message_fwd_wide", "fused_stencil_message",
+                                f_in, h)
     device = e.device
     out = torch.empty((b, 8, hr, w, h), device=device, dtype=torch.float32)
     agg = torch.empty((b, hr, w, h), device=device, dtype=torch.float32)
-    lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.p4t_stencil_message_fwd(
@@ -235,6 +241,7 @@ def _stencil_message_fwd_cuda(e, ps, pd, mask, we, be, wo, bo, lns, lnb, residua
         )
     _build.check(lib, status, "stencil_message kernel")
     fused_stencil_message.launches += 1
+    fused_stencil_message.launches_wide += wide
     return out, agg
 
 
@@ -250,8 +257,8 @@ def fused_stencil_message_bwd(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
     """The stencil message's backward: ``(de, dvs, dpd, dwe, dbe, dwo,
     dbo, dlns, dlnb)`` for the cotangents g_out (B, 8, H, W, h) of out
     and g_agg (B, H, W, h) of agg. The forward's arguments and checks,
-    with vs = ``stack_shifts(ps)`` (B, 8, H, W, h) in place of ps; F and h
-    at most 64 (``MAX_BWD_WIDTH``). bf16 is cast to fp32 at the
+    with vs = ``stack_shifts(ps)`` (B, 8, H, W, h) in place of ps; on the
+    card the wide instance above width 64. bf16 is cast to fp32 at the
     boundary; de, dvs and dpd are rounded to the dtypes of e, vs and pd,
     as the TPU kernel rounds them, and the weight gradients stay fp32
     (``StencilMessageFn`` casts them to each weight's dtype). They are
@@ -259,8 +266,7 @@ def fused_stencil_message_bwd(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
     _validate(
-        "fused_stencil_message_bwd", e, pd, mask, we, be, wo, bo, lns, lnb,
-        residual, MAX_BWD_WIDTH,
+        "fused_stencil_message_bwd", e, pd, mask, we, be, wo, bo, lns, lnb, residual,
         {"vs": (vs, (b, 8, hr, w, h)), "g_out": (g_out, (b, 8, hr, w, h)),
          "g_agg": (g_agg, (b, hr, w, h))},
     )
@@ -274,8 +280,9 @@ def fused_stencil_message_bwd(e, vs, pd, mask, we, be, wo, bo, lns, lnb,
 
 
 #: kernel launches since the last reset (a CPU call runs the plain
-#: version and does not count)
+#: version and does not count), and those of them on the wide instance
 fused_stencil_message_bwd.launches = 0
+fused_stencil_message_bwd.launches_wide = 0
 
 
 def _dw_sizes(f_in, h) -> tuple:
@@ -307,19 +314,27 @@ def _stencil_message_bwd_cuda(e, vs, pd, mask, we, be, wo, bo, lns, lnb, g_out, 
                               residual):
     b, _, hr, w, f_in = e.shape
     h = we.shape[-1]
+    lib = _bwd_lib()
+    wide = _build.wide_instance(lib, "p4t_stencil_message_bwd_wide",
+                                "fused_stencil_message_bwd", f_in, h)
     device = e.device
     de = torch.empty_like(e)
     dvs = torch.empty((b, 8, hr, w, h), device=device, dtype=torch.float32)
     dpd = torch.empty((b, hr, w, h), device=device, dtype=torch.float32)
     dw = torch.empty(sum(_dw_sizes(f_in, h)), device=device, dtype=torch.float32)
-    lib = _bwd_lib()
     with torch.cuda.device(device):
         blocks = ctypes.c_int(0)
         _build.check(lib, lib.p4t_stencil_message_bwd_grid(b, hr, w, f_in, h, ctypes.byref(blocks)),
                      "stencil_message_bwd grid")
+        scratch = ctypes.c_longlong(0)
+        _build.check(lib, lib.p4t_stencil_message_bwd_scratch(b, hr, w, f_in, h,
+                                                              ctypes.byref(scratch)),
+                     "stencil_message_bwd scratch")
         # one fp32 partial of every weight gradient per block, summed by
-        # a second kernel in a fixed order
-        partial = torch.empty(blocks.value * dw.numel(), device=device, dtype=torch.float32)
+        # a second kernel in a fixed order; then the wide instance's
+        # scratch rows (none below it)
+        partial = torch.empty(blocks.value * dw.numel() + scratch.value, device=device,
+                              dtype=torch.float32)
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.p4t_stencil_message_bwd(
             e.data_ptr(), vs.data_ptr(), pd.data_ptr(), mask.data_ptr(),
@@ -330,6 +345,7 @@ def _stencil_message_bwd_cuda(e, vs, pd, mask, we, be, wo, bo, lns, lnb, g_out, 
         )
     _build.check(lib, status, "stencil_message_bwd kernel")
     fused_stencil_message_bwd.launches += 1
+    fused_stencil_message_bwd.launches_wide += wide
     return de, dvs, dpd, dw
 
 

@@ -27,7 +27,6 @@ from py4cast_tpu.ops import hop_kernel as jax_hop
 from py4cast_tpu.ops import lattice_ops as jax_lat
 from py4cast_tpu.ops import stencil_kernel as jax_stencil
 from py4cast_tpu_torch.models.graph import _corners_rc
-from py4cast_tpu_torch.ops import hop_kernel, stencil_kernel
 from py4cast_tpu_torch.ops import lattice_ops as port_lat
 from py4cast_tpu_torch.ops.hop_kernel import (
     CornerHopFn,
@@ -347,21 +346,56 @@ def test_cpu_backward_calls_leave_launch_counters_at_zero(stencil_case, hop_case
     assert fused_corner_hop_bwd.launches == 0
 
 
+def _widened(arrays, width, seed):
+    """Arrays of the same shapes with every HID axis at ``width``, drawn
+    as the fixtures draw them (weights scaled to unit-spread products)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for a in arrays:
+        shape = tuple(width if d == HID else d for d in a.shape)
+        if len(shape) == 2 and shape[0] == shape[1] == width:  # an h x h weight
+            out.append((rng.standard_normal(shape) * width ** -0.5).astype(np.float32))
+        elif a.ndim == 4 and a.shape[-1] == 1 or a.shape == (4, H, W, FF):  # mask, feats
+            out.append(a)
+        else:
+            out.append((rng.standard_normal(shape) * 0.3 + (a.mean() > 0.5)).astype(np.float32))
+    return out
+
+
 @pytest.mark.parametrize("fault", ["width", "cotangent_shape", "cotangent_dtype"])
 def test_bwd_wrappers_reject_bad_arguments(stencil_case, hop_case, fault):
+    """Shapes and dtypes the backward wrappers refuse. A width above the
+    CUDA kernels' row-tile instances is not one of them: at such a width
+    ("width") both wrappers run (on the CPU, their plain versions) and
+    agree with jax.vjp of the JAX package's XLA formulas."""
     args, g_out, g_agg = stencil_case
     s_args, s_cot = _t(args), _t([g_out, g_agg])
     psg, rest, g = hop_case
     h_psg, h_rest, h_g = _t(psg), _t(rest), torch.from_numpy(g)
-    if fault == "width":  # above the backward kernels' caps
-        wide = stencil_kernel.MAX_BWD_WIDTH + 16
-        s_args = [torch.zeros(tuple(wide if d == HID else d for d in t.shape)) for t in s_args]
-        s_cot = [torch.zeros(tuple(wide if d == HID else d for d in t.shape)) for t in s_cot]
-        wide = hop_kernel.MAX_BWD_WIDTH + 16
-        h_psg = [torch.zeros(B, H, W, wide)] * 4
-        h_rest = [torch.zeros(tuple(wide if d == HID else d for d in t.shape)) for t in h_rest]
-        h_g = torch.zeros(B, H, W, wide)
-    elif fault == "cotangent_shape":
+    if fault == "width":  # above the backward kernels' row-tile instances
+        wide = 80  # past the row-tile instances (64)
+        w_args = _widened(args + [g_out, g_agg], wide, 60)
+        jargs = [jnp.asarray(a) for a in w_args]
+        _, vjp = jax.vjp(lambda e, vs, pd, *wts: _stencil_xla(e, vs, pd, jargs[3], *wts, True),
+                         *jargs[:3], *jargs[4:10])
+        want = vjp((jargs[10], jargs[11]))
+        got = fused_stencil_message_bwd(*_t(w_args), residual=True)
+        for name, gr, w in zip(STENCIL_NAMES, got, want):
+            np.testing.assert_allclose(gr.numpy(), np.asarray(w), **JAX_TOL, err_msg=name)
+        wide = 80
+        w_psg, w_rest, (w_g,) = (_widened(psg, wide, 61), _widened(rest, wide, 62),
+                                 _widened([g], wide, 63))
+        jr = [jnp.asarray(a) for a in w_rest]
+        _, vjp = jax.vjp(lambda p0, p1, p2, p3, vd, *wts: _hop_xla(p0, p1, p2, p3, vd, jr[1], *wts,
+                                                                  False),
+                         *[jnp.asarray(p) for p in w_psg], jr[0], *jr[2:])
+        want = vjp(jnp.asarray(w_g))
+        got = fused_corner_hop_bwd(_t(w_psg), *_t(w_rest), torch.from_numpy(w_g))
+        assert len(got) == len(want) == 19
+        for i, (gr, w) in enumerate(zip(got, want)):
+            np.testing.assert_allclose(gr.numpy(), np.asarray(w), **JAX_TOL, err_msg=f"grad {i}")
+        return
+    if fault == "cotangent_shape":
         s_cot[1] = s_cot[1][:, :-1]
         h_g = h_g[:, :-1]
     else:

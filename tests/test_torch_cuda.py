@@ -94,6 +94,14 @@ def _stencil_fwd_args(rng, b, hr, w, f_in, h):
     (1, 4, 5, 30, 30, True),       # widths not a multiple of 4: no 128-bit loads
     (2, 3, 7, 6, 10, False),       # F != h, neither a multiple of 4
     (1, 5, 6, 126, 126, True),     # width 128's instance, not a multiple of 4
+    (1, 125, 125, 256, 256, True), # the wide instance (HP 256) at GraphLAM level 0
+    (1, 5, 6, 130, 130, True),     # the wide instance, not a multiple of 4
+    (2, 3, 5, 256, 256, False),
+    (1, 4, 5, 200, 140, False),    # F != h, the wide instance
+    (1, 2, 3, 100, 300, False),    # F < h, HP 512
+    (1, 9, 1, 256, 256, True),     # one cell past a tile (4 cells at HP 256)
+    (1, 3, 3, 512, 512, True),     # the widest the card takes
+    (1, 4, 5, 250, 250, True),     # HP 256, not a multiple of 4
 ])
 def test_stencil_kernel_matches_plain(cuda, b, hr, w, f_in, h, residual):
     rng = np.random.default_rng(h + f_in)
@@ -113,9 +121,11 @@ def test_stencil_kernel_matches_plain(cuda, b, hr, w, f_in, h, residual):
 
 def test_stencil_kernels_do_not_spill(cuda):
     """Every instance of the stencil forward (widths up to 32, 64 and
-    128) keeps its state in registers and fits a block an SM."""
-    for width in (32, 64, 128):
+    128; the wide instance at 256 and 512) keeps its state in registers
+    and fits a block an SM (-s prints each instance's attributes)."""
+    for width in (32, 64, 128, 256, 512):
         a = stencil_kernel.fwd_kernel_attributes(width, width)
+        print(f"stencil_message forward width<={width}: {a}")
         assert a["local_bytes"] == 0, (width, a)
         assert a["blocks_per_sm"] >= 1, (width, a)
 
@@ -163,6 +173,13 @@ def _hop_fwd_args(rng, b, hr, w, h, ff):
     (1, 9, 9, 64, 1, False),       # one corner feature
     (1, 5, 7, 32, 32, False),      # the most corner features the kernel takes
     (1, 7, 9, 66, 3, False),       # width 65-96's warp-row instance, not a multiple of 4
+    (1, 500, 500, 128, 3, False),  # the wide instance (HP 128) at the GraphLAM grid
+    (1, 9, 5, 100, 3, False),      # the wide instance, HP 128
+    (2, 7, 6, 130, 3, True),       # HP 256, not a multiple of 4
+    (1, 1, 65, 128, 3, False),     # one cell past a tile (64 at HP 128)
+    (1, 5, 5, 256, 3, False),
+    (1, 7, 9, 250, 3, True),       # HP 256, not a multiple of 4
+    (1, 4, 4, 512, 2, True),       # the widest the card takes
 ])
 def test_hop_kernel_matches_plain(cuda, b, hr, w, h, ff, mean):
     rng = np.random.default_rng(h + ff)
@@ -178,9 +195,10 @@ def test_hop_kernel_matches_plain(cuda, b, hr, w, h, ff, mean):
 
 def test_hop_fwd_kernels_do_not_spill(cuda):
     """Every instance of the corner-hop forward (widths up to 32 and 64 on
-    row tiles, up to 96 on warp rows) keeps its state in registers and
-    fits a block an SM (-s prints each instance's attributes)."""
-    for h in (32, 64, 96):
+    row tiles, up to 96 on warp rows, 128, 256 and 512 on wide rows)
+    keeps its state in registers and fits a block an SM (-s prints each
+    instance's attributes)."""
+    for h in (32, 64, 96, 128, 256, 512):
         a = hop_kernel.fwd_kernel_attributes(h)
         print(f"corner_hop forward h<={h}: {a}")
         assert a["local_bytes"] == 0, (h, a)
@@ -284,6 +302,14 @@ def _hop_args(rng, b, hr, w, h, ff):
     (1, 5, 7, 32, 64, False),      # F = 32, h = 64
     (2, 9, 11, 64, 64, True),      # B = 2: a tile spans both batch entries
     (1, 4, 5, 30, 30, True),       # widths not a multiple of 4: no 128-bit loads
+    (1, 125, 125, 128, 128, True), # the wide instance (HP 128) at GraphLAM level 0
+    (1, 4, 5, 65, 65, True),       # the wide instance, not a multiple of 4
+    (1, 3, 5, 100, 100, False),
+    (2, 3, 4, 130, 130, True),     # HP 256, B = 2
+    (1, 9, 1, 128, 128, True),     # one cell past a tile (8 cells at HP 128)
+    (1, 3, 4, 96, 40, False),      # F != h, the wide instance
+    (1, 3, 3, 256, 256, True),
+    (1, 2, 3, 512, 512, False),    # the widest the card takes
 ])
 def test_stencil_bwd_kernel_matches_plain(cuda, b, hr, w, f_in, h, residual):
     rng = np.random.default_rng(100 + h + f_in)
@@ -318,6 +344,12 @@ def test_stencil_bwd_kernel_matches_plain(cuda, b, hr, w, f_in, h, residual):
     (1, 6, 7, 30, 3, True),        # width not a multiple of 4: no 128-bit loads
     (1, 9, 9, 64, 1, False),       # one corner feature
     (2, 8, 9, 32, 3, True),        # width 32 with mean aggregation
+    (1, 9, 9, 65, 3, False),       # the wide instance (HP 128), not a multiple of 4
+    (1, 7, 6, 100, 3, True),
+    (1, 1, 65, 128, 3, False),     # one cell past a tile (64 at HP 128)
+    (2, 5, 5, 130, 3, False),      # HP 256, B = 2
+    (1, 5, 5, 256, 3, True),
+    (1, 3, 4, 512, 3, False),      # the widest the card takes
 ])
 def test_hop_bwd_kernel_matches_plain(cuda, b, hr, w, h, ff, mean):
     rng = np.random.default_rng(200 + h + ff)
@@ -339,35 +371,92 @@ def test_hop_bwd_kernel_matches_plain(cuda, b, hr, w, h, ff, mean):
 
 
 def test_stencil_bwd_kernels_do_not_spill(cuda):
-    """Both instances of the stencil backward (widths up to 32 and up to
-    64) keep their state in registers and fit a block an SM."""
-    for f_in, h in ((32, 32), (64, 64)):
+    """Every instance of the stencil backward (widths up to 32 and up to
+    64; the wide instance at 128, 256 and 512) keeps its state in
+    registers and fits a block an SM (-s prints each one's attributes)."""
+    for f_in, h in ((32, 32), (64, 64), (128, 128), (256, 256), (512, 512)):
         a = stencil_kernel.bwd_kernel_attributes(f_in, h)
+        print(f"stencil_message backward width<={h}: {a}")
         assert a["local_bytes"] == 0, (f_in, h, a)
         assert a["blocks_per_sm"] >= 1, (f_in, h, a)
 
 
 def test_hop_bwd_kernels_do_not_spill(cuda):
-    """Both passes of both instances of the corner-hop backward (widths
-    up to 32 and up to 64) keep their state in registers and fit a block
-    an SM."""
-    for h in (32, 64):
+    """Both passes of every instance of the corner-hop backward (widths
+    up to 32 and up to 64; the wide instance at 128, 256 and 512) keep
+    their state in registers and fit a block an SM (-s prints each
+    one's attributes)."""
+    for h in (32, 64, 128, 256, 512):
         for name, a in hop_kernel.bwd_kernel_attributes(h).items():
+            print(f"corner_hop backward h<={h} {name}: {a}")
             assert a["local_bytes"] == 0, (h, name, a)
             assert a["blocks_per_sm"] >= 1, (h, name, a)
 
 
 def test_bwd_kernels_raise_above_their_width_cap(cuda):
+    """Past the widest the card takes (512) all four wrappers raise on the
+    card, before any launch (the CPU's plain versions take any width)."""
     rng = np.random.default_rng(5)
-    h = stencil_kernel.MAX_BWD_WIDTH + 32
-    args = _stencil_args(rng, 1, 3, 3, h, h)
-    with pytest.raises(ValueError, match="widths up to"):
-        fused_stencil_message_bwd(*args, _rand(rng, 1, 8, 3, 3, h), _rand(rng, 1, 3, 3, h))
-    h = hop_kernel.MAX_BWD_WIDTH + 32
+    h = 513  # past wide_rows.cuh's MAX_HP
+    args = _stencil_args(rng, 1, 2, 2, h, h)
+    cot = (_rand(rng, 1, 8, 2, 2, h), _rand(rng, 1, 2, 2, h))
+    before = [k.launches for k in (fused_stencil_message, fused_stencil_message_bwd,
+                                   fused_corner_hop, fused_corner_hop_bwd)]
+    with pytest.raises(ValueError, match="no kernel instance on the card takes widths"):
+        fused_stencil_message(*_stencil_fwd_args(rng, 1, 2, 2, h, h))
+    with pytest.raises(ValueError, match="no kernel instance on the card takes widths"):
+        fused_stencil_message_bwd(*args, *cot)
     src, rest = _hop_fwd_args(rng, 1, 3, 3, h, 3)
-    fused_corner_hop(*src[:3], *rest)  # the forward still takes it
-    with pytest.raises(ValueError, match="hidden width up to"):
+    with pytest.raises(ValueError, match="no kernel instance on the card takes widths"):
+        fused_corner_hop(*src[:3], *rest)
+    with pytest.raises(ValueError, match="no kernel instance on the card takes widths"):
         fused_corner_hop_bwd(gather_corners(*src[:3]), *rest, _rand(rng, 1, 3, 3, h))
+    assert before == [k.launches for k in (fused_stencil_message, fused_stencil_message_bwd,
+                                           fused_corner_hop, fused_corner_hop_bwd)]
+
+
+@pytest.mark.parametrize("h", [65, 100, 130, 256])
+def test_wide_instances_match_plain(cuda, h):
+    """Each of the four kernels at width h, on its wide instance where h
+    is past the row-tile (and warp-row) instances' caps: a-fwd above 128,
+    b-fwd above 96, a-bwd and b-bwd above 64; against its plain version
+    (the backward's weight gradients against the plain backward in fp64)
+    and a second call bit for bit; launches_wide counts those launches."""
+    rng = np.random.default_rng(900 + h)
+    wrappers = (fused_stencil_message, fused_stencil_message_bwd, fused_corner_hop,
+                fused_corner_hop_bwd)
+    before = [(k.launches, k.launches_wide) for k in wrappers]
+    fargs = _stencil_fwd_args(rng, 1, 7, 6, h, h)
+    got = fused_stencil_message(*fargs, residual=True)
+    for g, want in zip(got, stencil_message_plain(*fargs, residual=True)):
+        torch.testing.assert_close(g, want, **TOL)
+    assert all(torch.equal(x, y) for x, y in zip(got, fused_stencil_message(*fargs, residual=True)))
+    args = _stencil_args(rng, 1, 7, 6, h, h)
+    cot = (_rand(rng, 1, 8, 7, 6, h), _rand(rng, 1, 7, 6, h))
+    got = fused_stencil_message_bwd(*args, *cot, residual=True)
+    want = stencil_message_bwd_plain(*(a.double() for a in args), *(c.double() for c in cot),
+                                     residual=True)
+    for name, g, w in zip(("de", "dvs", "dpd", "dwe", "dbe", "dwo", "dbo", "dlns", "dlnb"),
+                          got, want):
+        _close_to_fp64(name, g, w)
+    again = fused_stencil_message_bwd(*args, *cot, residual=True)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    src, rest = _hop_fwd_args(rng, 2, 13, 11, h, 3)
+    got = fused_corner_hop(*src[:3], *rest, mean=True)
+    torch.testing.assert_close(got, corner_hop_plain(*src[:3], *rest, mean=True), **TOL)
+    assert torch.equal(got, fused_corner_hop(*src[:3], *rest, mean=True))
+    psg, g = gather_corners(*src[:3]), _rand(rng, 2, 13, 11, h)
+    got = fused_corner_hop_bwd(psg, *rest, g, mean=True)
+    want = corner_hop_bwd_plain([p.double() for p in psg], *(a.double() for a in rest),
+                                g.double(), mean=True)
+    for i, (gr, w) in enumerate(zip(got, want)):
+        _close_to_fp64(f"hop grad {i}", gr, w)
+    again = fused_corner_hop_bwd(psg, *rest, g, mean=True)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    torch.cuda.synchronize()
+    caps = (128, 64, 96, 64)  # the sources' WIDE_ABOVE: above it the wide instance
+    assert [(k.launches - n, k.launches_wide - nw) for k, (n, nw) in zip(wrappers, before)] == [
+        (2, 2 * (h > cap)) for cap in caps]
 
 
 def test_functions_give_the_cpu_gradients_on_the_card(cuda):

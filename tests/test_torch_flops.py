@@ -78,7 +78,10 @@ def _counted(fn) -> int:
 
 
 # ------------------------------------------------------------------ formulas
-@pytest.mark.parametrize("b,hr,w,f_in,h", [(1, 5, 6, 8, 8), (2, 3, 4, 3, 16)])
+#: the last two past the CUDA kernels' row-tile instances (on the card
+#: the wide instances, whose products the same formulas count)
+@pytest.mark.parametrize("b,hr,w,f_in,h", [(1, 5, 6, 8, 8), (2, 3, 4, 3, 16),
+                                           (1, 3, 4, 130, 130), (1, 2, 3, 100, 300)])
 def test_stencil_formulas_equal_the_plain_products(b, hr, w, f_in, h):
     e, ps, pd, we, be, wo, bo, lns, lnb, g_out, g_agg = _rand(
         (b, 8, hr, w, f_in), (b, hr, w, h), (b, hr, w, h), (f_in, h), (h,), (h, h), (h,), (h,),
@@ -92,7 +95,8 @@ def test_stencil_formulas_equal_the_plain_products(b, hr, w, f_in, h):
         _counted(lambda: stencil_kernel.stencil_message_bwd_plain(*bwd)) > 0
 
 
-@pytest.mark.parametrize("b,gh,gw,mh,mw,h,ff", [(1, 7, 9, 3, 4, 8, 3), (2, 5, 6, 2, 3, 16, 2)])
+@pytest.mark.parametrize("b,gh,gw,mh,mw,h,ff", [(1, 7, 9, 3, 4, 8, 3), (2, 5, 6, 2, 3, 16, 2),
+                                                (2, 5, 6, 2, 3, 130, 3)])
 def test_corner_hop_formulas_against_the_plain_products(b, gh, gw, mh, mw, h, ff):
     """The kernels take feats_k @ Wf for every batch element (the plain
     version once), and b-bwd's corner pass recomputes pd and the four
@@ -332,6 +336,7 @@ def test_attention_model_counts_differ_by_the_stated_terms(name, monkeypatch):
 # ---------------------------------------------------------- fake and real
 @pytest.mark.parametrize("name,args,grid", [
     ("HiLAM", {"hidden_dims": 8, "processor_layers": 1}, (16, 16)),
+    ("HiLAM", {"hidden_dims": 130, "processor_layers": 1}, (16, 16)),  # past the row tiles
     ("UNetRPP", ATTENTION["UNetRPP"][0], (32, 32)),
 ])
 def test_fake_count_equals_a_real_call(name, args, grid):

@@ -209,8 +209,21 @@ def test_cpu_calls_leave_launch_counters_at_zero(stencil_inputs, hop_inputs):
 @pytest.mark.parametrize("fault", ["dtype", "shape", "shifted_ps", "contiguity", "width",
                                    "residual"])
 def test_stencil_wrapper_rejects_bad_arguments(stencil_inputs, fault):
+    """Arguments the forward wrapper refuses. Edge features wider than
+    the CUDA kernel's row-tile instances are not among them: at such a
+    width ("width") the wrapper runs (on the CPU, its plain version) and
+    agrees with the JAX package's XLA formula."""
     args = _t(stencil_inputs)
     residual = False
+    if fault == "width":  # above the forward kernel's row-tile instances
+        wide = 258  # past the forward's row-tile instances (128): not a multiple of 4
+        e, we = _arrays(70, [((B, 8, H, W, wide), 1.0, 0.0), ((wide, HID), wide ** -0.5, 0.0)])
+        w_args = [e] + list(stencil_inputs[1:4]) + [we] + list(stencil_inputs[5:])
+        want = _stencil_xla(*_jax_shifted(w_args), False)
+        got = fused_stencil_message(*_t(w_args))
+        for g, wnt in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(wnt), **TOL)
+        return
     if fault == "dtype":
         args[0] = args[0].double()
     elif fault == "shape":
@@ -219,10 +232,6 @@ def test_stencil_wrapper_rejects_bad_arguments(stencil_inputs, fault):
         args[1] = torch.zeros(B, 8, H, W, HID)
     elif fault == "contiguity":
         args[4] = args[4].t()
-    elif fault == "width":
-        wide = 2 * stencil_kernel.MAX_WIDTH + 2
-        args[0] = torch.zeros(B, 8, H, W, wide)
-        args[4] = torch.zeros(wide, HID)
     else:  # residual fold needs edge width == hidden width
         args[0] = args[0][..., :8].contiguous()
         args[4] = args[4][:8].contiguous()
@@ -234,7 +243,30 @@ def test_stencil_wrapper_rejects_bad_arguments(stencil_inputs, fault):
 @pytest.mark.parametrize("fault", ["corners", "dtype", "feats", "width", "device_mix",
                                    "map_dtype", "map_shape", "ps_batch", "ps_width"])
 def test_hop_wrapper_rejects_bad_arguments(hop_inputs, fault):
+    """Arguments the forward wrapper refuses. A hidden width above the
+    CUDA kernel's row-tile and warp-row instances is not among them: at
+    such a width ("width") the wrapper runs (on the CPU, its plain
+    version) and agrees with the JAX package's XLA formula."""
     (ps, rows, cols), rest = _t(hop_inputs[0][:3]), _t(hop_inputs[1])
+    if fault == "width":  # above the forward kernel's warp-row instance
+        wide = 128  # past the forward's warp-row instance (96)
+        rng = np.random.default_rng(71)
+        w_ps = rng.standard_normal((B, MH, MW, wide)).astype(np.float32)
+        w_rest = []
+        for a in hop_inputs[1]:
+            if a.shape == (4, GH, GW, FF):  # the corner features keep their width
+                w_rest.append(a)
+                continue
+            shape = tuple(wide if d == HID else d for d in a.shape)
+            spread = wide ** -0.5 if len(shape) == 2 and shape[0] == wide else 0.1
+            base = 1.0 if a.ndim == 1 and a.mean() > 0.5 else 0.0  # LayerNorm scales
+            spread = 1.0 if a.ndim == 4 else spread  # vd
+            w_rest.append((rng.standard_normal(shape) * spread + base).astype(np.float32))
+        w_src = (w_ps, *hop_inputs[0][1:])
+        want = _hop_xla(_jax_corners(w_src), *[jnp.asarray(a) for a in w_rest], False)
+        got = fused_corner_hop(*_t(w_src[:3]), *_t(w_rest))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        return
     if fault == "corners":  # one row map where each corner pair needs its own
         rows = rows[:1]
     elif fault == "dtype":
@@ -242,10 +274,6 @@ def test_hop_wrapper_rejects_bad_arguments(hop_inputs, fault):
     elif fault == "feats":
         rest[1] = torch.zeros(4, GH, GW, hop_kernel.MAX_FEATS + 1)
         rest[2] = torch.zeros(hop_kernel.MAX_FEATS + 1, HID)
-    elif fault == "width":  # the weights would not fit in shared memory
-        wide = hop_kernel.MAX_WIDTH + 32
-        ps = torch.zeros(B, MH, MW, wide)
-        rest = [torch.zeros(tuple(wide if d == HID else d for d in t.shape)) for t in rest]
     elif fault == "device_mix":
         rest[0] = rest[0].to("meta")
     elif fault == "map_dtype":
